@@ -1,0 +1,441 @@
+"""Jagged pointwise attention + RAB: the plan, the kernel's wrapper, and
+the plan-aware ``attn_fn`` the model stack calls.
+
+All per-call metadata (token meta, per-block segment ranges, both
+destination-ordered work-lists of live (q-block, k-block) pairs, and the
+CSR run pointers the CUDA kernel walks) lives in a :class:`JaggedAttnPlan`.
+The plan depends only on (offsets, timestamps, capacity, block),
+so the model builds it once per micro-batch and every layer reuses it.
+Every helper takes one pack (offsets ``(S+1,)``) or G packs at once
+(offsets ``(G, S+1)``); the G packs of a serving micro-batch go to the
+kernel in one launch.
+
+Dispatch is by where the tensors lie: CUDA tensors launch the hand-written
+kernel (``csrc/jagged_attn_fwd.cu``) or raise; CPU tensors take the plain
+PyTorch version in ``ref.py``. There is no fallback between the two.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import RABConfig
+from repro_torch.core.jagged import NEG_SEG
+from repro_torch.kernels import _build
+from repro_torch.kernels.jagged_attention import ref as R
+
+#: Launches of each kernel in this module, counted where the wrapper
+#: launches it and nowhere else.
+KERNEL_LAUNCHES: Dict[str, int] = {"attn_fwd": 0}
+
+#: Row tile of the CUDA kernel: it takes plans built with this block only.
+KERNEL_BLOCK = 128
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+
+
+# --------------------------------------------------------------------------
+# the plan
+# --------------------------------------------------------------------------
+
+def _token_meta(cap: int, offsets: torch.Tensor, timestamps: torch.Tensor):
+    """(meta_i32 (…, cap, 3): seg/pos/ts, meta_f32 (…, cap, 1): per-query
+    1/(pos+1), the count of keys each query sees)."""
+    offsets = offsets.to(torch.int32).contiguous()
+    slot = torch.arange(cap, dtype=torch.int32, device=offsets.device)
+    slot = slot.expand(*offsets.shape[:-1], cap).contiguous()
+    seg = (torch.searchsorted(offsets, slot, right=True) - 1).to(torch.int32)
+    valid = slot < offsets[..., -1:]
+    segc = seg.clamp(0, offsets.shape[-1] - 2).long()
+    pos = slot - torch.gather(offsets, -1, segc)
+    n = (pos + 1).to(torch.float32)
+    seg = torch.where(valid, seg, NEG_SEG)
+    pos = torch.where(valid, pos, 0)
+    ninv = torch.where(valid, 1.0 / n, 0.0)
+    meta_i32 = torch.stack([seg, pos, timestamps.to(torch.int32)], dim=-1)
+    return meta_i32, ninv[..., None]
+
+
+def _seg_ranges(seg: torch.Tensor, nb: int, block: int) -> torch.Tensor:
+    """Per-block (min valid seg, max seg): (…, nb, 2) int32."""
+    s = seg.reshape(*seg.shape[:-1], nb, block)
+    big = 2 ** 30
+    lo = torch.where(s >= 0, s, big).amin(-1)
+    hi = s.amax(-1)
+    lo = torch.where(hi >= 0, lo, big)
+    return torch.stack([lo, hi], dim=-1).to(torch.int32)
+
+
+def _live_block_matrix(seg_rng: torch.Tensor, block: int) -> torch.Tensor:
+    """(…, nb, nb) bool [qb, kb]: does the pair hold any live token pair?
+    Exact: packed segments are contiguous, so intersecting [lo, hi] ranges
+    share a segment, and the causal band (i+1)·b−1 ≥ j·b means i ≥ j."""
+    nb = seg_rng.shape[-2]
+    lo, hi = seg_rng[..., 0], seg_rng[..., 1]
+    live = ((lo[..., :, None] <= hi[..., None, :])
+            & (lo[..., None, :] <= hi[..., :, None])
+            & (hi[..., :, None] >= 0) & (hi[..., None, :] >= 0))
+    i = torch.arange(nb, dtype=torch.int32, device=seg_rng.device)
+    return live & (((i[:, None] + 1) * block - 1) >= (i[None, :] * block))
+
+
+def _compact_worklist(live: torch.Tensor, n_pairs: int, *,
+                      kv_major: bool = False):
+    """Compact a live matrix into ((…, L, 2) pairs, (…, L, 2) flags, (…, L)
+    mask, (…,) live count), destination-major, one pair per step.
+
+    Entries past the live count replicate the last live pair (an
+    all-padding pack clamps to pair (0, 0) with the mask 0), so the
+    destination id never decreases along the list. flags mark the first
+    and last entry of each destination run. Equal, field for field, to the
+    JAX package's list at ``pairs_per_step=1``, whose length L is the
+    static pair bound ``n_pairs``."""
+    nb = live.shape[-1]
+    L = n_pairs
+    flat = (live.transpose(-1, -2) if kv_major else live)
+    flat = flat.reshape(*live.shape[:-2], nb * nb)
+    order = torch.argsort((~flat).to(torch.int8), dim=-1, stable=True)
+    n_live = flat.to(torch.int64).sum(-1).clamp(max=n_pairs)
+    pos = torch.arange(L, dtype=torch.int64, device=live.device)
+    entries = torch.where(pos < n_live[..., None], order[..., :L], -1)
+    fillsrc = torch.cummax(torch.where(entries >= 0, pos, -1), dim=-1).values
+    v = torch.gather(entries, -1, fillsrc.clamp(min=0)).clamp(min=0)
+    major, minor = v // nb, v % nb
+    pairs = (torch.stack([minor, major], dim=-1) if kv_major
+             else torch.stack([major, minor], dim=-1))
+    live_mask = (entries >= 0).to(torch.int32)
+    change = major[..., 1:] != major[..., :-1]
+    one = torch.ones_like(major[..., :1], dtype=torch.bool)
+    first = torch.cat([one, change], dim=-1)
+    last = torch.cat([change, one], dim=-1)
+    flags = torch.stack([first, last], dim=-1).to(torch.int32)
+    return pairs.to(torch.int32), flags, live_mask, n_live.to(torch.int32)
+
+
+def _run_pointers(q_wl: torch.Tensor, q_live: torch.Tensor,
+                  nb: int) -> torch.Tensor:
+    """CSR run pointers (…, nb+1) over the q-major list: the live pairs of
+    q-block b are entries [ptr[b], ptr[b+1]). Live entries form a prefix
+    sorted by destination, so the runs are the per-block live counts."""
+    counts = torch.zeros((*q_wl.shape[:-2], nb), dtype=torch.int64,
+                         device=q_wl.device)
+    counts.scatter_add_(-1, q_wl[..., 0].long(), q_live.long())
+    zero = torch.zeros_like(counts[..., :1])
+    return torch.cat([zero, counts.cumsum(-1)], dim=-1).to(torch.int32)
+
+
+def num_pairs_bound(nb: int, block: int, num_rows: int,
+                    max_row_len: Optional[int]) -> int:
+    """Static worst-case live-pair count: a row of at most max_row_len
+    tokens straddles at most mr = ceil(max_row_len/block)+1 blocks."""
+    dense = nb * (nb + 1) // 2
+    if max_row_len is None:
+        return max(1, dense)
+    mr = min(-(-max_row_len // block) + 1, nb)
+    per_row = mr * (mr + 1) // 2
+    return max(1, min(num_rows * per_row, dense))
+
+
+class JaggedAttnPlan(NamedTuple):
+    """Per-micro-batch attention metadata, built once and reused by every
+    layer. Fields carry a leading G axis when the plan covers G packs.
+
+    ``q_wl``/``kv_wl`` enumerate exactly the live (qb, kb) block pairs,
+    q-block-major and k-block-major; entries past ``n_live`` are dead
+    padding (``q_live``/``kv_live`` 0). ``q_rowptr`` holds the CSR run
+    pointers over ``q_wl`` that the forward kernel walks, one CTA per
+    q-block. Rows longer than the ``max_row_len`` the plan was built with
+    would overflow the static list and drop pairs; the model passes
+    ``cfg.max_seq_len``."""
+    meta_i32: torch.Tensor      # (cap, 3) int32: seg / pos / ts
+    meta_f32: torch.Tensor      # (cap, 1) f32: 1/n
+    seg_rng: torch.Tensor       # (nb, 2) int32 per-block segment ranges
+    q_wl: torch.Tensor          # (L, 2) int32 (qb, kb), q-block-major
+    q_flags: torch.Tensor       # (L, 2) int32 first/last of each qb run
+    q_live: torch.Tensor        # (L,) int32 1 = real entry
+    kv_wl: torch.Tensor         # (L, 2) int32 (qb, kb), k-block-major
+    kv_flags: torch.Tensor      # (L, 2) int32 first/last of each kb run
+    kv_live: torch.Tensor       # (L,) int32 1 = real entry
+    n_live: torch.Tensor        # (1,) int32 live-pair count
+    q_rowptr: torch.Tensor      # (nb+1,) int32 CSR runs over q_wl
+
+    @property
+    def capacity(self) -> int:
+        return self.meta_i32.shape[-2]
+
+    @property
+    def num_blocks(self) -> int:
+        return self.seg_rng.shape[-2]
+
+    @property
+    def block(self) -> int:
+        return self.capacity // self.num_blocks
+
+    @property
+    def num_pairs(self) -> int:
+        return self.q_wl.shape[-2]
+
+    @property
+    def batched(self) -> bool:
+        return self.meta_i32.dim() == 3
+
+
+def build_attn_plan(offsets: torch.Tensor, timestamps: torch.Tensor,
+                    capacity: int, *, block: int = 128,
+                    max_row_len: Optional[int] = None) -> JaggedAttnPlan:
+    """Build the plan on the tensors' device. ``capacity`` may be any size
+    ≥ offsets[-1]; it is padded up to a block multiple. ``max_row_len``
+    tightens the work-list bound from O(nb²) to O(rows · blocks_per_row²).
+    offsets (S+1,) with timestamps (cap,), or (G, S+1) with (G, cap)."""
+    pad = (-capacity) % block
+    capp = capacity + pad
+    timestamps = timestamps.to(torch.int32)
+    if pad:
+        timestamps = torch.cat(
+            [timestamps,
+             timestamps.new_zeros((*timestamps.shape[:-1], pad))], dim=-1)
+    meta_i32, meta_f32 = _token_meta(capp, offsets, timestamps)
+    nb = capp // block
+    seg_rng = _seg_ranges(meta_i32[..., 0], nb, block)
+    live = _live_block_matrix(seg_rng, block)
+    P = num_pairs_bound(nb, block, offsets.shape[-1] - 1, max_row_len)
+    q_wl, q_flags, q_live, n_live = _compact_worklist(live, P)
+    kv_wl, kv_flags, kv_live, _ = _compact_worklist(live, P, kv_major=True)
+    return JaggedAttnPlan(
+        meta_i32=meta_i32, meta_f32=meta_f32, seg_rng=seg_rng,
+        q_wl=q_wl, q_flags=q_flags, q_live=q_live,
+        kv_wl=kv_wl, kv_flags=kv_flags, kv_live=kv_live,
+        n_live=n_live[..., None], q_rowptr=_run_pointers(q_wl, q_live, nb))
+
+
+def _as_batched(plan: JaggedAttnPlan) -> JaggedAttnPlan:
+    if plan.batched:
+        return plan
+    return JaggedAttnPlan(*(f.unsqueeze(0) for f in plan))
+
+
+# --------------------------------------------------------------------------
+# the kernel's wrapper
+# --------------------------------------------------------------------------
+
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p])
+_TB_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p])
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def time_bucket_denom(tb_scale: float) -> float:
+    """log(10)·scale in fp32, as the TPU kernel computes it; the bucket is
+    floor(log(1+dt) / denom) in fp32 on every path of this module."""
+    return float(np.float32(math.log(10.0)) * np.float32(tb_scale))
+
+
+def _kernel_lib():
+    lib = _build.load("jagged_attn_fwd")
+    if lib.jagged_attn_fwd.argtypes is None:
+        lib.jagged_attn_fwd.argtypes = _FWD_ARGTYPES
+        lib.jagged_attn_fwd.restype = ctypes.c_int
+        lib.jagged_attn_time_buckets.argtypes = _TB_ARGTYPES
+        lib.jagged_attn_time_buckets.restype = ctypes.c_int
+    return lib
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"jagged_attn_fwd kernel: {msg}")
+
+
+def _launch_fwd(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
+                scale: float, tb_denom: float, use_pos: bool,
+                use_time: bool) -> torch.Tensor:
+    """Launch the CUDA forward on q, k, v (G, capp, H, D) and a batched
+    plan; raises on anything the kernel does not take."""
+    G, capp, H, D = q.shape
+    dev = q.device
+    _require(dev.type == "cuda", f"tensors on {dev}, not on the card")
+    _require(q.dtype in _DTYPE_CODE,
+             f"dtype {q.dtype}; takes float32 or bfloat16")
+    for name, t in (("k", k), ("v", v)):
+        _require(t.shape == q.shape and t.dtype == q.dtype
+                 and t.device == dev, f"{name} {tuple(t.shape)} {t.dtype} "
+                 f"does not match q {tuple(q.shape)} {q.dtype}")
+    _require(D in KERNEL_HEAD_DIMS, f"head dim {D} not in {KERNEL_HEAD_DIMS}")
+    _require(plan.block == KERNEL_BLOCK,
+             f"plan block {plan.block}; the kernel tiles {KERNEL_BLOCK} rows")
+    _require(plan.capacity == capp and plan.meta_i32.shape[0] == G,
+             f"plan for {plan.meta_i32.shape[0]} x {plan.capacity} tokens, "
+             f"call has {G} x {capp}")
+    for name, t in (("pos_table", pos_table), ("time_table", time_table)):
+        _require(t.dtype == torch.float32 and t.dim() == 2
+                 and t.shape[1] == H and t.device == dev,
+                 f"{name} must be (n, {H}) float32 on {dev}")
+    for name, dtype in (("meta_i32", torch.int32), ("meta_f32", torch.float32),
+                        ("q_wl", torch.int32), ("q_rowptr", torch.int32)):
+        t = getattr(plan, name)
+        _require(t.device == dev and t.dtype == dtype,
+                 f"plan.{name} is {t.dtype} on {t.device}")
+    tensors = [q, k, v, pos_table, time_table, plan.meta_i32,
+               plan.meta_f32, plan.q_wl, plan.q_rowptr]
+    _require(all(t.is_contiguous() for t in tensors), "inputs must be "
+             "contiguous")
+    out = torch.empty_like(v)
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        rc = lib.jagged_attn_fwd(
+            *(t.data_ptr() for t in tensors), out.data_ptr(),
+            G, capp, H, D, plan.num_pairs, pos_table.shape[0],
+            time_table.shape[0], scale, tb_denom, int(use_pos),
+            int(use_time), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"jagged_attn_fwd launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES["attn_fwd"] += 1
+    return out
+
+
+def kernel_time_buckets(qts: torch.Tensor, kts: torch.Tensor,
+                        tb_scale: float, num_buckets: int) -> torch.Tensor:
+    """(nq, nk) int32 time buckets of every (q, k) timestamp pair, from the
+    same device function the forward kernel uses — for holding the kernel's
+    bucket arithmetic against the plain version's on the card."""
+    _require(qts.is_cuda and kts.is_cuda, "time buckets need card tensors")
+    qts = qts.to(torch.int32).contiguous()
+    kts = kts.to(torch.int32).contiguous()
+    out = torch.empty((qts.numel(), kts.numel()), dtype=torch.int32,
+                      device=qts.device)
+    lib = _kernel_lib()
+    with torch.cuda.device(qts.device):
+        rc = lib.jagged_attn_time_buckets(
+            qts.data_ptr(), qts.numel(), kts.data_ptr(), kts.numel(),
+            time_bucket_denom(tb_scale), num_buckets, out.data_ptr(),
+            torch.cuda.current_stream(qts.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"jagged_attn_time_buckets failed: CUDA error {rc}")
+    return out
+
+
+def attention_core(q, k, v, pos_table, time_table, plan: JaggedAttnPlan,
+                   **kw) -> torch.Tensor:
+    """The kernel for card tensors, the plain version for CPU tensors."""
+    if q.device.type == "cuda":
+        return _launch_fwd(q, k, v, pos_table, time_table, plan, **kw)
+    if q.device.type == "cpu":
+        return R.attention_fwd_plain(q, k, v, pos_table, time_table, plan,
+                                     **kw)
+    raise ValueError(f"jagged attention: unsupported device {q.device}")
+
+
+# --------------------------------------------------------------------------
+# public entry
+# --------------------------------------------------------------------------
+
+def _masked(meta_i32: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Pad slots are defined to be zero, matching the oracles."""
+    valid = (meta_i32[..., 0] >= 0)[..., None, None]
+    return torch.where(valid, out, torch.zeros((), dtype=out.dtype,
+                                               device=out.device))
+
+
+def run_attention(q, k, v, offsets, timestamps, rab_params,
+                  rab: Optional[RABConfig], *, core: Callable,
+                  time_mode: str = "bucket", block: int = 128,
+                  plan: Optional[JaggedAttnPlan] = None,
+                  max_row_len: Optional[int] = None) -> torch.Tensor:
+    """Shared body of :func:`jagged_attention` and the plain
+    ``ref.jagged_attention_ref``: tables, padding, plan, ``core``, mask."""
+    if time_mode != "bucket":
+        raise NotImplementedError(
+            f"time_mode={time_mode!r}: the functional time encoder arrives "
+            f"with the FuXi block")
+    batched = q.dim() == 4
+    if not batched:
+        q, k, v = (t.unsqueeze(0) for t in (q, k, v))
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} must match")
+    G, cap, H, D = q.shape
+    dev = q.device
+    use_pos = bool(rab and rab.use_pos and "pos_table" in rab_params)
+    use_time = bool(rab and rab.use_time and "time_table" in rab_params)
+    zeros = torch.zeros((8, H), dtype=torch.float32, device=dev)
+    pt = (rab_params["pos_table"].to(torch.float32).contiguous() if use_pos
+          else zeros)
+    tt = (rab_params["time_table"].to(torch.float32).contiguous()
+          if use_time else zeros)
+    tb_scale = rab.time_bucket_scale if rab else 0.301
+    pad = (-cap) % block
+    if pad:
+        zpad = q.new_zeros((G, pad, H, D))
+        q, k, v = (torch.cat([t, zpad], dim=1) for t in (q, k, v))
+    if plan is None:
+        plan = build_attn_plan(offsets, timestamps, cap, block=block,
+                               max_row_len=max_row_len)
+    plan = _as_batched(plan)
+    if (plan.capacity != cap + pad or plan.block != block
+            or plan.meta_i32.shape[0] != G):
+        raise ValueError(
+            f"plan (packs={plan.meta_i32.shape[0]}, capacity="
+            f"{plan.capacity}, block={plan.block}) does not match call "
+            f"(packs={G}, capacity={cap + pad}, block={block})")
+    out = core(q.contiguous(), k.contiguous(), v.contiguous(), pt, tt, plan,
+               scale=1.0 / math.sqrt(D), tb_denom=time_bucket_denom(tb_scale),
+               use_pos=use_pos, use_time=use_time)
+    out = _masked(plan.meta_i32, out)[:, :cap]
+    return out if batched else out[0]
+
+
+def jagged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     offsets: torch.Tensor, timestamps: torch.Tensor,
+                     rab_params, rab: Optional[RABConfig], *,
+                     time_mode: str = "bucket", block: int = 128,
+                     plan: Optional[JaggedAttnPlan] = None,
+                     max_row_len: Optional[int] = None) -> torch.Tensor:
+    """Fused jagged pointwise attention + RAB, forward, causal within each
+    row. q, k, v (cap, H, D) with offsets (S+1,), or (G, cap, H, D) with
+    offsets (G, S+1).
+
+    ``plan`` reuses a :func:`build_attn_plan` result; it must match
+    capacity and block (checked)."""
+    return run_attention(q, k, v, offsets, timestamps, rab_params, rab,
+                         core=attention_core, time_mode=time_mode,
+                         block=block, plan=plan, max_row_len=max_row_len)
+
+
+# --------------------------------------------------------------------------
+# attn_fn factory — plan-aware callable for the model stack
+# --------------------------------------------------------------------------
+
+class PlannedAttention:
+    """attn_fn with one plan per micro-batch (models/gr.py detects
+    ``make_plan`` and builds the plan once, outside the layer loop)."""
+
+    def __init__(self, *, block: int = 128,
+                 max_row_len: Optional[int] = None):
+        self.block = block
+        self.max_row_len = max_row_len
+
+    def make_plan(self, offsets: torch.Tensor, timestamps: torch.Tensor,
+                  capacity: int) -> JaggedAttnPlan:
+        return build_attn_plan(offsets, timestamps, capacity,
+                               block=self.block,
+                               max_row_len=self.max_row_len)
+
+    def __call__(self, q, k, v, offsets, timestamps, rab_params, rab, *,
+                 time_mode: str = "bucket",
+                 plan: Optional[JaggedAttnPlan] = None) -> torch.Tensor:
+        return jagged_attention(q, k, v, offsets, timestamps, rab_params,
+                                rab, time_mode=time_mode,
+                                block=self.block, plan=plan,
+                                max_row_len=self.max_row_len)
+
+
+def make_attn_fn(*, block: int = 128,
+                 max_row_len: Optional[int] = None) -> PlannedAttention:
+    """attn_fn factory for models.hstu.hstu_block(attn_fn=...)."""
+    return PlannedAttention(block=block, max_row_len=max_row_len)

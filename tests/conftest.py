@@ -15,3 +15,7 @@ def pytest_configure(config):
         "markers",
         "slow_spmd: subprocess SPMD test (8 fake host devices, minutes of "
         "compile); skip with -m 'not slow_spmd' for the fast tier")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU (the port's CUDA kernels); skips without "
+        "one — run on the card with -m gpu")
