@@ -7,16 +7,30 @@ Phases, each printed on its own lines; any failure exits non-zero:
   1. device  — the card's name, count, power limit; no card is a failure.
   2. build   — nvcc builds every CUDA source of the port from this
                checkout (one nvcc per source, all started together).
-  3. kernels — every kernel of the serving path against its plain PyTorch
-               version on the card, at the path's shapes (H=8, D=128,
-               block 128; bf16 and fp32; a long-tail pack of G=2 shards of
-               8192 tokens, and a pack with empty rows beside an
-               all-padding shard), with its time beside its bound.
-  4. slice   — RecallEngine on full-width hstu-large (vocab 2^22, fp32
+  3. kernels — every kernel of the serving and training paths against its
+               plain PyTorch version on the card, at the paths' shapes, with
+               its time beside its bound: K1-fwd and K2 (attention forward
+               and backward; H=8, D=128, block 128; bf16 and fp32; a
+               long-tail pack of G=2 shards of 8192 tokens, and a pack with
+               empty rows beside an all-padding shard), K3/K4 (the fused
+               negative path; T=8192 tokens, R=128, d 1024, bf16 o, fp16
+               shadow of 2^22 rows, invalid tokens, expansion 1 and 4) and
+               K6 (the sorted run-sum; ~1.06 M rows of 1024 on a mix of run
+               lengths).
+  4. serve   — RecallEngine on full-width hstu-large (vocab 2^22, fp32
                master + fp16 shadow on the card, 16 layers, bf16) serves a
                cold, a pure-hit and an incremental round; the kernels'
                launch counts are zeroed just before and read just after.
-  5. result  — one JSON line of kernel numbers, the nvidia-smi line, and
+  5. train   — make_gr_train_step on full-width hstu-large (16 layers,
+               vocab 2^22; fp32 master, fp32 AdaGrad accumulator and fp16
+               shadow on the card) over the port's GRLoader on synthetic
+               KuaiRand (1 shard x 4 users x 2048 events, R=128): 3 sync
+               steps, then 3 tau=1 steps, launch counts zeroed before and
+               read after each step; then one profiled step.
+  6. parity  — one training step at full width, 2 layers, vocab 2^18, with
+               the kernels against the same step with the plain versions on
+               the card, from the same init.
+  7. result  — one JSON line of kernel numbers, the nvidia-smi line, and
                the final status line.
 """
 import json
@@ -44,7 +58,11 @@ SEED = 0
 ABS_TOL_FP32 = 1e-4
 REL_TOL_BF16 = 1e-2
 EMB_TOL_BF16 = 5e-2
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
+# fp32 results summed in another order (K2's table grads, K4's dout, K6's
+# totals): max abs error over the largest value
+GRAD_TOL_FP32 = 1e-4
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,
+              "float32": 67e12}                      # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 
 
@@ -277,18 +295,277 @@ def phase_kernels():
                 check(rel <= REL_TOL_BF16, f"attn_fwd {pack_name} bf16: "
                       f"row relative err {rel} > {REL_TOL_BF16}")
             check(pad_ok, "pad slots not zero")
-            results[(pack_name, dname)] = dict(
+            results[("attn_fwd", pack_name, dname)] = dict(
                 max_abs_err=err, row_rel_err=rel, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+            results[("attn_bwd", pack_name, dname)] = _check_attn_bwd(
+                q, k, v, rab, plan, pack_name, dname, gen)
             del q, k, v, out, plain
-    say("[kernels] no single PyTorch call computes this function "
+    say("[kernels] no single PyTorch call computes K1-fwd or K2 "
         "(scaled_dot_product_attention has no SiLU weights, RAB or jagged "
-        "rows): library_ms is null")
+        "rows): their library_ms is null")
     return results
 
 
+def _rel_to_max(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def _check_attn_bwd(q, k, v, rab, plan, pack_name, dname, gen):
+    """K2 (its wrapper launches the dk/dv kernel, the dq + RAB-partials
+    kernel and the fixed-order partial sum) against its plain version on
+    the forward check's inputs and a random cotangent."""
+    import torch
+    from repro_torch.kernels.jagged_attention import ops
+    from repro_torch.kernels.jagged_attention.ref import (attention_bwd_plain,
+                                                          max_row_rel_err)
+    G, cap, H, D = q.shape
+    dy = torch.randn(q.shape, device=q.device, generator=gen).to(q.dtype)
+    p = ops._as_batched(plan)
+    pt, tt = rab["pos_table"], rab["time_table"]
+    kw = dict(scale=D ** -0.5, tb_denom=ops.time_bucket_denom(0.301),
+              use_pos=True, use_time=True)
+    args = (q, k, v, dy, pt, tt, p)
+    before = ops.KERNEL_LAUNCHES["attn_bwd"]
+    got = ops._launch_bwd(*args, **kw)
+    again = ops._launch_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    check(ops.KERNEL_LAUNCHES["attn_bwd"] == before + 2,
+          "the K2 wrapper did not launch the kernels")
+    want = attention_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv", "dpt", "dtt"), got, want):
+        check(torch.isfinite(a.float()).all().item(), f"K2 {name} non-finite")
+        errs[name] = dict(max_abs=(a.float() - b.float()).abs().max().item(),
+                          rel_to_max=_rel_to_max(a, b),
+                          row_rel=(max_row_rel_err(a, b) if a.dim() == 4
+                                   else None))
+    ms = timed_ms(lambda: ops._launch_bwd(*args, **kw), 10)
+    plain_ms = timed_ms(lambda: attention_bwd_plain(*args, **kw), 2,
+                        warmup=1)
+    # the work needs S, dP, dV, dK and dQ, 2·b²·D each per live pair and
+    # head; the kernel's recomputation of S and dP in its second kernel is
+    # its own choice and not counted
+    n_live = int(plan.n_live.sum())
+    flops = 10 * 128 * 128 * D * H * n_live
+    byts = (7 * G * cap * H * D * q.element_size()   # q k v dy in, 3 out
+            + p.meta_i32.numel() * 4 + p.meta_f32.numel() * 4
+            + (p.q_wl.numel() + p.kv_wl.numel() + p.q_rowptr.numel()
+               + p.kv_rowptr.numel()) * 4 + 2 * (256 + 32) * H * 4)
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    t_bytes = byts / PEAK_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops > t_bytes else "bytes"
+    err = max(e["max_abs"] for e in errs.values())
+    say(f"[kernels] attn_bwd {pack_name} {dname}: "
+        + "; ".join(f"{n} max_abs {e['max_abs']:.3e} rel_to_max "
+                    f"{e['rel_to_max']:.3e}"
+                    + (f" row_rel {e['row_rel']:.3e}" if e["row_rel"]
+                       is not None else "") for n, e in errs.items())
+        + f"; bit-identical rerun {same} | kernel {ms:.4f} ms  plain "
+        f"{plain_ms:.3f} ms  bound {bound_ms:.5f} ms by {bound_by} "
+        f"({flops / 1e9:.2f} GFLOP, {byts / 1e6:.2f} MB, {n_live} live "
+        f"pairs) -> {bound_ms / ms:.4f} of bound")
+    check(same, "K2 differs between two runs on the same inputs")
+    for name, e in errs.items():
+        # fp32 (and the fp32 table grads): the same fp32 arithmetic summed
+        # in another order, held to 1e-4 of the largest value; bf16 q/k/v
+        # grads: one bf16 rounding of an fp32 sum, per (token, head) by
+        # relative L2, as K1-fwd
+        if e["row_rel"] is not None and dname == "bfloat16":
+            check(e["row_rel"] <= REL_TOL_BF16,
+                  f"K2 {pack_name} {dname} {name}: row relative "
+                  f"{e['row_rel']} > {REL_TOL_BF16}")
+        else:
+            check(e["rel_to_max"] <= GRAD_TOL_FP32,
+                  f"K2 {pack_name} {dname} {name}: {e['rel_to_max']} of "
+                  f"max > {GRAD_TOL_FP32}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, errs=errs)
+
+
+def phase_neg_kernels():
+    """K3 and K4 against their plain versions at the training step's shape
+    (T = 8192 tokens, R = 128, d 1024, bf16 o, the fp16 shadow of 2^22
+    rows), with a quarter of the tokens invalid, at expansion 1 (the main
+    path) and 4 (generator-drawn perms)."""
+    import torch
+    from repro_torch.kernels import neg_logits as NL
+    from repro_torch.kernels.neg_logits import ref as NR
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    T, R, D, V, seg = 8192, 128, 1024, 2 ** 22, 128
+    shadow = (torch.randn(V, D, device=dev, generator=gen) * 0.02).half()
+    o = torch.randn(T, D, device=dev, generator=gen).to(torch.bfloat16)
+    ids = torch.randint(0, V, (T, R), device=dev, generator=gen)
+    valid = torch.rand(T, device=dev, generator=gen) > 0.25
+    pos = torch.randn(T, device=dev, generator=gen) * 0.64
+    out = {}
+    for expansion in (1, 4):
+        o_p, pos_p, ids_p, valid_p, perms, _ = NL.prepare_fused_inputs(
+            o, pos, V, ids, segment=seg, expansion=expansion, generator=gen,
+            valid=valid)
+        kw = dict(segment=seg, R=R, expansion=expansion, inv_tau=1.0,
+                  fetch_dtype=None)
+        args = (o_p, pos_p, shadow, ids_p, valid_p, perms)
+        before = dict(NL.KERNEL_LAUNCHES)
+        lse = NL.neg_fwd(*args, **kw)
+        g = torch.rand(T, device=dev, generator=gen) * valid_p / T
+        w, dout, dpos = NL.neg_bwd(*args, lse, g, **kw)
+        torch.cuda.synchronize()
+        check(NL.KERNEL_LAUNCHES["neg_fwd"] == before["neg_fwd"] + 1
+              and NL.KERNEL_LAUNCHES["neg_bwd"] == before["neg_bwd"] + 1,
+              "the K3/K4 wrappers did not launch their kernels")
+        same = (torch.equal(NL.neg_fwd(*args, **kw), lse)
+                and all(torch.equal(a, b) for a, b in
+                        zip(NL.neg_bwd(*args, lse, g, **kw), (w, dout, dpos))))
+        p_lse = NR.neg_fwd_plain(*args, **kw)
+        pw, pdout, pdpos = NR.neg_bwd_plain(*args, p_lse, g, **kw)
+        torch.cuda.synchronize()
+        e_lse = (lse - p_lse).abs().max().item()
+        e_w = (w - pw).abs().max().item()
+        r_w = _rel_to_max(w, pw)
+        e_dout = (dout - pdout).abs().max().item()
+        r_dout = _rel_to_max(dout, pdout)
+        e_dpos = (dpos - pdpos).abs().max().item()
+        fwd_ms = timed_ms(lambda: NL.neg_fwd(*args, **kw), 10)
+        bwd_ms = timed_ms(lambda: NL.neg_bwd(*args, lse, g, **kw), 10)
+        fwd_plain = timed_ms(lambda: NR.neg_fwd_plain(*args, **kw), 2,
+                             warmup=1)
+        bwd_plain = timed_ms(lambda: NR.neg_bwd_plain(*args, lse, g, **kw),
+                             2, warmup=1)
+        rows_b = T * R * D * 2                    # each gathered row once
+        small = T * D * 2 + T * R * 4 + perms.numel() * 4
+        fwd_bytes = rows_b + small + 3 * T * 4
+        bwd_bytes = rows_b + small + 4 * T * 4 + T * R * 4 + T * D * 4 + T * 4
+        fwd_ops, bwd_ops = 2 * T * R * D, 4 * T * R * D
+        res = {}
+        for name, ms, plain_ms, byts, ops_, err in (
+                ("neg_fwd", fwd_ms, fwd_plain, fwd_bytes, fwd_ops, e_lse),
+                ("neg_bwd", bwd_ms, bwd_plain, bwd_bytes, bwd_ops,
+                 max(e_w, e_dout, e_dpos))):
+            t_ops = ops_ / PEAK_FLOPS["float16"] * 1e3
+            t_bytes = byts / PEAK_BYTES * 1e3
+            res[name] = dict(ms=ms, plain_ms=plain_ms,
+                             bound_ms=max(t_ops, t_bytes),
+                             bound_by="operations" if t_ops > t_bytes
+                             else "bytes", max_abs_err=err)
+        say(f"[kernels] neg expansion {expansion}: lse max_abs {e_lse:.3e}, "
+            f"w {e_w:.3e} ({r_w:.3e} of max), dout {e_dout:.3e} "
+            f"({r_dout:.3e} of max), dpos {e_dpos:.3e}; bit-identical rerun {same} | K3 {fwd_ms:.4f} ms"
+            f" (plain {fwd_plain:.2f}) bound {res['neg_fwd']['bound_ms']:.4f}"
+            f" ms by {res['neg_fwd']['bound_by']} "
+            f"({fwd_bytes / 1e9:.3f} GB) -> "
+            f"{res['neg_fwd']['bound_ms'] / fwd_ms:.3f} of bound | K4 "
+            f"{bwd_ms:.4f} ms (plain {bwd_plain:.2f}) bound "
+            f"{res['neg_bwd']['bound_ms']:.4f} ms ({bwd_bytes / 1e9:.3f} GB;"
+            f" the kernel gathers the rows twice) -> "
+            f"{res['neg_bwd']['bound_ms'] / bwd_ms:.3f} of bound")
+        check(same, "K3/K4 differ between two runs on the same inputs")
+        # fp32 sums over d and R in another order: lse to 1e-4 absolute
+        # (values O(5)); w, dout and dpos (scaled by g <= 1/T) to
+        # GRAD_TOL_FP32 of their largest values
+        check(e_lse <= 1e-4 and r_w <= GRAD_TOL_FP32
+              and r_dout <= GRAD_TOL_FP32
+              and _rel_to_max(dpos, pdpos) <= GRAD_TOL_FP32,
+              f"K3/K4 expansion {expansion} disagree with the plain version")
+        out[expansion] = res
+    say("[kernels] no single PyTorch call computes K3 or K4 (a gather by "
+        "id, a row-wise dot, the sharing term and a logsumexp): their "
+        "library_ms is null")
+    del shadow
+    torch.cuda.empty_cache()
+    return out[1]
+
+
+def phase_runsum_kernel():
+    """K6 against its plain version at the training step's shape: the
+    candidate pairs of one batch, T·(R+2) ≈ 1.06 M rows of 1024 — zipf-
+    distributed input ids and labels (runs up to thousands of rows) and
+    uniform negatives (runs of one) — plus a run of dropped ids, through
+    ``run_totals``, the wrapper the training path calls."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticKuaiRand
+    from repro_torch.kernels.jagged_lookup import ops as JL
+    from repro_torch.kernels.jagged_lookup.ref import run_totals_plain
+    dev = torch.device("cuda")
+    T, R, D, V = 8192, 128, 1024, 2 ** 22
+    rng = np.random.default_rng(SEED)
+    zipf = SyntheticKuaiRand(num_items=V)._items(rng, 2 * T)
+    ids = torch.cat([torch.from_numpy(zipf.astype(np.int32)),
+                     torch.from_numpy(rng.integers(0, V, T * R,
+                                                   dtype=np.int32)),
+                     torch.full((64,), -1, dtype=torch.int32)]).to(dev)
+    n = ids.numel()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows = torch.randn(n, D, device=dev, generator=gen)
+    order, sids = JL.sort_pairs(ids)
+    before = JL.KERNEL_LAUNCHES["runsum"]
+    u, out = JL.run_totals(rows, order, sids)
+    u2, again = JL.run_totals(rows, order, sids)
+    torch.cuda.synchronize()
+    check(JL.KERNEL_LAUNCHES["runsum"] == before + 2,
+          "the K6 wrapper did not launch the kernel")
+    same = torch.equal(out, again) and torch.equal(u, u2)
+    del again
+    starts, num_runs = JL.run_starts(sids)
+    n_runs = int(num_runs)
+    ids_ok = torch.equal(u, torch.unique(ids[ids >= 0]).to(u.dtype))
+    plain = run_totals_plain(rows, order, sids, n_runs, JL.DROP_KEY)
+    plain = plain[:u.numel()]
+    err = (out - plain).abs().max().item()
+    rel = _rel_to_max(out, plain)
+    lens = torch.diff(starts[:n_runs + 1])
+    # a run of one row totals that row exactly, in any order: bitwise
+    single = lens[:u.numel()] == 1
+    single_ok = torch.equal(out[single], plain[single])
+    del plain
+    lens = lens.cpu().numpy()
+    buf = torch.empty((n_runs, D), device=dev)
+    ms = timed_ms(lambda: JL._launch_runsum(rows, order, sids, starts,
+                                            num_runs, buf), 10)
+    wrapper_ms = timed_ms(lambda: JL.run_totals(rows, order, sids), 5)
+    plain_ms = timed_ms(lambda: run_totals_plain(rows, order, sids, n_runs,
+                                                 JL.DROP_KEY), 2, warmup=1)
+    # the library yardstick: index_add_ of every row into its run's total
+    run = torch.empty(n, dtype=torch.int64, device=dev)
+    is_start = torch.ones(n, dtype=torch.bool, device=dev)
+    is_start[1:] = sids[1:] != sids[:-1]
+    run[order] = torch.cumsum(is_start.long(), 0) - 1
+    lib_out = torch.zeros((n_runs, D), device=dev)
+    lib_ms = timed_ms(lambda: lib_out.index_add_(0, run, rows), 10)
+    # rows read once, one total written per run, the order, the sorted ids
+    # and the run pointers read
+    byts = n * D * 4 + n_runs * D * 4 + n * 8 + n * 4 + (n_runs + 1) * 4
+    t_ops = n * D / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = byts / PEAK_BYTES * 1e3
+    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                               else "bytes")
+    say(f"[kernels] runsum: {n} rows, {n_runs} runs (lengths 1 to "
+        f"{lens.max()}, {(lens == 1).mean():.3f} of runs single rows), "
+        f"{u.numel()} unique ids >= 0; ids equal {ids_ok}, max_abs "
+        f"{err:.3e} ({rel:.3e} of max), single-row runs bitwise "
+        f"{single_ok}, bit-identical rerun {same} | kernel {ms:.4f} ms "
+        f"(wrapper with sort pointers and run-count sync {wrapper_ms:.4f} "
+        f"ms)  plain {plain_ms:.3f} ms  index_add_ {lib_ms:.4f} ms  bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({byts / 1e9:.3f} GB) -> "
+        f"{bound_ms / ms:.3f} of bound")
+    # fp32 sums of up to thousands of rows in another order (the plain
+    # version adds on the card with atomics): 1e-4 of the largest total
+    check(same and ids_ok and single_ok and rel <= GRAD_TOL_FP32,
+          "K6 disagrees with its plain version")
+    del rows, out, buf, lib_out
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
+
+
 # --------------------------------------------------------------------------
-# phase 4: the slice
+# phase 4: serving
 # --------------------------------------------------------------------------
 
 class _PlainAttention:
@@ -349,7 +626,7 @@ def _trace(rng, users, vocab, max_len):
                   ("incremental", inc)]
 
 
-def phase_slice():
+def phase_serve():
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -368,7 +645,7 @@ def phase_slice():
     kw = dict(num_shards=2, users_per_shard=8, tokens_per_shard=8192, k=100)
     eng = RecallEngine(cfg, model, master, device=dev, **kw)
     torch.cuda.synchronize()
-    say(f"[slice] {cfg.name}: d={d} layers={cfg.num_layers} heads="
+    say(f"[serve] {cfg.name}: d={d} layers={cfg.num_layers} heads="
         f"{cfg.num_heads} qkv={cfg.qkv_dim} max_seq_len={cfg.max_seq_len} "
         f"vocab={V} dtype={cfg.dtype}; master {tuple(master.shape)} "
         f"{master.dtype} + shadow {eng.table.shadow.dtype} on the card; "
@@ -376,7 +653,7 @@ def phase_slice():
     rng = np.random.default_rng(SEED)
     hist, rounds = _trace(rng, 40, V, cfg.max_seq_len)
     lens = np.array([len(hist[u][0]) for u in hist])
-    say(f"[slice] trace: {len(hist)} users, history lengths min "
+    say(f"[serve] trace: {len(hist)} users, history lengths min "
         f"{lens.min()} median {int(np.median(lens))} max {lens.max()}, "
         f"{lens.sum()} events")
 
@@ -402,7 +679,7 @@ def phase_slice():
                               wall_s=wall, peak_mem_gib=peak,
                               **{f"{k}_s": v for k, v in
                                  eng.last_step_s.items()}))
-        say(f"[slice] round {rname}: {len(reqs)} requests, {hits} hits, "
+        say(f"[serve] round {rname}: {len(reqs)} requests, {hits} hits, "
             f"{n_enc} micro-batches, {n_l} attn_fwd launches, wall "
             f"{wall * 1e3:.1f} ms, phases "
             f"{ {k: round(v * 1e3, 1) for k, v in eng.last_step_s.items()} }"
@@ -431,7 +708,7 @@ def phase_slice():
     inc_users = {u for u, _, _ in rounds[2][1]}
     check(all(not out["incremental"][u].cache_hit for u in inc_users),
           "an incremental request was served from the cache")
-    say(f"[slice] checks: embeddings finite, ids in [0, {V}), hits "
+    say(f"[serve] checks: embeddings finite, ids in [0, {V}), hits "
         f"bit-identical to cold, launches = layers x micro-batches; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -463,12 +740,12 @@ def phase_slice():
     eng_err = max(float(np.abs(emb_k[s.shard, s.row].cpu().numpy()
                                - out["cold"][s.user].user_emb).max())
                   for s in mb.slots)
-    say(f"[slice] micro-batch of {len(mb.slots)} users, {mb.num_tokens} "
+    say(f"[serve] micro-batch of {len(mb.slots)} users, {mb.num_tokens} "
         f"tokens. Per layer, kernel vs plain on the same layer inputs: "
         f"worst row relative {max(both.errs):.3e} (tol {REL_TOL_BF16}), by "
         f"layer "
         f"{[float(f'{e:.2e}') for e in both.errs]}")
-    say(f"[slice] end to end through {cfg.num_layers} bf16 layers, kernel "
+    say(f"[serve] end to end through {cfg.num_layers} bf16 layers, kernel "
         f"path vs plain path: max abs {err:.3e} on |emb| up to "
         f"{ep.abs().max().item():.2f}, worst per-user relative L2 {rel:.3e} "
         f"(tol {EMB_TOL_BF16}); direct call vs the engine's cold round max "
@@ -496,6 +773,181 @@ def _profile_encode(model, cfg, x, args, attn):
         GR.gr_user_embeddings_sharded(model, cfg, x, *args, attn_fn=attn)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    say(f"[profile] one micro-batch encode: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
+    for ms, n, key in rows[:8]:
+        say(f"[profile]   {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+    return {"wall_ms": wall, "busy_ms": busy,
+            "top": [(r[2][:60], r[0], r[1]) for r in rows[:8]]}
+
+
+# --------------------------------------------------------------------------
+# phase 5: training
+# --------------------------------------------------------------------------
+
+def _counters():
+    from repro_torch.kernels.jagged_attention import ops as AO
+    from repro_torch.kernels import jagged_lookup as JL
+    from repro_torch.kernels import neg_logits as NL
+    return (AO.KERNEL_LAUNCHES, NL.KERNEL_LAUNCHES, JL.KERNEL_LAUNCHES)
+
+
+def _zero_counts():
+    for c in _counters():
+        for k in c:
+            c[k] = 0
+
+
+def _read_counts():
+    out = {}
+    for c in _counters():
+        out.update(c)
+    return out
+
+
+def _train_batches(V, steps, users=64):
+    """The port's GRLoader over the port's synthetic KuaiRand: 1 shard x 4
+    users x 2048 events (cap 8192), R = 128 negatives per token."""
+    from repro_torch.data import GRLoader, SyntheticKuaiRand
+    gen = SyntheticKuaiRand(num_users=users, num_items=V, mean_len=1800,
+                            sigma_len=0.6, max_len=4096, seed=SEED)
+    seqs = {u: (d["item"], d["ts"]) for u, d in
+            ((u, gen.interactions(u)) for u in range(users))}
+    loader = GRLoader(seqs, num_devices=1, users_per_device=4,
+                      max_seq_len=2048, num_negatives=128, num_items=V,
+                      seed=SEED)
+    return list(loader.batches(steps))
+
+
+def phase_train():
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.training import (gr_train_state, host_unique_candidates,
+                                      make_gr_train_step, to_device)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    cfg = get_arch("hstu-large")
+    V, d = cfg.vocab_size, cfg.d_model
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bundle = GRBundle(cfg)
+    state = gr_train_state(bundle.init_dense(gen, device=dev),
+                           bundle.init_table(gen, device=dev))
+    tbl = state.table
+    table_bytes = sum(t.numel() * t.element_size()
+                      for t in (tbl.master, tbl.shadow, tbl.accum))
+    batches = _train_batches(V, 7)
+    torch.cuda.synchronize()
+    say(f"[train] {cfg.name}: d={d} layers={cfg.num_layers} heads="
+        f"{cfg.num_heads} qkv={cfg.qkv_dim} vocab={V} dtype={cfg.dtype} "
+        f"R={cfg.num_negatives}; master {tbl.master.dtype} + shadow "
+        f"{tbl.shadow.dtype} + accum {tbl.accum.dtype} on the card: "
+        f"{table_bytes / 1e9:.2f} GB; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens = [int(b["offsets"][0, -1]) for b in batches]
+    say(f"[train] batches: tokens per step {tokens} of cap "
+        f"{batches[0]['ids'].shape[1]}, rows per step "
+        f"{[int((np.diff(b['offsets'][0]) > 0).sum()) for b in batches]}")
+
+    def loss_fn(dd, t, bt, **kw):
+        return bundle.loss(dd, t, bt, neg_scatter_impl="two_pass", **kw)
+
+    steps = {semi: make_gr_train_step(loss_fn,
+                                      input_gather=bundle.input_gather,
+                                      semi_async=semi, stage_times=True)
+             for semi in (False, True)}
+    L = cfg.num_layers
+    base = torch.cuda.memory_allocated()
+    per_step, touched = [], []
+    for i, batch in enumerate(batches[:6]):
+        semi = i >= 3
+        dbatch = to_device(batch, dev)
+        touched.append(host_unique_candidates(batch, V)[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t = time.perf_counter()
+        state, m = steps[semi](state, dbatch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = _read_counts()
+        loss = float(m["loss"])
+        peak = torch.cuda.max_memory_allocated() - base
+        stage = {k[:-2]: v for k, v in m.items() if k.endswith("_s")}
+        fb = stage.get("emb_fwd", 0.0) + stage["dense_fwd_bwd"]
+        opt = stage.get("sparse_apply", 0.0) + stage["emb_bwd"]
+        per_step.append(dict(step=i, schedule="tau1" if semi else "sync",
+                             loss=loss, wall_s=wall, fwd_bwd_s=fb,
+                             optimizer_s=opt, stages_s=stage,
+                             peak_above_tables_gb=peak / 1e9,
+                             carry_pairs=int(state.pending_ids.numel()),
+                             launches=counts))
+        say(f"[train] step {i} ({'tau=1' if semi else 'sync'}): loss "
+            f"{loss:.5f}; wall {wall * 1e3:.1f} ms = fwd/bwd "
+            f"{fb * 1e3:.1f} + optimizer {opt * 1e3:.1f} (stages "
+            f"{ {k: round(v * 1e3, 1) for k, v in stage.items()} } ms); peak "
+            f"{peak / 1e9:.2f} GB above the tables; carry "
+            f"{state.pending_ids.numel()} pairs; launches {counts}")
+        want = {"attn_fwd": 2 * L, "attn_bwd": L, "neg_fwd": 1,
+                "neg_bwd": 1, "runsum": 1}
+        check(counts == want, f"step {i} launched {counts}, expected {want}")
+        check(math.isfinite(loss), f"step {i} loss {loss} is not finite")
+        # no (V, d) fp32 array: one alone would lift the peak by V·d·4
+        check(peak < V * d * 4, f"step {i} peaks {peak / 1e9:.2f} GB above "
+              f"the tables, not below a (V, d) fp32 array "
+              f"({V * d * 4 / 1e9:.2f} GB)")
+    losses = [r["loss"] for r in per_step]
+    check(4.6 <= losses[0] <= 5.6, f"first loss {losses[0]} outside "
+          f"[4.6, 5.6] (ln(129) + 0.64²/2 = 5.07 at init)")
+    # the shadow invariant on every row the six steps touched
+    rows = torch.from_numpy(np.unique(np.concatenate(touched))).to(dev)
+    bad = 0
+    for lo in range(0, rows.numel(), 1 << 18):
+        idx = rows[lo:lo + (1 << 18)].long()
+        bad += int((tbl.shadow[idx] != tbl.master[idx].half()).sum())
+    check(bad == 0, f"shadow != master.half() at {bad} elements")
+    check(bool(torch.isfinite(state.pending_rows).all()),
+          "non-finite carried grad rows")
+    say(f"[train] checks: losses finite, first {losses[0]:.4f} in [4.6, "
+        f"5.6]; shadow == master.half() bitwise on the {rows.numel()} "
+        f"touched rows; peak above the tables "
+        f"{max(r['peak_above_tables_gb'] for r in per_step):.2f} GB < "
+        f"{V * d * 4 / 1e9:.2f} GB (no (V, d) fp32 array); total "
+        f"allocated peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"in the last step")
+    prof = _profile_step(steps[True], state, to_device(batches[6], dev))
+    del state, tbl
+    torch.cuda.empty_cache()
+    return per_step, prof
+
+
+def _profile_step(step, state, batch):
+    """Device time by kernel over one tau=1 step, and the device's idle
+    share of its wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    say(f"[profile] one tau=1 train step: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
+    for ms, n, key in rows[:12]:
+        say(f"[profile]   {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+    return {"wall_ms": wall, "busy_ms": busy,
+            "top": [(r[2][:60], r[0], r[1]) for r in rows[:12]]}
+
+
+def _device_rows(prof):
     from torch.autograd import DeviceType
     rows = []
     for e in prof.key_averages():
@@ -507,13 +959,98 @@ def _profile_encode(model, cfg, x, args, attn):
         if dev_us > 0:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    say(f"[profile] one micro-batch encode: wall {wall:.1f} ms, device busy "
-        f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
-    for ms, n, key in rows[:8]:
-        say(f"[profile]   {ms:9.3f} ms  x{n:<5d} {key[:90]}")
-    return {"wall_ms": wall, "busy_ms": busy,
-            "top": [(r[2][:60], r[0], r[1]) for r in rows[:8]]}
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 6: one step, kernels against plain versions
+# --------------------------------------------------------------------------
+
+class _PlainVersions:
+    """Within the block, the training path's kernel wrappers call their
+    plain versions on card tensors (a check only: the port's wrappers
+    launch the kernel for every card tensor)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.jagged_attention import ops as AO
+        from repro_torch.kernels.jagged_lookup import ops as LO
+        from repro_torch.kernels.neg_logits import ops as NO
+        from repro_torch.kernels.neg_logits import ref as NR
+        self.saved = [(AO, "attention_core", AO.attention_core),
+                      (NO, "neg_fwd", NO.neg_fwd),
+                      (NO, "neg_bwd", NO.neg_bwd),
+                      (LO, "_device_check", LO._device_check)]
+        AO.attention_core = AO.plain_core
+        NO.neg_fwd = NR.neg_fwd_plain
+        NO.neg_bwd = NR.neg_bwd_plain
+        LO._device_check = lambda rows: False
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase_parity():
+    """One sync step's dense_fwd_bwd + table-grad pairs at full width, 2
+    layers, vocab 2^18: kernels against plain versions on the card, same
+    init, same batch."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.training import gr_train_state, make_gr_stages, to_device
+    from repro_torch.training.trainer import _table_grad_pairs
+    dev = torch.device("cuda")
+    cfg = get_arch("hstu-large").replace(num_layers=2, vocab_size=2 ** 18)
+    V = cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    bundle = GRBundle(cfg)
+    state = gr_train_state(bundle.init_dense(gen, device=dev),
+                           bundle.init_table(gen, device=dev))
+    batch = to_device(_train_batches(V, 1)[0], dev)
+    st = make_gr_stages(
+        lambda dd, t, bt, **kw: bundle.loss(dd, t, bt,
+                                            neg_scatter_impl="two_pass",
+                                            **kw),
+        input_gather=bundle.input_gather, semi_async=False)
+
+    def run():
+        out = st.dense_fwd_bwd(state.dense, state.table, batch)
+        ids, rows = _table_grad_pairs(*out.table_contribs.pop(), V)
+        torch.cuda.synchronize()
+        return out.loss.item(), out.grads_dense, ids, rows
+
+    _zero_counts()
+    kl, kg, kids, krows = run()
+    counts = _read_counts()
+    with _PlainVersions():
+        _zero_counts()
+        pl, pg, pids, prows = run()
+        plain_counts = _read_counts()
+    check(all(v > 0 for v in counts.values())
+          and not any(plain_counts.values()),
+          f"kernel run launched {counts}, plain run {plain_counts}")
+    g_err = {n: _rel_to_max(kg[n], pg[n]) for n in kg}
+    worst = max(g_err, key=g_err.get)
+    ids_equal = torch.equal(kids, pids)
+    r_err = _rel_to_max(krows, prows) if ids_equal else math.inf
+    say(f"[parity] {cfg.name} x {cfg.num_layers} layers, vocab {V}, bf16: "
+        f"loss kernels {kl:.6f} plain {pl:.6f} (|d| {abs(kl - pl):.2e}); "
+        f"dense grads worst {worst} {g_err[worst]:.3e} of its max (median "
+        f"over {len(g_err)} tensors "
+        f"{sorted(g_err.values())[len(g_err) // 2]:.3e}); table-grad pairs "
+        f"{kids.numel()} ids equal {ids_equal}, rows {r_err:.3e} of max")
+    # bf16 activations: an attention output or weight that rounds the
+    # other way moves by one bf16 ulp (2^-8 relative) and the loss and
+    # grads carry it through 2 layers: loss to 1e-3 of itself, grads and
+    # table rows to 5e-2 of their largest values
+    check(abs(kl - pl) <= 1e-3 * abs(pl), "parity: loss")
+    check(g_err[worst] <= 5e-2, f"parity: dense grad {worst}")
+    check(ids_equal and r_err <= 5e-2, "parity: table-grad pairs")
+    del state
+    torch.cuda.empty_cache()
+    return dict(loss=(kl, pl), grad_worst=(worst, g_err[worst]),
+                rows=r_err)
 
 
 # --------------------------------------------------------------------------
@@ -525,11 +1062,23 @@ def main():
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
+    times = {}
+
+    def run(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        times[name] = round(time.perf_counter() - t, 1)
+        return out
+
     try:
         name, count, smi_line = phase_device()
-        phase_build()
-        kern = phase_kernels()
-        launches, per_round, prof = phase_slice()
+        run("build", phase_build)
+        attn = run("attn_kernels", phase_kernels)
+        neg = run("neg_kernels", phase_neg_kernels)
+        rs = run("runsum_kernel", phase_runsum_kernel)
+        serve_launches, per_round, serve_prof = run("serve", phase_serve)
+        per_step, train_prof = run("train", phase_train)
+        parity = run("parity", phase_parity)
     except Failed as e:
         say(f"FAIL: {e}")
         return 1
@@ -537,18 +1086,41 @@ def main():
         traceback.print_exc()
         say("FAIL: exception (traceback above)")
         return 1
-    main_shape = kern[("long_tail", "bfloat16")]
-    say(f"[result] total {time.perf_counter() - t_start:.1f} s; rounds "
-        f"{json.dumps(per_round)}")
-    say(json.dumps({"kernels": [{
-        "name": "attn_fwd", "route": "cuda",
-        "source": "src/repro_torch/csrc/jagged_attn_fwd.cu",
-        "replaces": "src/repro/kernels/jagged_attention/kernel.py:384",
-        "launches": launches["attn_fwd"],
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"], "library_ms": None}]}))
+    train_launches = {}
+    for r in per_step:
+        for k, v in r["launches"].items():
+            train_launches[k] = train_launches.get(k, 0) + v
+    say(f"[result] total {time.perf_counter() - t_start:.1f} s; phases "
+        f"{times}; rounds {json.dumps(per_round)}")
+    say(f"[result] train steps {json.dumps(per_step)}")
+    main_attn = lambda k: attn[(k, "long_tail", "bfloat16")]  # noqa: E731
+    rows = [("attn_fwd", "jagged_attn_fwd.cu",
+             "src/repro/kernels/jagged_attention/kernel.py:384",
+             main_attn("attn_fwd"), None),
+            ("attn_bwd", "jagged_attn_bwd.cu",
+             "src/repro/kernels/jagged_attention/kernel.py:781",
+             main_attn("attn_bwd"), None),
+            ("neg_fwd", "neg_fused.cu",
+             "src/repro/kernels/neg_logits/fused.py:159", neg["neg_fwd"],
+             None),
+            ("neg_bwd", "neg_fused.cu",
+             "src/repro/kernels/neg_logits/fused.py:279", neg["neg_bwd"],
+             None),
+            ("runsum", "runsum.cu",
+             "src/repro/kernels/jagged_lookup/kernel.py:128", rs,
+             rs["library_ms"])]
+    kernels = []
+    for kname, src, replaces, r, lib in rows:
+        by_path = {"serve": serve_launches.get(kname, 0),
+                   "train": train_launches.get(kname, 0)}
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": lib})
+    say(json.dumps({"kernels": kernels}))
     say(smi_line)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -1,15 +1,20 @@
-"""Carry weights from numpy arrays into the port.
+"""Carry state between numpy arrays and the port, both ways.
 
 ``gr_params_from_numpy`` takes the JAX package's ``init_gr`` pytree as
 numpy arrays (the block params stacked along a leading layer axis) and
-returns the port's :class:`GRModel`; ``table_from_numpy`` builds a
-serving :class:`ShadowedTable`. bfloat16 numpy arrays (the ml_dtypes
+returns the port's :class:`GRModel`; ``gr_params_to_numpy`` is its
+inverse. ``table_from_numpy`` builds a serving :class:`ShadowedTable`,
+``shadowed_table_from_numpy``/``table_to_numpy`` a training one (master,
+shadow, accumulator); ``adamw_from_numpy``/``adamw_to_numpy`` carry the
+AdamW moments in the params' pytree layout; ``pending_to_numpy`` reads a
+τ=1 carry as its (id, row) pairs. bfloat16 numpy arrays (the ml_dtypes
 type) cannot go through ``torch.from_numpy``: they cross as their uint16
-bits and are viewed back as bfloat16, bit for bit.
+bits and are viewed back as bfloat16, bit for bit; the way out gives
+bfloat16 tensors as float32 arrays (exact).
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +23,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.embedding.tables import ShadowedTable
 from repro_torch.models.gr import GRModel
+from repro_torch.training.optim import AdamWState
 
 
 def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -81,3 +87,112 @@ def table_from_numpy(master: np.ndarray, shadow: Optional[np.ndarray] = None,
                          accum=torch.zeros((0, m.shape[-1]),
                                            dtype=torch.float32,
                                            device=device))
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch → numpy on the host; bfloat16 comes out as float32 (exact)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def _tree_key(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """A GRModel parameter name → (pytree path, layer index or None):
+    ``blocks.3.rab.pos_table`` → (("blocks", "rab", "pos_table"), 3)."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return tuple(parts), None
+    return ("blocks", *parts[2:]), int(parts[1])
+
+
+def named_to_tree(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Tensors by GRModel parameter name → the ``init_gr`` pytree layout
+    (numpy, block leaves stacked along a leading layer axis)."""
+    stacks: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
+    tree: Dict[str, Any] = {}
+    for name, t in named.items():
+        path, layer = _tree_key(name)
+        if layer is None:
+            tree[path[0]] = tensor_to_numpy(t)
+        else:
+            stacks.setdefault(path, {})[layer] = tensor_to_numpy(t)
+    for path, layers in stacks.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([layers[i] for i in sorted(layers)])
+    return tree
+
+
+def _tree_leaf(tree: Mapping[str, Any], name: str) -> np.ndarray:
+    path, layer = _tree_key(name)
+    node: Any = tree
+    for key in path:
+        node = node[key]
+    node = np.asarray(node)
+    return node if layer is None else node[layer]
+
+
+def gr_params_to_numpy(model: GRModel) -> Dict[str, Any]:
+    """Inverse of :func:`gr_params_from_numpy`: the ``init_gr`` pytree."""
+    return named_to_tree(dict(model.named_parameters()))
+
+
+def shadowed_table_from_numpy(master: np.ndarray,
+                              shadow: Optional[np.ndarray],
+                              accum: np.ndarray,
+                              device: DeviceLike = None) -> ShadowedTable:
+    """A training table: fp32 master, its shadow (or none), fp32 AdaGrad
+    accumulator, bit for bit."""
+    device = resolve_device(device)
+    return ShadowedTable(
+        master=tensor_from_numpy(np.asarray(master, np.float32), device),
+        shadow=(None if shadow is None
+                else tensor_from_numpy(np.asarray(shadow), device)),
+        accum=tensor_from_numpy(np.asarray(accum, np.float32), device))
+
+
+def table_to_numpy(t: ShadowedTable) -> Dict[str, Optional[np.ndarray]]:
+    return {"master": tensor_to_numpy(t.master),
+            "shadow": None if t.shadow is None else tensor_to_numpy(t.shadow),
+            "accum": tensor_to_numpy(t.accum)}
+
+
+def adamw_from_numpy(mu: Mapping[str, Any], nu: Mapping[str, Any],
+                     count: int, model: GRModel) -> AdamWState:
+    """The reference's AdamW state (moments as params-shaped pytrees) →
+    the port's, keyed by ``model``'s parameter names."""
+    dev = next(model.parameters()).device
+    names = [n for n, _ in model.named_parameters()]
+    return AdamWState(
+        mu={n: tensor_from_numpy(_tree_leaf(mu, n), dev) for n in names},
+        nu={n: tensor_from_numpy(_tree_leaf(nu, n), dev) for n in names},
+        count=int(count))
+
+
+def adamw_to_numpy(state: AdamWState) -> Dict[str, Any]:
+    return {"mu": named_to_tree(state.mu), "nu": named_to_tree(state.nu),
+            "count": int(state.count)}
+
+
+def pending_to_numpy(ids: torch.Tensor, rows: torch.Tensor
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """A τ=1 carry as numpy (ids ascending, rows): the pairs with id ≥ 0,
+    which is how either package's carry compares as a set."""
+    i = tensor_to_numpy(ids).astype(np.int64)
+    r = tensor_to_numpy(rows)
+    keep = i >= 0
+    order = np.argsort(i[keep], kind="stable")
+    return i[keep][order], r[keep][order]
+
+
+def pending_from_numpy(ids: np.ndarray, rows: np.ndarray,
+                       device: DeviceLike = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Numpy (id, row) pairs (−1 = empty slot) → a port carry."""
+    device = resolve_device(device)
+    i, r = pending_to_numpy(torch.from_numpy(np.asarray(ids)),
+                            torch.from_numpy(np.asarray(rows, np.float32)))
+    return (tensor_from_numpy(i.astype(np.int32), device),
+            tensor_from_numpy(r, device))

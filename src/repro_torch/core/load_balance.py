@@ -1,7 +1,9 @@
 """Dynamic jagged load balancing (paper §4.1.3), host-side numpy.
 
-Only the part the serving scheduler uses: Global Token Reallocation, an
-LPT greedy that spreads sequences over devices without splitting any.
+The parts the serving scheduler and the training loader use: Global Token
+Reallocation (an LPT greedy that spreads sequences over devices without
+splitting any), fixed and token-aware batches, and the sample-count
+gradient weights of dynamic batch sizes.
 """
 from __future__ import annotations
 
@@ -27,3 +29,63 @@ def global_token_reallocation(lengths: Sequence[int],
     for a in out:
         a.sort()
     return out
+
+
+def fixed_batches(lengths: Sequence[int], num_devices: int,
+                  per_device: int) -> List[List[int]]:
+    """Baseline: fixed sample count per device, arrival order."""
+    out = []
+    for w in range(num_devices):
+        lo = w * per_device
+        out.append(list(range(lo, min(lo + per_device, len(lengths)))))
+    return out
+
+
+def token_aware_batches(lengths: Sequence[int], num_devices: int,
+                        token_budget: int) -> List[List[int]]:
+    """§4.1.3 Token-Aware Dynamic Batch Scaling.
+
+    Stream samples in arrival order; a device keeps accepting samples until
+    its token budget is met, then the next device fills. Every device ends
+    within one sample of the budget; sample counts differ (the weighted
+    gradient aggregation compensates).
+    """
+    out: List[List[int]] = [[] for _ in range(num_devices)]
+    loads = [0] * num_devices
+    w = 0
+    for i, ln in enumerate(lengths):
+        if (loads[w] + ln > token_budget and loads[w] > 0
+                and w < num_devices - 1):
+            w += 1
+        out[w].append(i)
+        loads[w] += int(ln)
+    # Edge case: one over-budget sequence can eat a whole device's budget
+    # and leave trailing devices empty (an empty per-device jagged batch
+    # breaks SPMD callers that assume ≥1 sample everywhere). Clamp by
+    # draining the tail of the most-loaded multi-sample device into each
+    # empty one — the partition property is preserved; only the tail
+    # absorber's arrival-order contiguity is relaxed.
+    if len(lengths) >= num_devices:
+        for w in range(num_devices):
+            if out[w]:
+                continue
+            donor = max(range(num_devices),
+                        key=lambda d: (len(out[d]) > 1, loads[d]))
+            if len(out[donor]) <= 1:
+                break               # nothing movable (shouldn't happen)
+            moved = out[donor].pop()
+            loads[donor] -= int(lengths[moved])
+            out[w].append(moved)
+            loads[w] += int(lengths[moved])
+    return out
+
+
+def sample_count_weights(assignments: Sequence[Sequence[int]]) -> np.ndarray:
+    """Per-device gradient weights for dynamic batch sizes: w_i = n_i / Σn.
+
+    With per-device mean-loss gradients g_i, the correctly aggregated
+    gradient is Σ w_i·g_i — identical to the global-mean gradient a fixed
+    batch would produce (tested in tests/test_load_balance.py).
+    """
+    counts = np.array([len(a) for a in assignments], np.float64)
+    return counts / max(counts.sum(), 1.0)

@@ -1,9 +1,10 @@
 """Item embedding tables: fp32 master plus a persistent half-precision shadow.
 
 The shadow (paper §4.3.2) is what serving retrieval scans: the same rows
-at half the bytes. The invariant ``shadow == master.to(shadow.dtype)`` is
-kept by whoever writes the master (the training optimizer, a later slice
-of the port); serving only reads.
+at half the bytes, and what the fused negative kernels gather from. The
+invariant ``shadow == master.to(shadow.dtype)`` is kept by whoever writes
+the master (``training.optim.adagrad_sparse_update`` rewrites the touched
+rows of all three tensors in place); serving only reads.
 """
 from __future__ import annotations
 
@@ -37,6 +38,22 @@ def lookup(table: torch.Tensor, ids: torch.Tensor,
            dtype=torch.bfloat16) -> torch.Tensor:
     """Plain row gather, cast to the compute dtype: ids (...) → (..., D)."""
     return table[ids.long()].to(dtype)
+
+
+def strip_shadow(t: ShadowedTable) -> ShadowedTable:
+    """Replace the shadow with a 0-row placeholder of the same dtype, so a
+    checkpoint stores the master once (the shadow is derivable)."""
+    if t.shadow is None:
+        return t
+    return t._replace(shadow=t.shadow.new_zeros((0, t.shadow.shape[-1])))
+
+
+def rebuild_shadow(t: ShadowedTable) -> ShadowedTable:
+    """Recompute ``shadow = master.to(qdtype)`` (restore path, or after any
+    out-of-band master edit)."""
+    if t.shadow is None:
+        return t
+    return t._replace(shadow=t.master.to(t.shadow.dtype))
 
 
 def live_shadow(t: ShadowedTable) -> Optional[torch.Tensor]:

@@ -20,7 +20,10 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"jagged_attn_fwd": "jagged_attn_fwd.cu"}
+SOURCES = {"jagged_attn_fwd": "jagged_attn_fwd.cu",
+           "jagged_attn_bwd": "jagged_attn_bwd.cu",
+           "neg_fused": "neg_fused.cu",
+           "runsum": "runsum.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -3,16 +3,19 @@ the plan-aware ``attn_fn`` the model stack calls.
 
 All per-call metadata (token meta, per-block segment ranges, both
 destination-ordered work-lists of live (q-block, k-block) pairs, and the
-CSR run pointers the CUDA kernel walks) lives in a :class:`JaggedAttnPlan`.
+CSR run pointers the CUDA kernels walk) lives in a :class:`JaggedAttnPlan`.
 The plan depends only on (offsets, timestamps, capacity, block),
 so the model builds it once per micro-batch and every layer reuses it.
 Every helper takes one pack (offsets ``(S+1,)``) or G packs at once
 (offsets ``(G, S+1)``); the G packs of a serving micro-batch go to the
 kernel in one launch.
 
-Dispatch is by where the tensors lie: CUDA tensors launch the hand-written
-kernel (``csrc/jagged_attn_fwd.cu``) or raise; CPU tensors take the plain
-PyTorch version in ``ref.py``. There is no fallback between the two.
+The core is a ``torch.autograd.Function``: its forward is K1-fwd
+(``csrc/jagged_attn_fwd.cu``), its backward K2 (``csrc/jagged_attn_bwd.cu``,
+the grads of q, k, v and both RAB tables). Dispatch is by where the tensors
+lie: CUDA tensors launch the hand-written kernels or raise; CPU tensors
+take the plain PyTorch versions in ``ref.py``. There is no fallback between
+the two.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from repro_torch.kernels.jagged_attention import ref as R
 
 #: Launches of each kernel in this module, counted where the wrapper
 #: launches it and nowhere else.
-KERNEL_LAUNCHES: Dict[str, int] = {"attn_fwd": 0}
+KERNEL_LAUNCHES: Dict[str, int] = {"attn_fwd": 0, "attn_bwd": 0}
 
 #: Row tile of the CUDA kernel: it takes plans built with this block only.
 KERNEL_BLOCK = 128
@@ -115,14 +118,15 @@ def _compact_worklist(live: torch.Tensor, n_pairs: int, *,
     return pairs.to(torch.int32), flags, live_mask, n_live.to(torch.int32)
 
 
-def _run_pointers(q_wl: torch.Tensor, q_live: torch.Tensor,
+def _run_pointers(dest: torch.Tensor, live: torch.Tensor,
                   nb: int) -> torch.Tensor:
-    """CSR run pointers (…, nb+1) over the q-major list: the live pairs of
-    q-block b are entries [ptr[b], ptr[b+1]). Live entries form a prefix
-    sorted by destination, so the runs are the per-block live counts."""
-    counts = torch.zeros((*q_wl.shape[:-2], nb), dtype=torch.int64,
-                         device=q_wl.device)
-    counts.scatter_add_(-1, q_wl[..., 0].long(), q_live.long())
+    """CSR run pointers (…, nb+1) over a destination-major list (``dest``
+    (…, L) the destination block of each entry): the live pairs of block b
+    are entries [ptr[b], ptr[b+1]). Live entries form a prefix sorted by
+    destination, so the runs are the per-block live counts."""
+    counts = torch.zeros((*dest.shape[:-1], nb), dtype=torch.int64,
+                         device=dest.device)
+    counts.scatter_add_(-1, dest.long(), live.long())
     zero = torch.zeros_like(counts[..., :1])
     return torch.cat([zero, counts.cumsum(-1)], dim=-1).to(torch.int32)
 
@@ -145,11 +149,12 @@ class JaggedAttnPlan(NamedTuple):
 
     ``q_wl``/``kv_wl`` enumerate exactly the live (qb, kb) block pairs,
     q-block-major and k-block-major; entries past ``n_live`` are dead
-    padding (``q_live``/``kv_live`` 0). ``q_rowptr`` holds the CSR run
-    pointers over ``q_wl`` that the forward kernel walks, one CTA per
-    q-block. Rows longer than the ``max_row_len`` the plan was built with
-    would overflow the static list and drop pairs; the model passes
-    ``cfg.max_seq_len``."""
+    padding (``q_live``/``kv_live`` 0). ``q_rowptr`` and ``kv_rowptr``
+    hold the CSR run pointers over ``q_wl`` and ``kv_wl`` that the kernels
+    walk: one CTA per q-block (forward, dq) or k-block (dk, dv). Rows
+    longer than the ``max_row_len`` the plan was built with would overflow
+    the static list and drop pairs; the model passes ``cfg.max_seq_len``.
+    """
     meta_i32: torch.Tensor      # (cap, 3) int32: seg / pos / ts
     meta_f32: torch.Tensor      # (cap, 1) f32: 1/n
     seg_rng: torch.Tensor       # (nb, 2) int32 per-block segment ranges
@@ -161,6 +166,7 @@ class JaggedAttnPlan(NamedTuple):
     kv_live: torch.Tensor       # (L,) int32 1 = real entry
     n_live: torch.Tensor        # (1,) int32 live-pair count
     q_rowptr: torch.Tensor      # (nb+1,) int32 CSR runs over q_wl
+    kv_rowptr: torch.Tensor     # (nb+1,) int32 CSR runs over kv_wl
 
     @property
     def capacity(self) -> int:
@@ -208,7 +214,9 @@ def build_attn_plan(offsets: torch.Tensor, timestamps: torch.Tensor,
         meta_i32=meta_i32, meta_f32=meta_f32, seg_rng=seg_rng,
         q_wl=q_wl, q_flags=q_flags, q_live=q_live,
         kv_wl=kv_wl, kv_flags=kv_flags, kv_live=kv_live,
-        n_live=n_live[..., None], q_rowptr=_run_pointers(q_wl, q_live, nb))
+        n_live=n_live[..., None],
+        q_rowptr=_run_pointers(q_wl[..., 0], q_live, nb),
+        kv_rowptr=_run_pointers(kv_wl[..., 1], kv_live, nb))
 
 
 def _as_batched(plan: JaggedAttnPlan) -> JaggedAttnPlan:
@@ -320,15 +328,117 @@ def kernel_time_buckets(qts: torch.Tensor, kts: torch.Tensor,
     return out
 
 
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
+                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p])
+
+
+def _bwd_lib():
+    lib = _build.load("jagged_attn_bwd")
+    if lib.jagged_attn_bwd.argtypes is None:
+        lib.jagged_attn_bwd.argtypes = _BWD_ARGTYPES
+        lib.jagged_attn_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _launch_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan,
+                *, scale: float, tb_denom: float, use_pos: bool,
+                use_time: bool):
+    """Launch K2 (the dk/dv kernel, the dq + RAB-partials kernel and the
+    fixed-order sum of the per-CTA RAB partials) on a batched plan; raises
+    on anything the kernels do not take. → (dq, dk, dv, dpt, dtt)."""
+    G, capp, H, D = q.shape
+    dev = q.device
+    _require(dev.type == "cuda", f"tensors on {dev}, not on the card")
+    _require(q.dtype in _DTYPE_CODE,
+             f"dtype {q.dtype}; takes float32 or bfloat16")
+    for name, t in (("k", k), ("v", v), ("dy", dy)):
+        _require(t.shape == q.shape and t.dtype == q.dtype
+                 and t.device == dev, f"{name} {tuple(t.shape)} {t.dtype} "
+                 f"does not match q {tuple(q.shape)} {q.dtype}")
+    _require(D in KERNEL_HEAD_DIMS, f"head dim {D} not in {KERNEL_HEAD_DIMS}")
+    _require(plan.block == KERNEL_BLOCK,
+             f"plan block {plan.block}; the kernel tiles {KERNEL_BLOCK} rows")
+    _require(plan.capacity == capp and plan.meta_i32.shape[0] == G,
+             f"plan for {plan.meta_i32.shape[0]} x {plan.capacity} tokens, "
+             f"call has {G} x {capp}")
+    for name, t in (("pos_table", pos_table), ("time_table", time_table)):
+        _require(t.dtype == torch.float32 and t.dim() == 2
+                 and t.shape[1] == H and t.device == dev,
+                 f"{name} must be (n, {H}) float32 on {dev}")
+    for name in ("meta_i32", "meta_f32", "q_wl", "q_rowptr", "kv_wl",
+                 "kv_rowptr"):
+        t = getattr(plan, name)
+        _require(t.device == dev and t.dtype in (torch.int32, torch.float32),
+                 f"plan.{name} is {t.dtype} on {t.device}")
+    npb, ntb = pos_table.shape[0], time_table.shape[0]
+    nb = capp // KERNEL_BLOCK
+    tensors = [q, k, v, dy, pos_table, time_table, plan.meta_i32,
+               plan.meta_f32, plan.q_wl, plan.q_rowptr, plan.kv_wl,
+               plan.kv_rowptr]
+    _require(all(t.is_contiguous() for t in tensors), "inputs must be "
+             "contiguous")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    # one (npb + ntb)-wide partial per dq CTA (64-row q chunk, head, pack)
+    partial = torch.empty((G * 2 * nb * H, npb + ntb), dtype=torch.float32,
+                          device=dev)
+    dpt = torch.empty((npb, H), dtype=torch.float32, device=dev)
+    dtt = torch.empty((ntb, H), dtype=torch.float32, device=dev)
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        rc = lib.jagged_attn_bwd(
+            *(t.data_ptr() for t in tensors),
+            *(t.data_ptr() for t in (dq, dk, dv, partial, dpt, dtt)),
+            G, capp, H, D, plan.num_pairs, npb, ntb, scale, tb_denom,
+            int(use_pos), int(use_time), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"jagged_attn_bwd launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES["attn_bwd"] += 1
+    return dq, dk, dv, dpt, dtt
+
+
+class _AttnCore(torch.autograd.Function):
+    """K1-fwd forward, K2 backward (``kernel=True``), or the plain
+    versions of both. The plan and the static settings ride along as
+    non-tensor arguments."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos_table, time_table, plan, kw, kernel):
+        fwd = _launch_fwd if kernel else R.attention_fwd_plain
+        out = fwd(q, k, v, pos_table, time_table, plan, **kw)
+        ctx.save_for_backward(q, k, v, pos_table, time_table)
+        ctx.plan, ctx.kw, ctx.kernel = plan, kw, kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, k, v, pt, tt = ctx.saved_tensors
+        plan, kw = ctx.plan, ctx.kw
+        dy = _masked(plan.meta_i32, dy).contiguous()
+        bwd = _launch_bwd if ctx.kernel else R.attention_bwd_plain
+        dq, dk, dv, dpt, dtt = bwd(q, k, v, dy, pt, tt, plan, **kw)
+        dq, dk, dv = (_masked(plan.meta_i32, t) for t in (dq, dk, dv))
+        dpt = dpt if kw["use_pos"] else torch.zeros_like(pt)
+        dtt = dtt if kw["use_time"] else torch.zeros_like(tt)
+        return dq, dk, dv, dpt, dtt, None, None, None
+
+
 def attention_core(q, k, v, pos_table, time_table, plan: JaggedAttnPlan,
                    **kw) -> torch.Tensor:
-    """The kernel for card tensors, the plain version for CPU tensors."""
-    if q.device.type == "cuda":
-        return _launch_fwd(q, k, v, pos_table, time_table, plan, **kw)
-    if q.device.type == "cpu":
-        return R.attention_fwd_plain(q, k, v, pos_table, time_table, plan,
-                                     **kw)
-    raise ValueError(f"jagged attention: unsupported device {q.device}")
+    """The kernels for card tensors, the plain versions for CPU tensors;
+    differentiable in q, k, v and both tables."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"jagged attention: unsupported device {q.device}")
+    return _AttnCore.apply(q, k, v, pos_table, time_table, plan, kw,
+                           q.device.type == "cuda")
+
+
+def plain_core(q, k, v, pos_table, time_table, plan: JaggedAttnPlan,
+               **kw) -> torch.Tensor:
+    """The plain versions on any device (what a check calls to recompute a
+    kernel result), differentiable like :func:`attention_core`."""
+    return _AttnCore.apply(q, k, v, pos_table, time_table, plan, kw, False)
 
 
 # --------------------------------------------------------------------------

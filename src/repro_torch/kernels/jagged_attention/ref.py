@@ -1,13 +1,14 @@
-"""The plain PyTorch version of the jagged attention forward kernel.
+"""The plain PyTorch versions of the jagged attention kernels.
 
-:func:`attention_fwd_plain` takes what the CUDA kernel takes (q, k, v, the
-RAB tables and the plan) and computes the same values by walking the
-plan's live (q-block, k-block) pairs with dense per-pair einsums, a chunk
-of pairs at a time. It repeats the kernel's arithmetic: scores and bias in
-fp32, the time bucket as floor(log(1+dt)/denom) in fp32, SiLU weights
-scaled by 1/(pos+1) and rounded to v's dtype before the a·v product, the
-product accumulated in fp32. The wrapper uses it for CPU tensors;
-``chip_smoke.py`` holds the kernel against it on the card.
+:func:`attention_fwd_plain` (K1-fwd) and :func:`attention_bwd_plain` (K2)
+take what the CUDA kernels take (q, k, v, the RAB tables and the plan) and
+compute the same values by walking the plan's live (q-block, k-block)
+pairs with dense per-pair einsums, a chunk of pairs at a time. They repeat
+the kernels' arithmetic: scores and bias in fp32, the time bucket as
+floor(log(1+dt)/denom) in fp32, SiLU weights scaled by 1/(pos+1) and, in
+the forward, rounded to v's dtype before the a·v product; products
+accumulated in fp32. The wrapper uses them for CPU tensors;
+``chip_smoke.py`` holds the kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -76,6 +77,77 @@ def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.view(G, capp, H, D).to(v.dtype)
 
 
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dy: torch.Tensor, pos_table: torch.Tensor,
+                        time_table: torch.Tensor, plan, *, scale: float,
+                        tb_denom: float, use_pos: bool, use_time: bool):
+    """The plain version of the backward kernels (K2): q, k, v, dy
+    (G, capp, H, D), a batched plan → (dq, dk, dv) in q's dtype and the
+    fp32 grads of ``pos_table`` (npb, H) and ``time_table`` (ntb, H).
+
+    Per live pair it recomputes s and, like the TPU kernel, keeps the
+    SiLU weights a in fp32 for dv (the forward's rounding of a to v's
+    dtype passes the gradient straight through):
+    da = dy·vᵀ, ds = da·SiLU′(s)·mask/(pos+1); dv += aᵀ·dy,
+    dk += dsᵀ·q·scale, dq += ds·k·scale; the RAB grads sum ds per bucket.
+    """
+    G, capp, H, D = q.shape
+    block = plan.block
+    nb = capp // block
+    npb, ntb = pos_table.shape[0], time_table.shape[0]
+    dev = q.device
+    ar = torch.arange(block, device=dev)
+    dq = torch.zeros((G, nb, block, H, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    dpt = torch.zeros((npb, H), dtype=torch.float32, device=dev)
+    dtt = torch.zeros((ntb, H), dtype=torch.float32, device=dev)
+    for g in range(G):
+        n = int(plan.n_live[g, 0])
+        wl = plan.q_wl[g, :n].long()
+        qg, kg, vg, dyg = (t[g].view(nb, block, H, D).float()
+                           for t in (q, k, v, dy))
+        seg = plan.meta_i32[g, :, 0].view(nb, block)
+        ts = plan.meta_i32[g, :, 2].view(nb, block)
+        ninv = plan.meta_f32[g, :, 0].view(nb, block)
+        for lo in range(0, n, PAIR_CHUNK):
+            qb, kb = wl[lo:lo + PAIR_CHUNK, 0], wl[lo:lo + PAIR_CHUNK, 1]
+            s = torch.einsum("pqhd,pkhd->pqkh", qg[qb], kg[kb]) * scale
+            qslot = qb[:, None] * block + ar
+            kslot = kb[:, None] * block + ar
+            d = (qslot[:, :, None] - kslot[:, None, :]).clamp(0, npb - 1)
+            bias = torch.zeros_like(s)
+            if use_pos:
+                bias = bias + pos_table[d]
+            if use_time:
+                dt = (ts[qb][:, :, None] - ts[kb][:, None, :]).abs()
+                tb = time_buckets(dt, tb_denom, ntb)
+                bias = bias + time_table[tb]
+            s = s + bias
+            qseg, kseg = seg[qb], seg[kb]
+            mask = ((qseg[:, :, None] == kseg[:, None, :])
+                    & (qseg[:, :, None] >= 0)
+                    & (qslot[:, :, None] >= kslot[:, None, :]))
+            mw = (mask.float() * ninv[qb][:, :, None])[..., None]
+            sig = torch.sigmoid(s)
+            a = s * sig * mw
+            da = torch.einsum("pqhd,pkhd->pqkh", dyg[qb], vg[kb])
+            ds = da * (sig * (1.0 + s * (1.0 - sig))) * mw
+            dv[g].index_add_(0, kb, torch.einsum("pqkh,pqhd->pkhd", a,
+                                                 dyg[qb]))
+            dk[g].index_add_(0, kb, torch.einsum("pqkh,pqhd->pkhd", ds,
+                                                 qg[qb]) * scale)
+            dq[g].index_add_(0, qb, torch.einsum("pqkh,pkhd->pqhd", ds,
+                                                 kg[kb]) * scale)
+            if use_pos:
+                dpt.index_add_(0, d.reshape(-1), ds.reshape(-1, H))
+            if use_time:
+                dtt.index_add_(0, tb.reshape(-1), ds.reshape(-1, H))
+    shape = (G, capp, H, D)
+    return (dq.view(shape).to(q.dtype), dk.view(shape).to(q.dtype),
+            dv.view(shape).to(q.dtype), dpt, dtt)
+
+
 def jagged_attention_ref(q, k, v, offsets, timestamps, rab_params, rab, *,
                          time_mode: str = "bucket", block: int = 128,
                          plan=None,
@@ -85,7 +157,7 @@ def jagged_attention_ref(q, k, v, offsets, timestamps, rab_params, rab, *,
     explicitly."""
     from repro_torch.kernels.jagged_attention import ops
     return ops.run_attention(q, k, v, offsets, timestamps, rab_params, rab,
-                             core=attention_fwd_plain, time_mode=time_mode,
+                             core=ops.plain_core, time_mode=time_mode,
                              block=block, plan=plan, max_row_len=max_row_len)
 
 

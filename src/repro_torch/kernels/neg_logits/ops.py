@@ -1,0 +1,302 @@
+"""The fused ID-driven negative-sampling recall path (the port of
+``repro.kernels.neg_logits.ops.fused_recall_lse``).
+
+:func:`fused_recall_lse` returns each token's logsumexp over
+[pos | R negatives | (k−1)·R shared] as a ``torch.autograd.Function``:
+forward K3, backward K4 (``csrc/neg_fused.cu``) for CUDA tensors, their
+plain versions (``ref.py``) for CPU tensors. Neither the (T, R, D) rows
+nor the (T, R·k) logits are built on the card.
+
+The table gradient leaves K4 as per-(token, slot) weights w. With
+``scatter_impl="two_pass"`` it becomes the rows w·o/τ, either handed as
+sparse (ids, rows) pairs to a caller's :class:`TableGradSink` (the
+training path: no (V, D) array) or, when the table itself requires grad,
+scattered into a dense (V, D) grad (test sizes). ``"fused"`` (K5) is not
+ported yet and raises.
+
+Sharing permutations: the reference draws them with ``jax.random`` from
+the batch's key; the port takes them as ``perms`` or draws its own from a
+``torch.Generator`` (a declared divergence: same distribution, other
+numbers). ``expansion=1`` draws nothing.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.jagged_lookup.ops import (check_scatter_impl,
+                                                   scatter_add_weighted_rows)
+from repro_torch.kernels.neg_logits import ref as R_
+from repro_torch.kernels.neg_logits.ref import NEG_POOL
+
+#: Launches of each kernel in this module, counted where the wrapper
+#: launches it and nowhere else.
+KERNEL_LAUNCHES: Dict[str, int] = {"neg_fwd": 0, "neg_bwd": 0}
+
+KERNEL_WIDTHS = (256, 512, 768, 1024)
+_O_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_T_CODE = {torch.float32: 0, torch.float16: 1}
+_ROUND_CODE = {None: 0, torch.float16: 1, torch.bfloat16: 2}
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def _lib():
+    lib = _build.load("neg_fused")
+    if lib.neg_fused_fwd.argtypes is None:
+        lib.neg_fused_fwd.argtypes = _FWD_ARGTYPES
+        lib.neg_fused_fwd.restype = ctypes.c_int
+        lib.neg_fused_bwd.argtypes = _BWD_ARGTYPES
+        lib.neg_fused_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"neg_fused kernel: {msg}")
+
+
+class TableGradSink:
+    """Receives the negative path's table gradient as sparse pairs. After
+    backward, ``ids`` (T·R,) int32 and ``rows`` (T·R + extra_rows, D)
+    fp32: the first T·R rows are w·o/τ, the last ``extra_rows`` are left
+    for the caller's own (id, row) contributions, so a step's whole table
+    gradient sits in one buffer and is never concatenated."""
+
+    def __init__(self, extra_rows: int = 0):
+        self.extra_rows = extra_rows
+        self.ids: Optional[torch.Tensor] = None
+        self.rows: Optional[torch.Tensor] = None
+
+
+def make_share_perms(n_seg: int, segment: int, expansion: int, *,
+                     perms: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     device: Optional[torch.device] = None) -> torch.Tensor:
+    """(n_seg, max(expansion−1, 1), segment) int32 per-segment shuffle for
+    §4.3.3 sharing: entry [s, e, t] is the segment-local token whose R
+    logits consumer t borrows for slot e, a random cyclic shift (never the
+    identity). ``perms`` given → checked and returned (the tests inject the
+    reference's); otherwise drawn from ``generator``. expansion ≤ 1 → a
+    zero dummy of the same rank, nothing drawn."""
+    shape = (n_seg, max(expansion - 1, 1), segment)
+    if expansion <= 1:
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+    if perms is not None:
+        perms = torch.as_tensor(perms, device=device).to(torch.int32)
+        if tuple(perms.shape) != shape:
+            raise ValueError(f"perms {tuple(perms.shape)}, expected {shape}")
+        return perms.contiguous()
+    gen_dev = generator.device if generator is not None else device
+    shifts = torch.randint(1, segment, (n_seg, expansion - 1),
+                           generator=generator, device=gen_dev)
+    base = torch.arange(segment, device=gen_dev)
+    return ((base[None, None, :] + shifts[:, :, None]) % segment).to(
+        device=device, dtype=torch.int32)
+
+
+def _pad_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
+    if not pad:
+        return x
+    return torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+
+
+def prepare_fused_inputs(out_emb, pos_logit, vocab: int, neg_ids, *,
+                         segment: int, expansion: int,
+                         perms: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None,
+                         valid: Optional[torch.Tensor] = None):
+    """Pad / clip / mask / shuffle prep shared by the kernels and the plain
+    versions. → (o_p, pos_p, ids_p (Tp·R,) int32, valid_p, perms, n_seg),
+    rows zero-padded to a segment multiple (padded tokens invalid, their
+    ids row 0)."""
+    T, R = neg_ids.shape
+    if not 1 <= expansion <= segment:
+        raise ValueError(f"expansion {expansion} not in [1, {segment}]")
+    pad = (-T) % segment
+    n_seg = (T + pad) // segment
+    dev = out_emb.device
+    v = (torch.ones((T,), dtype=torch.float32, device=dev) if valid is None
+         else valid.to(torch.float32))
+    valid_p = _pad_rows(v, pad)
+    pos_p = _pad_rows(pos_logit.to(torch.float32), pad)
+    ids_p = _pad_rows(neg_ids.clamp(0, vocab - 1).to(torch.int32), pad)
+    o_p = _pad_rows(out_emb, pad)
+    perms = make_share_perms(n_seg, segment, expansion, perms=perms,
+                             generator=generator, device=dev)
+    return o_p, pos_p, ids_p.reshape(-1).contiguous(), valid_p, perms, n_seg
+
+
+def _check(o, pos, src, ids, valid, perms, segment, R, fetch_dtype):
+    dev = o.device
+    _require(dev.type == "cuda", f"tensors on {dev}, not on the card")
+    _require(o.dtype in _O_CODE, f"o dtype {o.dtype}; takes float32 or "
+             f"bfloat16")
+    _require(src.dtype in _T_CODE, f"table dtype {src.dtype}")
+    _require(fetch_dtype is None or (src.dtype == torch.float32
+                                     and fetch_dtype in _ROUND_CODE),
+             f"fetch rounding {fetch_dtype} of a {src.dtype} table")
+    D = o.shape[1]
+    _require(D in KERNEL_WIDTHS and src.shape[1] == D,
+             f"row width {D} not in {KERNEL_WIDTHS}")
+    Tp = o.shape[0]
+    _require(Tp % segment == 0 and ids.shape == (Tp * R,)
+             and pos.shape == (Tp,) and valid.shape == (Tp,),
+             "shapes of o, pos, ids, valid")
+    for name, t, dt in (("pos", pos, torch.float32),
+                        ("ids", ids, torch.int32),
+                        ("valid", valid, torch.float32),
+                        ("perms", perms, torch.int32)):
+        _require(t.dtype == dt and t.device == dev and t.is_contiguous(),
+                 f"{name} must be contiguous {dt} on {dev}")
+    for name, t in (("o", o), ("table", src)):
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 f"{name} must be contiguous and 16-byte aligned")
+    smem = (2 * segment * R + 2 * segment + perms.shape[1] * segment) * 4
+    _require(smem <= 227 * 1024, f"segment {segment} x R {R} needs {smem} "
+             f"bytes of shared memory")
+
+
+def neg_fwd(o, pos, src, ids, valid, perms, *, segment: int, R: int,
+            expansion: int, inv_tau: float,
+            fetch_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """K3 for card tensors, its plain version for CPU tensors → lse."""
+    kw = dict(segment=segment, R=R, expansion=expansion, inv_tau=inv_tau,
+              fetch_dtype=fetch_dtype)
+    if o.device.type == "cpu":
+        return R_.neg_fwd_plain(o, pos, src, ids, valid, perms, **kw)
+    _check(o, pos, src, ids, valid, perms, segment, R, fetch_dtype)
+    lse = torch.empty_like(pos)
+    dev = o.device
+    with torch.cuda.device(dev):
+        rc = _lib().neg_fused_fwd(
+            o.data_ptr(), pos.data_ptr(), src.data_ptr(), ids.data_ptr(),
+            valid.data_ptr(), perms.data_ptr(), lse.data_ptr(),
+            o.shape[0] // segment, segment, R, o.shape[1], perms.shape[1],
+            expansion, inv_tau, _ROUND_CODE[fetch_dtype], _O_CODE[o.dtype],
+            _T_CODE[src.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"neg_fused_fwd launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES["neg_fwd"] += 1
+    return lse
+
+
+def neg_bwd(o, pos, src, ids, valid, perms, lse, g, *, segment: int, R: int,
+            expansion: int, inv_tau: float,
+            fetch_dtype: Optional[torch.dtype]):
+    """K4 for card tensors, its plain version for CPU tensors →
+    (w (Tp, R), dout (Tp, D), dpos (Tp,)), fp32."""
+    kw = dict(segment=segment, R=R, expansion=expansion, inv_tau=inv_tau,
+              fetch_dtype=fetch_dtype)
+    if o.device.type == "cpu":
+        return R_.neg_bwd_plain(o, pos, src, ids, valid, perms, lse, g, **kw)
+    _check(o, pos, src, ids, valid, perms, segment, R, fetch_dtype)
+    _require(lse.shape == pos.shape and g.shape == pos.shape
+             and lse.dtype == torch.float32 and g.dtype == torch.float32
+             and lse.is_contiguous() and g.is_contiguous(),
+             "lse and g must be contiguous (Tp,) float32")
+    Tp, D = o.shape
+    w = torch.empty((Tp, R), dtype=torch.float32, device=o.device)
+    dout = torch.empty((Tp, D), dtype=torch.float32, device=o.device)
+    dpos = torch.empty_like(pos)
+    dev = o.device
+    with torch.cuda.device(dev):
+        rc = _lib().neg_fused_bwd(
+            o.data_ptr(), pos.data_ptr(), src.data_ptr(), ids.data_ptr(),
+            valid.data_ptr(), perms.data_ptr(), lse.data_ptr(), g.data_ptr(),
+            w.data_ptr(), dout.data_ptr(), dpos.data_ptr(), Tp // segment,
+            segment, R, D, perms.shape[1], expansion, inv_tau,
+            _ROUND_CODE[fetch_dtype], _O_CODE[o.dtype], _T_CODE[src.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"neg_fused_bwd launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES["neg_bwd"] += 1
+    return w, dout, dpos
+
+
+class _FusedLse(torch.autograd.Function):
+    """lse of the padded tokens; differentiable in o, pos and the table.
+    Non-tensor settings ride in ``kw``; ``sink`` is the caller's
+    ``table_grad_pairs`` list (or None)."""
+
+    @staticmethod
+    def forward(ctx, o, pos, table, src, ids, valid, perms, T, kw, sink,
+                scatter_impl):
+        lse = neg_fwd(o, pos, src, ids, valid, perms, **kw)
+        ctx.save_for_backward(o, pos, src, ids, valid, perms, lse)
+        ctx.vocab = table.shape[0]
+        ctx.table_dtype = table.dtype
+        ctx.T, ctx.kw, ctx.sink = T, kw, sink
+        ctx.scatter_impl = scatter_impl
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        o, pos, src, ids, valid, perms, lse = ctx.saved_tensors
+        kw = ctx.kw
+        w, dout, dpos = neg_bwd(o, pos, src, ids, valid, perms, lse,
+                                g.float().contiguous(), **kw)
+        dtable = None
+        sink = ctx.sink
+        if sink is not None:
+            T, R = ctx.T, kw["R"]
+            D = o.shape[1]
+            sink.rows = torch.empty((T * R + sink.extra_rows, D),
+                                    dtype=torch.float32, device=o.device)
+            # the two-pass rows w·(o·τ⁻¹), the reference's op order
+            torch.mul(w[:T, :, None], (o[:T].float() * kw["inv_tau"])[:, None],
+                      out=sink.rows[:T * R].view(T, R, D))
+            sink.ids = ids[:T * R]
+        elif ctx.needs_input_grad[2]:
+            dtable = scatter_add_weighted_rows(
+                w, o, ids, ctx.vocab, scale=kw["inv_tau"],
+                impl=ctx.scatter_impl).to(ctx.table_dtype)
+        return (dout.to(o.dtype), dpos, dtable, None, None, None, None, None,
+                None, None, None)
+
+
+def fused_recall_lse(out_emb: torch.Tensor, pos_logit: torch.Tensor,
+                     table: torch.Tensor, neg_ids: torch.Tensor, *,
+                     segment: int = 128, tau: float = 1.0,
+                     expansion: int = 1,
+                     perms: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     valid: Optional[torch.Tensor] = None,
+                     fetch_dtype: Optional[torch.dtype] = None,
+                     gather_table: Optional[torch.Tensor] = None,
+                     scatter_impl: str = "fused",
+                     table_grad_pairs: Optional[TableGradSink] = None
+                     ) -> torch.Tensor:
+    """Per-token logsumexp over [pos | R negatives | (k−1)·R shared]
+    (Eq. 2): out_emb (T, D), pos_logit (T,), table (V, D) fp32 master,
+    neg_ids (T, R) → (T,) fp32.
+
+    ``gather_table`` is the half-precision shadow the rows are read from
+    (the gradient still flows to ``table``, straight through); without it
+    the rows come from ``table``, rounded to ``fetch_dtype``.
+    ``table_grad_pairs``, a :class:`TableGradSink`, receives the table
+    gradient as (ids, rows) pairs in backward instead of a dense grad.
+    ``scatter_impl`` must be ``"two_pass"``: the reference's default
+    ``"fused"`` needs K5, not ported yet."""
+    check_scatter_impl(scatter_impl)
+    T, R = neg_ids.shape
+    V = table.shape[0]
+    o_p, pos_p, ids_p, valid_p, perms, n_seg = prepare_fused_inputs(
+        out_emb, pos_logit, V, neg_ids, segment=segment,
+        expansion=expansion, perms=perms, generator=generator, valid=valid)
+    src = table if gather_table is None else gather_table
+    kw = dict(segment=segment, R=R, expansion=expansion, inv_tau=1.0 / tau,
+              fetch_dtype=fetch_dtype if gather_table is None else None)
+    lse = _FusedLse.apply(o_p.contiguous(), pos_p.contiguous(), table, src,
+                          ids_p, valid_p.contiguous(), perms, T, kw,
+                          table_grad_pairs, scatter_impl)
+    return lse[:T]
+
+
+__all__ = ["KERNEL_LAUNCHES", "NEG_POOL", "TableGradSink", "fused_recall_lse",
+           "make_share_perms", "neg_bwd", "neg_fwd", "prepare_fused_inputs"]

@@ -4,7 +4,10 @@ The embedding lookup happens outside this module: the dense model takes
 already-looked-up embeddings ``(cap, d)`` plus the jagged structure
 (offsets, timestamps). The G packs of a serving micro-batch are a leading
 batch axis ``(G, cap, d)``: one forward covers them all, and the attention
-kernel takes all G packs in one launch per layer.
+kernel takes all G packs in one launch per layer. Training differentiates
+through the same forward (:func:`gr_hidden_sharded`, each layer under a
+non-reentrant ``torch.utils.checkpoint``); serving runs it under
+``torch.no_grad``.
 
 Attention planning: a plan-aware attn_fn (one with ``make_plan``, the
 kernel wrapper's :class:`PlannedAttention`) gets one plan per call, built
@@ -16,6 +19,7 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import DeviceLike, resolve_device
@@ -49,28 +53,47 @@ class GRModel(nn.Module):
             HSTUBlock(cfg, dtype=dtype, device=device, generator=generator)
             for _ in range(cfg.num_layers))
         self.out_ln_w = nn.Parameter(
-            torch.ones(cfg.d_model, dtype=dtype, device=device),
-            requires_grad=False)
+            torch.ones(cfg.d_model, dtype=dtype, device=device))
         self.out_ln_b = nn.Parameter(
-            torch.zeros(cfg.d_model, dtype=dtype, device=device),
-            requires_grad=False)
+            torch.zeros(cfg.d_model, dtype=dtype, device=device))
 
 
-@torch.no_grad()
 def gr_hidden(model: GRModel, cfg: ArchConfig, x: torch.Tensor,
               offsets: torch.Tensor, timestamps: torch.Tensor, *,
-              attn_fn: Optional[Callable] = None) -> torch.Tensor:
+              attn_fn: Optional[Callable] = None,
+              remat: bool = False) -> torch.Tensor:
     """x (cap, d) or (G, cap, d) packed embeddings → hidden states of the
-    same shape. Serving differentiates nothing, so there is no remat."""
+    same shape. ``remat`` wraps each layer in a non-reentrant
+    ``torch.utils.checkpoint``: only the layer inputs are kept, and the
+    backward reruns each layer's forward (the reference's
+    ``nothing_saveable`` policy)."""
     if attn_fn is None:
         attn_fn = default_attn_fn(cfg)
     plan = None
     if hasattr(attn_fn, "make_plan"):
         plan = attn_fn.make_plan(offsets, timestamps, x.shape[-2])
     for bp in model.blocks:
-        x = hstu_block(bp, cfg, x, offsets, timestamps, attn_fn=attn_fn,
-                       plan=plan)
+        def layer(x_, bp=bp):
+            return hstu_block(bp, cfg, x_, offsets, timestamps,
+                              attn_fn=attn_fn, plan=plan)
+        x = (checkpoint(layer, x, use_reentrant=False)
+             if remat and torch.is_grad_enabled() else layer(x))
     return _final_norm(model, cfg, x)
+
+
+def gr_hidden_sharded(model: GRModel, cfg: ArchConfig, x: torch.Tensor,
+                      offsets: torch.Tensor, timestamps: torch.Tensor, *,
+                      attn_fn: Optional[Callable] = None,
+                      remat: bool = True) -> torch.Tensor:
+    """The training forward over G shards: x (G, cap, d), offsets
+    (G, S+1), timestamps (G, cap) → (G, cap, d). The reference vmaps a
+    per-shard forward; here the G axis is written out, one attention plan
+    covers all G packs (built once per step) and each layer's kernels take
+    the G packs in one launch."""
+    if x.dim() != 3:
+        raise ValueError(f"x {tuple(x.shape)}: expected (G, cap, d)")
+    return gr_hidden(model, cfg, x, offsets, timestamps, attn_fn=attn_fn,
+                     remat=remat)
 
 
 def _final_norm(model: GRModel, cfg: ArchConfig,
@@ -84,10 +107,11 @@ def _final_norm(model: GRModel, cfg: ArchConfig,
     return y.to(x.dtype)
 
 
+@torch.no_grad()
 def gr_serve_hidden(model: GRModel, cfg: ArchConfig, x, offsets, timestamps,
                     *, attn_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Inference-mode hidden states; the plan is built once per
-    micro-batch and shared by every layer."""
+    """Inference-mode hidden states (no autograd, no remat); the plan is
+    built once per micro-batch and shared by every layer."""
     return gr_hidden(model, cfg, x, offsets, timestamps, attn_fn=attn_fn)
 
 

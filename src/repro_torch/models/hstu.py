@@ -1,4 +1,4 @@
-"""HSTU (Hierarchical Sequential Transduction Unit) block, forward only.
+"""HSTU (Hierarchical Sequential Transduction Unit) block.
 
 Jagged-native: every tensor is packed ``(cap, ...)`` (or ``(G, cap, ...)``
 for G packs) with int32 row offsets. Attention is pointwise (softmax-free):
@@ -158,7 +158,7 @@ class HSTUBlock(nn.Module):
             return torch.randn(*shape, dtype=torch.float32, **kw)
 
         def param(t):
-            return nn.Parameter(t, requires_grad=False)
+            return nn.Parameter(t)
 
         self.ln_w = param(torch.ones(d, dtype=dtype, device=device))
         self.ln_b = param(torch.zeros(d, dtype=dtype, device=device))

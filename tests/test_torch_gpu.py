@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA kernels against their plain versions and
-the serving slice on CUDA against the same slice on the CPU.
+"""The port on the card: the CUDA kernels against their plain versions, and
+the serving and training slices on CUDA against the same slices on the
+CPU.
 
 Every test here carries the ``gpu`` marker and skips without a card (the
 kernels are CUDA C++ and have no interpret mode). This file imports no jax,
@@ -140,3 +141,198 @@ def test_recall_engine_on_card_matches_cpu(cuda):
         assert h.cache_hit
         np.testing.assert_array_equal(x.item_ids, h.item_ids)
         np.testing.assert_array_equal(x.user_emb, h.user_emb)
+
+
+# --------------------------------------------------------------------------
+# training kernels: K2 (attention backward), K3/K4 (fused negatives), K6
+# --------------------------------------------------------------------------
+
+def _rel_to_max(a, b):
+    """max |a - b| over max |b|: fp32 results summed in another order."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attn_bwd_kernel_matches_plain_version(cuda, dtype, D):
+    """K2 against its plain version on a long-tail pack beside an
+    all-padding pack: fp32 grads to 1e-4 of their largest value (another
+    summation order), bf16 q/k/v grads per (token, head) by relative L2
+    (one bf16 rounding of an fp32 sum), the fp32 table grads to 1e-4 of
+    their largest value; the kernel is bit-identical run to run."""
+    from repro_torch.kernels.jagged_attention.ref import attention_bwd_plain
+    H, cap = 8, 1024
+    q, k, v, offs, ts = _pack(cuda, dtype, H, D,
+                              [[500, 3, 0, 300, 129], [0, 0, 0]], cap)
+    dy = torch.randn_like(q)
+    pt = torch.randn(256, H, device=cuda) * 0.5
+    tt = torch.randn(32, H, device=cuda) * 0.5
+    plan = ops._as_batched(build_attn_plan(offs, ts, cap, block=128,
+                                           max_row_len=1024))
+    kw = dict(scale=D ** -0.5, tb_denom=ops.time_bucket_denom(0.301),
+              use_pos=True, use_time=True)
+    before = ops.KERNEL_LAUNCHES["attn_bwd"]
+    got = ops._launch_bwd(q, k, v, dy, pt, tt, plan, **kw)
+    again = ops._launch_bwd(q, k, v, dy, pt, tt, plan, **kw)
+    torch.cuda.synchronize()
+    assert ops.KERNEL_LAUNCHES["attn_bwd"] == before + 2
+    want = attention_bwd_plain(q, k, v, dy, pt, tt, plan, **kw)
+    for name, a, b, c in zip(("dq", "dk", "dv", "dpt", "dtt"), got, want,
+                             again):
+        assert torch.equal(a, c), f"{name} differs between runs"
+        assert torch.isfinite(a.float()).all(), name
+        if name in ("dpt", "dtt") or dtype == torch.float32:
+            assert _rel_to_max(a, b) <= 1e-4, (name, _rel_to_max(a, b))
+        else:
+            assert max_row_rel_err(a, b) <= 1e-2, name
+    for t in got[:3]:
+        assert torch.count_nonzero(ops._masked(plan.meta_i32, t)[1]) == 0
+
+
+@pytest.mark.parametrize("case", ["bf16_o_fp16_table_e1", "fp32_e4",
+                                  "bf16_o_fp32_round_e2"])
+def test_neg_kernels_match_plain_version(cuda, case):
+    """K3 and K4 against their plain versions with invalid tokens, at
+    expansion 1, 2 and 4 (generator-drawn perms): lse and dpos to 1e-5
+    absolute, w to 1e-6, dout to 1e-4 of its largest value (sums over D
+    and R in another order); bit-identical run to run."""
+    from repro_torch.kernels import neg_logits as NL
+    from repro_torch.kernels.neg_logits import ref as NR
+    o_dt, t_dt, fetch, expansion, D = {
+        "bf16_o_fp16_table_e1": (torch.bfloat16, torch.float16, None, 1,
+                                 1024),
+        "fp32_e4": (torch.float32, torch.float32, None, 4, 256),
+        "bf16_o_fp32_round_e2": (torch.bfloat16, torch.float32,
+                                 torch.float16, 2, 512)}[case]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    T, R, V, seg = 1000, 32, 5000, 128
+    o = (torch.randn(T, D, device=cuda, generator=g) * 0.05).to(o_dt)
+    table = (torch.randn(V, D, device=cuda, generator=g) * 0.3).to(t_dt)
+    ids = torch.randint(0, V, (T, R), device=cuda, generator=g)
+    valid = torch.rand(T, device=cuda, generator=g) > 0.2
+    pos = torch.randn(T, device=cuda, generator=g)
+    o_p, pos_p, ids_p, valid_p, perms, _ = NL.prepare_fused_inputs(
+        o, pos, V, ids, segment=seg, expansion=expansion, generator=g,
+        valid=valid)
+    kw = dict(segment=seg, R=R, expansion=expansion, inv_tau=1.25,
+              fetch_dtype=fetch)
+    args = (o_p, pos_p, table, ids_p, valid_p, perms)
+    lse = NL.neg_fwd(*args, **kw)
+    gr = torch.randn_like(lse) * valid_p
+    w, dout, dpos = NL.neg_bwd(*args, lse, gr, **kw)
+    w2, dout2, _ = NL.neg_bwd(*args, lse, gr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(NL.neg_fwd(*args, **kw), lse)
+    assert torch.equal(w, w2) and torch.equal(dout, dout2)
+    p_lse = NR.neg_fwd_plain(*args, **kw)
+    pw, pdout, pdpos = NR.neg_bwd_plain(*args, p_lse, gr, **kw)
+    assert (lse - p_lse).abs().max().item() <= 1e-5
+    assert (dpos - pdpos).abs().max().item() <= 1e-5
+    assert (w - pw).abs().max().item() <= 1e-6
+    assert _rel_to_max(dout, pdout) <= 1e-4
+
+
+def test_runsum_kernel_matches_plain_version(cuda):
+    """K6 against its plain version on runs of 1 to 3000 rows and a run of
+    dropped ids: totals to 1e-5 of their largest value (the plain version
+    adds on the card with atomics), single-row runs bitwise (a sum of one
+    row is exact in any order); bit-identical run to run; dedup_rows puts
+    the same totals at the run ends."""
+    from repro_torch.kernels.jagged_lookup import ops as JL
+    from repro_torch.kernels.jagged_lookup.ref import run_totals_plain
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ids = torch.cat([torch.randint(0, 1 << 22, (20000,), device=cuda,
+                                   generator=g),
+                     torch.full((3000,), 17, device=cuda),
+                     torch.full((50,), -1, device=cuda),
+                     torch.randint(0, 40, (2000,), device=cuda,
+                                   generator=g)]).to(torch.int32)
+    rows = torch.randn(ids.numel(), 1024, device=cuda, generator=g)
+    order, sids = JL.sort_pairs(ids)
+    before = JL.KERNEL_LAUNCHES["runsum"]
+    u, out = JL.run_totals(rows, order, sids)
+    u2, again = JL.run_totals(rows, order, sids)
+    torch.cuda.synchronize()
+    assert JL.KERNEL_LAUNCHES["runsum"] == before + 2
+    assert torch.equal(out, again) and torch.equal(u, u2)
+    assert torch.equal(u, torch.unique(ids[ids >= 0]))
+    starts, num_runs = JL.run_starts(sids)
+    plain = run_totals_plain(rows, order, sids, int(num_runs),
+                             JL.DROP_KEY)[:u.numel()]
+    assert _rel_to_max(out, plain) <= 1e-5
+    single = torch.diff(starts[:u.numel() + 1]) == 1
+    assert int(single.sum()) > 10000
+    assert torch.equal(out[single], plain[single])
+    uids, sums = JL.dedup_rows(rows, ids)
+    assert torch.equal(uids[uids >= 0], u)
+    assert torch.equal(sums[uids >= 0], out)
+    assert torch.count_nonzero(sums[uids < 0]) == 0
+    assert JL.KERNEL_LAUNCHES["runsum"] == before + 3
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """The training slice at a reduced size (fp32, d 256 so the negative
+    kernels take it): 2 sync then 2 τ=1 steps on the card (kernels)
+    against the same steps on the CPU (plain versions) from the same init.
+    The dense learning rate is 0 here: AdamW's first step is lr·sign(g)
+    per element, so a grad element near zero would send the two dense
+    trajectories apart by design, and everything after would differ with
+    them. With the dense params fixed, losses agree to 1e-4, the carried
+    pairs' rows to 1e-4 of their largest value (the kernels sum in other
+    orders), and master elements to 1e-6 but for at most 1 in 1000, all to
+    1e-4 (AdaGrad's step −lr·g/√(g²+1e-10) follows g's relative error,
+    large where g's contributions cancel to near zero). The shadow stays
+    the master's fp16 image bit for bit; each step launches every kernel
+    of the path."""
+    from repro_torch.data import GRLoader, SyntheticKuaiRand
+    from repro_torch.kernels import jagged_lookup as JL
+    from repro_torch.kernels import neg_logits as NL
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.training import (gr_train_state, make_gr_train_step,
+                                      to_device)
+    cfg = reduced(get_arch("hstu-tiny")).replace(
+        d_model=256, vocab_size=3000, max_seq_len=256, dtype="float32",
+        num_negatives=16)
+    gen = SyntheticKuaiRand(num_users=40, num_items=cfg.vocab_size,
+                            mean_len=150, max_len=400, seed=2)
+    seqs = {u: (d["item"], d["ts"]) for u, d in
+            ((u, gen.interactions(u)) for u in range(40))}
+    batches = list(GRLoader(seqs, 2, 3, cfg.max_seq_len, 16,
+                            cfg.vocab_size).batches(4))
+    b = GRBundle(cfg)
+    g = torch.Generator().manual_seed(0)
+    model_cpu = b.init_dense(g, device="cpu")
+    master = b.init_table(g, device="cpu")
+    model_gpu = b.init_dense(device=cuda)
+    model_gpu.load_state_dict(model_cpu.state_dict())
+    runs = {}
+    for dev, model in (("cuda", model_gpu), ("cpu", model_cpu)):
+        state = gr_train_state(model, master.to(dev).clone())
+        losses, counts = [], []
+        for i, batch in enumerate(batches):
+            step = make_gr_train_step(
+                lambda d, t, bt, **kw: b.loss(d, t, bt,
+                                              neg_scatter_impl="two_pass",
+                                              **kw),
+                input_gather=b.input_gather, lr_dense=0.0,
+                semi_async=i >= 2)
+            for c in (ops.KERNEL_LAUNCHES, NL.KERNEL_LAUNCHES,
+                      JL.KERNEL_LAUNCHES):
+                c.update({k: 0 for k in c})
+            state, m = step(state, to_device(batch, dev))
+            losses.append(float(m["loss"]))
+            counts.append({**ops.KERNEL_LAUNCHES, **NL.KERNEL_LAUNCHES,
+                           **JL.KERNEL_LAUNCHES})
+        runs[dev] = (state, losses, counts)
+    (sg, lg, cg), (sc, lc, cc) = runs["cuda"], runs["cpu"]
+    L = cfg.num_layers
+    assert cg == [{"attn_fwd": 2 * L, "attn_bwd": L, "neg_fwd": 1,
+                   "neg_bwd": 1, "runsum": 1}] * 4
+    assert all(v == 0 for c in cc for v in c.values())
+    np.testing.assert_allclose(lg, lc, atol=1e-4, rtol=0)
+    assert torch.equal(sg.table.shadow, sg.table.master.half())
+    dm = (sg.table.master.cpu() - sc.table.master).abs()
+    assert dm.max() <= 1e-4 and (dm > 1e-6).float().mean() <= 1e-3
+    assert torch.equal(sg.pending_ids.cpu(), sc.pending_ids)
+    assert _rel_to_max(sg.pending_rows.cpu(), sc.pending_rows) <= 1e-4

@@ -142,7 +142,7 @@ def test_weights_carried_per_layer(dtype):
                                           src.astype(np.float32))
         for name, p in bp.rab.items():
             assert p.dtype == torch.float32
-            np.testing.assert_array_equal(p.numpy(),
+            np.testing.assert_array_equal(p.detach().numpy(),
                                           tree["blocks"]["rab"][name][i])
     H = cp.num_heads
     assert model.blocks[0].w_uvqk.shape == (cp.d_model, H * 4 * cp.qkv_dim)

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports no jax and nothing of the JAX package,
-and its entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: it imports no jax and nothing of the JAX package
+(every module, serving and training alike, runs with both blocked), and
+its entry points run on the card unless the caller asks for the CPU."""
 import re
 import subprocess
 import sys
@@ -10,8 +11,10 @@ import pytest
 import torch
 
 import repro_torch.configs as PC
-from repro_torch.convert import gr_params_from_numpy, table_from_numpy
+from repro_torch.convert import (gr_params_from_numpy, pending_from_numpy,
+                                 shadowed_table_from_numpy, table_from_numpy)
 from repro_torch.models.gr import GRModel
+from repro_torch.models.model_zoo import GRBundle
 from repro_torch.serving import RecallEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -38,6 +41,32 @@ reqs = [(u, rng.integers(0, 300, 9 + u), np.arange(9 + u) * 7)
         for u in range(5)]
 res = eng.serve(reqs)
 assert len(res) == 5 and all(np.isfinite(r.user_emb).all() for r in res)
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
+import repro_torch.core.negative_sampling, repro_torch.data
+import repro_torch.kernels.jagged_lookup, repro_torch.kernels.neg_logits
+import repro_torch.models.model_zoo, repro_torch.training
+import repro_torch.convert
+from repro_torch.data import GRLoader, SyntheticKuaiRand
+from repro_torch.models.model_zoo import GRBundle
+from repro_torch.training import gr_train_state, make_gr_train_step, to_device
+cfg = cfg.replace(num_negatives=4)
+b = GRBundle(cfg)
+gen = SyntheticKuaiRand(num_users=12, num_items=300, mean_len=20, max_len=40)
+seqs = {u: (d["item"], d["ts"]) for u, d in
+        ((u, gen.interactions(u)) for u in range(12))}
+loader = GRLoader(seqs, 2, 2, 40, 4, 300)
+st = gr_train_state(b.init_dense(g, device="cpu"),
+                    b.init_table(g, device="cpu"))
+for semi in (False, True):
+    step = make_gr_train_step(
+        lambda d, t, bt, **kw: b.loss(d, t, bt, neg_segment=32,
+                                      neg_scatter_impl="two_pass", **kw),
+        input_gather=b.input_gather, semi_async=semi)
+    for batch in loader.batches(2):
+        st, m = step(st, to_device(batch, "cpu"))
+        assert np.isfinite(float(m["loss"]))
+assert st.pending_ids.numel() > 0
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.encoded_batches)
@@ -73,6 +102,12 @@ def _cpu_model():
 
 ENTRY_POINTS = {
     "GRModel": lambda: GRModel(_cfg()),
+    "GRBundle.init_dense": lambda: GRBundle(_cfg()).init_dense(),
+    "GRBundle.init_table": lambda: GRBundle(_cfg()).init_table(),
+    "shadowed_table_from_numpy": lambda: shadowed_table_from_numpy(
+        np.zeros((4, 2), np.float32), None, np.zeros((4, 2), np.float32)),
+    "pending_from_numpy": lambda: pending_from_numpy(
+        np.zeros(3, np.int32), np.zeros((3, 2), np.float32)),
     "RecallEngine": lambda: RecallEngine(_cfg(), _cpu_model(),
                                          torch.zeros(64, 128)),
     "gr_params_from_numpy": lambda: gr_params_from_numpy({}, _cfg()),
