@@ -14,9 +14,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
                long-tail pack of G=2 shards of 8192 tokens, and a pack with
                empty rows beside an all-padding shard), K3/K4 (the fused
                negative path; T=8192 tokens, R=128, d 1024, bf16 o, fp16
-               shadow of 2^22 rows, invalid tokens, expansion 1 and 4) and
-               K6 (the sorted run-sum; ~1.06 M rows of 1024 on a mix of run
-               lengths).
+               shadow of 2^22 rows, invalid tokens, expansion 1 and 4), K6
+               (the sorted run-sum; ~1.06 M rows of 1024 on a mix of run
+               lengths) and K5 (the weighted run-sum scatter, on the same
+               ids: ~1.05 M negative slots generated from bf16 o and ~16 K
+               ready rows), K5 also bitwise against two-pass rows + K6.
   4. serve   — RecallEngine on full-width hstu-large (vocab 2^22, fp32
                master + fp16 shadow on the card, 16 layers, bf16) serves a
                cold, a pure-hit and an incremental round; the kernels'
@@ -24,15 +26,28 @@ Phases, each printed on its own lines; any failure exits non-zero:
   5. train   — make_gr_train_step on full-width hstu-large (16 layers,
                vocab 2^22; fp32 master, fp32 AdaGrad accumulator and fp16
                shadow on the card) over the port's GRLoader on synthetic
-               KuaiRand (1 shard x 4 users x 2048 events, R=128): 3 sync
-               steps, then 3 tau=1 steps, launch counts zeroed before and
-               read after each step; then one profiled step.
-  6. parity  — one training step at full width, 2 layers, vocab 2^18, with
-               the kernels against the same step with the plain versions on
-               the card, from the same init.
-  7. result  — one JSON line of kernel numbers, the nvidia-smi line, and
+               KuaiRand (1 shard x 4 users x 2048 events, R=128), with the
+               two-pass negative scatter (K6's path): 3 sync steps, then 3
+               tau=1 steps, launch counts zeroed before and read after each
+               step; then one profiled step.
+  6. engine  — the main path of the training entry point: GREngine on the
+               same model and loader mix with the default fused scatter
+               (K5), tau=1, 8 steps of the Algorithm-1 pipeline with launch
+               counts zeroed before and read after, then 6 more under the
+               profiler (a steady-state window), then 8 steps of the flat
+               schedule from the same init, which must give the same
+               losses bit for bit.
+  7. parity  — at full width, 2 layers, vocab 2^18: one training step's
+               dense pass and table-grad pairs with the kernels against the
+               plain versions on the card (two-pass and fused); GREngine
+               (algorithm1 and flat) against make_gr_train_step, 4 steps,
+               sync and tau=1, bit for bit.
+  8. cli     — python -m repro_torch.launch.train on hstu-large as a
+               subprocess (8 steps on preprocessed synthetic KuaiRand).
+  9. result  — one JSON line of kernel numbers, the nvidia-smi line, and
                the final status line.
 """
+import gc
 import json
 import math
 import os
@@ -489,17 +504,12 @@ def phase_runsum_kernel():
     ``run_totals``, the wrapper the training path calls."""
     import numpy as np
     import torch
-    from repro_torch.data import SyntheticKuaiRand
     from repro_torch.kernels.jagged_lookup import ops as JL
     from repro_torch.kernels.jagged_lookup.ref import run_totals_plain
     dev = torch.device("cuda")
     T, R, D, V = 8192, 128, 1024, 2 ** 22
-    rng = np.random.default_rng(SEED)
-    zipf = SyntheticKuaiRand(num_items=V)._items(rng, 2 * T)
-    ids = torch.cat([torch.from_numpy(zipf.astype(np.int32)),
-                     torch.from_numpy(rng.integers(0, V, T * R,
-                                                   dtype=np.int32)),
-                     torch.full((64,), -1, dtype=torch.int32)]).to(dev)
+    ids = torch.from_numpy(np.concatenate(_k6_phase_ids(
+        np.random.default_rng(SEED), T, R, V))).to(dev)
     n = ids.numel()
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows = torch.randn(n, D, device=dev, generator=gen)
@@ -562,6 +572,152 @@ def phase_runsum_kernel():
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib_ms)
+
+
+def _k6_phase_ids(rng, T, R, V):
+    """The K6 phase's ids: zipf input ids and labels (2T), uniform
+    negatives (T·R), 64 dropped."""
+    import numpy as np
+    from repro_torch.data import SyntheticKuaiRand
+    zipf = SyntheticKuaiRand(num_items=V)._items(rng, 2 * T)
+    return (zipf.astype(np.int32), rng.integers(0, V, T * R, dtype=np.int32),
+            np.full((64,), -1, np.int32))
+
+
+def phase_wscatter_kernel():
+    """K5 on the K6 phase's mix, laid out as the training path lays out a
+    step's slots: the T·R = 1,048,576 negative slots first (uniform ids,
+    rows w·(o·scale) from bf16 o, T = 8192, R = 128, d 1024), then the
+    2T zipf input/label ids and the 64 dropped ids as ready fp32 rows,
+    through ``weighted_run_totals``, the wrapper the training path calls.
+    Held against its plain version, against two-pass rows + K6 (bitwise)
+    and against itself (bitwise). The path's scale is 1/τ = 1; 1/0.7 is
+    used here so that the bitwise check also sees the products' order."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.jagged_lookup import ops as JL
+    from repro_torch.kernels.jagged_lookup.ref import weighted_run_totals_plain
+    dev = torch.device("cuda")
+    T, R, D, V = 8192, 128, 1024, 2 ** 22
+    zipf, neg, drop = _k6_phase_ids(np.random.default_rng(SEED), T, R, V)
+    ids = torch.from_numpy(np.concatenate([neg, zipf, drop])).to(dev)
+    n, TR = ids.numel(), T * R
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    o = torch.randn(T, D, device=dev, generator=gen).to(torch.bfloat16)
+    w = torch.rand(T, R, device=dev, generator=gen) / R
+    extra = torch.randn(n - TR, D, device=dev, generator=gen)
+    scale = 1 / 0.7
+    order, sids = JL.sort_pairs(ids)
+    before = JL.KERNEL_LAUNCHES["wscatter"]
+    u, out = JL.weighted_run_totals(o, w, extra, order, sids, scale=scale)
+    u2, again = JL.weighted_run_totals(o, w, extra, order, sids, scale=scale)
+    torch.cuda.synchronize()
+    check(JL.KERNEL_LAUNCHES["wscatter"] == before + 2,
+          "the K5 wrapper did not launch the kernel")
+    same = torch.equal(out, again) and torch.equal(u, u2)
+    del again
+    ids_ok = torch.equal(u, torch.unique(ids[ids >= 0]).to(u.dtype))
+    starts, num_runs, n_runs, _, _ = JL._runs(sids)
+    plain = weighted_run_totals_plain(o, w, extra, order, sids, n_runs,
+                                      JL.DROP_KEY, scale)[:u.numel()]
+    err = (out - plain).abs().max().item()
+    rel = _rel_to_max(out, plain)
+    del plain
+    # the two-pass composition: every row built (the (T·R, D) buffer),
+    # then K6 over all slots
+    rows = torch.empty((n, D), device=dev)
+    neg_rows = rows[:TR].view(T, R, D)
+
+    def two_pass_rows():
+        torch.mul(w[:, :, None], (o.float() * scale)[:, None], out=neg_rows)
+    two_pass_rows()
+    rows[TR:] = extra
+    u6, out6 = JL.run_totals(rows, order, sids)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(u6, u) and torch.equal(out6, out)
+    del out6
+    buf = torch.empty((n_runs, D), device=dev)
+    ms = timed_ms(lambda: JL._launch_wscatter(o, w, extra, order, sids,
+                                              starts, num_runs, buf,
+                                              scale=scale), 10)
+    wrapper_ms = timed_ms(lambda: JL.weighted_run_totals(
+        o, w, extra, order, sids, scale=scale), 5)
+    plain_ms = timed_ms(lambda: weighted_run_totals_plain(
+        o, w, extra, order, sids, n_runs, JL.DROP_KEY, scale), 2, warmup=1)
+
+    def two_pass():
+        two_pass_rows()
+        JL._launch_runsum(rows, order, sids, starts, num_runs, buf)
+    two_pass_ms = timed_ms(two_pass, 5)
+    del rows, neg_rows
+    # the library call: the sorted slots as a CSR matrix, a row per run and
+    # a column per row of o and per ready row, w (1 for a ready row) as the
+    # value; one cuSPARSE SpMM of it with [o·scale; extra] gives every run's
+    # total without building the rows. The matrix is built outside the
+    # timed region.
+    neg_slot = order < TR
+    csr = torch.sparse_csr_tensor(
+        starts[:n_runs + 1].long(),
+        torch.where(neg_slot, order // R, T + order - TR),
+        torch.where(neg_slot, w.reshape(-1)[order.clamp(max=TR - 1)], 1.0),
+        size=(n_runs, T + n - TR))
+    library = lambda: torch.sparse.mm(                      # noqa: E731
+        csr, torch.cat([o.float() * scale, extra]))
+    lib_rel = _rel_to_max(out, library()[:u.numel()])
+    lib_ms = timed_ms(library, 5)
+    del csr
+    # the engine's host sort (its unique stage) against the device sort it
+    # replaces, on these slots clipped to [0, V) as the engine clips them
+    from repro_torch.training import host_sort_contribs
+    clipped = ids.clamp(0, V - 1)
+    dev_sort_ms = timed_ms(lambda: JL.sort_pairs(clipped), 10)
+    d_order, d_keys = JL.sort_pairs(clipped)
+    t = time.perf_counter()
+    for _ in range(3):
+        h_order, h_keys = host_sort_contribs(
+            {"neg_ids": neg, "ids": zipf, "labels": drop}, V)
+    host_sort_ms = (time.perf_counter() - t) * 1e3 / 3
+    same_perm = (torch.equal(d_order.cpu(), torch.from_numpy(h_order))
+                 and torch.equal(d_keys.cpu(), torch.from_numpy(h_keys)))
+    del d_order, d_keys, clipped
+    # bf16 o, the weights, the ready rows, the order, the sorted ids and the
+    # run pointers read once; one total written per run
+    byts = (T * D * 2 + TR * 4 + (n - TR) * D * 4 + n * 8 + n * 4
+            + (n_runs + 1) * 4 + n_runs * D * 4)
+    ops = 3 * TR * D + (n - TR) * D
+    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = byts / PEAK_BYTES * 1e3
+    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                               else "bytes")
+    say(f"[kernels] wscatter: {n} slots ({TR} negative from bf16 o, "
+        f"{n - TR} ready rows), {n_runs} runs, {u.numel()} unique ids >= 0; "
+        f"ids equal {ids_ok}, max_abs {err:.3e} ({rel:.3e} of max), "
+        f"bitwise equal to two-pass rows + K6 {bitwise}, bit-identical "
+        f"rerun {same} | kernel {ms:.4f} ms (wrapper with sort pointers and "
+        f"run-count sync {wrapper_ms:.4f} ms)  plain {plain_ms:.3f} ms  "
+        f"two-pass (mul + K6) {two_pass_ms:.4f} ms  bound {bound_ms:.4f} ms "
+        f"by {bound_by} ({byts / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP) -> "
+        f"{bound_ms / ms:.3f} of bound")
+    say(f"[kernels] wscatter library call, CSR (runs x [o; extra]) "
+        f"torch.sparse.mm: {lib_ms:.4f} ms, {lib_rel:.3e} of max from K5")
+    say(f"[kernels] sort of the {n} slots: device sort_pairs "
+        f"{dev_sort_ms:.4f} ms; the engine's host sort (numpy, stable) "
+        f"{host_sort_ms:.1f} ms of host time; the same permutation "
+        f"{same_perm}")
+    # fp32 sums of up to thousands of rows in another order (the plain
+    # version and cuSPARSE add on the card in their own orders): 1e-4 of
+    # the largest total; against two-pass + K6 the same products added in
+    # the same order
+    check(same and ids_ok and rel <= GRAD_TOL_FP32,
+          "K5 disagrees with its plain version")
+    check(lib_rel <= GRAD_TOL_FP32, "K5 disagrees with the CSR library call")
+    check(bitwise, "K5 differs from two-pass rows + K6")
+    check(same_perm, "the host sort differs from the device sort")
+    del out, buf, extra, o, w
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms, two_pass_ms=two_pass_ms,
+                device_sort_ms=dev_sort_ms, host_sort_ms=host_sort_ms)
 
 
 # --------------------------------------------------------------------------
@@ -807,7 +963,7 @@ def _read_counts():
     return out
 
 
-def _train_batches(V, steps, users=64):
+def _train_loader(V, users=64):
     """The port's GRLoader over the port's synthetic KuaiRand: 1 shard x 4
     users x 2048 events (cap 8192), R = 128 negatives per token."""
     from repro_torch.data import GRLoader, SyntheticKuaiRand
@@ -815,10 +971,13 @@ def _train_batches(V, steps, users=64):
                             sigma_len=0.6, max_len=4096, seed=SEED)
     seqs = {u: (d["item"], d["ts"]) for u, d in
             ((u, gen.interactions(u)) for u in range(users))}
-    loader = GRLoader(seqs, num_devices=1, users_per_device=4,
-                      max_seq_len=2048, num_negatives=128, num_items=V,
-                      seed=SEED)
-    return list(loader.batches(steps))
+    return GRLoader(seqs, num_devices=1, users_per_device=4,
+                    max_seq_len=2048, num_negatives=128, num_items=V,
+                    seed=SEED)
+
+
+def _train_batches(V, steps):
+    return list(_train_loader(V).batches(steps))
 
 
 def phase_train():
@@ -893,7 +1052,7 @@ def phase_train():
             f"{peak / 1e9:.2f} GB above the tables; carry "
             f"{state.pending_ids.numel()} pairs; launches {counts}")
         want = {"attn_fwd": 2 * L, "attn_bwd": L, "neg_fwd": 1,
-                "neg_bwd": 1, "runsum": 1}
+                "neg_bwd": 1, "runsum": 1, "wscatter": 0}
         check(counts == want, f"step {i} launched {counts}, expected {want}")
         check(math.isfinite(loss), f"step {i} loss {loss} is not finite")
         # no (V, d) fp32 array: one alone would lift the peak by V·d·4
@@ -951,8 +1110,11 @@ def _device_rows(prof):
     from torch.autograd import DeviceType
     rows = []
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CPU:      # host ops: their kernels
-            continue                             # are listed on their own
+        # host ops (their kernels are listed on their own) and the
+        # profiler's step annotations (they span the step's kernels)
+        if (e.device_type == DeviceType.CPU
+                or e.key.startswith("ProfilerStep")):
+            continue
         dev_us = getattr(e, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "cuda_time_total", 0)
@@ -963,7 +1125,189 @@ def _device_rows(prof):
 
 
 # --------------------------------------------------------------------------
-# phase 6: one step, kernels against plain versions
+# phase 6: the engine (the training entry point's main path)
+# --------------------------------------------------------------------------
+
+ENGINE_STEPS = 8
+
+
+def _engine_run(schedule, V, base_note, engine_cls=None, label=None):
+    """GREngine on full-width hstu-large, tau=1, the default fused scatter,
+    ENGINE_STEPS steps; per step the loss, the host wall between the ends
+    of consecutive steps (each step's loss is realised on the host, so the
+    host waits on the card once a step) and the peak above the tables."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.training import GREngine
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("hstu-large")
+    t0 = time.perf_counter()
+    eng = (engine_cls or GREngine)(GRBundle(cfg), _train_loader(V),
+                                   seed=SEED, schedule=schedule,
+                                   semi_async=True, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    marks, peaks = [], []
+
+    def on_step(i, rec, state):
+        marks.append(time.perf_counter())
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        torch.cuda.reset_peak_memory_stats()
+
+    eng.step_callback = on_step
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    recs = eng.run(ENGINE_STEPS)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = _read_counts()
+    walls = [m - p for m, p in zip(marks, [t0] + marks[:-1])]
+    steps = [dict(step=r["step"], loss=r["loss"], tokens=r["tokens"],
+                  wall_s=wl, peak_above_tables_gb=pk / 1e9)
+             for r, wl, pk in zip(recs, walls, peaks)]
+    name = label or schedule
+    for r in steps:
+        say(f"[engine] {name} step {r['step']}: loss {r['loss']:.5f}; "
+            f"{r['tokens']} tokens; wall {r['wall_s'] * 1e3:.1f} ms "
+            f"(step end to step end); peak {r['peak_above_tables_gb']:.2f} "
+            f"GB above the tables")
+    tl = eng.timeline_report()
+    say(f"[engine] {name}: set-up {setup:.1f} s ({base_note}); run "
+        f"{total * 1e3:.1f} ms for {ENGINE_STEPS} steps, steady steps 3.. "
+        f"mean {1e3 * sum(walls[3:]) / len(walls[3:]):.1f} ms; timeline "
+        f"computing {tl['computing_ratio']:.4f}, comm not overlapped "
+        f"{tl['comm_not_overlapped_ratio']:.4f}, free "
+        f"{tl['free_ratio']:.4f}; stage busy "
+        f"{ {k: round(v * 1e3, 1) for k, v in tl['stage_s'].items()} } ms; "
+        f"launches {counts}")
+    return eng, dict(schedule=name, steps=steps, total_s=total,
+                     timeline=tl, launches=counts)
+
+
+def phase_engine():
+    """The training entry point's main path at full width: GREngine over
+    the port's GRLoader (1 x 4 x 2048, R 128, vocab 2^22), tau=1, the
+    default fused scatter, Algorithm-1 schedule, then a profiled window,
+    then the flat schedule from the same init."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.configs import get_arch
+    from repro_torch.training import host_unique_candidates
+    cfg = get_arch("hstu-large")
+    V, d, L = cfg.vocab_size, cfg.d_model, cfg.num_layers
+    eng, alg = _engine_run("algorithm1", V, "tables drawn on the card")
+    losses = [r["loss"] for r in alg["steps"]]
+    want = {"attn_fwd": 2 * L, "attn_bwd": L, "neg_fwd": 1, "neg_bwd": 1,
+            "runsum": 0, "wscatter": 1}
+    want = {k: ENGINE_STEPS * v for k, v in want.items()}
+    check(alg["launches"] == want, f"the engine launched {alg['launches']}, "
+          f"expected {want}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(4.6 <= losses[0] <= 5.6, f"first loss {losses[0]} outside [4.6, "
+          f"5.6] (ln(129) + 0.64²/2 = 5.07 at init)")
+    peak = max(r["peak_above_tables_gb"] for r in alg["steps"])
+    check(peak < V * d * 4 / 1e9, f"the engine peaks {peak:.2f} GB above "
+          f"the tables, not below a (V, d) fp32 array "
+          f"({V * d * 4 / 1e9:.2f} GB)")
+    tbl = eng.state.table
+    touched = np.unique(np.concatenate(
+        [host_unique_candidates(b, V)[0]
+         for b in _train_loader(V).batches(ENGINE_STEPS)]))
+    rows = torch.from_numpy(touched).to(tbl.master.device)
+    bad = 0
+    for lo in range(0, rows.numel(), 1 << 18):
+        idx = rows[lo:lo + (1 << 18)].long()
+        bad += int((tbl.shadow[idx] != tbl.master[idx].half()).sum())
+    check(bad == 0, f"engine: shadow != master.half() at {bad} elements")
+    say(f"[engine] checks: launches {ENGINE_STEPS} x one step's; losses "
+        f"finite, first {losses[0]:.4f}; peak above the tables {peak:.2f} "
+        f"GB < {V * d * 4 / 1e9:.2f} GB (no (V, d) fp32 array); shadow == "
+        f"master.half() bitwise on the {rows.numel()} touched rows; carry "
+        f"{eng.state.pending_ids.numel()} pairs")
+
+    # a steady-state window under the profiler: 6 more steps (the carry of
+    # the first run lands mid-prologue), steps 3 and 4 recorded
+    window, marks = [], []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=2, warmup=1, active=2, repeat=1),
+                 on_trace_ready=lambda p: window.append(_device_rows(p))
+                 ) as prof:
+        def on_step(i, rec, state):
+            marks.append(time.perf_counter())
+            prof.step()
+        eng.step_callback = on_step
+        more = eng.run(6)
+        torch.cuda.synchronize()
+    check(len(window) == 1 and all(math.isfinite(r["loss"]) for r in more),
+          "engine: the profiled window recorded nothing or lost finite "
+          "losses")
+    rows_ = window[0]
+    wall = (marks[4] - marks[2]) * 1e3
+    busy = sum(r[0] for r in rows_)
+    say(f"[profile] engine algorithm1 steady window (2 steps): wall "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / wall:.3f}")
+    for ms, n, key in rows_[:12]:
+        say(f"[profile]   {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+    prof_out = {"wall_ms": wall, "busy_ms": busy,
+                "top": [(r[2][:60], r[0], r[1]) for r in rows_[:12]]}
+    del eng, tbl, rows
+    flat_eng, flat = _engine_run("flat", V, "the same seed")
+    del flat_eng
+    torch.cuda.empty_cache()
+    flat_losses = [r["loss"] for r in flat["steps"]]
+    check(flat["launches"] == want, f"flat launched {flat['launches']}")
+    check(flat_losses == losses, f"flat losses {flat_losses} differ from "
+          f"algorithm1's {losses}")
+    say(f"[engine] flat schedule from the same init: losses equal to "
+        f"algorithm1's bit for bit")
+
+    # the same runs with the device sort in place of the host sort
+    def steady_ms(r):
+        w = [x["wall_s"] for x in r["steps"][3:]]
+        return 1e3 * sum(w) / len(w)
+    device_sort = {}
+    for sched, host in (("algorithm1", alg), ("flat", flat)):
+        e, r = _engine_run(sched, V, "the same seed",
+                           _device_sort_engine_cls(),
+                           f"{sched}+device-sort")
+        del e
+        torch.cuda.empty_cache()
+        got = [x["loss"] for x in r["steps"]]
+        check(got == losses, f"{sched} with the device sort: losses {got} "
+              f"differ from the host sort's {losses}")
+        check(r["launches"] == want, f"{sched} with the device sort "
+              f"launched {r['launches']}")
+        device_sort[sched] = dict(steady_ms=steady_ms(r),
+                                  host_sort_steady_ms=steady_ms(host),
+                                  timeline=r["timeline"])
+        say(f"[engine] {sched}: steady steps 3.. mean {steady_ms(r):.1f} ms "
+            f"with the device sort, {steady_ms(host):.1f} ms with the host "
+            f"sort; losses equal bit for bit")
+    return alg, flat, prof_out, device_sort
+
+
+def _device_sort_engine_cls():
+    from repro_torch.training import GREngine
+
+    class DeviceSortEngine(GREngine):
+        """GREngine whose unique stage hands ``emb_bwd`` no sort, so that
+        ``emb_bwd`` sorts the step's slots on the card: what the engine
+        runs without its host sort (a measurement only)."""
+
+        def _hk_unique(self, i, art):
+            return {**art, "sort": ()}
+    return DeviceSortEngine
+
+
+# --------------------------------------------------------------------------
+# phase 7: kernels against plain versions; the engine's bitwise contract
 # --------------------------------------------------------------------------
 
 class _PlainVersions:
@@ -992,9 +1336,12 @@ class _PlainVersions:
 
 
 def phase_parity():
-    """One sync step's dense_fwd_bwd + table-grad pairs at full width, 2
-    layers, vocab 2^18: kernels against plain versions on the card, same
-    init, same batch."""
+    """At full width, 2 layers, vocab 2^18, from one init: (a) one sync
+    step's dense_fwd_bwd + table-grad pairs, kernels against plain
+    versions on the card, with the two-pass scatter (K6) and the fused one
+    (K5); (b) GREngine, algorithm1 and flat, against make_gr_train_step
+    over 4 steps, sync and tau=1: losses, every state tensor and the carry
+    bit for bit."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.model_zoo import GRBundle
@@ -1007,50 +1354,149 @@ def phase_parity():
     bundle = GRBundle(cfg)
     state = gr_train_state(bundle.init_dense(gen, device=dev),
                            bundle.init_table(gen, device=dev))
-    batch = to_device(_train_batches(V, 1)[0], dev)
-    st = make_gr_stages(
-        lambda dd, t, bt, **kw: bundle.loss(dd, t, bt,
-                                            neg_scatter_impl="two_pass",
-                                            **kw),
-        input_gather=bundle.input_gather, semi_async=False)
+    batches = _train_batches(V, 4)
+    batch = to_device(batches[0], dev)
 
-    def run():
-        out = st.dense_fwd_bwd(state.dense, state.table, batch)
-        ids, rows = _table_grad_pairs(*out.table_contribs.pop(), V)
+    peaks = {}
+
+    def run(impl):
+        st = make_gr_stages(
+            lambda dd, t, bt, **kw: bundle.loss(dd, t, bt,
+                                                neg_scatter_impl=impl, **kw),
+            input_gather=bundle.input_gather, semi_async=False)
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = st.dense_fwd_bwd(state.dense, state.table, batch)
+        ids, rows = _table_grad_pairs(out.table_contribs.pop(), V)
+        torch.cuda.synchronize()
+        peaks.setdefault(impl, (torch.cuda.max_memory_allocated() - base)
+                         / 1e9)
         return out.loss.item(), out.grads_dense, ids, rows
 
-    _zero_counts()
-    kl, kg, kids, krows = run()
-    counts = _read_counts()
-    with _PlainVersions():
+    res = {}
+    for impl, kname in (("two_pass", "runsum"), ("fused", "wscatter")):
         _zero_counts()
-        pl, pg, pids, prows = run()
-        plain_counts = _read_counts()
-    check(all(v > 0 for v in counts.values())
-          and not any(plain_counts.values()),
-          f"kernel run launched {counts}, plain run {plain_counts}")
-    g_err = {n: _rel_to_max(kg[n], pg[n]) for n in kg}
-    worst = max(g_err, key=g_err.get)
-    ids_equal = torch.equal(kids, pids)
-    r_err = _rel_to_max(krows, prows) if ids_equal else math.inf
-    say(f"[parity] {cfg.name} x {cfg.num_layers} layers, vocab {V}, bf16: "
-        f"loss kernels {kl:.6f} plain {pl:.6f} (|d| {abs(kl - pl):.2e}); "
-        f"dense grads worst {worst} {g_err[worst]:.3e} of its max (median "
-        f"over {len(g_err)} tensors "
-        f"{sorted(g_err.values())[len(g_err) // 2]:.3e}); table-grad pairs "
-        f"{kids.numel()} ids equal {ids_equal}, rows {r_err:.3e} of max")
-    # bf16 activations: an attention output or weight that rounds the
-    # other way moves by one bf16 ulp (2^-8 relative) and the loss and
-    # grads carry it through 2 layers: loss to 1e-3 of itself, grads and
-    # table rows to 5e-2 of their largest values
-    check(abs(kl - pl) <= 1e-3 * abs(pl), "parity: loss")
-    check(g_err[worst] <= 5e-2, f"parity: dense grad {worst}")
-    check(ids_equal and r_err <= 5e-2, "parity: table-grad pairs")
+        kl, kg, kids, krows = run(impl)
+        counts = _read_counts()
+        with _PlainVersions():
+            _zero_counts()
+            pl, pg, pids, prows = run(impl)
+            plain_counts = _read_counts()
+        other = {"runsum": "wscatter", "wscatter": "runsum"}[kname]
+        check(all(v > 0 for k, v in counts.items() if k != other)
+              and counts[other] == 0 and not any(plain_counts.values()),
+              f"{impl}: kernel run launched {counts}, plain run "
+              f"{plain_counts}")
+        g_err = {n: _rel_to_max(kg[n], pg[n]) for n in kg}
+        worst = max(g_err, key=g_err.get)
+        ids_equal = torch.equal(kids, pids)
+        r_err = _rel_to_max(krows, prows) if ids_equal else math.inf
+        say(f"[parity] {cfg.name} x {cfg.num_layers} layers, vocab {V}, "
+            f"bf16, {impl} scatter: loss kernels {kl:.6f} plain {pl:.6f} "
+            f"(|d| {abs(kl - pl):.2e}); dense grads worst {worst} "
+            f"{g_err[worst]:.3e} of its max (median over {len(g_err)} "
+            f"tensors {sorted(g_err.values())[len(g_err) // 2]:.3e}); "
+            f"table-grad pairs {kids.numel()} ids equal {ids_equal}, rows "
+            f"{r_err:.3e} of max")
+        # bf16 activations: an attention output or weight that rounds the
+        # other way moves by one bf16 ulp (2^-8 relative) and the loss and
+        # grads carry it through 2 layers: loss to 1e-3 of itself, grads
+        # and table rows to 5e-2 of their largest values
+        check(abs(kl - pl) <= 1e-3 * abs(pl), f"parity {impl}: loss")
+        check(g_err[worst] <= 5e-2, f"parity {impl}: dense grad {worst}")
+        check(ids_equal and r_err <= 5e-2, f"parity {impl}: table-grad pairs")
+        res[impl] = dict(loss=(kl, pl), grad_worst=(worst, g_err[worst]),
+                         rows=r_err, ids=kids, pairs=krows)
+    same = (torch.equal(res["fused"]["ids"], res["two_pass"]["ids"])
+            and torch.equal(res["fused"]["pairs"], res["two_pass"]["pairs"]))
+    say(f"[parity] kernels, fused vs two-pass table-grad pairs bit for bit: "
+        f"{same}; peak above the state over one dense pass + pairs "
+        f"(T = {batch['ids'].numel()} tokens, R = {cfg.num_negatives}): "
+        f"two-pass {peaks['two_pass']:.2f} GB, fused {peaks['fused']:.2f} GB")
+    check(same, "parity: the fused and two-pass steps' pairs differ")
+    for r in res.values():
+        del r["ids"], r["pairs"]
+    res["peak_gb"] = peaks
+    res["engine"] = _engine_contract(bundle, state, batches)
     del state
     torch.cuda.empty_cache()
-    return dict(loss=(kl, pl), grad_worst=(worst, g_err[worst]),
-                rows=r_err)
+    return res
+
+
+def _engine_contract(bundle, init, batches):
+    """GREngine (algorithm1, flat) against make_gr_train_step over 4
+    steps from ``init``, sync and tau=1, kernels on: every loss, state
+    tensor and the carry equal bit for bit."""
+    import torch
+    from repro_torch.training import (GREngine, clone_state, make_gr_step_fn,
+                                      state_tensors, to_device)
+    out = {}
+    for semi in (False, True):
+        step = make_gr_step_fn(bundle, semi_async=semi)
+        ref = clone_state(init)
+        losses = []
+        for b in batches:
+            ref, m = step(ref, to_device(b, init.table.master.device))
+            losses.append(float(m["loss"]))
+        for sched in ("algorithm1", "flat"):
+            eng = GREngine(bundle, lambda i: batches[i],
+                           state=clone_state(init), semi_async=semi,
+                           schedule=sched)
+            got = [r["loss"] for r in eng.run(len(batches))]
+            st = eng.state
+            equal = (got == losses and st.step == ref.step
+                     and all(torch.equal(a, b) for a, b in
+                             zip(state_tensors(st), state_tensors(ref))))
+            name = f"{'tau1' if semi else 'sync'} {sched}"
+            say(f"[parity] GREngine {name} vs make_gr_train_step, "
+                f"{len(batches)} steps: losses {got}; every state tensor "
+                f"and the carry ({st.pending_ids.numel()} pairs) bit for "
+                f"bit: {equal}")
+            check(equal, f"GREngine {name} differs from make_gr_train_step")
+            out[name] = equal
+            del eng, st
+        del ref
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 8: the training CLI
+# --------------------------------------------------------------------------
+
+CLI_ARGS = ["--arch", "hstu-large", "--steps", "8", "--synthetic-users",
+            "400", "--num-items", "200000", "--max-seq-len", "512",
+            "--users-per-device", "2", "--num-negatives", "32",
+            "--log-every", "4"]
+
+
+def phase_cli():
+    """``python -m repro_torch.launch.train`` on the card, as a user runs
+    it: must exit 0 and end with ``[done]`` and a finite final loss."""
+    import torch
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *CLI_ARGS]
+    t = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t
+    for ln in p.stdout.strip().splitlines():
+        say(f"[cli] {ln}")
+    check(p.returncode == 0, f"the CLI exited {p.returncode}: "
+          f"{p.stderr[-3000:]}")
+    done = [ln for ln in p.stdout.splitlines() if ln.startswith("[done]")]
+    check(len(done) == 1 and "final loss" in done[0],
+          "the CLI printed no [done] line with a final loss")
+    final = float(done[0].rsplit("final loss", 1)[1])
+    check(math.isfinite(final), f"the CLI's final loss {final}")
+    say(f"[cli] {' '.join(CLI_ARGS)}: exit 0 in {wall:.1f} s, final loss "
+        f"{final:.4f}")
+    return dict(wall_s=wall, final_loss=final)
 
 
 # --------------------------------------------------------------------------
@@ -1076,9 +1522,12 @@ def main():
         attn = run("attn_kernels", phase_kernels)
         neg = run("neg_kernels", phase_neg_kernels)
         rs = run("runsum_kernel", phase_runsum_kernel)
+        ws = run("wscatter_kernel", phase_wscatter_kernel)
         serve_launches, per_round, serve_prof = run("serve", phase_serve)
         per_step, train_prof = run("train", phase_train)
-        parity = run("parity", phase_parity)
+        alg, flat, engine_prof, device_sort = run("engine", phase_engine)
+        run("parity", phase_parity)
+        run("cli", phase_cli)
     except Failed as e:
         say(f"FAIL: {e}")
         return 1
@@ -1093,6 +1542,8 @@ def main():
     say(f"[result] total {time.perf_counter() - t_start:.1f} s; phases "
         f"{times}; rounds {json.dumps(per_round)}")
     say(f"[result] train steps {json.dumps(per_step)}")
+    say(f"[result] engine {json.dumps([alg, flat, engine_prof])}")
+    say(f"[result] engine device sort {json.dumps(device_sort)}")
     main_attn = lambda k: attn[(k, "long_tail", "bfloat16")]  # noqa: E731
     rows = [("attn_fwd", "jagged_attn_fwd.cu",
              "src/repro/kernels/jagged_attention/kernel.py:384",
@@ -1108,11 +1559,16 @@ def main():
              None),
             ("runsum", "runsum.cu",
              "src/repro/kernels/jagged_lookup/kernel.py:128", rs,
-             rs["library_ms"])]
+             rs["library_ms"]),
+            ("wscatter", "wscatter.cu",
+             "src/repro/kernels/jagged_lookup/kernel.py:177", ws,
+             ws["library_ms"])]
     kernels = []
     for kname, src, replaces, r, lib in rows:
         by_path = {"serve": serve_launches.get(kname, 0),
-                   "train": train_launches.get(kname, 0)}
+                   "train": train_launches.get(kname, 0),
+                   "engine": alg["launches"][kname]
+                   + flat["launches"][kname]}
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,

@@ -4,7 +4,8 @@
 fused kernels (``repro_torch.kernels.neg_logits``): the negative rows are
 gathered from the half-precision shadow inside K3/K4, and the table
 gradient leaves as sparse (id, row) pairs (a ``TableGradSink``) or, when
-the table requires grad, as a dense grad at test sizes.
+the table requires grad, as a dense grad at test sizes; K5 reduces the
+pairs without building the negative rows (``scatter_impl="fused"``).
 :func:`sampled_softmax_loss` is Eq. 2 over given logits.
 """
 from __future__ import annotations
@@ -54,8 +55,8 @@ def fused_sampled_softmax_loss(out_emb: torch.Tensor, pos_emb: torch.Tensor,
     (V, D) fp32 master, neg_ids (T, R). ``shadow`` is the half-precision
     table the negatives are read from (else ``fetch_dtype`` rounds master
     rows). ``perms``/``generator``: the §4.3.3 sharing shuffle (see
-    ``make_share_perms``). ``scatter_impl`` must be ``"two_pass"`` until
-    K5 is ported."""
+    ``make_share_perms``). ``scatter_impl``: the form of the table
+    gradient, ``"fused"`` (K5) or ``"two_pass"``."""
     pos = (out_emb.float() * pos_emb.float()).sum(-1) / tau
     lse = fused_recall_lse(out_emb, pos, table, neg_ids, segment=segment,
                            tau=tau, expansion=expansion, perms=perms,

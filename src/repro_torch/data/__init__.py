@@ -1,4 +1,9 @@
+from repro_torch.data.kuairand import (drop_negative, five_core_filter,
+                                      group_sequences, leave_one_out,
+                                      preprocess_log)
 from repro_torch.data.loader import GRLoader
 from repro_torch.data.synthetic import SyntheticKuaiRand
 
-__all__ = ["GRLoader", "SyntheticKuaiRand"]
+__all__ = ["GRLoader", "SyntheticKuaiRand", "drop_negative",
+           "five_core_filter", "group_sequences", "leave_one_out",
+           "preprocess_log"]

@@ -5,10 +5,14 @@ built on it (the port of ``repro.kernels.jagged_lookup.ops``).
 reduces each run of equal ids with K6 (``csrc/runsum.cu``) for CUDA tensors
 or its plain version (``ref.run_totals_plain``) for CPU tensors: the
 unique (id, grad-row) pairs the sparse optimizer consumes.
-:func:`dedup_rows` lays the same totals out as the reference does (at each
-run's last slot), and :func:`scatter_add_rows` and the ``"two_pass"``
-:func:`scatter_add_weighted_rows` build dense (V, D) arrays from them:
-test-size oracles, never on the port's training path.
+:func:`weighted_run_totals` (K5, ``csrc/wscatter.cu``) does the same for
+rows given in factored form, ``w · o[src] · scale``, generating each row
+inside the kernel so the rows are never built in device memory; ready rows
+can join the same sorted stream. :func:`dedup_rows` lays K6's totals out
+as the reference does (at each run's last slot), and
+:func:`scatter_add_rows` and :func:`scatter_add_weighted_rows` build dense
+(V, D) arrays from them: test-size oracles, never on the port's training
+path.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from repro_torch.kernels.jagged_lookup import ref as R
 
 #: Launches of each kernel in this module, counted where the wrapper
 #: launches it and nowhere else.
-KERNEL_LAUNCHES: Dict[str, int] = {"runsum": 0}
+KERNEL_LAUNCHES: Dict[str, int] = {"runsum": 0, "wscatter": 0}
 
 #: Sort key of dropped (negative) ids: they sort last, in one run.
 DROP_KEY = 2 ** 30
@@ -30,19 +34,24 @@ DROP_KEY = 2 ** 30
 _CTAS_PER_SM = 8
 _RUNSUM_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                     + [ctypes.c_void_p])
+_WSCATTER_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                      + [ctypes.c_float, ctypes.c_void_p])
+_O_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _lib():
-    lib = _build.load("runsum")
-    if lib.runsum.argtypes is None:
-        lib.runsum.argtypes = _RUNSUM_ARGTYPES
-        lib.runsum.restype = ctypes.c_int
+def _lib(name: str):
+    lib = _build.load(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = {"runsum": _RUNSUM_ARGTYPES,
+                       "wscatter": _WSCATTER_ARGTYPES}[name]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg: str, kernel: str = "runsum") -> None:
     if not cond:
-        raise ValueError(f"runsum kernel: {msg}")
+        raise ValueError(f"{kernel} kernel: {msg}")
 
 
 def run_starts(sids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -77,9 +86,8 @@ def _launch_runsum(rows: torch.Tensor, order: torch.Tensor,
     _require(rows.is_contiguous() and rows.data_ptr() % 16 == 0
              and out.is_contiguous() and out.data_ptr() % 16 == 0,
              "rows and out must be contiguous and 16-byte aligned")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    ctas = max(1, min(n, sms * _CTAS_PER_SM))
-    lib = _lib()
+    ctas = _ctas(dev, n)
+    lib = _lib("runsum")
     with torch.cuda.device(dev):
         rc = lib.runsum(rows.data_ptr(), order.contiguous().data_ptr(),
                         sids.contiguous().data_ptr(), starts.data_ptr(),
@@ -92,32 +100,114 @@ def _launch_runsum(rows: torch.Tensor, order: torch.Tensor,
     return out
 
 
+def _ctas(dev: torch.device, n: int) -> int:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min(n, sms * _CTAS_PER_SM))
+
+
+def _launch_wscatter(o: torch.Tensor, w: torch.Tensor, extra: torch.Tensor,
+                     order: torch.Tensor, sids: torch.Tensor,
+                     starts: torch.Tensor, num_runs: torch.Tensor,
+                     out: torch.Tensor, *, scale: float) -> torch.Tensor:
+    dev = o.device
+    req = lambda c, m: _require(c, m, "wscatter")         # noqa: E731
+    req(dev.type == "cuda", f"tensors on {dev}, not on the card")
+    req(o.dtype in _O_CODE and o.dim() == 2,
+        f"o {o.dtype} {tuple(o.shape)}; takes (T, D) float32 or bfloat16")
+    D = o.shape[1]
+    n = sids.numel()
+    n_neg = n - extra.shape[0]
+    R = w.shape[1]
+    req(D % 4 == 0, f"row width {D} is not a multiple of 4")
+    req(w.dtype == torch.float32 and w.dim() == 2 and w.is_contiguous()
+        and 0 <= n_neg <= w.numel() and -(-n_neg // R) <= o.shape[0],
+        f"w {w.dtype} {tuple(w.shape)} for {n_neg} negative slots of "
+        f"{o.shape[0]} rows; takes contiguous (T, R) float32")
+    req(extra.dtype == torch.float32 and extra.dim() == 2
+        and extra.shape[1] == D, f"extra rows {extra.dtype} "
+        f"{tuple(extra.shape)}; takes (n_extra, {D}) float32")
+    req(order.dtype == torch.int64 and sids.dtype == torch.int32
+        and order.shape == (n,) and order.is_contiguous()
+        and sids.is_contiguous()
+        and all(t.device == dev for t in (w, extra, order, sids, out)),
+        "order (n,) int64 and sorted ids (n,) int32 on o's device")
+    req(o.is_contiguous() and o.data_ptr() % 16 == 0
+        and extra.is_contiguous() and extra.data_ptr() % 16 == 0
+        and out.is_contiguous() and out.data_ptr() % 16 == 0,
+        "o, extra and out must be contiguous and 16-byte aligned")
+    lib = _lib("wscatter")
+    with torch.cuda.device(dev):
+        rc = lib.wscatter(o.data_ptr(), w.data_ptr(), extra.data_ptr(),
+                          order.data_ptr(), sids.data_ptr(),
+                          starts.data_ptr(), num_runs.data_ptr(),
+                          out.data_ptr(), n_neg, n, R, D, _O_CODE[o.dtype],
+                          DROP_KEY, _ctas(dev, n), scale,
+                          torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wscatter launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES["wscatter"] += 1
+    return out
+
+
 def _device_check(rows: torch.Tensor) -> bool:
     """True: launch the kernel; False: the plain version (CPU tensors)."""
     if rows.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"runsum: unsupported device {rows.device}")
+        raise ValueError(f"jagged_lookup: unsupported device {rows.device}")
     return rows.device.type == "cuda"
+
+
+def _runs(sids: torch.Tensor):
+    """(starts, num_runs, n_runs, n_kept, run ids): one host sync reads the
+    run count and whether the last run is the dropped one, so outputs are
+    allocated at their size."""
+    starts, num_runs = run_starts(sids)
+    n_runs, dropped = torch.cat([num_runs, (sids[-1:] >= DROP_KEY).to(
+        torch.int32)]).tolist()
+    return (starts, num_runs, n_runs, n_runs - dropped,
+            sids[starts[:n_runs].long()])
 
 
 def run_totals(rows: torch.Tensor, order: torch.Tensor, sids: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6: (ids (u,) int32 ascending, totals (u, D) fp32), one per run of
-    ids ≥ 0 (the dropped run left out), the plain version for CPU tensors.
-    One host sync reads the run count, so the output is allocated at its
-    size."""
+    ids ≥ 0 (the dropped run left out), the plain version for CPU
+    tensors."""
     rows = rows.float().contiguous()
     if sids.numel() == 0:
         return sids, rows
-    starts, num_runs = run_starts(sids)
-    n_runs, dropped = torch.cat([num_runs, (sids[-1:] >= DROP_KEY).to(
-        torch.int32)]).tolist()
-    ids = sids[starts[:n_runs].long()]
+    starts, num_runs, n_runs, u, ids = _runs(sids)
     if _device_check(rows):
         out = rows.new_empty((n_runs, rows.shape[1]))
         _launch_runsum(rows, order, sids, starts, num_runs, out)
     else:
         out = R.run_totals_plain(rows, order, sids, n_runs, DROP_KEY)
-    u = n_runs - dropped
+    return ids[:u], out[:u]
+
+
+def weighted_run_totals(o: torch.Tensor, w: torch.Tensor,
+                        extra: torch.Tensor, order: torch.Tensor,
+                        sids: torch.Tensor, *, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: :func:`run_totals` over rows given in factored form.
+
+    The n = ``sids.numel()`` slots are the n_neg = n − len(extra) negative
+    slots, slot j the row ``w.flat[j] · (o[j // R] · scale)`` (w (T, R),
+    t-major, o (T, D) fp32 or bf16), then the ready fp32 rows ``extra``;
+    ``order``/``sids`` sort them (:func:`sort_pairs`). Returns (ids (u,)
+    int32 ascending, totals (u, D) fp32), one per run of ids ≥ 0: the
+    kernel for card tensors, the plain version for CPU tensors. Equal bit
+    for bit to building the rows (``w[:, :, None] · (o.float() · scale)``)
+    and :func:`run_totals` over them."""
+    if sids.numel() == 0:
+        return sids, extra.float()
+    starts, num_runs, n_runs, u, ids = _runs(sids)
+    if _device_check(o):
+        out = extra.new_empty((n_runs, o.shape[1]), dtype=torch.float32)
+        _launch_wscatter(o, w, extra, order, sids, starts, num_runs, out,
+                         scale=scale)
+    else:
+        out = R.weighted_run_totals_plain(o, w, extra, order, sids, n_runs,
+                                          DROP_KEY, scale)
     return ids[:u], out[:u]
 
 
@@ -177,32 +267,41 @@ def scatter_add_rows(grad_rows: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+SCATTER_IMPLS = ("fused", "two_pass")
+
+
 def check_scatter_impl(impl: str) -> None:
-    """Only ``"two_pass"`` runs; ``"fused"`` raises rather than quietly
-    running two-pass."""
-    if impl == "fused":
-        raise NotImplementedError(
-            "scatter_impl='fused' needs K5 (weighted_runsum_scatter), "
-            "which is not ported yet: ROADMAP queue 1, item 1 (K5 and "
-            "'fused' as the port's default); pass scatter_impl='two_pass'")
-    if impl != "two_pass":
-        raise ValueError(f"unknown scatter impl {impl!r}")
+    if impl not in SCATTER_IMPLS:
+        raise ValueError(f"unknown scatter impl {impl!r}; one of "
+                         f"{SCATTER_IMPLS}")
 
 
 def scatter_add_weighted_rows(weights: torch.Tensor, o: torch.Tensor,
                               ids: torch.Tensor, vocab: int, *,
                               scale: float = 1.0,
                               impl: str = "fused") -> torch.Tensor:
-    """Σ over (t, r) of ``weights[t, r] · o[t] · scale`` per id → (V, D).
+    """Σ over (t, r) of ``weights[t, r] · o[t] · scale`` per id → (V, D);
+    ids outside [0, vocab) dropped.
 
-    ``impl="two_pass"`` builds every row, then :func:`scatter_add_rows`.
-    ``impl="fused"`` (the reference's default: rows generated inside the
-    weighted run-sum scatter, K5) is not ported yet."""
+    ``impl="fused"`` (the default, the reference's): the rows are generated
+    inside the weighted run-sum scatter (K5, :func:`weighted_run_totals`)
+    and never built. ``impl="two_pass"``, the oracle: build every row, then
+    :func:`scatter_add_rows`. The two agree bit for bit."""
     check_scatter_impl(impl)
     T, R = weights.shape
+    D = o.shape[1]
     ids = ids.reshape(-1)
-    valid = (ids >= 0) & (ids < vocab)
-    # the two-pass rows w[t, r]·(o[t]·scale), t-major: the reference's order
-    rows = (weights.float()[:, :, None]
-            * (o.float() * scale)[:, None, :]).reshape(T * R, o.shape[1])
-    return scatter_add_rows(rows, torch.where(valid, ids, -1), vocab)
+    keyed = torch.where((ids >= 0) & (ids < vocab), ids, -1)
+    if impl == "two_pass":
+        # the rows w[t, r]·(o[t]·scale), t-major: the reference's op order
+        rows = (weights.float()[:, :, None]
+                * (o.float() * scale)[:, None, :]).reshape(T * R, D)
+        return scatter_add_rows(rows, keyed, vocab)
+    order, sids = sort_pairs(keyed)
+    u, rows = weighted_run_totals(
+        o.contiguous(), weights.float().contiguous(),
+        torch.zeros((0, D), dtype=torch.float32, device=o.device), order,
+        sids, scale=scale)
+    out = torch.zeros((vocab, D), dtype=torch.float32, device=o.device)
+    out[u.long()] = rows
+    return out

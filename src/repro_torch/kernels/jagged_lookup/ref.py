@@ -1,5 +1,5 @@
-"""The plain PyTorch version of the sorted run-sum kernel (K6), and the
-dense scatter oracle."""
+"""The plain PyTorch versions of the sorted run-sum kernels (K6, K5), and
+the dense scatter oracle."""
 from __future__ import annotations
 
 import torch
@@ -19,6 +19,24 @@ def run_totals_plain(rows: torch.Tensor, order: torch.Tensor,
     totals = torch.zeros((n_runs, rows.shape[1]), dtype=torch.float32,
                          device=rows.device)
     return totals.index_add_(0, run, srows)
+
+
+def weighted_run_totals_plain(o: torch.Tensor, w: torch.Tensor,
+                              extra: torch.Tensor, order: torch.Tensor,
+                              sids: torch.Tensor, n_runs: int, drop_key: int,
+                              scale: float) -> torch.Tensor:
+    """What ``csrc/wscatter.cu`` computes: the n_neg = n − len(extra)
+    negative slots' rows ``w.flat[j] · (float(o[j // R]) · scale)`` (w
+    (T, R)), then the ready rows ``extra``, summed per run as
+    :func:`run_totals_plain` does. The rows are built here, in the two-pass
+    path's op order, so the totals equal two-pass rows + K6 bit for bit."""
+    n_neg = order.numel() - extra.shape[0]
+    R, D = w.shape[1], o.shape[1]
+    T = n_neg // R
+    neg = (w[:T, :, None] * (o[:T].float() * scale)[:, None]).reshape(
+        n_neg, D)
+    return run_totals_plain(torch.cat([neg, extra.float()]), order, sids,
+                            n_runs, drop_key)
 
 
 def scatter_add_ref(grad_rows: torch.Tensor, ids: torch.Tensor,

@@ -7,12 +7,13 @@ forward K3, backward K4 (``csrc/neg_fused.cu``) for CUDA tensors, their
 plain versions (``ref.py``) for CPU tensors. Neither the (T, R, D) rows
 nor the (T, R·k) logits are built on the card.
 
-The table gradient leaves K4 as per-(token, slot) weights w. With
-``scatter_impl="two_pass"`` it becomes the rows w·o/τ, either handed as
-sparse (ids, rows) pairs to a caller's :class:`TableGradSink` (the
-training path: no (V, D) array) or, when the table itself requires grad,
-scattered into a dense (V, D) grad (test sizes). ``"fused"`` (K5) is not
-ported yet and raises.
+The table gradient leaves K4 as per-(token, slot) weights w. On the
+training path it goes to a caller's :class:`TableGradSink` as sparse
+pairs, never as a (V, D) array: with ``scatter_impl="fused"`` (the
+default) in factored form — ids, w, the padded o and 1/τ — which K5
+reduces without building the rows; with ``"two_pass"`` (the oracle) as the
+rows w·o/τ. When the table itself requires grad (test sizes) it is
+scattered into a dense (V, D) grad by the same two impls.
 
 Sharing permutations: the reference draws them with ``jax.random`` from
 the batch's key; the port takes them as ``perms`` or draws its own from a
@@ -22,7 +23,7 @@ numbers). ``expansion=1`` draws nothing.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -63,15 +64,21 @@ def _require(cond: bool, msg: str) -> None:
 
 class TableGradSink:
     """Receives the negative path's table gradient as sparse pairs. After
-    backward, ``ids`` (T·R,) int32 and ``rows`` (T·R + extra_rows, D)
-    fp32: the first T·R rows are w·o/τ, the last ``extra_rows`` are left
-    for the caller's own (id, row) contributions, so a step's whole table
-    gradient sits in one buffer and is never concatenated."""
+    backward, ``ids`` (T·R,) int32 are the negative slots' ids and
+    ``rows`` an fp32 (n_ready + extra_rows, D) buffer whose last
+    ``extra_rows`` rows are left for the caller's own (id, row)
+    contributions, so a step's whole table gradient sits in one stream of
+    slots and is never concatenated. With ``scatter_impl="two_pass"`` the
+    first n_ready = T·R rows are w·o/τ and ``neg`` is None; with
+    ``"fused"`` no negative row is built (n_ready = 0) and ``neg`` holds
+    them in factored form, ``(w (Tp, R) fp32, o (Tp, D), 1/τ)``: slot j's
+    row is ``w.flat[j] · (o[j // R] · 1/τ)``, what K5 takes."""
 
     def __init__(self, extra_rows: int = 0):
         self.extra_rows = extra_rows
         self.ids: Optional[torch.Tensor] = None
         self.rows: Optional[torch.Tensor] = None
+        self.neg: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None
 
 
 def make_share_perms(n_seg: int, segment: int, expansion: int, *,
@@ -246,11 +253,16 @@ class _FusedLse(torch.autograd.Function):
         if sink is not None:
             T, R = ctx.T, kw["R"]
             D = o.shape[1]
-            sink.rows = torch.empty((T * R + sink.extra_rows, D),
+            n_ready = T * R if ctx.scatter_impl == "two_pass" else 0
+            sink.rows = torch.empty((n_ready + sink.extra_rows, D),
                                     dtype=torch.float32, device=o.device)
-            # the two-pass rows w·(o·τ⁻¹), the reference's op order
-            torch.mul(w[:T, :, None], (o[:T].float() * kw["inv_tau"])[:, None],
-                      out=sink.rows[:T * R].view(T, R, D))
+            if n_ready:
+                # the two-pass rows w·(o·τ⁻¹), the reference's op order
+                torch.mul(w[:T, :, None],
+                          (o[:T].float() * kw["inv_tau"])[:, None],
+                          out=sink.rows[:n_ready].view(T, R, D))
+            else:
+                sink.neg = (w, o, kw["inv_tau"])
             sink.ids = ids[:T * R]
         elif ctx.needs_input_grad[2]:
             dtable = scatter_add_weighted_rows(
@@ -280,9 +292,9 @@ def fused_recall_lse(out_emb: torch.Tensor, pos_logit: torch.Tensor,
     (the gradient still flows to ``table``, straight through); without it
     the rows come from ``table``, rounded to ``fetch_dtype``.
     ``table_grad_pairs``, a :class:`TableGradSink`, receives the table
-    gradient as (ids, rows) pairs in backward instead of a dense grad.
-    ``scatter_impl`` must be ``"two_pass"``: the reference's default
-    ``"fused"`` needs K5, not ported yet."""
+    gradient as sparse pairs in backward instead of a dense grad, in the
+    form ``scatter_impl`` names: ``"fused"`` (the default: factored, for
+    K5) or ``"two_pass"`` (the rows)."""
     check_scatter_impl(scatter_impl)
     T, R = neg_ids.shape
     V = table.shape[0]

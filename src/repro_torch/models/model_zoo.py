@@ -61,8 +61,9 @@ class GRBundle:
         dense grad if it requires one (test sizes). ``shadow``: the
         half-precision table the negatives are gathered from.
         ``table_grad_pairs`` (a ``TableGradSink``) receives the negative
-        rows' table grad as (ids, rows). ``neg_scatter_impl`` must be
-        ``"two_pass"`` until K5 is ported. ``perms``: the §4.3.3 sharing
+        rows' table grad as sparse pairs, factored for K5 with
+        ``neg_scatter_impl="fused"`` (the default) or as rows with
+        ``"two_pass"``. ``perms``: the §4.3.3 sharing
         shuffle for expansion > 1, else drawn from a generator seeded by
         ``batch["rng"][0]``."""
         cfg = self.cfg

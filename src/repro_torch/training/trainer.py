@@ -12,15 +12,19 @@ One design point the reference does not face: its autodiff yields dense
 (V, D) fp32 table grads (three of them at τ=1), 17.2 GB each at vocab 2²²,
 d 1024, beside 42.9 GB of tables on an 80 GB card. Here the table grads
 stay sparse end to end, as (id, row) contributions from three sources —
-the input rows (the grad of the gathered x), the label rows, and the
-negative rows w·o/τ from the fused kernel's backward — which one sorted
-run-sum (K6) reduces to the unique (id, row) pairs the reference's
-``_table_grad_pairs`` returns (equal per id up to fp32 summation order).
-The τ=1 carry holds only those unique pairs, and the stale master is never
-copied: ``emb_fwd`` gathers x before the pending pairs land in place.
+the negative rows w·o/τ of the fused kernel's backward, the input rows
+(the grad of the gathered x) and the label rows — which one sorted run-sum
+reduces to the unique (id, row) pairs the reference's
+``_table_grad_pairs`` returns (equal per id up to fp32 summation order):
+K5 with the negative rows left in factored form (``scatter_impl="fused"``,
+the default: the (T·R, D) rows are never built) or K6 over built rows
+(``"two_pass"``); the two give the same bits. The τ=1 carry holds only
+those unique pairs, and the stale master is never copied: ``emb_fwd``
+gathers x before the pending pairs land in place.
 """
 from __future__ import annotations
 
+import copy
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -29,13 +33,13 @@ import torch
 
 from repro_torch.embedding.tables import (ShadowedTable, live_shadow,
                                           make_shadowed)
-from repro_torch.kernels.jagged_lookup.ops import unique_pairs
+from repro_torch.kernels.jagged_lookup.ops import (run_totals, sort_pairs,
+                                                   weighted_run_totals)
 from repro_torch.kernels.neg_logits import TableGradSink
 from repro_torch.models.gr import GRModel
 from repro_torch.training import optim as O
 
 Batch = Dict[str, torch.Tensor]
-Pairs = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
 class GRTrainState(NamedTuple):
@@ -61,6 +65,30 @@ def gr_train_state(dense: GRModel, table, opt_dtype=torch.float32, *,
         pending_ids=torch.zeros((0,), dtype=torch.int32, device=dev),
         pending_rows=torch.zeros((0, D), dtype=torch.float32, device=dev),
         step=0)
+
+
+def clone_state(state: GRTrainState) -> GRTrainState:
+    """A copy of ``state`` that later steps do not touch: the train step
+    updates the dense params, the moments and the table in place."""
+    opt = state.dense_opt
+    return GRTrainState(
+        dense=copy.deepcopy(state.dense),
+        dense_opt=opt._replace(mu={k: v.clone() for k, v in opt.mu.items()},
+                               nu={k: v.clone() for k, v in opt.nu.items()}),
+        table=ShadowedTable(*(None if t is None else t.clone()
+                              for t in state.table)),
+        pending_ids=state.pending_ids.clone(),
+        pending_rows=state.pending_rows.clone(), step=state.step)
+
+
+def state_tensors(state: GRTrainState) -> List[torch.Tensor]:
+    """Every tensor of ``state``, in a fixed order: dense params, AdamW
+    moments, master, shadow (when there is one), accumulator and the τ=1
+    carry."""
+    return [*(p.detach() for p in state.dense.parameters()),
+            *state.dense_opt.mu.values(), *state.dense_opt.nu.values(),
+            *(t for t in state.table if t is not None),
+            state.pending_ids, state.pending_rows]
 
 
 def gr_pending_slots(batch) -> int:
@@ -89,19 +117,57 @@ def host_unique_candidates(batch, vocab: int):
     return s, first, counts
 
 
-def _table_grad_pairs(ids: torch.Tensor, rows: torch.Tensor, vocab: int
+def host_sort_contribs(batch, vocab: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The host (numpy) sort of a batch's table-grad contributions, in the
+    order :class:`TableContribs` lays out their slots: the negatives, the
+    input ids, the labels, clipped to [0, vocab). Returns ``(order (n,)
+    int64, sorted keys (n,) int32)``. A stable sort of equal keys is one
+    permutation, so this is bitwise the device sort ``emb_bwd`` runs when
+    it is given none."""
+    keys = np.clip(np.concatenate([
+        np.asarray(batch["neg_ids"]).reshape(-1),
+        np.asarray(batch["ids"]).reshape(-1),
+        np.asarray(batch["labels"]).reshape(-1)]).astype(np.int32),
+        0, vocab - 1)
+    order = np.argsort(keys, kind="stable")
+    return order, keys[order]
+
+
+class TableContribs(NamedTuple):
+    """Every table-grad contribution of one batch, before deduplication:
+    ``ids`` (n,) int32 of the slots [negatives (T·R), input rows, label
+    rows]; ``rows`` (m, D) fp32 the ready rows of the last m slots; ``neg``
+    the negative slots' rows in factored form ``(w, o, scale)`` for K5
+    (``scatter_impl="fused"``, m = n − T·R), or None when they are among
+    ``rows`` (``"two_pass"``, m = n)."""
+    ids: torch.Tensor
+    rows: torch.Tensor
+    neg: Optional[Tuple[torch.Tensor, torch.Tensor, float]]
+
+
+def _table_grad_pairs(c: TableContribs, vocab: int,
+                      order: Optional[torch.Tensor] = None,
+                      sorted_ids: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sparse (id, row) table-grad contributions → the unique pairs (ids
-    (u,) int32 ascending, rows (u, D) fp32), one sorted run-sum (K6) over
-    all of them. Ids are clipped to [0, vocab) as the reference clips its
-    candidates, so every candidate id appears, with a zero row where no
-    gradient reached it."""
-    return unique_pairs(rows, ids.clamp(0, vocab - 1))
+    """A batch's table-grad contributions → the unique pairs (ids (u,)
+    int32 ascending, rows (u, D) fp32), one sorted run-sum over all of
+    them: K5 when the negative rows are factored, K6 when they are built.
+    Ids are clipped to [0, vocab) as the reference clips its candidates,
+    so every candidate id appears, with a zero row where no gradient
+    reached it. ``order``/``sorted_ids``: the sort of the clipped ids,
+    made on the host (:func:`host_sort_contribs`); else sorted here."""
+    if order is None:
+        order, sorted_ids = sort_pairs(c.ids.clamp(0, vocab - 1))
+    if c.neg is None:
+        return run_totals(c.rows, order, sorted_ids)
+    w, o, scale = c.neg
+    return weighted_run_totals(o, w, c.rows, order, sorted_ids, scale=scale)
 
 
-def to_device(batch: Dict[str, Any], device) -> Batch:
+def to_device(batch: Dict[str, Any], device, *, pin: bool = False) -> Batch:
     """A loader batch (numpy) as tensors on ``device``; ``weights`` (host
-    gradient weights) stay out."""
+    gradient weights) stay out. ``pin``: copy through pinned host memory
+    with ``non_blocking``, on the caller's current stream."""
     out = {}
     for k, v in batch.items():
         if k == "weights":
@@ -109,18 +175,19 @@ def to_device(batch: Dict[str, Any], device) -> Batch:
         a = np.asarray(v)
         if a.dtype == np.uint32:
             a = a.astype(np.int64)
-        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        out[k] = (t.pin_memory().to(device, non_blocking=True) if pin
+                  else t.to(device))
     return out
 
 
 class GRDenseOut(NamedTuple):
     """Artifact flowing dense_fwd_bwd → emb_bwd (one batch).
-    ``table_contribs`` holds one (ids, rows) pair — every table-grad
-    contribution of the batch, before deduplication, in one buffer —
-    which emb_bwd pops, so the buffer is freed once it is reduced."""
+    ``table_contribs`` holds the batch's one :class:`TableContribs`, which
+    emb_bwd pops, so its buffers are freed once they are reduced."""
     loss: torch.Tensor
     grads_dense: Dict[str, torch.Tensor]
-    table_contribs: Pairs
+    table_contribs: List[TableContribs]
 
 
 class GRStages(NamedTuple):
@@ -132,9 +199,11 @@ class GRStages(NamedTuple):
     dense_fwd_bwd(dense, table, batch, x=None) -> GRDenseOut
         HSTU stack + fused loss + grads of the dense params and the
         sparse table contributions.
-    emb_bwd(dense, dense_opt, table, dout, batch, *, apply_sparse)
+    emb_bwd(dense, dense_opt, table, dout, batch, order=None,
+            sorted_ids=None, *, apply_sparse)
         -> (dense, opt, table, p_ids, p_rows)
-        Unique pairs (K6) + AdamW + (optionally deferred) AdaGrad.
+        Unique pairs (K5, or K6 for two-pass rows; over the host's sort
+        when given) + AdamW + (optionally deferred) AdaGrad.
     sparse_apply(table, p_ids, p_rows) -> table
         The deferred landing of pending pairs (Algorithm 1 line 3); the
         pairs are emb_bwd's, already unique, so it runs no second K6.
@@ -175,25 +244,27 @@ def make_gr_stages(loss_fn: Callable[..., torch.Tensor], *,
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip([x, pos, *params], torch.autograd.grad(
                      loss, [x, pos, *params], allow_unused=True))]
-        # the input and label rows join the negative rows in the sink's
-        # buffer: one (ids, rows) pair for the whole batch
+        # the input and label rows join the negative slots in the sink's
+        # buffer: one stream of slots for the whole batch
         D = master.shape[1]
-        n_neg = 0 if sink.ids is None else sink.ids.numel()
         rows = sink.rows
         if rows is None:
             rows = master.new_empty((n_in + n_lab, D))
-        rows[n_neg:n_neg + n_in] = grads[0].reshape(-1, D)
-        rows[n_neg + n_in:] = grads[1].reshape(-1, D)
+        n_ready = rows.shape[0] - n_in - n_lab
+        rows[n_ready:n_ready + n_in] = grads[0].reshape(-1, D)
+        rows[n_ready + n_in:] = grads[1].reshape(-1, D)
         ids = torch.cat([i.reshape(-1).to(torch.int32) for i in
                          ([] if sink.ids is None else [sink.ids])
                          + [batch["ids"], batch["labels"]]])
         return GRDenseOut(loss.detach(), dict(zip(names, grads[2:])),
-                          [(ids, rows)])
+                          [TableContribs(ids, rows, sink.neg)])
 
     def emb_bwd(dense, dense_opt, table: ShadowedTable, dout: GRDenseOut,
-                batch, *, apply_sparse: bool = True):
-        p_ids, p_rows = _table_grad_pairs(*dout.table_contribs.pop(),
-                                          table.master.shape[0])
+                batch, order=None, sorted_ids=None, *,
+                apply_sparse: bool = True):
+        p_ids, p_rows = _table_grad_pairs(dout.table_contribs.pop(),
+                                          table.master.shape[0], order,
+                                          sorted_ids)
         new_opt = O.adamw_update(dout.grads_dense, dense_opt, dense,
                                  lr=lr_dense, weight_decay=0.0)
         if apply_sparse:

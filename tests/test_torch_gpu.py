@@ -328,7 +328,7 @@ def test_train_steps_on_card_match_cpu(cuda):
     (sg, lg, cg), (sc, lc, cc) = runs["cuda"], runs["cpu"]
     L = cfg.num_layers
     assert cg == [{"attn_fwd": 2 * L, "attn_bwd": L, "neg_fwd": 1,
-                   "neg_bwd": 1, "runsum": 1}] * 4
+                   "neg_bwd": 1, "runsum": 1, "wscatter": 0}] * 4
     assert all(v == 0 for c in cc for v in c.values())
     np.testing.assert_allclose(lg, lc, atol=1e-4, rtol=0)
     assert torch.equal(sg.table.shadow, sg.table.master.half())
@@ -336,3 +336,85 @@ def test_train_steps_on_card_match_cpu(cuda):
     assert dm.max() <= 1e-4 and (dm > 1e-6).float().mean() <= 1e-3
     assert torch.equal(sg.pending_ids.cpu(), sc.pending_ids)
     assert _rel_to_max(sg.pending_rows.cpu(), sc.pending_rows) <= 1e-4
+
+
+@pytest.mark.parametrize("o_dtype", [torch.float32, torch.bfloat16])
+def test_wscatter_kernel_matches_plain_version(cuda, o_dtype):
+    """K5 on 96 K negative slots (runs of 1 to 3000) and 3 K ready rows,
+    with a run of dropped ids: the unique ids ≥ 0, totals to 1e-5 of their
+    largest value against the plain version (which adds on the card with
+    atomics), bit for bit against two-pass rows + K6 (the same rounded
+    products added in the same order) and run to run; the wrapper refuses
+    an o it does not take."""
+    from repro_torch.kernels.jagged_lookup import ops as JL
+    from repro_torch.kernels.jagged_lookup.ref import \
+        weighted_run_totals_plain
+    g = torch.Generator(device=cuda).manual_seed(6)
+    T, R, D = 768, 128, 1024
+    neg = torch.randint(0, 1 << 22, (T * R,), device=cuda, generator=g)
+    neg[:3000] = 17
+    ids = torch.cat([neg, torch.randint(0, 40, (3000,), device=cuda,
+                                        generator=g),
+                     torch.full((50,), -1, device=cuda)]).to(torch.int32)
+    o = torch.randn(T, D, device=cuda, generator=g).to(o_dtype)
+    w = torch.rand(T, R, device=cuda, generator=g)
+    extra = torch.randn(ids.numel() - T * R, D, device=cuda, generator=g)
+    order, sids = JL.sort_pairs(ids)
+    before = JL.KERNEL_LAUNCHES["wscatter"]
+    u, out = JL.weighted_run_totals(o, w, extra, order, sids, scale=1 / 0.7)
+    u2, again = JL.weighted_run_totals(o, w, extra, order, sids,
+                                       scale=1 / 0.7)
+    torch.cuda.synchronize()
+    assert JL.KERNEL_LAUNCHES["wscatter"] == before + 2
+    assert torch.equal(out, again) and torch.equal(u, u2)
+    assert torch.equal(u, torch.unique(ids[ids >= 0]))
+    _, _, n_runs, _, _ = JL._runs(sids)
+    plain = weighted_run_totals_plain(o, w, extra, order, sids, n_runs,
+                                      JL.DROP_KEY, 1 / 0.7)[:u.numel()]
+    assert _rel_to_max(out, plain) <= 1e-5
+    rows = torch.cat([(w[:, :, None] * (o.float() * (1 / 0.7))[:, None])
+                      .reshape(T * R, D), extra])
+    u6, out6 = JL.run_totals(rows, order, sids)
+    assert torch.equal(u6, u) and torch.equal(out6, out)
+    with pytest.raises(ValueError, match="wscatter kernel"):
+        JL.weighted_run_totals(o.half(), w, extra, order, sids, scale=1.0)
+
+
+def test_engine_on_card_matches_flat_step(cuda):
+    """GREngine on the card (fp32, d 256 so the negative kernels take it),
+    algorithm1 and flat, τ=1, 4 steps, against make_gr_train_step from the
+    same init: the same losses and the same bits in every state tensor and
+    the carry; every step launches K5 once and K6 never."""
+    from repro_torch.data import GRLoader, SyntheticKuaiRand
+    from repro_torch.kernels import jagged_lookup as JL
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.training import (GREngine, clone_state, gr_train_state,
+                                      make_gr_step_fn, state_tensors,
+                                      to_device)
+    cfg = reduced(get_arch("hstu-tiny")).replace(
+        d_model=256, vocab_size=3000, max_seq_len=256, dtype="float32",
+        num_negatives=16)
+    gen = SyntheticKuaiRand(num_users=40, num_items=cfg.vocab_size,
+                            mean_len=150, max_len=400, seed=2)
+    seqs = {u: (d["item"], d["ts"]) for u, d in
+            ((u, gen.interactions(u)) for u in range(40))}
+    batches = list(GRLoader(seqs, 2, 3, cfg.max_seq_len, 16,
+                            cfg.vocab_size).batches(4))
+    b = GRBundle(cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    init = gr_train_state(b.init_dense(g, device=cuda),
+                          b.init_table(g, device=cuda))
+
+    step = make_gr_step_fn(b)
+    ref, losses = clone_state(init), []
+    for batch in batches:
+        ref, m = step(ref, to_device(batch, cuda))
+        losses.append(float(m["loss"]))
+    for sched in ("algorithm1", "flat"):
+        JL.KERNEL_LAUNCHES.update(runsum=0, wscatter=0)
+        eng = GREngine(b, lambda i: batches[i], state=clone_state(init),
+                       schedule=sched)
+        assert [r["loss"] for r in eng.run(4)] == losses, sched
+        assert JL.KERNEL_LAUNCHES == {"runsum": 0, "wscatter": 4}
+        assert all(torch.equal(x, y) for x, y in
+                   zip(state_tensors(eng.state), state_tensors(ref))), sched

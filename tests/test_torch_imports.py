@@ -13,9 +13,11 @@ import torch
 import repro_torch.configs as PC
 from repro_torch.convert import (gr_params_from_numpy, pending_from_numpy,
                                  shadowed_table_from_numpy, table_from_numpy)
+from repro_torch.launch import train as train_cli
 from repro_torch.models.gr import GRModel
 from repro_torch.models.model_zoo import GRBundle
 from repro_torch.serving import RecallEngine
+from repro_torch.training import GREngine
 
 ROOT = Path(__file__).resolve().parents[1]
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
@@ -60,13 +62,24 @@ st = gr_train_state(b.init_dense(g, device="cpu"),
                     b.init_table(g, device="cpu"))
 for semi in (False, True):
     step = make_gr_train_step(
-        lambda d, t, bt, **kw: b.loss(d, t, bt, neg_segment=32,
-                                      neg_scatter_impl="two_pass", **kw),
+        lambda d, t, bt, **kw: b.loss(d, t, bt, neg_segment=32, **kw),
         input_gather=b.input_gather, semi_async=semi)
     for batch in loader.batches(2):
         st, m = step(st, to_device(batch, "cpu"))
         assert np.isfinite(float(m["loss"]))
 assert st.pending_ids.numel() > 0
+import repro_torch.core.pipeline, repro_torch.data.kuairand
+import repro_torch.launch.train, repro_torch.training.engine
+from repro_torch.training import GREngine
+ge = GREngine(b, loader, state=st, loss_kwargs=dict(neg_segment=32))
+assert all(np.isfinite(r["loss"]) for r in ge.run(3))
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()) as cli_out:
+    recs = repro_torch.launch.train.main([
+        "--device", "cpu", "--arch", "hstu-tiny", "--steps", "2",
+        "--synthetic-users", "120", "--num-items", "900", "--max-seq-len",
+        "32", "--num-negatives", "4", "--log-every", "1"])
+assert len(recs) == 2 and "[done] 2 steps" in cli_out.getvalue()
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.encoded_batches)
@@ -113,6 +126,8 @@ ENTRY_POINTS = {
     "gr_params_from_numpy": lambda: gr_params_from_numpy({}, _cfg()),
     "table_from_numpy": lambda: table_from_numpy(np.zeros((4, 2),
                                                           np.float32)),
+    "GREngine": lambda: GREngine(GRBundle(_cfg()), lambda i: None),
+    "launch.train.main": lambda: train_cli.main(["--arch", "hstu-tiny"]),
 }
 
 

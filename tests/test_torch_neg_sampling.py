@@ -144,13 +144,32 @@ def test_sink_receives_the_dense_grad_as_pairs():
 
 
 def test_fused_scatter_is_not_ported_and_raises():
-    o, pos, table, ids, _, _ = _inputs(6)
-    with pytest.raises(NotImplementedError, match="K5"):
+    """The default ``scatter_impl="fused"`` (K5's plain version here) runs,
+    for the dense table grad of ``fused_recall_lse`` and for
+    ``scatter_add_weighted_rows``, and gives two-pass's bits; an unknown
+    impl raises."""
+    o, pos, table, ids, valid, g = _inputs(6)
+    grads = {}
+    for impl in ("fused", "two_pass"):
+        tb = torch.from_numpy(table).requires_grad_()
+        lse = fused_recall_lse(torch.from_numpy(o), torch.from_numpy(pos),
+                               tb, torch.from_numpy(ids), segment=SEG,
+                               tau=0.7, valid=torch.from_numpy(valid),
+                               scatter_impl=impl)
+        (lse * torch.from_numpy(g)).sum().backward()
+        grads[impl] = tb.grad
+    assert torch.equal(grads["fused"], grads["two_pass"])
+    assert torch.count_nonzero(grads["fused"]) > 0
+    w, oo = torch.randn(2, 3), torch.randn(2, 4)
+    ii = torch.tensor([0, 4, 4, -1, 2, 9], dtype=torch.int32)
+    assert torch.equal(PL.scatter_add_weighted_rows(w, oo, ii, 5),
+                       PL.scatter_add_weighted_rows(w, oo, ii, 5,
+                                                    impl="two_pass"))
+    with pytest.raises(ValueError, match="unknown scatter impl"):
+        PL.scatter_add_weighted_rows(w, oo, ii, 5, impl="three_pass")
+    with pytest.raises(ValueError, match="unknown scatter impl"):
         fused_recall_lse(*map(torch.from_numpy, (o, pos, table, ids)),
-                         segment=SEG)
-    with pytest.raises(NotImplementedError, match="K5"):
-        PL.scatter_add_weighted_rows(torch.zeros(2, 3), torch.zeros(2, 4),
-                                     torch.zeros(6, dtype=torch.int32), 5)
+                         segment=SEG, scatter_impl="three_pass")
 
 
 def test_make_share_perms_are_cyclic_shifts():
