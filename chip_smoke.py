@@ -2,9 +2,13 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA GPU. Run from anywhere: ``python3 chip_smoke.py``.
 
-Phases, each printed on its own lines; any failure exits non-zero:
+Phases, each printed on its own lines; any failure exits non-zero. Every
+phase starts with gc, ``torch.cuda.empty_cache()`` and a line giving
+``torch.cuda.memory_allocated()``: two full-vocab tables do not fit on
+one card, so each phase frees its own.
 
-  1. device  — the card's name, count, power limit; no card is a failure.
+  1. device  — the card's name, count, power limit, maximum SM clock; no
+               card is a failure.
   2. build   — nvcc builds every CUDA source of the port from this
                checkout (one nvcc per source, all started together).
   3. kernels — every kernel of the serving and training paths against its
@@ -12,17 +16,22 @@ Phases, each printed on its own lines; any failure exits non-zero:
                its time beside its bound: K1-fwd and K2 (attention forward
                and backward; H=8, D=128, block 128; bf16 and fp32; a
                long-tail pack of G=2 shards of 8192 tokens, and a pack with
-               empty rows beside an all-padding shard), K3/K4 (the fused
-               negative path; T=8192 tokens, R=128, d 1024, bf16 o, fp16
-               shadow of 2^22 rows, invalid tokens, expansion 1 and 4), K6
-               (the sorted run-sum; ~1.06 M rows of 1024 on a mix of run
-               lengths) and K5 (the weighted run-sum scatter, on the same
-               ids: ~1.05 M negative slots generated from bf16 o and ~16 K
-               ready rows), K5 also bitwise against two-pass rows + K6.
+               empty rows beside an all-padding shard) in both time modes,
+               HSTU's bucket table and FuXi's functional encoder (amp ~1,
+               sigma = exp(linspace(2, 12)), rho from linspace(-2, 2)), K3/K4
+               (the fused negative path; T=8192 tokens, R=128, d 1024, bf16
+               o, fp16 shadow of 2^22 rows, invalid tokens, expansion 1 and
+               4), K6 (the sorted run-sum; ~1.06 M rows of 1024 on a mix of
+               run lengths) and K5 (the weighted run-sum scatter, on the
+               same ids: ~1.05 M negative slots generated from bf16 o and
+               ~16 K ready rows), K5 also bitwise against two-pass rows + K6
+               and beside its library call (cuSPARSE SpMM).
   4. serve   — RecallEngine on full-width hstu-large (vocab 2^22, fp32
                master + fp16 shadow on the card, 16 layers, bf16) serves a
                cold, a pure-hit and an incremental round; the kernels'
-               launch counts are zeroed just before and read just after.
+               launch counts are zeroed just before and read just after
+               each round. serve_fuxi: the same on full-width fuxi-large
+               (d_ff 2368, the functional time encoder).
   5. train   — make_gr_train_step on full-width hstu-large (16 layers,
                vocab 2^22; fp32 master, fp32 AdaGrad accumulator and fp16
                shadow on the card) over the port's GRLoader on synthetic
@@ -36,14 +45,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
                counts zeroed before and read after, then 6 more under the
                profiler (a steady-state window), then 8 steps of the flat
                schedule from the same init, which must give the same
-               losses bit for bit.
+               losses bit for bit. engine_fuxi: the same on full-width
+               fuxi-large, 6 steps a schedule.
   7. parity  — at full width, 2 layers, vocab 2^18: one training step's
                dense pass and table-grad pairs with the kernels against the
-               plain versions on the card (two-pass and fused); GREngine
-               (algorithm1 and flat) against make_gr_train_step, 4 steps,
-               sync and tau=1, bit for bit.
-  8. cli     — python -m repro_torch.launch.train on hstu-large as a
-               subprocess (8 steps on preprocessed synthetic KuaiRand).
+               plain versions on the card (hstu-large two-pass and fused,
+               fuxi-large fused with the functional RAB grads); GREngine
+               (algorithm1 and flat) against make_gr_train_step on
+               hstu-large, 4 steps, sync and tau=1, bit for bit.
+  8. cli     — python -m repro_torch.launch.train as two subprocesses
+               side by side, on hstu-large (8 steps) and fuxi-large (4
+               steps), on preprocessed synthetic KuaiRand.
   9. result  — one JSON line of kernel numbers, the nvidia-smi line, and
                the final status line.
 """
@@ -79,6 +91,21 @@ GRAD_TOL_FP32 = 1e-4
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,
               "float32": 67e12}                      # H100 SXM, dense
 PEAK_BYTES = 3.35e12
+# special-function (MUFU) instructions: 16 per clock per SM (Hopper's
+# SFUs), 132 SMs; the clock is the card's maximum SM clock (nvidia-smi)
+SFU_PER_CLOCK = 16 * 132
+CARD = {}        # "sm_clock_hz", set by phase_device
+# Special-function (MUFU) instructions that the attention's function
+# needs, derived from its math (not read from the kernels' code, which may
+# do more), by what they depend on. Per score entry and head: SiLU's exp
+# (EX2) and reciprocal (RCP), and in the functional mode the bias's two
+# exps, z^rho = exp(rho * ln z) and exp(-z^rho). Per (query, key) pair,
+# once for all heads: the time bucket's division (RCP); logf, precise, is
+# a polynomial on the FMA pipe, and ln z = ln(dt + eps) - ln sigma needs
+# no division per entry (1/sigma and ln sigma are per head). K2 needs each
+# entry's bias and SiLU' once, so its counts are the same.
+MUFU_PER_ENTRY_HEAD = {"bucket": 2, "functional": 4}
+MUFU_PER_PAIR = {"bucket": 1, "functional": 0}
 
 
 def say(*parts):
@@ -125,9 +152,16 @@ def phase_device():
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     smi_line = smi.stdout.strip().splitlines()[0]
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr}")
+    CARD["sm_clock_hz"] = float(clk.stdout.strip().splitlines()[0]) * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    say(f"[device] {name} x{count}; nvidia-smi: {smi_line}; torch "
+    say(f"[device] {name} x{count}; nvidia-smi: {smi_line}; max SM clock "
+        f"{CARD['sm_clock_hz'] / 1e6:.0f} MHz; torch "
         f"{torch.__version__} cuda {torch.version.cuda}; matmul tf32 "
         f"{torch.backends.cuda.matmul.allow_tf32}")
     return name, count, smi_line
@@ -150,10 +184,6 @@ def phase_build():
             say(f"[build]   {ln}")
     return info
 
-
-# --------------------------------------------------------------------------
-# phase 3: kernels against their plain versions
-# --------------------------------------------------------------------------
 
 def _long_tail_lengths(rng, total, max_len):
     lens = []
@@ -197,17 +227,52 @@ def _fit(lens, cap):
     return out
 
 
-def _attn_bound(plan, G, capp, H, D, itemsize, dtype_name):
+def _bound(flops, byts, mufu, dtype_name):
+    """The least time of a work item on this card: the largest of its
+    tensor-core operations at the dtype's peak, its bytes at the memory
+    rate and its special-function instructions at the SFU rate; and the
+    name of the one that binds."""
+    t = {"operations": flops / PEAK_FLOPS[dtype_name] * 1e3,
+         "bytes": byts / PEAK_BYTES * 1e3,
+         "special functions": mufu / (SFU_PER_CLOCK * CARD["sm_clock_hz"])
+         * 1e3}
+    by = max(t, key=t.get)
+    return t[by], by, t
+
+
+def _attn_mufu(n_live, H, mode):
+    """Special-function instructions of the entries of n_live live block
+    pairs (128² pairs of a query and a key each, H heads per pair)."""
+    pairs = 128 * 128 * n_live
+    return pairs * (H * MUFU_PER_ENTRY_HEAD[mode] + MUFU_PER_PAIR[mode])
+
+
+def _attn_bound(plan, G, capp, H, D, itemsize, dtype_name, mode):
+    """K1-fwd: 4·b²·D flops per live block pair and head, q, k, v read and
+    out written once, the plan and the bias tables, and the special
+    functions of :func:`_attn_mufu`."""
     n_live = int(plan.n_live.sum())
     flops = 4 * 128 * 128 * D * H * n_live
     byts = (4 * G * capp * H * D * itemsize          # q, k, v read, out
             + plan.meta_i32.numel() * 4 + plan.meta_f32.numel() * 4
             + plan.q_wl.numel() * 4 + plan.q_rowptr.numel() * 4
-            + (256 + 32) * H * 4)                    # bias tables
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    t_bytes = byts / PEAK_BYTES * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops > t_bytes
-            else "bytes", n_live, flops, byts)
+            + (256 + (3 if mode == "functional" else 32)) * H * 4)
+    bound_ms, bound_by, parts = _bound(flops, byts,
+                                       _attn_mufu(n_live, H, mode),
+                                       dtype_name)
+    return bound_ms, bound_by, n_live, flops, byts, parts
+
+
+def _functional_rab(rab, H, dev):
+    """FuXi's time parameters at working values beside the bucket case's
+    position table: amp about 1 (at init it is 0.02, which would keep the
+    bias below 0.02 and hide a wrong exponent), σ = exp(linspace(2, 12)),
+    ρ from time_rho = linspace(−2, 2), i.e. 0.43 to 1.57."""
+    import torch
+    return {"pos_table": rab["pos_table"],
+            "time_amp": torch.linspace(0.8, 1.2, H, device=dev),
+            "time_log_sigma": torch.linspace(2.0, 12.0, H, device=dev),
+            "time_rho": torch.linspace(-2.0, 2.0, H, device=dev)}
 
 
 def phase_kernels():
@@ -226,6 +291,11 @@ def phase_kernels():
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rab = {"pos_table": torch.randn(256, H, device=dev, generator=gen) * .5,
            "time_table": torch.randn(32, H, device=dev, generator=gen) * .5}
+    rabs = {"bucket": rab, "functional": _functional_rab(rab, H, dev)}
+    amp, sigma, rho = ops.functional_time_table(rabs["functional"]).tolist()
+    say(f"[kernels] functional time parameters: amp "
+        f"{[round(x, 3) for x in amp]}, sigma "
+        f"{[round(x, 1) for x in sigma]}, rho {[round(x, 3) for x in rho]}")
     results = {}
     for pack_name, (offs, ts) in _packs(rng, cap, max_len).items():
         G = offs.shape[0]
@@ -272,53 +342,59 @@ def phase_kernels():
             dname = str(dtype).split(".")[1]
             q, k, v = (torch.randn(G, cap, H, D, device=dev, generator=gen)
                        .to(dtype) for _ in range(3))
-            args = (q, k, v, o_t, ts_t, rab, rab_cfg)
-            before = ops.KERNEL_LAUNCHES["attn_fwd"]
-            out = jagged_attention(*args, plan=plan)
-            torch.cuda.synchronize()
-            check(ops.KERNEL_LAUNCHES["attn_fwd"] == before + 1,
-                  "the wrapper did not launch the kernel")
-            plain = jagged_attention_ref(*args, plan=plan)
-            torch.cuda.synchronize()
-            err = (out.float() - plain.float()).abs().max().item()
-            rel = max_row_rel_err(out, plain)
-            pf = plain.float()
-            live = pf.norm(dim=-1) > 0
-            rms = (pf.norm(dim=-1)[live] / math.sqrt(D)).median().item()
-            pad = [out[g, int(offs[g, -1]):] for g in range(G)]
-            pad_ok = all(int(torch.count_nonzero(p)) == 0 for p in pad)
-            ms = timed_ms(lambda: jagged_attention(*args, plan=plan), 20)
-            plain_ms = timed_ms(lambda: jagged_attention_ref(*args,
-                                                             plan=plan), 3,
-                                warmup=1)
-            bound_ms, bound_by, n_live, flops, byts = _attn_bound(
-                plan, G, cap, H, D, q.element_size(), dname)
-            say(f"[kernels] attn_fwd {pack_name} {dname}: max_abs_err "
-                f"{err:.3e} worst row relative {rel:.3e} on outputs of max "
-                f"|plain| {pf.abs().max().item():.3e}, median row rms "
-                f"{rms:.3e}; pad_zero {pad_ok} | kernel "
-                f"{ms:.4f} ms  plain {plain_ms:.3f} ms  bound {bound_ms:.5f}"
-                f" ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
-                f"{byts / 1e6:.2f} MB, {n_live} live pairs) "
-                f"-> {bound_ms / ms:.4f} of bound")
-            check(torch.isfinite(out.float()).all().item(),
-                  "non-finite kernel output")
-            if dtype == torch.float32:
-                check(err <= ABS_TOL_FP32, f"attn_fwd {pack_name} fp32: "
-                      f"max_abs_err {err} > {ABS_TOL_FP32}")
-            else:
-                check(rel <= REL_TOL_BF16, f"attn_fwd {pack_name} bf16: "
-                      f"row relative err {rel} > {REL_TOL_BF16}")
-            check(pad_ok, "pad slots not zero")
-            results[("attn_fwd", pack_name, dname)] = dict(
-                max_abs_err=err, row_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
-            results[("attn_bwd", pack_name, dname)] = _check_attn_bwd(
-                q, k, v, rab, plan, pack_name, dname, gen)
+            for mode in ("bucket", "functional"):
+                fname = "attn_fwd" + ("_functional" if mode == "functional"
+                                      else "")
+                args = (q, k, v, o_t, ts_t, rabs[mode], rab_cfg)
+                kw = dict(plan=plan, time_mode=mode)
+                before = ops.KERNEL_LAUNCHES[fname]
+                out = jagged_attention(*args, **kw)
+                torch.cuda.synchronize()
+                check(ops.KERNEL_LAUNCHES[fname] == before + 1,
+                      f"the wrapper did not launch the {mode} kernel")
+                plain = jagged_attention_ref(*args, **kw)
+                torch.cuda.synchronize()
+                err = (out.float() - plain.float()).abs().max().item()
+                rel = max_row_rel_err(out, plain)
+                pf = plain.float()
+                live = pf.norm(dim=-1) > 0
+                rms = (pf.norm(dim=-1)[live] / math.sqrt(D)).median().item()
+                pad = [out[g, int(offs[g, -1]):] for g in range(G)]
+                pad_ok = all(int(torch.count_nonzero(p)) == 0 for p in pad)
+                ms = timed_ms(lambda: jagged_attention(*args, **kw), 20)
+                plain_ms = timed_ms(lambda: jagged_attention_ref(*args, **kw),
+                                    3, warmup=1)
+                bound_ms, bound_by, n_live, flops, byts, parts = _attn_bound(
+                    plan, G, cap, H, D, q.element_size(), dname, mode)
+                say(f"[kernels] {fname} {pack_name} {dname}: max_abs_err "
+                    f"{err:.3e} worst row relative {rel:.3e} on outputs of "
+                    f"max |plain| {pf.abs().max().item():.3e}, median row "
+                    f"rms {rms:.3e}; pad_zero {pad_ok} | kernel {ms:.4f} ms"
+                    f"  plain {plain_ms:.3f} ms  bound {bound_ms:.5f} ms by "
+                    f"{bound_by} (operations {parts['operations']:.5f}, "
+                    f"bytes {parts['bytes']:.5f}, special functions "
+                    f"{parts['special functions']:.5f} ms; "
+                    f"{flops / 1e9:.2f} GFLOP, {byts / 1e6:.2f} MB, "
+                    f"{n_live} live pairs) -> {bound_ms / ms:.4f} of bound")
+                check(torch.isfinite(out.float()).all().item(),
+                      "non-finite kernel output")
+                if dtype == torch.float32:
+                    check(err <= ABS_TOL_FP32, f"{fname} {pack_name} fp32: "
+                          f"max_abs_err {err} > {ABS_TOL_FP32}")
+                else:
+                    check(rel <= REL_TOL_BF16, f"{fname} {pack_name} bf16: "
+                          f"row relative err {rel} > {REL_TOL_BF16}")
+                check(pad_ok, "pad slots not zero")
+                results[(fname, pack_name, dname)] = dict(
+                    max_abs_err=err, row_rel_err=rel, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                bname = fname.replace("fwd", "bwd")
+                results[(bname, pack_name, dname)] = _check_attn_bwd(
+                    q, k, v, rabs[mode], plan, pack_name, dname, gen, mode)
             del q, k, v, out, plain
-    say("[kernels] no single PyTorch call computes K1-fwd or K2 "
-        "(scaled_dot_product_attention has no SiLU weights, RAB or jagged "
-        "rows): their library_ms is null")
+    say("[kernels] no single PyTorch call computes K1-fwd or K2 in either "
+        "time mode (scaled_dot_product_attention has no SiLU weights, RAB "
+        "or jagged rows): their library_ms is null")
     return results
 
 
@@ -327,77 +403,92 @@ def _rel_to_max(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
 
 
-def _check_attn_bwd(q, k, v, rab, plan, pack_name, dname, gen):
+def _check_attn_bwd(q, k, v, rab, plan, pack_name, dname, gen, mode):
     """K2 (its wrapper launches the dk/dv kernel, the dq + RAB-partials
     kernel and the fixed-order partial sum) against its plain version on
-    the forward check's inputs and a random cotangent."""
+    the forward check's inputs and a random cotangent, in the time mode
+    ``mode``; in the functional mode the time grads are d(amp, σ, ρ)."""
     import torch
     from repro_torch.kernels.jagged_attention import ops
     from repro_torch.kernels.jagged_attention.ref import (attention_bwd_plain,
                                                           max_row_rel_err)
     G, cap, H, D = q.shape
+    functional = mode == "functional"
+    bname = "attn_bwd_functional" if functional else "attn_bwd"
     dy = torch.randn(q.shape, device=q.device, generator=gen).to(q.dtype)
     p = ops._as_batched(plan)
-    pt, tt = rab["pos_table"], rab["time_table"]
+    pt = rab["pos_table"]
+    tt = (ops.functional_time_table(rab) if functional
+          else rab["time_table"])
     kw = dict(scale=D ** -0.5, tb_denom=ops.time_bucket_denom(0.301),
-              use_pos=True, use_time=True)
+              use_pos=True, use_time=True, time_functional=functional)
     args = (q, k, v, dy, pt, tt, p)
-    before = ops.KERNEL_LAUNCHES["attn_bwd"]
+    before = ops.KERNEL_LAUNCHES[bname]
     got = ops._launch_bwd(*args, **kw)
     again = ops._launch_bwd(*args, **kw)
     torch.cuda.synchronize()
-    check(ops.KERNEL_LAUNCHES["attn_bwd"] == before + 2,
+    check(ops.KERNEL_LAUNCHES[bname] == before + 2,
           "the K2 wrapper did not launch the kernels")
     want = attention_bwd_plain(*args, **kw)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     errs = {}
-    for name, a, b in zip(("dq", "dk", "dv", "dpt", "dtt"), got, want):
+    tname = "d(amp,sigma,rho)" if functional else "dtt"
+    for name, a, b in zip(("dq", "dk", "dv", "dpt", tname), got, want):
         check(torch.isfinite(a.float()).all().item(), f"K2 {name} non-finite")
         errs[name] = dict(max_abs=(a.float() - b.float()).abs().max().item(),
                           rel_to_max=_rel_to_max(a, b),
                           row_rel=(max_row_rel_err(a, b) if a.dim() == 4
                                    else None))
+    if functional:
+        say(f"[kernels] {bname} {pack_name} {dname}: d(amp, sigma, rho) "
+            f"kernel {got[4].tolist()} plain {want[4].tolist()}")
     ms = timed_ms(lambda: ops._launch_bwd(*args, **kw), 10)
     plain_ms = timed_ms(lambda: attention_bwd_plain(*args, **kw), 2,
                         warmup=1)
     # the work needs S, dP, dV, dK and dQ, 2·b²·D each per live pair and
-    # head; the kernel's recomputation of S and dP in its second kernel is
-    # its own choice and not counted
+    # head, and each entry's bias and SiLU' once; the kernel's
+    # recomputation of S, dP and the bias in its second kernel is its own
+    # choice and not counted
     n_live = int(plan.n_live.sum())
     flops = 10 * 128 * 128 * D * H * n_live
+    ntb = tt.shape[0]
     byts = (7 * G * cap * H * D * q.element_size()   # q k v dy in, 3 out
             + p.meta_i32.numel() * 4 + p.meta_f32.numel() * 4
             + (p.q_wl.numel() + p.kv_wl.numel() + p.q_rowptr.numel()
-               + p.kv_rowptr.numel()) * 4 + 2 * (256 + 32) * H * 4)
-    t_ops = flops / PEAK_FLOPS[dname] * 1e3
-    t_bytes = byts / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops > t_bytes else "bytes"
+               + p.kv_rowptr.numel()) * 4 + 2 * (256 + ntb) * H * 4)
+    bound_ms, bound_by, parts = _bound(flops, byts,
+                                       _attn_mufu(n_live, H, mode), dname)
     err = max(e["max_abs"] for e in errs.values())
-    say(f"[kernels] attn_bwd {pack_name} {dname}: "
+    say(f"[kernels] {bname} {pack_name} {dname}: "
         + "; ".join(f"{n} max_abs {e['max_abs']:.3e} rel_to_max "
                     f"{e['rel_to_max']:.3e}"
                     + (f" row_rel {e['row_rel']:.3e}" if e["row_rel"]
                        is not None else "") for n, e in errs.items())
         + f"; bit-identical rerun {same} | kernel {ms:.4f} ms  plain "
         f"{plain_ms:.3f} ms  bound {bound_ms:.5f} ms by {bound_by} "
-        f"({flops / 1e9:.2f} GFLOP, {byts / 1e6:.2f} MB, {n_live} live "
-        f"pairs) -> {bound_ms / ms:.4f} of bound")
+        f"(operations {parts['operations']:.5f}, bytes "
+        f"{parts['bytes']:.5f}, special functions "
+        f"{parts['special functions']:.5f} ms; {flops / 1e9:.2f} GFLOP, "
+        f"{byts / 1e6:.2f} MB, {n_live} live pairs) -> "
+        f"{bound_ms / ms:.4f} of bound")
     check(same, "K2 differs between two runs on the same inputs")
     for name, e in errs.items():
-        # fp32 (and the fp32 table grads): the same fp32 arithmetic summed
-        # in another order, held to 1e-4 of the largest value; bf16 q/k/v
-        # grads: one bf16 rounding of an fp32 sum, per (token, head) by
-        # relative L2, as K1-fwd
+        # fp32 (and the fp32 table and time grads): the same fp32
+        # arithmetic summed in another order, held to 1e-4 of the largest
+        # value (the three time grads of a head each sum ~10^7 terms, and
+        # d sigma is small for heads of large sigma: relative to the
+        # largest over the heads, not per element); bf16 q/k/v grads: one
+        # bf16 rounding of an fp32 sum, per (token, head) by relative L2,
+        # as K1-fwd
         if e["row_rel"] is not None and dname == "bfloat16":
             check(e["row_rel"] <= REL_TOL_BF16,
                   f"K2 {pack_name} {dname} {name}: row relative "
                   f"{e['row_rel']} > {REL_TOL_BF16}")
         else:
             check(e["rel_to_max"] <= GRAD_TOL_FP32,
-                  f"K2 {pack_name} {dname} {name}: {e['rel_to_max']} of "
-                  f"max > {GRAD_TOL_FP32}")
+                  f"K2 {mode} {pack_name} {dname} {name}: "
+                  f"{e['rel_to_max']} of max > {GRAD_TOL_FP32}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, errs=errs)
 
@@ -666,20 +757,6 @@ def phase_wscatter_kernel():
     lib_rel = _rel_to_max(out, library()[:u.numel()])
     lib_ms = timed_ms(library, 5)
     del csr
-    # the engine's host sort (its unique stage) against the device sort it
-    # replaces, on these slots clipped to [0, V) as the engine clips them
-    from repro_torch.training import host_sort_contribs
-    clipped = ids.clamp(0, V - 1)
-    dev_sort_ms = timed_ms(lambda: JL.sort_pairs(clipped), 10)
-    d_order, d_keys = JL.sort_pairs(clipped)
-    t = time.perf_counter()
-    for _ in range(3):
-        h_order, h_keys = host_sort_contribs(
-            {"neg_ids": neg, "ids": zipf, "labels": drop}, V)
-    host_sort_ms = (time.perf_counter() - t) * 1e3 / 3
-    same_perm = (torch.equal(d_order.cpu(), torch.from_numpy(h_order))
-                 and torch.equal(d_keys.cpu(), torch.from_numpy(h_keys)))
-    del d_order, d_keys, clipped
     # bf16 o, the weights, the ready rows, the order, the sorted ids and the
     # run pointers read once; one total written per run
     byts = (T * D * 2 + TR * 4 + (n - TR) * D * 4 + n * 8 + n * 4
@@ -700,10 +777,6 @@ def phase_wscatter_kernel():
         f"{bound_ms / ms:.3f} of bound")
     say(f"[kernels] wscatter library call, CSR (runs x [o; extra]) "
         f"torch.sparse.mm: {lib_ms:.4f} ms, {lib_rel:.3e} of max from K5")
-    say(f"[kernels] sort of the {n} slots: device sort_pairs "
-        f"{dev_sort_ms:.4f} ms; the engine's host sort (numpy, stable) "
-        f"{host_sort_ms:.1f} ms of host time; the same permutation "
-        f"{same_perm}")
     # fp32 sums of up to thousands of rows in another order (the plain
     # version and cuSPARSE add on the card in their own orders): 1e-4 of
     # the largest total; against two-pass + K6 the same products added in
@@ -712,12 +785,10 @@ def phase_wscatter_kernel():
           "K5 disagrees with its plain version")
     check(lib_rel <= GRAD_TOL_FP32, "K5 disagrees with the CSR library call")
     check(bitwise, "K5 differs from two-pass rows + K6")
-    check(same_perm, "the host sort differs from the device sort")
     del out, buf, extra, o, w
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms, two_pass_ms=two_pass_ms,
-                device_sort_ms=dev_sort_ms, host_sort_ms=host_sort_ms)
+                bound_by=bound_by, library_ms=lib_ms, two_pass_ms=two_pass_ms)
 
 
 # --------------------------------------------------------------------------
@@ -782,7 +853,18 @@ def _trace(rng, users, vocab, max_len):
                   ("incremental", inc)]
 
 
-def phase_serve():
+def _attn_counter(cfg, kind="fwd"):
+    """The launch counter of the attention kernels' time mode that
+    ``cfg``'s block runs: HSTU the bucket table, FuXi the functional
+    encoder."""
+    return f"attn_{kind}" + ("_functional" if cfg.gr_block == "fuxi" else "")
+
+
+def phase_serve(arch="hstu-large", tag="serve"):
+    """RecallEngine on full-width ``arch``: cold, pure-hit and incremental
+    rounds with the launch counts zeroed before and read after each; then
+    the cold round's first micro-batch with the plain version beside the
+    kernel in every layer, and end to end."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -792,7 +874,8 @@ def phase_serve():
     from repro_torch.serving import RecallEngine, RequestScheduler
 
     dev = torch.device("cuda")
-    cfg = get_arch("hstu-large")
+    cfg = get_arch(arch)
+    counter = _attn_counter(cfg)
     V, d = cfg.vocab_size, cfg.d_model
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -801,33 +884,36 @@ def phase_serve():
     kw = dict(num_shards=2, users_per_shard=8, tokens_per_shard=8192, k=100)
     eng = RecallEngine(cfg, model, master, device=dev, **kw)
     torch.cuda.synchronize()
-    say(f"[serve] {cfg.name}: d={d} layers={cfg.num_layers} heads="
-        f"{cfg.num_heads} qkv={cfg.qkv_dim} max_seq_len={cfg.max_seq_len} "
+    say(f"[{tag}] {cfg.name}: d={d} layers={cfg.num_layers} heads="
+        f"{cfg.num_heads} qkv={cfg.qkv_dim} d_ff={cfg.d_ff} max_seq_len="
+        f"{cfg.max_seq_len} "
         f"vocab={V} dtype={cfg.dtype}; master {tuple(master.shape)} "
         f"{master.dtype} + shadow {eng.table.shadow.dtype} on the card; "
         f"set-up {time.perf_counter() - t0:.3f} s")
     rng = np.random.default_rng(SEED)
     hist, rounds = _trace(rng, 40, V, cfg.max_seq_len)
     lens = np.array([len(hist[u][0]) for u in hist])
-    say(f"[serve] trace: {len(hist)} users, history lengths min "
+    say(f"[{tag}] trace: {len(hist)} users, history lengths min "
         f"{lens.min()} median {int(np.median(lens))} max {lens.max()}, "
         f"{lens.sum()} events")
 
     torch.cuda.reset_peak_memory_stats()
-    for name in ops.KERNEL_LAUNCHES:           # counts of this run only
-        ops.KERNEL_LAUNCHES[name] = 0
     out = {}
     per_round = []
+    launches = {name: 0 for name in ops.KERNEL_LAUNCHES}
     for rname, reqs in rounds:
         enc0 = eng.encoded_batches
-        l0 = ops.KERNEL_LAUNCHES["attn_fwd"]
+        _zero_counts()                         # counts of this round only
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = eng.serve(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+        counts = dict(ops.KERNEL_LAUNCHES)
+        for name, n in counts.items():
+            launches[name] += n
         n_enc = eng.encoded_batches - enc0
-        n_l = ops.KERNEL_LAUNCHES["attn_fwd"] - l0
+        n_l = counts[counter]
         hits = sum(r.cache_hit for r in res)
         peak = torch.cuda.max_memory_allocated() / 2**30
         per_round.append(dict(round=rname, requests=len(reqs), hits=hits,
@@ -835,23 +921,24 @@ def phase_serve():
                               wall_s=wall, peak_mem_gib=peak,
                               **{f"{k}_s": v for k, v in
                                  eng.last_step_s.items()}))
-        say(f"[serve] round {rname}: {len(reqs)} requests, {hits} hits, "
-            f"{n_enc} micro-batches, {n_l} attn_fwd launches, wall "
+        say(f"[{tag}] round {rname}: {len(reqs)} requests, {hits} hits, "
+            f"{n_enc} micro-batches, {n_l} {counter} launches (all "
+            f"attention counts {counts}), wall "
             f"{wall * 1e3:.1f} ms, phases "
             f"{ {k: round(v * 1e3, 1) for k, v in eng.last_step_s.items()} }"
             f" ms, peak device memory so far {peak:.2f} GiB")
         check(len(res) == len(reqs), "a request got no result")
-        check(n_l == cfg.num_layers * n_enc,
-              f"attn_fwd launched {n_l} times for {n_enc} micro-batches of "
-              f"{cfg.num_layers} layers")
+        check(n_l == cfg.num_layers * n_enc
+              and sum(counts.values()) == n_l,
+              f"{counter} launched {n_l} times (all counts {counts}) for "
+              f"{n_enc} micro-batches of {cfg.num_layers} layers")
         for r in res:
             check(np.isfinite(r.user_emb).all(), "non-finite embedding")
             check(((r.item_ids >= 0) & (r.item_ids < V)).all(),
                   "top-k id out of range")
             check(np.isfinite(r.scores).all(), "non-finite score")
         out[rname] = {r.user: r for r in res}
-    launches = dict(ops.KERNEL_LAUNCHES)
-    check(launches["attn_fwd"] > 0, "the main path launched no attn_fwd")
+    check(launches[counter] > 0, f"the main path launched no {counter}")
     check(per_round[0]["micro_batches"] > 0 and per_round[1]["hits"] ==
           len(hist) and per_round[1]["micro_batches"] == 0,
           "the hit round encoded")
@@ -864,7 +951,7 @@ def phase_serve():
     inc_users = {u for u, _, _ in rounds[2][1]}
     check(all(not out["incremental"][u].cache_hit for u in inc_users),
           "an incremental request was served from the cache")
-    say(f"[serve] checks: embeddings finite, ids in [0, {V}), hits "
+    say(f"[{tag}] checks: embeddings finite, ids in [0, {V}), hits "
         f"bit-identical to cold, launches = layers x micro-batches; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -896,12 +983,12 @@ def phase_serve():
     eng_err = max(float(np.abs(emb_k[s.shard, s.row].cpu().numpy()
                                - out["cold"][s.user].user_emb).max())
                   for s in mb.slots)
-    say(f"[serve] micro-batch of {len(mb.slots)} users, {mb.num_tokens} "
+    say(f"[{tag}] micro-batch of {len(mb.slots)} users, {mb.num_tokens} "
         f"tokens. Per layer, kernel vs plain on the same layer inputs: "
         f"worst row relative {max(both.errs):.3e} (tol {REL_TOL_BF16}), by "
         f"layer "
         f"{[float(f'{e:.2e}') for e in both.errs]}")
-    say(f"[serve] end to end through {cfg.num_layers} bf16 layers, kernel "
+    say(f"[{tag}] end to end through {cfg.num_layers} bf16 layers, kernel "
         f"path vs plain path: max abs {err:.3e} on |emb| up to "
         f"{ep.abs().max().item():.2f}, worst per-user relative L2 {rel:.3e} "
         f"(tol {EMB_TOL_BF16}); direct call vs the engine's cold round max "
@@ -913,10 +1000,11 @@ def phase_serve():
     # are held to the bf16 tolerance relative to the embedding's norm
     check(rel <= EMB_TOL_BF16, f"slice embeddings: kernel vs plain "
           f"relative {rel} > {EMB_TOL_BF16}")
-    return launches, per_round, _profile_encode(model, cfg, x, args, attn)
+    return launches, per_round, _profile_encode(model, cfg, x, args, attn,
+                                                tag)
 
 
-def _profile_encode(model, cfg, x, args, attn):
+def _profile_encode(model, cfg, x, args, attn, tag):
     """Device time by kernel over one micro-batch encode, and the device's
     idle share of the wall time."""
     import torch
@@ -931,7 +1019,8 @@ def _profile_encode(model, cfg, x, args, attn):
         wall = (time.perf_counter() - t) * 1e3
     rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
-    say(f"[profile] one micro-batch encode: wall {wall:.1f} ms, device busy "
+    say(f"[profile] {tag}: one micro-batch encode: wall {wall:.1f} ms, "
+        f"device busy "
         f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
     for ms, n, key in rows[:8]:
         say(f"[profile]   {ms:9.3f} ms  x{n:<5d} {key[:90]}")
@@ -1019,7 +1108,6 @@ def phase_train():
                                       input_gather=bundle.input_gather,
                                       semi_async=semi, stage_times=True)
              for semi in (False, True)}
-    L = cfg.num_layers
     base = torch.cuda.memory_allocated()
     per_step, touched = [], []
     for i, batch in enumerate(batches[:6]):
@@ -1051,8 +1139,7 @@ def phase_train():
             f"{ {k: round(v * 1e3, 1) for k, v in stage.items()} } ms); peak "
             f"{peak / 1e9:.2f} GB above the tables; carry "
             f"{state.pending_ids.numel()} pairs; launches {counts}")
-        want = {"attn_fwd": 2 * L, "attn_bwd": L, "neg_fwd": 1,
-                "neg_bwd": 1, "runsum": 1, "wscatter": 0}
+        want = _step_launches(cfg, "runsum")
         check(counts == want, f"step {i} launched {counts}, expected {want}")
         check(math.isfinite(loss), f"step {i} loss {loss} is not finite")
         # no (V, d) fp32 array: one alone would lift the peak by V·d·4
@@ -1128,14 +1215,15 @@ def _device_rows(prof):
 # phase 6: the engine (the training entry point's main path)
 # --------------------------------------------------------------------------
 
-ENGINE_STEPS = 8
+ENGINE_STEPS = {"hstu-large": 8, "fuxi-large": 6}
 
 
-def _engine_run(schedule, V, base_note, engine_cls=None, label=None):
-    """GREngine on full-width hstu-large, tau=1, the default fused scatter,
-    ENGINE_STEPS steps; per step the loss, the host wall between the ends
-    of consecutive steps (each step's loss is realised on the host, so the
-    host waits on the card once a step) and the peak above the tables."""
+def _engine_run(arch, schedule, V, base_note, tag):
+    """GREngine on full-width ``arch``, tau=1, the default fused scatter,
+    ENGINE_STEPS[arch] steps; per step the loss, the host wall between the
+    ends of consecutive steps (each step's loss is realised on the host, so
+    the host waits on the card once a step) and the peak above the
+    tables."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.model_zoo import GRBundle
@@ -1143,11 +1231,11 @@ def _engine_run(schedule, V, base_note, engine_cls=None, label=None):
     dev = torch.device("cuda")
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_arch("hstu-large")
+    cfg = get_arch(arch)
+    n_steps = ENGINE_STEPS[arch]
     t0 = time.perf_counter()
-    eng = (engine_cls or GREngine)(GRBundle(cfg), _train_loader(V),
-                                   seed=SEED, schedule=schedule,
-                                   semi_async=True, device=dev)
+    eng = GREngine(GRBundle(cfg), _train_loader(V), seed=SEED,
+                   schedule=schedule, semi_async=True, device=dev)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     base = torch.cuda.memory_allocated()
@@ -1162,7 +1250,7 @@ def _engine_run(schedule, V, base_note, engine_cls=None, label=None):
     _zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    recs = eng.run(ENGINE_STEPS)
+    recs = eng.run(n_steps)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     counts = _read_counts()
@@ -1170,15 +1258,15 @@ def _engine_run(schedule, V, base_note, engine_cls=None, label=None):
     steps = [dict(step=r["step"], loss=r["loss"], tokens=r["tokens"],
                   wall_s=wl, peak_above_tables_gb=pk / 1e9)
              for r, wl, pk in zip(recs, walls, peaks)]
-    name = label or schedule
+    name = schedule
     for r in steps:
-        say(f"[engine] {name} step {r['step']}: loss {r['loss']:.5f}; "
+        say(f"[{tag}] {name} step {r['step']}: loss {r['loss']:.5f}; "
             f"{r['tokens']} tokens; wall {r['wall_s'] * 1e3:.1f} ms "
             f"(step end to step end); peak {r['peak_above_tables_gb']:.2f} "
             f"GB above the tables")
     tl = eng.timeline_report()
-    say(f"[engine] {name}: set-up {setup:.1f} s ({base_note}); run "
-        f"{total * 1e3:.1f} ms for {ENGINE_STEPS} steps, steady steps 3.. "
+    say(f"[{tag}] {name}: set-up {setup:.1f} s ({base_note}); run "
+        f"{total * 1e3:.1f} ms for {n_steps} steps, steady steps 3.. "
         f"mean {1e3 * sum(walls[3:]) / len(walls[3:]):.1f} ms; timeline "
         f"computing {tl['computing_ratio']:.4f}, comm not overlapped "
         f"{tl['comm_not_overlapped_ratio']:.4f}, free "
@@ -1189,7 +1277,22 @@ def _engine_run(schedule, V, base_note, engine_cls=None, label=None):
                      timeline=tl, launches=counts)
 
 
-def phase_engine():
+def _step_launches(cfg, scatter):
+    """The kernel launches of one training step of full-width ``cfg``: the
+    attention forward twice per layer (forward and checkpoint recompute)
+    and its backward once, in the block's time mode; K3, K4 and the
+    scatter's run-sum (K5 ``wscatter`` or K6 ``runsum``) once."""
+    L = cfg.num_layers
+    want = {"attn_fwd": 0, "attn_bwd": 0, "attn_fwd_functional": 0,
+            "attn_bwd_functional": 0, "neg_fwd": 1, "neg_bwd": 1,
+            "runsum": 0, "wscatter": 0}
+    want[_attn_counter(cfg, "fwd")] = 2 * L
+    want[_attn_counter(cfg, "bwd")] = L
+    want[scatter] = 1
+    return want
+
+
+def phase_engine(arch="hstu-large", tag="engine"):
     """The training entry point's main path at full width: GREngine over
     the port's GRLoader (1 x 4 x 2048, R 128, vocab 2^22), tau=1, the
     default fused scatter, Algorithm-1 schedule, then a profiled window,
@@ -1199,13 +1302,14 @@ def phase_engine():
     from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.configs import get_arch
     from repro_torch.training import host_unique_candidates
-    cfg = get_arch("hstu-large")
-    V, d, L = cfg.vocab_size, cfg.d_model, cfg.num_layers
-    eng, alg = _engine_run("algorithm1", V, "tables drawn on the card")
+    cfg = get_arch(arch)
+    V, d = cfg.vocab_size, cfg.d_model
+    n_steps = ENGINE_STEPS[arch]
+    eng, alg = _engine_run(arch, "algorithm1", V, "tables drawn on the card",
+                           tag)
     losses = [r["loss"] for r in alg["steps"]]
-    want = {"attn_fwd": 2 * L, "attn_bwd": L, "neg_fwd": 1, "neg_bwd": 1,
-            "runsum": 0, "wscatter": 1}
-    want = {k: ENGINE_STEPS * v for k, v in want.items()}
+    want = {k: n_steps * v
+            for k, v in _step_launches(cfg, "wscatter").items()}
     check(alg["launches"] == want, f"the engine launched {alg['launches']}, "
           f"expected {want}")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
@@ -1218,14 +1322,14 @@ def phase_engine():
     tbl = eng.state.table
     touched = np.unique(np.concatenate(
         [host_unique_candidates(b, V)[0]
-         for b in _train_loader(V).batches(ENGINE_STEPS)]))
+         for b in _train_loader(V).batches(n_steps)]))
     rows = torch.from_numpy(touched).to(tbl.master.device)
     bad = 0
     for lo in range(0, rows.numel(), 1 << 18):
         idx = rows[lo:lo + (1 << 18)].long()
         bad += int((tbl.shadow[idx] != tbl.master[idx].half()).sum())
-    check(bad == 0, f"engine: shadow != master.half() at {bad} elements")
-    say(f"[engine] checks: launches {ENGINE_STEPS} x one step's; losses "
+    check(bad == 0, f"{tag}: shadow != master.half() at {bad} elements")
+    say(f"[{tag}] checks: launches {n_steps} x one step's; losses "
         f"finite, first {losses[0]:.4f}; peak above the tables {peak:.2f} "
         f"GB < {V * d * 4 / 1e9:.2f} GB (no (V, d) fp32 array); shadow == "
         f"master.half() bitwise on the {rows.numel()} touched rows; carry "
@@ -1245,12 +1349,12 @@ def phase_engine():
         more = eng.run(6)
         torch.cuda.synchronize()
     check(len(window) == 1 and all(math.isfinite(r["loss"]) for r in more),
-          "engine: the profiled window recorded nothing or lost finite "
+          f"{tag}: the profiled window recorded nothing or lost finite "
           "losses")
     rows_ = window[0]
     wall = (marks[4] - marks[2]) * 1e3
     busy = sum(r[0] for r in rows_)
-    say(f"[profile] engine algorithm1 steady window (2 steps): wall "
+    say(f"[profile] {tag} algorithm1 steady window (2 steps): wall "
         f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share "
         f"{1 - busy / wall:.3f}")
     for ms, n, key in rows_[:12]:
@@ -1258,52 +1362,17 @@ def phase_engine():
     prof_out = {"wall_ms": wall, "busy_ms": busy,
                 "top": [(r[2][:60], r[0], r[1]) for r in rows_[:12]]}
     del eng, tbl, rows
-    flat_eng, flat = _engine_run("flat", V, "the same seed")
+    flat_eng, flat = _engine_run(arch, "flat", V, "the same seed", tag)
     del flat_eng
     torch.cuda.empty_cache()
     flat_losses = [r["loss"] for r in flat["steps"]]
     check(flat["launches"] == want, f"flat launched {flat['launches']}")
     check(flat_losses == losses, f"flat losses {flat_losses} differ from "
           f"algorithm1's {losses}")
-    say(f"[engine] flat schedule from the same init: losses equal to "
+    say(f"[{tag}] flat schedule from the same init: losses equal to "
         f"algorithm1's bit for bit")
 
-    # the same runs with the device sort in place of the host sort
-    def steady_ms(r):
-        w = [x["wall_s"] for x in r["steps"][3:]]
-        return 1e3 * sum(w) / len(w)
-    device_sort = {}
-    for sched, host in (("algorithm1", alg), ("flat", flat)):
-        e, r = _engine_run(sched, V, "the same seed",
-                           _device_sort_engine_cls(),
-                           f"{sched}+device-sort")
-        del e
-        torch.cuda.empty_cache()
-        got = [x["loss"] for x in r["steps"]]
-        check(got == losses, f"{sched} with the device sort: losses {got} "
-              f"differ from the host sort's {losses}")
-        check(r["launches"] == want, f"{sched} with the device sort "
-              f"launched {r['launches']}")
-        device_sort[sched] = dict(steady_ms=steady_ms(r),
-                                  host_sort_steady_ms=steady_ms(host),
-                                  timeline=r["timeline"])
-        say(f"[engine] {sched}: steady steps 3.. mean {steady_ms(r):.1f} ms "
-            f"with the device sort, {steady_ms(host):.1f} ms with the host "
-            f"sort; losses equal bit for bit")
-    return alg, flat, prof_out, device_sort
-
-
-def _device_sort_engine_cls():
-    from repro_torch.training import GREngine
-
-    class DeviceSortEngine(GREngine):
-        """GREngine whose unique stage hands ``emb_bwd`` no sort, so that
-        ``emb_bwd`` sorts the step's slots on the card: what the engine
-        runs without its host sort (a measurement only)."""
-
-        def _hk_unique(self, i, art):
-            return {**art, "sort": ()}
-    return DeviceSortEngine
+    return alg, flat, prof_out
 
 
 # --------------------------------------------------------------------------
@@ -1338,22 +1407,63 @@ class _PlainVersions:
 def phase_parity():
     """At full width, 2 layers, vocab 2^18, from one init: (a) one sync
     step's dense_fwd_bwd + table-grad pairs, kernels against plain
-    versions on the card, with the two-pass scatter (K6) and the fused one
-    (K5); (b) GREngine, algorithm1 and flat, against make_gr_train_step
-    over 4 steps, sync and tau=1: losses, every state tensor and the carry
-    bit for bit."""
+    versions on the card: hstu-large with the two-pass scatter (K6) and
+    the fused one (K5), fuxi-large (the functional K1-fwd and K2) with the
+    fused one; (b) GREngine on hstu-large, algorithm1 and flat, against
+    make_gr_train_step over 4 steps, sync and tau=1: losses, every state
+    tensor and the carry bit for bit. Returns the results and the kernel
+    launches of the kernel runs of (a)."""
+    import torch
+    launches = {}
+    res, state, bundle, batches = _dense_pass_parity(
+        "hstu-large", ("two_pass", "fused"), launches)
+    same = (torch.equal(res["fused"]["ids"], res["two_pass"]["ids"])
+            and torch.equal(res["fused"]["pairs"], res["two_pass"]["pairs"]))
+    say(f"[parity] kernels, fused vs two-pass table-grad pairs bit for bit: "
+        f"{same}; peak above the state over one dense pass + pairs "
+        f"(T = {batches[0]['ids'].size} tokens, R = "
+        f"{bundle.cfg.num_negatives}): two-pass "
+        f"{res['peak_gb']['two_pass']:.2f} GB, fused "
+        f"{res['peak_gb']['fused']:.2f} GB")
+    check(same, "parity: the fused and two-pass steps' pairs differ")
+    for impl in ("two_pass", "fused"):
+        del res[impl]["ids"], res[impl]["pairs"]
+    res["engine"] = _engine_contract(bundle, state, batches)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    fuxi, state, _, _ = _dense_pass_parity("fuxi-large", ("fused",),
+                                           launches)
+    del state, fuxi["fused"]["ids"], fuxi["fused"]["pairs"]
+    res["fuxi"] = fuxi
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def _dense_pass_parity(arch, impls, launches):
+    """One sync step's dense pass + table-grad pairs of full-width ``arch``
+    cut to 2 layers and vocab 2^18, kernels against plain versions, per
+    scatter in ``impls``; adds the kernel runs' launches to ``launches``.
+    → (results by impl with "peak_gb", the init state, bundle, batches)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.model_zoo import GRBundle
     from repro_torch.training import gr_train_state, make_gr_stages, to_device
     from repro_torch.training.trainer import _table_grad_pairs
     dev = torch.device("cuda")
-    cfg = get_arch("hstu-large").replace(num_layers=2, vocab_size=2 ** 18)
+    cfg = get_arch(arch).replace(num_layers=2, vocab_size=2 ** 18)
     V = cfg.vocab_size
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     bundle = GRBundle(cfg)
     state = gr_train_state(bundle.init_dense(gen, device=dev),
                            bundle.init_table(gen, device=dev))
+    if cfg.gr_block == "fuxi":
+        # FuXi's time amplitude at working values (0.02 at init would
+        # keep the time bias, and its grads' effect, below 0.02)
+        with torch.no_grad():
+            for bp in state.dense.blocks:
+                bp.rab["time_amp"].fill_(1.0)
     batches = _train_batches(V, 4)
     batch = to_device(batches[0], dev)
 
@@ -1375,19 +1485,21 @@ def phase_parity():
         return out.loss.item(), out.grads_dense, ids, rows
 
     res = {}
-    for impl, kname in (("two_pass", "runsum"), ("fused", "wscatter")):
+    for impl in impls:
+        kname = {"two_pass": "runsum", "fused": "wscatter"}[impl]
         _zero_counts()
         kl, kg, kids, krows = run(impl)
         counts = _read_counts()
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
         with _PlainVersions():
             _zero_counts()
             pl, pg, pids, prows = run(impl)
             plain_counts = _read_counts()
-        other = {"runsum": "wscatter", "wscatter": "runsum"}[kname]
-        check(all(v > 0 for k, v in counts.items() if k != other)
-              and counts[other] == 0 and not any(plain_counts.values()),
-              f"{impl}: kernel run launched {counts}, plain run "
-              f"{plain_counts}")
+        want = _step_launches(cfg, kname)
+        check(counts == want and not any(plain_counts.values()),
+              f"{arch} {impl}: kernel run launched {counts}, expected "
+              f"{want}; plain run {plain_counts}")
         g_err = {n: _rel_to_max(kg[n], pg[n]) for n in kg}
         worst = max(g_err, key=g_err.get)
         ids_equal = torch.equal(kids, pids)
@@ -1399,29 +1511,24 @@ def phase_parity():
             f"tensors {sorted(g_err.values())[len(g_err) // 2]:.3e}); "
             f"table-grad pairs {kids.numel()} ids equal {ids_equal}, rows "
             f"{r_err:.3e} of max")
+        rab_err = {n: e for n, e in g_err.items() if ".rab." in n}
+        say(f"[parity] {cfg.name} RAB grads, of their max: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in sorted(rab_err.items())))
         # bf16 activations: an attention output or weight that rounds the
         # other way moves by one bf16 ulp (2^-8 relative) and the loss and
         # grads carry it through 2 layers: loss to 1e-3 of itself, grads
-        # and table rows to 5e-2 of their largest values
-        check(abs(kl - pl) <= 1e-3 * abs(pl), f"parity {impl}: loss")
-        check(g_err[worst] <= 5e-2, f"parity {impl}: dense grad {worst}")
-        check(ids_equal and r_err <= 5e-2, f"parity {impl}: table-grad pairs")
+        # (the RAB's, the functional time encoder's included) and table
+        # rows to 5e-2 of their largest values
+        check(abs(kl - pl) <= 1e-3 * abs(pl), f"parity {arch} {impl}: loss")
+        check(g_err[worst] <= 5e-2, f"parity {arch} {impl}: dense grad "
+              f"{worst}")
+        check(ids_equal and r_err <= 5e-2,
+              f"parity {arch} {impl}: table-grad pairs")
         res[impl] = dict(loss=(kl, pl), grad_worst=(worst, g_err[worst]),
-                         rows=r_err, ids=kids, pairs=krows)
-    same = (torch.equal(res["fused"]["ids"], res["two_pass"]["ids"])
-            and torch.equal(res["fused"]["pairs"], res["two_pass"]["pairs"]))
-    say(f"[parity] kernels, fused vs two-pass table-grad pairs bit for bit: "
-        f"{same}; peak above the state over one dense pass + pairs "
-        f"(T = {batch['ids'].numel()} tokens, R = {cfg.num_negatives}): "
-        f"two-pass {peaks['two_pass']:.2f} GB, fused {peaks['fused']:.2f} GB")
-    check(same, "parity: the fused and two-pass steps' pairs differ")
-    for r in res.values():
-        del r["ids"], r["pairs"]
+                         rab_grads=rab_err, rows=r_err, ids=kids,
+                         pairs=krows)
     res["peak_gb"] = peaks
-    res["engine"] = _engine_contract(bundle, state, batches)
-    del state
-    torch.cuda.empty_cache()
-    return res
+    return res, state, bundle, batches
 
 
 def _engine_contract(bundle, init, batches):
@@ -1465,38 +1572,56 @@ def _engine_contract(bundle, init, batches):
 # phase 8: the training CLI
 # --------------------------------------------------------------------------
 
-CLI_ARGS = ["--arch", "hstu-large", "--steps", "8", "--synthetic-users",
-            "400", "--num-items", "200000", "--max-seq-len", "512",
-            "--users-per-device", "2", "--num-negatives", "32",
-            "--log-every", "4"]
+CLI_ARGS = ["--synthetic-users", "400", "--num-items", "200000",
+            "--max-seq-len", "512", "--users-per-device", "2",
+            "--num-negatives", "32", "--log-every", "4"]
+CLI_RUNS = (("hstu-large", 8), ("fuxi-large", 4))
 
 
 def phase_cli():
     """``python -m repro_torch.launch.train`` on the card, as a user runs
-    it: must exit 0 and end with ``[done]`` and a finite final loss."""
+    it, for hstu-large and fuxi-large, the two processes side by side (each
+    holds a few GB): each must exit 0 and end with ``[done]`` and a finite
+    final loss."""
     import torch
     torch.cuda.empty_cache()
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
                                else []))
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", *CLI_ARGS]
     t = time.perf_counter()
-    p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                       text=True, timeout=600)
-    wall = time.perf_counter() - t
-    for ln in p.stdout.strip().splitlines():
-        say(f"[cli] {ln}")
-    check(p.returncode == 0, f"the CLI exited {p.returncode}: "
-          f"{p.stderr[-3000:]}")
-    done = [ln for ln in p.stdout.splitlines() if ln.startswith("[done]")]
-    check(len(done) == 1 and "final loss" in done[0],
-          "the CLI printed no [done] line with a final loss")
-    final = float(done[0].rsplit("final loss", 1)[1])
-    check(math.isfinite(final), f"the CLI's final loss {final}")
-    say(f"[cli] {' '.join(CLI_ARGS)}: exit 0 in {wall:.1f} s, final loss "
-        f"{final:.4f}")
-    return dict(wall_s=wall, final_loss=final)
+    procs = {}
+    for arch, steps in CLI_RUNS:
+        args = ["--arch", arch, "--steps", str(steps), *CLI_ARGS]
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *args]
+        procs[arch] = (args, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    out = {}
+    try:
+        for arch, (args, p) in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            wall = time.perf_counter() - t
+            for ln in stdout.strip().splitlines():
+                say(f"[cli] {ln}")
+            check(p.returncode == 0, f"the CLI ({arch}) exited "
+                  f"{p.returncode}: {stderr[-3000:]}")
+            done = [ln for ln in stdout.splitlines()
+                    if ln.startswith("[done]")]
+            check(len(done) == 1 and "final loss" in done[0],
+                  f"the CLI ({arch}) printed no [done] line with a final "
+                  f"loss")
+            final = float(done[0].rsplit("final loss", 1)[1])
+            check(math.isfinite(final), f"the CLI's final loss {final}")
+            say(f"[cli] {' '.join(args)}: exit 0, {wall:.1f} s after the "
+                f"start of both, final loss {final:.4f}")
+            out[arch] = dict(wall_s=wall, final_loss=final)
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1510,9 +1635,15 @@ def main():
     t_start = time.perf_counter()
     times = {}
 
-    def run(name, fn):
+    def run(name, fn, *args):
+        import torch
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+            say(f"[phase] {name}: torch.cuda.memory_allocated() "
+                f"{torch.cuda.memory_allocated() / 1e9:.3f} GB at the start")
         t = time.perf_counter()
-        out = fn()
+        out = fn(*args)
         times[name] = round(time.perf_counter() - t, 1)
         return out
 
@@ -1523,10 +1654,15 @@ def main():
         neg = run("neg_kernels", phase_neg_kernels)
         rs = run("runsum_kernel", phase_runsum_kernel)
         ws = run("wscatter_kernel", phase_wscatter_kernel)
-        serve_launches, per_round, serve_prof = run("serve", phase_serve)
+        serve = run("serve", phase_serve, "hstu-large", "serve")
+        serve_fuxi = run("serve_fuxi", phase_serve, "fuxi-large",
+                         "serve_fuxi")
         per_step, train_prof = run("train", phase_train)
-        alg, flat, engine_prof, device_sort = run("engine", phase_engine)
-        run("parity", phase_parity)
+        alg, flat, engine_prof = run("engine", phase_engine, "hstu-large",
+                                     "engine")
+        f_alg, f_flat, f_prof = run("engine_fuxi", phase_engine,
+                                    "fuxi-large", "engine_fuxi")
+        parity, parity_launches = run("parity", phase_parity)
         run("cli", phase_cli)
     except Failed as e:
         say(f"FAIL: {e}")
@@ -1540,17 +1676,21 @@ def main():
         for k, v in r["launches"].items():
             train_launches[k] = train_launches.get(k, 0) + v
     say(f"[result] total {time.perf_counter() - t_start:.1f} s; phases "
-        f"{times}; rounds {json.dumps(per_round)}")
+        f"{times}; rounds {json.dumps(serve[1])}; FuXi rounds "
+        f"{json.dumps(serve_fuxi[1])}")
     say(f"[result] train steps {json.dumps(per_step)}")
     say(f"[result] engine {json.dumps([alg, flat, engine_prof])}")
-    say(f"[result] engine device sort {json.dumps(device_sort)}")
+    say(f"[result] engine_fuxi {json.dumps([f_alg, f_flat, f_prof])}")
     main_attn = lambda k: attn[(k, "long_tail", "bfloat16")]  # noqa: E731
-    rows = [("attn_fwd", "jagged_attn_fwd.cu",
-             "src/repro/kernels/jagged_attention/kernel.py:384",
+    attn_src = "src/repro/kernels/jagged_attention/kernel.py"
+    rows = [("attn_fwd", "jagged_attn_fwd.cu", f"{attn_src}:384",
              main_attn("attn_fwd"), None),
-            ("attn_bwd", "jagged_attn_bwd.cu",
-             "src/repro/kernels/jagged_attention/kernel.py:781",
+            ("attn_bwd", "jagged_attn_bwd.cu", f"{attn_src}:781",
              main_attn("attn_bwd"), None),
+            ("attn_fwd_functional", "jagged_attn_fwd.cu", f"{attn_src}:384",
+             main_attn("attn_fwd_functional"), None),
+            ("attn_bwd_functional", "jagged_attn_bwd.cu", f"{attn_src}:781",
+             main_attn("attn_bwd_functional"), None),
             ("neg_fwd", "neg_fused.cu",
              "src/repro/kernels/neg_logits/fused.py:159", neg["neg_fwd"],
              None),
@@ -1565,17 +1705,28 @@ def main():
              ws["library_ms"])]
     kernels = []
     for kname, src, replaces, r, lib in rows:
-        by_path = {"serve": serve_launches.get(kname, 0),
+        by_path = {"serve": serve[0].get(kname, 0),
+                   "serve_fuxi": serve_fuxi[0].get(kname, 0),
                    "train": train_launches.get(kname, 0),
                    "engine": alg["launches"][kname]
-                   + flat["launches"][kname]}
+                   + flat["launches"][kname],
+                   "engine_fuxi": f_alg["launches"][kname]
+                   + f_flat["launches"][kname],
+                   "parity": parity_launches.get(kname, 0)}
+        if sum(by_path.values()) == 0:
+            say(f"FAIL: {kname} was launched on no path")
+            return 1
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": lib})
+            # special-function instructions are operations, at the SFUs'
+            # rate; bound_detail names which operations bind
+            "bound_by": ("bytes" if r["bound_by"] == "bytes"
+                         else "operations"),
+            "bound_detail": r["bound_by"], "library_ms": lib})
     say(json.dumps({"kernels": kernels}))
     say(smi_line)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

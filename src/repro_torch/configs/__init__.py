@@ -1,14 +1,16 @@
 """Config registry: ``get_arch(name)`` / ``ARCHS`` for the GR models the
-port serves (FuXi and SASRec configs arrive with their blocks)."""
+port serves and trains, HSTU and FuXi (the SASRec configs arrive with
+their block)."""
 from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.configs import fuxi as _fuxi
 from repro_torch.configs import hstu as _hstu
 from repro_torch.configs.base import (ArchConfig, MoEConfig, RABConfig,
                                       SSMConfig)
 
-ARCHS: Dict[str, ArchConfig] = dict(_hstu.CONFIGS)
+ARCHS: Dict[str, ArchConfig] = {**_hstu.CONFIGS, **_fuxi.CONFIGS}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -40,9 +40,13 @@ def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def gr_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
                          device: DeviceLike = None) -> GRModel:
     """The ``init_gr`` pytree as numpy arrays → a :class:`GRModel` holding
-    the same values. The stacked layer axis is split per block;
-    ``w_uvqk`` keeps its (d, H·(2dv+2dqk)) u, v, q, k layout; the RAB
-    tables keep their own dtype (fp32) whatever the weights' dtype."""
+    the same values, for HSTU and FuXi blocks alike (the FFN leaves, and
+    the functional time encoder's ``time_amp``/``time_log_sigma``/
+    ``time_rho`` in place of ``time_table``). The stacked layer axis is
+    split per block; ``w_uvqk`` keeps its (d, H·(2dv+2dqk)) u, v, q, k
+    layout; the RAB leaves keep their own dtype (fp32) whatever the
+    weights' dtype. The tree's block leaves and RAB leaves must be the
+    config's, key for key."""
     device = resolve_device(device)
     blocks = tree["blocks"]
     dtype = tensor_from_numpy(np.asarray(tree["out_ln_w"])[:1],
@@ -62,8 +66,12 @@ def gr_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
         dst.data.copy_(t)
 
     for i, bp in enumerate(model.blocks):
-        for name in ("ln_w", "ln_b", "w_uvqk", "w_o"):
-            put(getattr(bp, name), np.asarray(blocks[name])[i])
+        own = dict(bp.named_parameters(recurse=False))
+        if set(blocks) - {"rab"} != set(own):
+            raise ValueError(f"block leaves {sorted(set(blocks) - {'rab'})} "
+                             f"vs config {sorted(own)}")
+        for name, p in own.items():
+            put(p, np.asarray(blocks[name])[i])
         rab = blocks.get("rab", {})
         if set(rab) != set(bp.rab.keys()):
             raise ValueError(f"RAB tables {sorted(rab)} vs config "

@@ -3,8 +3,9 @@
 // Replaces the TPU kernels of src/repro/kernels/jagged_attention/kernel.py:
 // bwd_pallas_wl, i.e. _bwd_kv_kernel_wl (k-major: dk, dv) and
 // _bwd_q_kernel_wl (q-major: dq and the grads of pos_table and
-// time_table), both recomputing (a, ds) as _recompute_block does:
-//   s  = q.k^T * scale + pos_table[clip(i-j)] + time_table[bucket(|tq-tk|)]
+// time_table, or of FuXi's functional (amp, sigma, rho)), both recomputing
+// (a, ds) as _recompute_block does:
+//   s  = q.k^T * scale + pos_table[clip(i-j)] + time bias
 //   mw = [same row, key at or before query] / (pos+1)
 //   a  = SiLU(s) * mw                      (fp32; the forward's rounding of
 //                                           a to v's dtype passes straight
@@ -12,16 +13,24 @@
 //   ds = (dy.v^T) * SiLU'(s) * mw
 //   dv += a^T.dy,  dk += ds^T.q * scale,  dq += ds.k * scale
 //   d pos_table[b] += ds over the pairs in position bucket b (a sum over
-//   diagonals), d time_table[b] += ds over the pairs in time bucket b.
-// The score and bucket arithmetic is K1-fwd's (jagged_attn_fwd.cu): fp32
-// floor(log(1+dt)/denom) with a true division.
+//   diagonals), and, by the time mode (a template parameter):
+//   bucket      d time_table[b] += ds over the pairs in time bucket b;
+//   functional  with E = exp(-z^rho), z = (|tq-tk| + 1e-6) / sigma and
+//               bias = amp * E (_functional_time_grads, kernel.py:183):
+//               d amp += ds * E, d sigma += ds * amp*E*rho*z^rho/sigma,
+//               d rho += -ds * amp*E*z^rho*ln z.
+// The score arithmetic is K1-fwd's (jagged_attn_fwd.cu), and the time
+// bias is the same code (time_bias.cuh): fp32, true divisions, the precise
+// logf/expf.
 //
 // What bounds it on this card: the work needs 10 * 128^2 * D flops per
 // live block pair and head (s, dy.v^T, dv, dk and dq, 2 * 128^2 * D each)
 // against six 128 x D tiles read; this design does 14, since the dk/dv
-// and the dq kernel each recompute s and dy.v^T. As K1-fwd, this first
-// version runs its products in fp32 FMA on the CUDA cores (67 TFLOP/s), so
-// it is bound by operations, far from the bf16 tensor-core bound.
+// and the dq kernel each recompute s and dy.v^T. Each entry also needs
+// SiLU's special functions and the time bias's (counted from the function
+// by chip_smoke.py, which states the binding bound). As K1-fwd, this
+// first version runs its products in fp32 FMA on the CUDA cores
+// (67 TFLOP/s), so it is bound by operations, far from either bound.
 //
 // What the design does about the TPU's sequential grid:
 // - The work-lists are read as CSR runs: one CTA per (64-key chunk of a
@@ -40,10 +49,17 @@
 //   summed in a fixed order (diagonal sums for positions, per-row then
 //   per-bucket sums for times), and writes it to its own slot; a third
 //   kernel sums the slots in a fixed order. No atomics: the result is the
-//   same from run to run.
+//   same from run to run. The functional mode's three sums take the place
+//   of the time buckets (a partial of npb + 3): each thread sums its
+//   entries of a row, a fixed shuffle tree sums the row's 16 threads, and
+//   the rows are summed in order. E * z^rho is taken as 0 where E
+//   underflows to 0 (z^rho may be inf there), so a masked entry, whose ds
+//   is 0, adds exactly 0.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "time_bias.cuh"
 
 namespace {
 
@@ -66,15 +82,6 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-// The TPU kernel's time bucket (kernel.py _time_buckets), in fp32.
-__device__ __forceinline__ int time_bucket(int qt, int kt, float denom,
-                                           int ntb) {
-  int dt = qt > kt ? qt - kt : kt - qt;
-  float b = floorf(logf(1.0f + (float)dt) / denom);
-  int tb = (int)b;
-  return min(max(tb, 0), ntb - 1);
 }
 
 // Shared memory, in 4-byte words, for both kernels.
@@ -134,12 +141,15 @@ __device__ void load_rows(float* dst, const T* __restrict__ src,
 }
 
 // The (a, ds) tile of one (query chunk at slot q0, key chunk at slot
-// key0) pair into shared memory, rows = queries, cols = keys; with
-// `keep_tb` also each entry's time bucket.
-template <int D>
+// key0) pair into shared memory, rows = queries, cols = keys. With
+// `time_grads`, what the time grads need: in the bucket mode each entry's
+// time bucket (sm.tb); in the functional mode (FUNC) each row's sums of
+// ds * d bias / d(amp, sigma, rho) over the tile's keys (sm.rowpart, 3 per
+// row).
+template <int D, bool FUNC>
 __device__ void recompute_tile(const Smem& sm, int q0, int key0, float scale,
                                float tb_denom, int npb, int ntb, int use_pos,
-                               int use_time, bool keep_a, bool keep_tb) {
+                               int use_time, bool keep_a, bool time_grads) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   float s[RPT][RPT], da[RPT][RPT];
@@ -167,6 +177,16 @@ __device__ void recompute_tile(const Smem& sm, int q0, int key0, float scale,
         da[i][j] = fmaf(dyv[i], vv[j], da[i][j]);
       }
   }
+  // the head's functional time parameters and the per-head factors of
+  // d bias / d sigma (amp * rho / sigma) and d bias / d rho (-amp)
+  float amp = 0.0f, sigma = 1.0f, rho = 1.0f, c_sig = 0.0f, c_rho = 0.0f;
+  if constexpr (FUNC) {
+    amp = sm.tt[0];
+    sigma = sm.tt[1];
+    rho = sm.tt[2];
+    c_sig = __fdiv_rn(__fmul_rn(amp, rho), sigma);
+    c_rho = -amp;
+  }
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = ty + 16 * i;
@@ -174,6 +194,7 @@ __device__ void recompute_tile(const Smem& sm, int q0, int key0, float scale,
     const int qseg = sm.qseg[r];
     const int qts = sm.qts[r];
     const float qninv = sm.qninv[r];
+    float g_amp = 0.0f, g_sig = 0.0f, g_rho = 0.0f;  // this row's sums
 #pragma unroll
     for (int j = 0; j < RPT; ++j) {
       const int c = tx + 16 * j;
@@ -181,18 +202,50 @@ __device__ void recompute_tile(const Smem& sm, int q0, int key0, float scale,
       float bias = 0.0f;
       if (use_pos) bias += sm.pt[min(max(qslot - kslot, 0), npb - 1)];
       int tb = 0;
+      float E = 0.0f, zr = 0.0f, lnz = 0.0f;
       if (use_time) {
-        tb = time_bucket(qts, sm.kts[c], tb_denom, ntb);
-        bias += sm.tt[tb];
+        if constexpr (FUNC) {
+          E = functional_E(qts, sm.kts[c], sigma, rho, zr, lnz);
+          bias += __fmul_rn(amp, E);
+        } else {
+          tb = time_bucket(qts, sm.kts[c], tb_denom, ntb);
+          bias += sm.tt[tb];
+        }
       }
       const float x = s[i][j] * scale + bias;
       const bool live = qseg == sm.kseg[c] && qseg >= 0 && qslot >= kslot;
       const float mw = live ? qninv : 0.0f;
       const float sig = 1.0f / (1.0f + expf(-x));
       if (keep_a) sm.a[r * (CH + 1) + c] = x * sig * mw;
-      sm.ds[r * (CH + 1) + c] =
-          da[i][j] * (sig * (1.0f + x * (1.0f - sig))) * mw;
-      if (keep_tb) sm.tb[r * (CH + 1) + c] = tb;
+      const float ds = da[i][j] * (sig * (1.0f + x * (1.0f - sig))) * mw;
+      sm.ds[r * (CH + 1) + c] = ds;
+      if constexpr (FUNC) {
+        if (time_grads && use_time) {
+          const float ezr = E == 0.0f ? 0.0f : __fmul_rn(E, zr);
+          g_amp += ds * E;
+          g_sig += ds * __fmul_rn(ezr, c_sig);
+          g_rho += ds * __fmul_rn(__fmul_rn(ezr, lnz), c_rho);
+        }
+      } else {
+        if (time_grads) sm.tb[r * (CH + 1) + c] = tb;
+      }
+    }
+    if constexpr (FUNC) {
+      if (time_grads && use_time) {
+        // the row's 64 keys lie with the 16 threads of one half-warp
+        // (tx = 0..15): a fixed shuffle tree, then one write per row
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) {
+          g_amp += __shfl_xor_sync(0xffffffffu, g_amp, off);
+          g_sig += __shfl_xor_sync(0xffffffffu, g_sig, off);
+          g_rho += __shfl_xor_sync(0xffffffffu, g_rho, off);
+        }
+        if (tx == 0) {
+          sm.rowpart[r * 3 + 0] = g_amp;
+          sm.rowpart[r * 3 + 1] = g_sig;
+          sm.rowpart[r * 3 + 2] = g_rho;
+        }
+      }
     }
   }
 }
@@ -211,7 +264,7 @@ __device__ void load_meta(int* seg, int* ts, float* ninv,
 // dk, dv: one CTA per (64-key chunk, head, pack), walking kv_rowptr
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool FUNC>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dy,
@@ -260,8 +313,8 @@ attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_rows<T, D>(sm.dy, dy, pack + q0, H, h);
       load_meta(sm.qseg, sm.qts, sm.qninv, meta_i32, meta_f32, pack + q0);
       __syncthreads();
-      recompute_tile<D>(sm, q0, key0, scale, tb_denom, npb, ntb, use_pos,
-                        use_time, true, false);
+      recompute_tile<D, FUNC>(sm, q0, key0, scale, tb_denom, npb, ntb,
+                              use_pos, use_time, true, false);
       __syncthreads();
       // keys ty + 16 i, head dims tx + 16 j
       for (int qq = 0; qq < CH; ++qq) {
@@ -304,7 +357,7 @@ attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dq + RAB partials: one CTA per (64-row q chunk, head, pack), q_rowptr
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool FUNC>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dy,
@@ -355,8 +408,8 @@ attn_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_meta(sm.kseg, sm.kts, nullptr, meta_i32, meta_f32, pack + key0);
       for (int t = tid; t < CH * ntb; t += THREADS) sm.rowpart[t] = 0.0f;
       __syncthreads();
-      recompute_tile<D>(sm, q0, key0, scale, tb_denom, npb, ntb, use_pos,
-                        use_time, false, use_time != 0);
+      recompute_tile<D, FUNC>(sm, q0, key0, scale, tb_denom, npb, ntb,
+                              use_pos, use_time, false, use_time != 0);
       __syncthreads();
       // rows ty + 16 i, head dims tx + 16 j
       for (int kk = 0; kk < CH; ++kk) {
@@ -383,9 +436,10 @@ attn_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
           sm.diag[t] = sum;
         }
       }
-      // time grads, first per row: each row's thread adds its entries in
-      // key order into the row's own bucket sums
-      if (use_time) {
+      // bucket time grads, first per row: each row's thread adds its
+      // entries in key order into the row's own bucket sums (the
+      // functional mode's row sums came out of recompute_tile)
+      if (use_time && !FUNC) {
         for (int r = tid; r < CH; r += THREADS)
           for (int c = 0; c < CH; ++c)
             sm.rowpart[r * ntb + sm.tb[r * (CH + 1) + c]] +=
@@ -466,7 +520,7 @@ cudaError_t set_smem(const void* kern, int smem, int* done) {
   return cudaSuccess;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FUNC>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dy, const float* pt, const float* tt,
                    const int* meta_i32, const float* meta_f32,
@@ -478,8 +532,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    cudaStream_t stream) {
   const int smem =
       (int)((smem_words_fixed<D>() + smem_words_var(npb, ntb)) * 4);
-  auto kv_kern = attn_bwd_kv_kernel<T, D>;
-  auto q_kern = attn_bwd_q_kernel<T, D>;
+  auto kv_kern = attn_bwd_kv_kernel<T, D, FUNC>;
+  auto q_kern = attn_bwd_q_kernel<T, D, FUNC>;
   static int kv_set[MAX_DEVICES] = {};
   static int q_set[MAX_DEVICES] = {};
   cudaError_t e = set_smem((const void*)kv_kern, smem, kv_set);
@@ -510,7 +564,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }
 
 template <typename T>
-cudaError_t launch_dtype(int D, const void* q, const void* k, const void* v,
+cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
+                         const void* v,
                          const void* dy, const float* pt, const float* tt,
                          const int* mi, const float* mf, const int* q_wl,
                          const int* q_rowptr, const int* kv_wl,
@@ -521,10 +576,16 @@ cudaError_t launch_dtype(int D, const void* q, const void* k, const void* v,
                          cudaStream_t s) {
 #define JAB_CASE(DD)                                                        \
   case DD:                                                                  \
-    return launch<T, DD>(q, k, v, dy, pt, tt, mi, mf, q_wl, q_rowptr,       \
-                         kv_wl, kv_rowptr, dq, dk, dv, partial, dpt, dtt, G, \
-                         cap, H, L, npb, ntb, scale, tb_denom, use_pos,      \
-                         use_time, s);
+    return func ? launch<T, DD, true>(q, k, v, dy, pt, tt, mi, mf, q_wl,    \
+                                      q_rowptr, kv_wl, kv_rowptr, dq, dk,   \
+                                      dv, partial, dpt, dtt, G, cap, H, L,  \
+                                      npb, ntb, scale, tb_denom, use_pos,   \
+                                      use_time, s)                          \
+                : launch<T, DD, false>(q, k, v, dy, pt, tt, mi, mf, q_wl,   \
+                                       q_rowptr, kv_wl, kv_rowptr, dq, dk,  \
+                                       dv, partial, dpt, dtt, G, cap, H, L, \
+                                       npb, ntb, scale, tb_denom, use_pos,  \
+                                       use_time, s);
   switch (D) {
     JAB_CASE(16)
     JAB_CASE(32)
@@ -539,7 +600,9 @@ cudaError_t launch_dtype(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, dy, dq, dk, dv: (G, cap, H, D) float32 (dtype 0) or bfloat16
-// (dtype 1); pos_table, dpt (npb, H) and time_table, dtt (ntb, H) float32;
+// (dtype 1); pos_table, dpt (npb, H) and time_table, dtt (ntb, H) float32
+// (with time_functional set, the packed (3, H) [amp; sigma; rho] and its
+// grad);
 // meta_i32 (G, cap, 3); meta_f32 (G, cap, 1); q_wl, kv_wl (G, L, 2);
 // q_rowptr, kv_rowptr (G, cap/128 + 1); partial (G * 2 * cap/128 * H,
 // npb + ntb) float32 scratch. Launches three kernels on `stream`, on the
@@ -552,20 +615,21 @@ extern "C" int jagged_attn_bwd(
     const int* kv_wl, const int* kv_rowptr, void* dq, void* dk, void* dv,
     float* partial, float* dpt, float* dtt, int G, int cap, int H, int D,
     int L, int npb, int ntb, float scale, float tb_denom, int use_pos,
-    int use_time, int dtype, void* stream) {
+    int use_time, int time_functional, int dtype, void* stream) {
   if (G <= 0 || cap <= 0 || cap % BLK != 0 || H <= 0 || L <= 0 || npb <= 0 ||
-      ntb <= 0)
+      ntb <= 0 || (time_functional && ntb != 3))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = launch_dtype<float>(D, q, k, v, dy, pos_table, time_table, meta_i32,
+    e = launch_dtype<float>(D, time_functional, q, k, v, dy, pos_table,
+                            time_table, meta_i32,
                             meta_f32, q_wl, q_rowptr, kv_wl, kv_rowptr, dq,
                             dk, dv, partial, dpt, dtt, G, cap, H, L, npb, ntb,
                             scale, tb_denom, use_pos, use_time, s);
   else if (dtype == 1)
     e = launch_dtype<__nv_bfloat16>(
-        D, q, k, v, dy, pos_table, time_table, meta_i32, meta_f32, q_wl,
+        D, time_functional, q, k, v, dy, pos_table, time_table, meta_i32, meta_f32, q_wl,
         q_rowptr, kv_wl, kv_rowptr, dq, dk, dv, partial, dpt, dtt, G, cap, H,
         L, npb, ntb, scale, tb_denom, use_pos, use_time, s);
   else

@@ -2,20 +2,29 @@
 //
 // Replaces the TPU kernel src/repro/kernels/jagged_attention/kernel.py:
 // fwd_pallas_wl (body _fwd_kernel_wl + _fwd_block_compute), the work-list
-// forward of HSTU's softmax-free attention:
-//   s   = q.k^T / sqrt(D) + pos_table[clip(i-j, 0, npb-1)]
-//                         + time_table[floor(log(1+|tq-tk|) / (log(10)*scale))]
+// forward of HSTU's and FuXi's softmax-free attention:
+//   s   = q.k^T / sqrt(D) + pos_table[clip(i-j, 0, npb-1)] + time bias
 //   a   = SiLU(s) * [same row, key at or before query] / (pos+1), rounded
 //         to v's dtype
 //   out = sum over the live k-blocks of a @ v, accumulated in fp32.
+// The time bias has two modes, a template parameter of the kernel:
+//   bucket (HSTU)     time_table[floor(log(1+|tq-tk|) / (log(10)*scale))]
+//   functional (FuXi) amp * exp(-exp(rho * ln z)), z = (|tq-tk| + 1e-6) /
+//                     sigma, from the head's (amp, sigma, rho) packed as a
+//                     (3, H) table (_functional_time_bias, kernel.py:167).
 //
 // What bounds it on this card: at block 128 and head dim 128 a live block
 // pair does 4*128*128*128 flops per head against 3 tiles of 32 KB (bf16)
 // read, about 256 flops per byte, so on the tensor cores it sits at the
-// ridge between memory (3.35 TB/s) and bf16 math (989 TFLOP/s). This first
-// version does its math in fp32 FMA on the CUDA cores (67 TFLOP/s peak), so
-// it is bound by operations, and far from the bf16 bound; wgmma/TMA tiles
-// are later work.
+// ridge between memory (3.35 TB/s) and bf16 math (989 TFLOP/s). Besides,
+// SiLU and the RAB need special functions (SiLU's exp and reciprocal per
+// entry; the bucket's division per query-key pair, or the functional
+// bias's two exps per entry); chip_smoke.py counts the ones the function
+// needs, which at 16 per clock per SM outlast the tensor-core bound in the
+// functional mode, and states which bound binds. This first version does
+// its math in fp32 FMA on the CUDA cores (67 TFLOP/s peak), so it is bound
+// by those operations, far from either bound; wgmma/TMA tiles are later
+// work.
 //
 // What the design does about it: the TPU grid ran the q-major work-list in
 // order and carried an accumulator across grid steps with first/last flags.
@@ -26,11 +35,16 @@
 // no output window is left unwritten. Each 128-key block is taken in two
 // 64-key sub-tiles so Q, K, V, the weights and the bias tables fit in shared
 // memory (about 165 KB at D = 128). The bias tables are indexed directly in
-// shared memory; the TPU's one-hot matmul gathers are not needed. Dead
-// pairs are never visited: the work-list holds live pairs only.
+// shared memory; the TPU's one-hot matmul gathers are not needed. In the
+// functional mode the head's (amp, sigma, rho) sit where the bucket table
+// would, and the bias is computed per entry in fp32 with a true division
+// and the precise logf/expf (no fast-math), as the plain version computes
+// it. Dead pairs are never visited: the work-list holds live pairs only.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "time_bias.cuh"
 
 namespace {
 
@@ -57,15 +71,6 @@ from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// The TPU kernel's time bucket (kernel.py _time_buckets), in fp32.
-__device__ __forceinline__ int time_bucket(int qt, int kt, float denom,
-                                           int ntb) {
-  int dt = qt > kt ? qt - kt : kt - qt;
-  float b = floorf(logf(1.0f + (float)dt) / denom);
-  int tb = (int)b;
-  return min(max(tb, 0), ntb - 1);
-}
-
 template <int D>
 __host__ __device__ constexpr size_t smem_floats_fixed() {
   return (size_t)BQ * (D + 1)     // q tile, padded rows
@@ -76,7 +81,7 @@ __host__ __device__ constexpr size_t smem_floats_fixed() {
          + 2 * KC;                // k seg / ts
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FUNC>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v,
@@ -154,6 +159,14 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
 
+      // the head's functional time parameters (FUNC: tt is (3, H))
+      float amp = 0.0f, sigma = 1.0f, rho = 1.0f;
+      if constexpr (FUNC) {
+        amp = tt_s[0];
+        sigma = tt_s[1];
+        rho = tt_s[2];
+      }
+
       // scores for rows ty + 16 i, keys tx + 16 j
       float s[RPT][SCT];
 #pragma unroll
@@ -184,8 +197,15 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int kslot = key0 + cl;
           float bias = 0.0f;
           if (use_pos) bias += pt_s[min(max(qslot - kslot, 0), npb - 1)];
-          if (use_time)
-            bias += tt_s[time_bucket(qts, kts_s[cl], tb_denom, ntb)];
+          if (use_time) {
+            if constexpr (FUNC) {
+              float zr, lnz;
+              bias += __fmul_rn(
+                  amp, functional_E(qts, kts_s[cl], sigma, rho, zr, lnz));
+            } else {
+              bias += tt_s[time_bucket(qts, kts_s[cl], tb_denom, ntb)];
+            }
+          }
           const float x = s[i][j] * scale + bias;
           const bool live = qseg == kseg_s[cl] && qseg >= 0 &&
                             qslot >= kslot;
@@ -231,7 +251,7 @@ __global__ void time_bucket_kernel(const int* __restrict__ qts, int nq,
     out[i] = time_bucket(qts[i / nk], kts[i % nk], denom, ntb);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FUNC>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* pt, const float* tt, const int* meta_i32,
                    const float* meta_f32, const int* q_wl,
@@ -240,7 +260,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int use_pos, int use_time, cudaStream_t stream) {
   const int smem =
       (int)((smem_floats_fixed<D>() + npb + ntb) * sizeof(float));
-  auto kern = attn_fwd_kernel<T, D>;
+  auto kern = attn_fwd_kernel<T, D, FUNC>;
   // Opt in to more than 48 KB of shared memory once per device, and again
   // only when longer bias tables need more than was set there before.
   static int smem_set[MAX_DEVICES] = {};
@@ -264,39 +284,39 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }
 
 template <typename T>
-cudaError_t launch_dtype(int D, const void* q, const void* k, const void* v,
-                         const float* pt, const float* tt,
+cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
+                         const void* v, const float* pt, const float* tt,
                          const int* meta_i32, const float* meta_f32,
                          const int* q_wl, const int* q_rowptr, void* out,
                          int G, int cap, int H, int L, int npb, int ntb,
                          float scale, float tb_denom, int use_pos,
                          int use_time, cudaStream_t stream) {
+#define JAF_CASE(DD)                                                       \
+  case DD:                                                                 \
+    return func ? launch<T, DD, true>(q, k, v, pt, tt, meta_i32, meta_f32, \
+                                      q_wl, q_rowptr, out, G, cap, H, L,   \
+                                      npb, ntb, scale, tb_denom, use_pos,  \
+                                      use_time, stream)                    \
+                : launch<T, DD, false>(q, k, v, pt, tt, meta_i32,          \
+                                       meta_f32, q_wl, q_rowptr, out, G,   \
+                                       cap, H, L, npb, ntb, scale,         \
+                                       tb_denom, use_pos, use_time, stream);
   switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, pt, tt, meta_i32, meta_f32, q_wl,
-                           q_rowptr, out, G, cap, H, L, npb, ntb, scale,
-                           tb_denom, use_pos, use_time, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, pt, tt, meta_i32, meta_f32, q_wl,
-                           q_rowptr, out, G, cap, H, L, npb, ntb, scale,
-                           tb_denom, use_pos, use_time, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, pt, tt, meta_i32, meta_f32, q_wl,
-                           q_rowptr, out, G, cap, H, L, npb, ntb, scale,
-                           tb_denom, use_pos, use_time, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, pt, tt, meta_i32, meta_f32, q_wl,
-                            q_rowptr, out, G, cap, H, L, npb, ntb, scale,
-                            tb_denom, use_pos, use_time, stream);
+    JAF_CASE(16)
+    JAF_CASE(32)
+    JAF_CASE(64)
+    JAF_CASE(128)
     default:
       return cudaErrorInvalidValue;
   }
+#undef JAF_CASE
 }
 
 }  // namespace
 
 // q, k, v, out: (G, cap, H, D) float32 (dtype 0) or bfloat16 (dtype 1);
-// pos_table (npb, H), time_table (ntb, H) float32; meta_i32 (G, cap, 3);
+// pos_table (npb, H), time_table (ntb, H) float32 - with time_functional
+// set, the packed (3, H) [amp; sigma; rho]; meta_i32 (G, cap, 3);
 // meta_f32 (G, cap, 1); q_wl (G, L, 2); q_rowptr (G, cap/128 + 1).
 // Launches on the calling thread's current device, which the caller sets.
 // Returns the launch's cudaError_t (0 on success).
@@ -307,21 +327,23 @@ extern "C" int jagged_attn_fwd(const void* q, const void* k, const void* v,
                                const int* q_rowptr, void* out, int G, int cap,
                                int H, int D, int L, int npb, int ntb,
                                float scale, float tb_denom, int use_pos,
-                               int use_time, int dtype, void* stream) {
+                               int use_time, int time_functional, int dtype,
+                               void* stream) {
   if (G <= 0 || cap <= 0 || cap % BQ != 0 || H <= 0 || L <= 0 || npb <= 0 ||
-      ntb <= 0)
+      ntb <= 0 || (time_functional && ntb != 3))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = launch_dtype<float>(D, q, k, v, pos_table, time_table, meta_i32,
-                            meta_f32, q_wl, q_rowptr, out, G, cap, H, L, npb,
-                            ntb, scale, tb_denom, use_pos, use_time, s);
+    e = launch_dtype<float>(D, time_functional, q, k, v, pos_table,
+                            time_table, meta_i32, meta_f32, q_wl, q_rowptr,
+                            out, G, cap, H, L, npb, ntb, scale, tb_denom,
+                            use_pos, use_time, s);
   else if (dtype == 1)
-    e = launch_dtype<__nv_bfloat16>(D, q, k, v, pos_table, time_table,
-                                    meta_i32, meta_f32, q_wl, q_rowptr, out,
-                                    G, cap, H, L, npb, ntb, scale, tb_denom,
-                                    use_pos, use_time, s);
+    e = launch_dtype<__nv_bfloat16>(D, time_functional, q, k, v, pos_table,
+                                    time_table, meta_i32, meta_f32, q_wl,
+                                    q_rowptr, out, G, cap, H, L, npb, ntb,
+                                    scale, tb_denom, use_pos, use_time, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

@@ -3,7 +3,8 @@
 Each source under ``csrc/`` is one shared library with a plain C interface
 (pointers, sizes, the stream), compiled for Hopper (``sm_90a``) into
 ``build/kernels/`` at the root of the checkout, named by a hash of the
-source and the flags so an edited source rebuilds. :func:`build_all`
+source, the headers under ``csrc/`` and the flags so an edited source or
+header rebuilds. :func:`build_all`
 starts one nvcc per source, all at once, and waits for them.
 """
 from __future__ import annotations
@@ -46,8 +47,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -12,7 +12,11 @@ kernel in one launch.
 
 The core is a ``torch.autograd.Function``: its forward is K1-fwd
 (``csrc/jagged_attn_fwd.cu``), its backward K2 (``csrc/jagged_attn_bwd.cu``,
-the grads of q, k, v and both RAB tables). Dispatch is by where the tensors
+the grads of q, k, v and both RAB tables). Both take either time mode:
+HSTU's bucket table, or FuXi's functional encoder, whose raw parameters
+(amp, log σ, the ρ logit) :func:`run_attention` packs into a (3, H)
+``[amp; σ; ρ]`` in plain differentiable torch, so autograd carries the
+kernel's d(amp, σ, ρ) back to them. Dispatch is by where the tensors
 lie: CUDA tensors launch the hand-written kernels or raise; CPU tensors
 take the plain PyTorch versions in ``ref.py``. There is no fallback between
 the two.
@@ -32,8 +36,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.jagged_attention import ref as R
 
 #: Launches of each kernel in this module, counted where the wrapper
-#: launches it and nowhere else.
-KERNEL_LAUNCHES: Dict[str, int] = {"attn_fwd": 0, "attn_bwd": 0}
+#: launches it and nowhere else: ``attn_fwd``/``attn_bwd`` in the bucket
+#: time mode, ``*_functional`` in the functional one.
+KERNEL_LAUNCHES: Dict[str, int] = {"attn_fwd": 0, "attn_bwd": 0,
+                                   "attn_fwd_functional": 0,
+                                   "attn_bwd_functional": 0}
+TIME_MODES = ("bucket", "functional")
 
 #: Row tile of the CUDA kernel: it takes plans built with this block only.
 KERNEL_BLOCK = 128
@@ -230,7 +238,7 @@ def _as_batched(plan: JaggedAttnPlan) -> JaggedAttnPlan:
 # --------------------------------------------------------------------------
 
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p])
 _TB_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_int, ctypes.c_float, ctypes.c_int,
@@ -259,9 +267,16 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"jagged_attn_fwd kernel: {msg}")
 
 
+def _check_time_table(time_table, time_functional: bool) -> None:
+    _require(not time_functional or time_table.shape[0] == 3,
+             f"functional time mode takes the packed (3, H) [amp; sigma; "
+             f"rho], got {tuple(time_table.shape)}")
+
+
 def _launch_fwd(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
                 scale: float, tb_denom: float, use_pos: bool,
-                use_time: bool) -> torch.Tensor:
+                use_time: bool, time_functional: bool = False
+                ) -> torch.Tensor:
     """Launch the CUDA forward on q, k, v (G, capp, H, D) and a batched
     plan; raises on anything the kernel does not take."""
     G, capp, H, D = q.shape
@@ -283,6 +298,7 @@ def _launch_fwd(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
         _require(t.dtype == torch.float32 and t.dim() == 2
                  and t.shape[1] == H and t.device == dev,
                  f"{name} must be (n, {H}) float32 on {dev}")
+    _check_time_table(time_table, time_functional)
     for name, dtype in (("meta_i32", torch.int32), ("meta_f32", torch.float32),
                         ("q_wl", torch.int32), ("q_rowptr", torch.int32)):
         t = getattr(plan, name)
@@ -299,11 +315,12 @@ def _launch_fwd(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
             *(t.data_ptr() for t in tensors), out.data_ptr(),
             G, capp, H, D, plan.num_pairs, pos_table.shape[0],
             time_table.shape[0], scale, tb_denom, int(use_pos),
-            int(use_time), _DTYPE_CODE[q.dtype],
+            int(use_time), int(time_functional), _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"jagged_attn_fwd launch failed: CUDA error {rc}")
-    KERNEL_LAUNCHES["attn_fwd"] += 1
+    KERNEL_LAUNCHES["attn_fwd_functional" if time_functional
+                    else "attn_fwd"] += 1
     return out
 
 
@@ -329,7 +346,7 @@ def kernel_time_buckets(qts: torch.Tensor, kts: torch.Tensor,
 
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
-                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p])
 
 
@@ -343,10 +360,11 @@ def _bwd_lib():
 
 def _launch_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan,
                 *, scale: float, tb_denom: float, use_pos: bool,
-                use_time: bool):
+                use_time: bool, time_functional: bool = False):
     """Launch K2 (the dk/dv kernel, the dq + RAB-partials kernel and the
     fixed-order sum of the per-CTA RAB partials) on a batched plan; raises
-    on anything the kernels do not take. → (dq, dk, dv, dpt, dtt)."""
+    on anything the kernels do not take. → (dq, dk, dv, dpt, dtt); in the
+    functional time mode dtt is d(amp, σ, ρ) (3, H)."""
     G, capp, H, D = q.shape
     dev = q.device
     _require(dev.type == "cuda", f"tensors on {dev}, not on the card")
@@ -366,6 +384,7 @@ def _launch_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan,
         _require(t.dtype == torch.float32 and t.dim() == 2
                  and t.shape[1] == H and t.device == dev,
                  f"{name} must be (n, {H}) float32 on {dev}")
+    _check_time_table(time_table, time_functional)
     for name in ("meta_i32", "meta_f32", "q_wl", "q_rowptr", "kv_wl",
                  "kv_rowptr"):
         t = getattr(plan, name)
@@ -390,11 +409,12 @@ def _launch_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan,
             *(t.data_ptr() for t in tensors),
             *(t.data_ptr() for t in (dq, dk, dv, partial, dpt, dtt)),
             G, capp, H, D, plan.num_pairs, npb, ntb, scale, tb_denom,
-            int(use_pos), int(use_time), _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(use_pos), int(use_time), int(time_functional),
+            _DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"jagged_attn_bwd launch failed: CUDA error {rc}")
-    KERNEL_LAUNCHES["attn_bwd"] += 1
+    KERNEL_LAUNCHES["attn_bwd_functional" if time_functional
+                    else "attn_bwd"] += 1
     return dq, dk, dv, dpt, dtt
 
 
@@ -452,17 +472,30 @@ def _masked(meta_i32: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
                                                device=out.device))
 
 
+def functional_time_table(rab_params) -> torch.Tensor:
+    """FuXi's time parameters as the kernels take them in the functional
+    time mode: (3, H) fp32 ``[amp; exp(log σ); sigmoid(ρ logit)·1.5 +
+    0.25]``, differentiable in the raw ``time_amp``, ``time_log_sigma`` and
+    ``time_rho``."""
+    f32 = {n: rab_params[n].to(torch.float32) for n in
+           ("time_amp", "time_log_sigma", "time_rho")}
+    return torch.stack([f32["time_amp"], torch.exp(f32["time_log_sigma"]),
+                        torch.sigmoid(f32["time_rho"]) * 1.5 + 0.25])
+
+
 def run_attention(q, k, v, offsets, timestamps, rab_params,
                   rab: Optional[RABConfig], *, core: Callable,
                   time_mode: str = "bucket", block: int = 128,
                   plan: Optional[JaggedAttnPlan] = None,
                   max_row_len: Optional[int] = None) -> torch.Tensor:
     """Shared body of :func:`jagged_attention` and the plain
-    ``ref.jagged_attention_ref``: tables, padding, plan, ``core``, mask."""
-    if time_mode != "bucket":
-        raise NotImplementedError(
-            f"time_mode={time_mode!r}: the functional time encoder arrives "
-            f"with the FuXi block")
+    ``ref.jagged_attention_ref``: tables, padding, plan, ``core``, mask.
+    In the functional time mode the kernels take
+    :func:`functional_time_table`, built here, outside the autograd
+    Function, as the reference builds it outside its custom VJP."""
+    if time_mode not in TIME_MODES:
+        raise ValueError(f"time_mode {time_mode!r} not in {TIME_MODES}")
+    functional = time_mode == "functional"
     batched = q.dim() == 4
     if not batched:
         q, k, v = (t.unsqueeze(0) for t in (q, k, v))
@@ -472,12 +505,17 @@ def run_attention(q, k, v, offsets, timestamps, rab_params,
     G, cap, H, D = q.shape
     dev = q.device
     use_pos = bool(rab and rab.use_pos and "pos_table" in rab_params)
-    use_time = bool(rab and rab.use_time and "time_table" in rab_params)
+    use_time = bool(rab and rab.use_time and (
+        "time_amp" if functional else "time_table") in rab_params)
     zeros = torch.zeros((8, H), dtype=torch.float32, device=dev)
     pt = (rab_params["pos_table"].to(torch.float32).contiguous() if use_pos
           else zeros)
-    tt = (rab_params["time_table"].to(torch.float32).contiguous()
-          if use_time else zeros)
+    if use_time and functional:
+        tt = functional_time_table(rab_params)
+    elif use_time:
+        tt = rab_params["time_table"].to(torch.float32).contiguous()
+    else:
+        tt = zeros
     tb_scale = rab.time_bucket_scale if rab else 0.301
     pad = (-cap) % block
     if pad:
@@ -495,7 +533,8 @@ def run_attention(q, k, v, offsets, timestamps, rab_params,
             f"(packs={G}, capacity={cap + pad}, block={block})")
     out = core(q.contiguous(), k.contiguous(), v.contiguous(), pt, tt, plan,
                scale=1.0 / math.sqrt(D), tb_denom=time_bucket_denom(tb_scale),
-               use_pos=use_pos, use_time=use_time)
+               use_pos=use_pos, use_time=use_time,
+               time_functional=functional and use_time)
     out = _masked(plan.meta_i32, out)[:, :cap]
     return out if batched else out[0]
 
@@ -508,7 +547,9 @@ def jagged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      max_row_len: Optional[int] = None) -> torch.Tensor:
     """Fused jagged pointwise attention + RAB, forward, causal within each
     row. q, k, v (cap, H, D) with offsets (S+1,), or (G, cap, H, D) with
-    offsets (G, S+1).
+    offsets (G, S+1). ``time_mode`` "bucket" reads ``rab_params``'
+    ``time_table``; "functional" its ``time_amp``, ``time_log_sigma`` and
+    ``time_rho`` (FuXi).
 
     ``plan`` reuses a :func:`build_attn_plan` result; it must match
     capacity and block (checked)."""

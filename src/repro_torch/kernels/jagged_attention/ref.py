@@ -5,10 +5,12 @@ take what the CUDA kernels take (q, k, v, the RAB tables and the plan) and
 compute the same values by walking the plan's live (q-block, k-block)
 pairs with dense per-pair einsums, a chunk of pairs at a time. They repeat
 the kernels' arithmetic: scores and bias in fp32, the time bucket as
-floor(log(1+dt)/denom) in fp32, SiLU weights scaled by 1/(pos+1) and, in
-the forward, rounded to v's dtype before the a·v product; products
-accumulated in fp32. The wrapper uses them for CPU tensors;
-``chip_smoke.py`` holds the kernels against them on the card.
+floor(log(1+dt)/denom) in fp32 or, with ``time_functional``, FuXi's
+encoder amp·exp(−exp(ρ·ln z)), z = (float(|Δt|) + 1e-6)/σ, from the
+packed (3, H) ``[amp; σ; ρ]`` in place of the time table; SiLU weights
+scaled by 1/(pos+1) and, in the forward, rounded to v's dtype before the
+a·v product; products accumulated in fp32. The wrapper uses them for CPU
+tensors; ``chip_smoke.py`` holds the kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -31,12 +33,38 @@ def time_buckets(dt: torch.Tensor, tb_denom: float,
     return tb.long().clamp(0, num_buckets - 1)
 
 
+def functional_terms(dt: torch.Tensor, tt: torch.Tensor):
+    """FuXi's time encoder on |Δt| (…) int32 with ``tt`` the packed (3, H)
+    fp32 [amp; σ; ρ] → (E, z^ρ, ln z), each (…, H) fp32, in the Pallas
+    kernel's order of operations (z^ρ as exp(ρ·ln z)); the bias is amp·E.
+    σ stays a tensor, so z is a true fp32 division on every device."""
+    z = (dt.to(torch.float32)[..., None] + 1e-6) / tt[1]
+    lnz = torch.log(z)
+    zr = torch.exp(tt[2] * lnz)
+    return torch.exp(-zr), zr, lnz
+
+
+def functional_grad_terms(E: torch.Tensor, zr: torch.Tensor,
+                          lnz: torch.Tensor, tt: torch.Tensor):
+    """∂bias/∂(amp, σ, ρ) per entry, (…, H) each: E, amp·E·ρ·z^ρ/σ and
+    −amp·E·z^ρ·ln z, with the per-head factors amp·ρ/σ and −amp taken
+    once. E·z^ρ is 0 where E underflows to 0 (z^ρ may be inf there), so a
+    masked entry (ds = 0) adds exactly 0."""
+    ezr = torch.where(E == 0, torch.zeros((), dtype=E.dtype,
+                                          device=E.device), E * zr)
+    c_sig = tt[0] * tt[2] / tt[1]
+    c_rho = -tt[0]
+    return E, ezr * c_sig, ezr * lnz * c_rho
+
+
 def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         pos_table: torch.Tensor, time_table: torch.Tensor,
                         plan, *, scale: float, tb_denom: float,
-                        use_pos: bool, use_time: bool) -> torch.Tensor:
+                        use_pos: bool, use_time: bool,
+                        time_functional: bool = False) -> torch.Tensor:
     """q, k, v (G, capp, H, D), a batched plan → (G, capp, H, D) v.dtype.
-    q-blocks with no live pair come out zero."""
+    q-blocks with no live pair come out zero. ``time_functional``: the
+    time table is the packed (3, H) [amp; σ; ρ] of FuXi's encoder."""
     G, capp, H, D = q.shape
     block = plan.block
     nb = capp // block
@@ -63,7 +91,12 @@ def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 bias = bias + pos_table[d]
             if use_time:
                 dt = (ts[qb][:, :, None] - ts[kb][:, None, :]).abs()
-                bias = bias + time_table[time_buckets(dt, tb_denom, ntb)]
+                if time_functional:
+                    bias = bias + time_table[0] * functional_terms(
+                        dt, time_table)[0]
+                else:
+                    bias = bias + time_table[time_buckets(dt, tb_denom,
+                                                          ntb)]
             s = s + bias
             qseg, kseg = seg[qb], seg[kb]
             mask = ((qseg[:, :, None] == kseg[:, None, :])
@@ -80,10 +113,13 @@ def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dy: torch.Tensor, pos_table: torch.Tensor,
                         time_table: torch.Tensor, plan, *, scale: float,
-                        tb_denom: float, use_pos: bool, use_time: bool):
+                        tb_denom: float, use_pos: bool, use_time: bool,
+                        time_functional: bool = False):
     """The plain version of the backward kernels (K2): q, k, v, dy
     (G, capp, H, D), a batched plan → (dq, dk, dv) in q's dtype and the
-    fp32 grads of ``pos_table`` (npb, H) and ``time_table`` (ntb, H).
+    fp32 grads of ``pos_table`` (npb, H) and ``time_table`` (ntb, H);
+    with ``time_functional`` the latter is d(amp, σ, ρ) (3, H), summed
+    per entry as :func:`functional_grad_terms` gives them.
 
     Per live pair it recomputes s and, like the TPU kernel, keeps the
     SiLU weights a in fp32 for dv (the forward's rounding of a to v's
@@ -121,8 +157,12 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 bias = bias + pos_table[d]
             if use_time:
                 dt = (ts[qb][:, :, None] - ts[kb][:, None, :]).abs()
-                tb = time_buckets(dt, tb_denom, ntb)
-                bias = bias + time_table[tb]
+                if time_functional:
+                    terms = functional_terms(dt, time_table)
+                    bias = bias + time_table[0] * terms[0]
+                else:
+                    tb = time_buckets(dt, tb_denom, ntb)
+                    bias = bias + time_table[tb]
             s = s + bias
             qseg, kseg = seg[qb], seg[kb]
             mask = ((qseg[:, :, None] == kseg[:, None, :])
@@ -141,7 +181,11 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                  kg[kb]) * scale)
             if use_pos:
                 dpt.index_add_(0, d.reshape(-1), ds.reshape(-1, H))
-            if use_time:
+            if use_time and time_functional:
+                for t, g_t in enumerate(functional_grad_terms(*terms,
+                                                              time_table)):
+                    dtt[t] += (ds * g_t).sum((0, 1, 2))
+            elif use_time:
                 dtt.index_add_(0, tb.reshape(-1), ds.reshape(-1, H))
     shape = (G, capp, H, D)
     return (dq.view(shape).to(q.dtype), dk.view(shape).to(q.dtype),

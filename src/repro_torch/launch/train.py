@@ -1,8 +1,8 @@
 """End-to-end GR training entry point (the port of ``repro.launch.train``).
 
 Synthetic-KuaiRand data → Appendix-A preprocessing → load-balanced jagged
-loader → HSTU dense backbone + embedding table → fused sampled-softmax
-recall loss → AdamW + Eq.-1 AdaGrad (τ=1 semi-async unless
+loader → HSTU or FuXi dense backbone + embedding table → fused
+sampled-softmax recall loss → AdamW + Eq.-1 AdaGrad (τ=1 semi-async unless
 ``--no-semi-async``), all executed by the staged engine (§4.2.3 Algorithm
 1 by default; ``--schedule flat`` runs the same stages serially with
 identical numerics). One process drives one card.
@@ -16,6 +16,9 @@ On the CPU, with the kernels' plain versions:
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch hstu-tiny --steps 20 --synthetic-users 300 \\
         --num-items 3000 --max-seq-len 64 --log-every 5
+
+``--arch fuxi-large`` (``fuxi-tiny`` on the CPU) trains FuXi-α, whose
+attention runs the kernels' functional time mode.
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
     """Parse ``argv`` (default: the command line), train, and return the
     per-step records."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="hstu-large")
+    ap.add_argument("--arch", default="hstu-large",
+                    help="a GR config: hstu-{tiny,small,medium,large,long} "
+                         "or fuxi-{tiny,small,medium,large,long}")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--synthetic-users", type=int, default=2000)
     ap.add_argument("--num-items", type=int, default=200_000)

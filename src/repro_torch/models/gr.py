@@ -1,4 +1,5 @@
-"""GR model = stack of HSTU blocks over a packed jagged token buffer.
+"""GR model = stack of HSTU or FuXi blocks over a packed jagged token
+buffer (``cfg.gr_block`` picks the block, as the reference's ``_BLOCKS``).
 
 The embedding lookup happens outside this module: the dense model takes
 already-looked-up embeddings ``(cap, d)`` plus the jagged structure
@@ -23,34 +24,45 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.models.fuxi import FuXiBlock, fuxi_block
 from repro_torch.models.hstu import HSTUBlock, default_attn_fn, hstu_block
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
 
+#: gr_block → (parameter module, block function)
+_BLOCKS = {"hstu": (HSTUBlock, hstu_block), "fuxi": (FuXiBlock, fuxi_block)}
+
+
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def _block(cfg: ArchConfig):
+    kind = cfg.gr_block or "hstu"
+    if kind not in _BLOCKS:
+        raise NotImplementedError(
+            f"gr_block={kind!r}: not ported yet (ported: {sorted(_BLOCKS)})")
+    return _BLOCKS[kind]
+
+
 class GRModel(nn.Module):
-    """Dense GR parameters: ``blocks`` (one :class:`HSTUBlock` per layer,
-    the JAX pytree's stacked layer axis split out) and the final affine
-    norm. Initialised with ``init_gr``'s distributions from ``generator``;
-    ``device=None`` means the card."""
+    """Dense GR parameters: ``blocks`` (one :class:`HSTUBlock` or
+    :class:`FuXiBlock` per layer, the JAX pytree's stacked layer axis split
+    out) and the final affine norm. Initialised with ``init_gr``'s
+    distributions from ``generator``; ``device=None`` means the card."""
 
     def __init__(self, cfg: ArchConfig, *, dtype: Optional[torch.dtype] = None,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if (cfg.gr_block or "hstu") != "hstu":
-            raise NotImplementedError(
-                f"gr_block={cfg.gr_block!r}: only HSTU is ported so far")
+        block_cls = _block(cfg)[0]
         device = resolve_device(device)
         dtype = dtype or torch_dtype(cfg.dtype)
         self.cfg = cfg
         self.blocks = nn.ModuleList(
-            HSTUBlock(cfg, dtype=dtype, device=device, generator=generator)
+            block_cls(cfg, dtype=dtype, device=device, generator=generator)
             for _ in range(cfg.num_layers))
         self.out_ln_w = nn.Parameter(
             torch.ones(cfg.d_model, dtype=dtype, device=device))
@@ -67,6 +79,7 @@ def gr_hidden(model: GRModel, cfg: ArchConfig, x: torch.Tensor,
     ``torch.utils.checkpoint``: only the layer inputs are kept, and the
     backward reruns each layer's forward (the reference's
     ``nothing_saveable`` policy)."""
+    block_fn = _block(cfg)[1]
     if attn_fn is None:
         attn_fn = default_attn_fn(cfg)
     plan = None
@@ -74,8 +87,8 @@ def gr_hidden(model: GRModel, cfg: ArchConfig, x: torch.Tensor,
         plan = attn_fn.make_plan(offsets, timestamps, x.shape[-2])
     for bp in model.blocks:
         def layer(x_, bp=bp):
-            return hstu_block(bp, cfg, x_, offsets, timestamps,
-                              attn_fn=attn_fn, plan=plan)
+            return block_fn(bp, cfg, x_, offsets, timestamps,
+                            attn_fn=attn_fn, plan=plan)
         x = (checkpoint(layer, x, use_reentrant=False)
              if remat and torch.is_grad_enabled() else layer(x))
     return _final_norm(model, cfg, x)

@@ -51,15 +51,35 @@ def time_bucket(qt: torch.Tensor, kt: torch.Tensor,
     return b.to(torch.int64).clamp(0, rab.num_time_buckets - 1)
 
 
-def rab_bias(p: Params, rab: RABConfig, qpos, kpos, qt, kt):
-    """Bias (…, q, k, H) fp32 from the bucket tables (the oracle path)."""
+def rab_bias(p: Params, rab: RABConfig, qpos, kpos, qt, kt,
+             time_mode: str = "bucket"):
+    """Bias (…, q, k, H) fp32 (the oracle path): the position table plus,
+    by ``time_mode``, the time table ("bucket", HSTU) or the functional
+    time encoder ("functional", FuXi)."""
+    if time_mode not in ("bucket", "functional"):
+        raise ValueError(f"unknown time_mode {time_mode!r}")
     out = 0.0
     if rab.use_pos and "pos_table" in p:
         out = out + p["pos_table"][
             pos_bucket(qpos, kpos, rab.num_pos_buckets).long()]
+    if time_mode == "functional":
+        return out + functional_time_bias(p, qt, kt)
     if rab.use_time and "time_table" in p:
         out = out + p["time_table"][time_bucket(qt, kt, rab)]
     return out
+
+
+def functional_time_bias(p: Params, qt, kt) -> torch.Tensor:
+    """FuXi's exponential-power temporal encoder (table-free), (…, q, k, H)
+    fp32: bias_h(Δt) = amp_h · exp(−((Δt + ε) / σ_h)^ρ_h), σ = exp(log σ),
+    ρ = sigmoid(time_rho)·1.5 + 0.25 ∈ (0.25, 1.75). The oracle's form,
+    with ``torch.pow``; the kernels and their plain versions compute
+    exp(ρ·ln z)."""
+    dt = (qt[..., :, None] - kt[..., None, :]).abs().to(torch.float32)
+    sigma = torch.exp(p["time_log_sigma"])
+    rho = torch.sigmoid(p["time_rho"]) * 1.5 + 0.25
+    z = (dt[..., None] + 1e-6) / sigma
+    return p["time_amp"] * torch.exp(-torch.pow(z, rho))
 
 
 # --------------------------------------------------------------------------
@@ -74,9 +94,8 @@ def jagged_pointwise_attention(q, k, v, offsets, timestamps, rab_params,
                                rab: Optional[RABConfig], *,
                                time_mode: str = "bucket") -> torch.Tensor:
     """Oracle: full (cap, cap) materialization. q,k (cap,H,dqk), v
-    (cap,H,dv) → (cap,H,dv) v.dtype."""
-    if time_mode != "bucket":
-        raise NotImplementedError(time_mode)
+    (cap,H,dv) → (cap,H,dv) v.dtype. ``time_mode`` "bucket" (HSTU's time
+    table) or "functional" (FuXi's encoder)."""
     cap, H, dqk = q.shape
     scale = 1.0 / math.sqrt(dqk)
     seg = segment_ids(offsets, cap)
@@ -84,7 +103,8 @@ def jagged_pointwise_attention(q, k, v, offsets, timestamps, rab_params,
     slot = torch.arange(cap, device=q.device)
     s = torch.einsum("qhd,khd->qkh", q.float(), k.float()) * scale
     if rab is not None:
-        s = s + rab_bias(rab_params, rab, pos, pos, timestamps, timestamps)
+        s = s + rab_bias(rab_params, rab, pos, pos, timestamps,
+                         timestamps, time_mode)
     a = _silu(s)
     mask = ((seg[:, None] == seg[None, :]) & (seg[:, None] >= 0)
             & (slot[:, None] >= slot[None, :]))
@@ -100,8 +120,6 @@ def jagged_pointwise_attention_blocked(q, k, v, offsets, timestamps,
                                        ) -> torch.Tensor:
     """Double-blocked scan, O(block²·H) scores at a time, same math as the
     oracle (divide by n once after the key loop)."""
-    if time_mode != "bucket":
-        raise NotImplementedError(time_mode)
     cap, H, dqk = q.shape
     dv = v.shape[-1]
     scale = 1.0 / math.sqrt(dqk)
@@ -124,7 +142,7 @@ def jagged_pointwise_attention_blocked(q, k, v, offsets, timestamps,
                              k[ks].float()) * scale
             if rab is not None:
                 s = s + rab_bias(rab_params, rab, pos[qs], pos[ks],
-                                 timestamps[qs], timestamps[ks])
+                                 timestamps[qs], timestamps[ks], time_mode)
             a = _silu(s)
             m = ((seg[qs][:, None] == seg[ks][None, :])
                  & (seg[qs][:, None] >= 0)
@@ -213,13 +231,14 @@ def _hstu_output(p: HSTUBlock, cfg: ArchConfig, x: torch.Tensor,
 
 
 def default_attn_fn(cfg: ArchConfig) -> Callable:
-    """The kernel-backed work-list attention for every HSTU config, on any
-    device (max_row_len = cfg.max_seq_len bounds the work-list). The
-    wrapper picks the kernel or the plain version by where the tensors
-    lie."""
-    if (cfg.gr_block or "hstu") != "hstu":
+    """The kernel-backed work-list attention for every HSTU and FuXi
+    config, on any device (max_row_len = cfg.max_seq_len bounds the
+    work-list). The block passes its time mode ("functional" for FuXi) on
+    each call; the wrapper picks the kernel or the plain version by where
+    the tensors lie."""
+    if (cfg.gr_block or "hstu") not in ("hstu", "fuxi"):
         raise NotImplementedError(
-            f"gr_block={cfg.gr_block!r}: only HSTU is ported so far")
+            f"gr_block={cfg.gr_block!r}: not ported yet")
     return PlannedAttention(block=128, max_row_len=cfg.max_seq_len)
 
 
@@ -227,7 +246,8 @@ def hstu_block(p: HSTUBlock, cfg: ArchConfig, x: torch.Tensor,
                offsets: torch.Tensor, timestamps: torch.Tensor, *,
                attn_fn=None, time_mode: str = "bucket",
                plan=None) -> torch.Tensor:
-    """One HSTU block over packed tokens x (cap, d) or (G, cap, d).
+    """One HSTU block over packed tokens x (cap, d) or (G, cap, d);
+    ``time_mode`` reaches ``attn_fn`` ("functional" from the FuXi block).
 
     ``attn_fn`` defaults to :func:`default_attn_fn`. ``plan`` is a
     precomputed attention plan forwarded to a plan-aware ``attn_fn``,

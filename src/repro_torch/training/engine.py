@@ -14,17 +14,18 @@ Stage mapping (hook names are Algorithm 1's):
     dataload   GRLoader / data_fn → numpy jagged batch         (host pool)
     a2a        host→device copy of the batch: pinned memory, a
                side stream, an event the main stream waits on    (host pool)
-    unique     the host sort of the batch's table-grad slots
-               (negatives, input ids, labels), uploaded the
-               same way; emb_bwd hands it to K5 in place of a
-               device sort of ~1 M ids                          (host pool)
+    unique     no work: emb_bwd sorts the batch's table-grad
+               slots on the card (the embedding cache, not
+               ported, is what gives this stage work)           (host pool)
     emb_fwd    input-side gather — the τ=1-stale read (§4.2.2)  (main thread)
-    dense_fwd  HSTU stack + fused loss + backward, enqueued     (main thread)
+    dense_fwd  HSTU/FuXi stack + fused loss + backward,
+               enqueued                                         (main thread)
     dense_bwd  the loss realised on the host (``.item()``)      (main thread)
-    emb_bwd    unique pairs (K5) + AdamW + row-sparse AdaGrad   (main thread)
+    emb_bwd    device sort, unique pairs (K5) + AdamW +
+               row-sparse AdaGrad                               (main thread)
 
-Only the main thread launches kernels. The copies of the a2a and unique
-stages run on the engine's side stream; before ``emb_fwd`` of a batch the
+Only the main thread launches kernels. The copies of the a2a stage run
+on the engine's side stream; before ``emb_fwd`` of a batch the
 main stream waits on their events, and each copied tensor is marked used
 by the main stream (``record_stream``), so the caching allocator does not
 hand its memory to the side stream again while main-stream work may read
@@ -71,8 +72,8 @@ from repro_torch.core.pipeline import (PipelineHooks, STAGES, SixStagePipeline,
                                        StageEvent,
                                        timeline_report as _timeline_report)
 from repro_torch.training.trainer import (GRTrainState, gr_train_state,
-                                          host_sort_contribs, make_gr_stages,
-                                          make_gr_train_step, to_device)
+                                          make_gr_stages, make_gr_train_step,
+                                          to_device)
 
 SCHEDULES = ("algorithm1", "flat")
 
@@ -157,7 +158,6 @@ class GREngine:
         self._data_fn = data if callable(data) else None
         self.state = state
         self.device = state.table.master.device
-        self.vocab = state.table.master.shape[0]
         self.semi_async = semi_async
         self.schedule = schedule
         self.workers = workers
@@ -201,7 +201,7 @@ class GREngine:
         main = torch.cuda.current_stream(self.device)
         for ev in art["events"]:
             main.wait_event(ev)
-        for t in (*art["dev"].values(), *art["sort"]):
+        for t in art["dev"].values():
             t.record_stream(main)
 
     # -- per-run setup -----------------------------------------------------
@@ -245,10 +245,10 @@ class GREngine:
         return {"np": nb, "dev": dev, "events": [ev]}
 
     def _hk_unique(self, i: int, art):
-        order, keys = host_sort_contribs(art["np"], self.vocab)
-        dev, ev = self._upload({"order": order, "keys": keys})
-        return {**art, "sort": (dev["order"], dev["keys"]),
-                "events": art["events"] + [ev]}
+        # emb_bwd sorts the step's slots on the card; this stage has no
+        # work until the embedding cache (ROADMAP item 10) needs the
+        # candidate counts
+        return art
 
     def _hk_emb_fwd(self, i: int, art):
         self._await_uploads(art)
@@ -277,7 +277,7 @@ class GREngine:
         st = self.state
         dense, opt, table, p_ids, p_rows = self.stages.emb_bwd(
             st.dense, st.dense_opt, st.table, full["dout"], full["dev"],
-            *full["sort"], apply_sparse=not self.semi_async)
+            apply_sparse=not self.semi_async)
         if not self.semi_async:
             p_ids, p_rows = st.pending_ids[:0], st.pending_rows[:0]
         # τ=1: the carry-convention state, the pairs pending

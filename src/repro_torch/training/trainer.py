@@ -117,22 +117,6 @@ def host_unique_candidates(batch, vocab: int):
     return s, first, counts
 
 
-def host_sort_contribs(batch, vocab: int) -> Tuple[np.ndarray, np.ndarray]:
-    """The host (numpy) sort of a batch's table-grad contributions, in the
-    order :class:`TableContribs` lays out their slots: the negatives, the
-    input ids, the labels, clipped to [0, vocab). Returns ``(order (n,)
-    int64, sorted keys (n,) int32)``. A stable sort of equal keys is one
-    permutation, so this is bitwise the device sort ``emb_bwd`` runs when
-    it is given none."""
-    keys = np.clip(np.concatenate([
-        np.asarray(batch["neg_ids"]).reshape(-1),
-        np.asarray(batch["ids"]).reshape(-1),
-        np.asarray(batch["labels"]).reshape(-1)]).astype(np.int32),
-        0, vocab - 1)
-    order = np.argsort(keys, kind="stable")
-    return order, keys[order]
-
-
 class TableContribs(NamedTuple):
     """Every table-grad contribution of one batch, before deduplication:
     ``ids`` (n,) int32 of the slots [negatives (T·R), input rows, label
@@ -145,23 +129,19 @@ class TableContribs(NamedTuple):
     neg: Optional[Tuple[torch.Tensor, torch.Tensor, float]]
 
 
-def _table_grad_pairs(c: TableContribs, vocab: int,
-                      order: Optional[torch.Tensor] = None,
-                      sorted_ids: Optional[torch.Tensor] = None
+def _table_grad_pairs(c: TableContribs, vocab: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A batch's table-grad contributions → the unique pairs (ids (u,)
-    int32 ascending, rows (u, D) fp32), one sorted run-sum over all of
-    them: K5 when the negative rows are factored, K6 when they are built.
-    Ids are clipped to [0, vocab) as the reference clips its candidates,
-    so every candidate id appears, with a zero row where no gradient
-    reached it. ``order``/``sorted_ids``: the sort of the clipped ids,
-    made on the host (:func:`host_sort_contribs`); else sorted here."""
-    if order is None:
-        order, sorted_ids = sort_pairs(c.ids.clamp(0, vocab - 1))
+    int32 ascending, rows (u, D) fp32), one device sort and one sorted
+    run-sum over all of them: K5 when the negative rows are factored, K6
+    when they are built. Ids are clipped to [0, vocab) as the reference
+    clips its candidates, so every candidate id appears, with a zero row
+    where no gradient reached it."""
+    order, keys = sort_pairs(c.ids.clamp(0, vocab - 1))
     if c.neg is None:
-        return run_totals(c.rows, order, sorted_ids)
+        return run_totals(c.rows, order, keys)
     w, o, scale = c.neg
-    return weighted_run_totals(o, w, c.rows, order, sorted_ids, scale=scale)
+    return weighted_run_totals(o, w, c.rows, order, keys, scale=scale)
 
 
 def to_device(batch: Dict[str, Any], device, *, pin: bool = False) -> Batch:
@@ -199,11 +179,10 @@ class GRStages(NamedTuple):
     dense_fwd_bwd(dense, table, batch, x=None) -> GRDenseOut
         HSTU stack + fused loss + grads of the dense params and the
         sparse table contributions.
-    emb_bwd(dense, dense_opt, table, dout, batch, order=None,
-            sorted_ids=None, *, apply_sparse)
+    emb_bwd(dense, dense_opt, table, dout, batch, *, apply_sparse)
         -> (dense, opt, table, p_ids, p_rows)
-        Unique pairs (K5, or K6 for two-pass rows; over the host's sort
-        when given) + AdamW + (optionally deferred) AdaGrad.
+        Unique pairs (a device sort, then K5, or K6 for two-pass rows) +
+        AdamW + (optionally deferred) AdaGrad.
     sparse_apply(table, p_ids, p_rows) -> table
         The deferred landing of pending pairs (Algorithm 1 line 3); the
         pairs are emb_bwd's, already unique, so it runs no second K6.
@@ -260,11 +239,9 @@ def make_gr_stages(loss_fn: Callable[..., torch.Tensor], *,
                           [TableContribs(ids, rows, sink.neg)])
 
     def emb_bwd(dense, dense_opt, table: ShadowedTable, dout: GRDenseOut,
-                batch, order=None, sorted_ids=None, *,
-                apply_sparse: bool = True):
+                batch, *, apply_sparse: bool = True):
         p_ids, p_rows = _table_grad_pairs(dout.table_contribs.pop(),
-                                          table.master.shape[0], order,
-                                          sorted_ids)
+                                          table.master.shape[0])
         new_opt = O.adamw_update(dout.grads_dense, dense_opt, dense,
                                  lr=lr_dense, weight_decay=0.0)
         if apply_sparse:

@@ -161,13 +161,22 @@ def test_engine_matches_reference_engine(rows):
     over the same synthetic users (equal batches): losses and state held
     to the training slice's tolerances (``test_torch_training.TOLS``, the
     reasons there), the τ=1 carry as a set of (id, row) pairs."""
-    tol = TOLS[rows]
+    engine_vs_reference(rows)
+
+
+def engine_vs_reference(rows, arch="hstu-tiny", tweak=None, tols=None):
+    """The body of :func:`test_engine_matches_reference_engine` for reduced
+    ``arch``; ``tweak(dense) -> dense`` edits the JAX init first; ``tols``
+    replaces ``TOLS``."""
+    tol = (tols or TOLS)[rows]
     jq, pq = (None, None) if rows == "fp32" else (jnp.float16, torch.float16)
-    cj, cp = configs("float32", n_items=600, max_seq_len=32)
+    cj, cp = configs("float32", n_items=600, max_seq_len=32, arch=arch)
     cj, cp = cj.replace(num_negatives=R), cp.replace(num_negatives=R)
     key = jax.random.PRNGKey(0)
     jb = j_bundle(cj)
     dense, table = jb.init_dense(key), jb.init_table(key)
+    if tweak is not None:
+        dense = tweak(dense)
     first = next(iter(_loader(JLoader, JSynth, 600).batches(1)))
     jstate = JT.gr_train_state(dense, table, qdtype=jq,
                                pending_slots=JT.gr_pending_slots(first))

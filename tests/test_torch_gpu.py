@@ -108,9 +108,18 @@ def test_recall_engine_on_card_matches_cpu(cuda):
     """The slice at a reduced size, fp32: the engine on the card (kernel)
     against the same engine on the CPU (plain version); the hit round is
     bit-identical to the cold round and encodes nothing."""
-    cfg = reduced(get_arch("hstu-tiny")).replace(vocab_size=2000,
-                                                 max_seq_len=300,
-                                                 dtype="float32")
+    recall_engine_on_card_vs_cpu(cuda, "hstu-tiny", "attn_fwd")
+
+
+def test_fuxi_recall_engine_on_card_matches_cpu(cuda):
+    """As the HSTU case, on reduced FuXi: every layer launches K1-fwd's
+    functional branch."""
+    recall_engine_on_card_vs_cpu(cuda, "fuxi-tiny", "attn_fwd_functional")
+
+
+def recall_engine_on_card_vs_cpu(cuda, arch, counter):
+    cfg = reduced(get_arch(arch)).replace(vocab_size=2000, max_seq_len=300,
+                                          dtype="float32")
     g = torch.Generator().manual_seed(0)
     model_cpu = GRModel(cfg, device="cpu", generator=g)
     master = torch.randn(cfg.vocab_size, cfg.d_model, generator=g) * 0.02
@@ -126,9 +135,9 @@ def test_recall_engine_on_card_matches_cpu(cuda):
         n = int(rng.integers(1, cfg.max_seq_len))
         reqs.append((u, rng.integers(0, cfg.vocab_size, n),
                      np.cumsum(rng.integers(1, 3600, n))))
-    before = ops.KERNEL_LAUNCHES["attn_fwd"]
+    before = ops.KERNEL_LAUNCHES[counter]
     a, b = on_card.serve(reqs), on_cpu.serve(reqs)
-    assert (ops.KERNEL_LAUNCHES["attn_fwd"] - before
+    assert (ops.KERNEL_LAUNCHES[counter] - before
             == cfg.num_layers * on_card.encoded_batches)
     for x, y in zip(a, b):
         assert x.rid == y.rid and x.user == y.user
@@ -152,6 +161,72 @@ def _rel_to_max(a, b):
     a, b = a.float(), b.float()
     return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
 
+
+def _functional_time(dev, H, tiny_sigma_head=False):
+    """FuXi's packed (3, H) [amp; σ; ρ] at working values: amp near 1, σ
+    from e^2 to e^12, ρ from 0.43 to 1.57; ``tiny_sigma_head`` gives the
+    last head (largest ρ) σ = e^-40, where z^ρ overflows to inf on
+    int32-wide Δt."""
+    ls = torch.linspace(2.0, 12.0, H)
+    if tiny_sigma_head:
+        ls[-1] = -40.0
+    return ops.functional_time_table(
+        {"time_amp": torch.linspace(0.6, 1.4, H), "time_log_sigma": ls,
+         "time_rho": torch.linspace(-2.0, 2.0, H)}).to(dev)
+
+
+@pytest.mark.parametrize("wide_dt", [False, True])
+@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_functional_kernels_match_plain_version(cuda, dtype, D, wide_dt):
+    """K1-fwd and K2 in the functional time mode against their plain
+    versions, beside an all-padding pack; ``wide_dt`` spreads timestamps
+    over the int32 range (|Δt| to 2^31 − 1) with a head whose z^ρ
+    overflows. Tolerances as the bucket mode's: fp32 outputs 1e-4 max
+    abs, bf16 per (token, head) relative L2 1e-2, grads 1e-4 of their
+    largest value (the time grads too: ~10^5 terms each, summed in
+    another order); K2 bit-identical run to run; every result finite."""
+    from repro_torch.kernels.jagged_attention.ref import attention_bwd_plain
+    H, cap = 8, 1024
+    q, k, v, offs, ts = _pack(cuda, dtype, H, D,
+                              [[500, 3, 0, 300, 129], [0, 0, 0]], cap)
+    if wide_dt:
+        ts = torch.where(torch.arange(cap, device=cuda) % 2 == 0,
+                         2 ** 31 - 1 - ts % 50, ts % 50).to(torch.int32)
+    pt = torch.randn(256, H, device=cuda) * 0.5
+    tt = _functional_time(cuda, H, tiny_sigma_head=wide_dt)
+    plan = ops._as_batched(build_attn_plan(offs, ts, cap, block=128,
+                                           max_row_len=1024))
+    kw = dict(scale=D ** -0.5, tb_denom=1.0, use_pos=True, use_time=True,
+              time_functional=True)
+    before = dict(ops.KERNEL_LAUNCHES)
+    out = ops._launch_fwd(q, k, v, pt, tt, plan, **kw)
+    dy = ops._masked(plan.meta_i32, torch.randn_like(q))
+    got = ops._launch_bwd(q, k, v, dy, pt, tt, plan, **kw)
+    again = ops._launch_bwd(q, k, v, dy, pt, tt, plan, **kw)
+    torch.cuda.synchronize()
+    assert ops.KERNEL_LAUNCHES["attn_fwd_functional"] == \
+        before["attn_fwd_functional"] + 1
+    assert ops.KERNEL_LAUNCHES["attn_bwd_functional"] == \
+        before["attn_bwd_functional"] + 2
+    assert ops.KERNEL_LAUNCHES["attn_fwd"] == before["attn_fwd"]
+    plain = attention_fwd_plain(q, k, v, pt, tt, plan, **kw)
+    out, plain = (ops._masked(plan.meta_i32, t) for t in (out, plain))
+    assert torch.isfinite(out.float()).all()
+    if dtype == torch.float32:
+        assert (out - plain).abs().max().item() <= 1e-4
+    else:
+        assert max_row_rel_err(out, plain) <= 1e-2
+    want = attention_bwd_plain(q, k, v, dy, pt, tt, plan, **kw)
+    for name, a, b, c in zip(("dq", "dk", "dv", "dpt", "dtt"), got, want,
+                             again):
+        assert torch.equal(a, c), f"{name} differs between runs"
+        assert torch.isfinite(a.float()).all(), name
+        if name in ("dpt", "dtt") or dtype == torch.float32:
+            assert _rel_to_max(a, b) <= 1e-4, (name, _rel_to_max(a, b))
+        else:
+            assert max_row_rel_err(a, b) <= 1e-2, name
+    assert got[4].shape == (3, H)
 
 @pytest.mark.parametrize("D", [16, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -327,8 +402,9 @@ def test_train_steps_on_card_match_cpu(cuda):
         runs[dev] = (state, losses, counts)
     (sg, lg, cg), (sc, lc, cc) = runs["cuda"], runs["cpu"]
     L = cfg.num_layers
-    assert cg == [{"attn_fwd": 2 * L, "attn_bwd": L, "neg_fwd": 1,
-                   "neg_bwd": 1, "runsum": 1, "wscatter": 0}] * 4
+    assert cg == [{"attn_fwd": 2 * L, "attn_bwd": L, "attn_fwd_functional": 0,
+                   "attn_bwd_functional": 0, "neg_fwd": 1, "neg_bwd": 1,
+                   "runsum": 1, "wscatter": 0}] * 4
     assert all(v == 0 for c in cc for v in c.values())
     np.testing.assert_allclose(lg, lc, atol=1e-4, rtol=0)
     assert torch.equal(sg.table.shadow, sg.table.master.half())

@@ -1,5 +1,6 @@
 """The port stands alone: it imports no jax and nothing of the JAX package
-(every module, serving and training alike, runs with both blocked), and
+(every module, serving and training alike, HSTU and FuXi, runs with both
+blocked), and
 its entry points run on the card unless the caller asks for the CPU."""
 import re
 import subprocess
@@ -80,6 +81,22 @@ with contextlib.redirect_stdout(io.StringIO()) as cli_out:
         "--synthetic-users", "120", "--num-items", "900", "--max-seq-len",
         "32", "--num-negatives", "4", "--log-every", "1"])
 assert len(recs) == 2 and "[done] 2 steps" in cli_out.getvalue()
+import repro_torch.configs.fuxi, repro_torch.models.fuxi
+fcfg = reduced(get_arch("fuxi-tiny")).replace(vocab_size=300, max_seq_len=40,
+                                              num_negatives=4)
+fb = GRBundle(fcfg)
+fst = gr_train_state(fb.init_dense(g, device="cpu"),
+                     fb.init_table(g, device="cpu"))
+fstep = make_gr_train_step(
+    lambda d, t, bt, **kw: fb.loss(d, t, bt, neg_segment=32, **kw),
+    input_gather=fb.input_gather)
+for batch in loader.batches(2):
+    fst, m = fstep(fst, to_device(batch, "cpu"))
+    assert np.isfinite(float(m["loss"]))
+feng = RecallEngine(fcfg, fst.dense, fst.table.master, num_shards=2,
+                    users_per_shard=2, k=5, retrieval_block=128,
+                    device="cpu")
+assert len(feng.serve(reqs)) == 5
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.encoded_batches)

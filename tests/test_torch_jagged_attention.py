@@ -221,9 +221,28 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                         use_pos=True, use_time=True)
 
 
-def test_functional_time_mode_not_ported():
-    _, (pq, pk, pv, poff, pts, prab), block, _ = _attn_inputs(
-        "full_capacity", jnp.float32)
-    with pytest.raises(NotImplementedError):
+def test_functional_time_mode_matches_oracle():
+    """FuXi's functional time mode on the full-capacity pack (amp near 1,
+    ρ ≠ 1): the wrapper's plain version against the JAX package's dense
+    oracle (fp32; pow against exp(ρ·ln z), a few ulps), and the bucket
+    table is not read in that mode. tests/test_torch_fuxi.py holds the
+    other packs, bf16 and the grads."""
+    (jq, jk, jv, joff, jts, jrab), (pq, pk, pv, poff, pts, prab), block, \
+        _ = _attn_inputs("full_capacity", jnp.float32)
+    H = pq.shape[1]
+    tp = {"time_amp": np.linspace(0.6, 1.4, H, dtype=np.float32),
+          "time_log_sigma": np.linspace(2.0, 12.0, H, dtype=np.float32),
+          "time_rho": np.linspace(-2.0, 2.0, H, dtype=np.float32)}
+    jrab = {**jrab, **{n: jnp.asarray(a) for n, a in tp.items()}}
+    prab = {**prab, **{n: torch.from_numpy(a) for n, a in tp.items()}}
+    ora = j_oracle(jq, jk, jv, joff, jts, jrab, JR, time_mode="functional")
+    out = jagged_attention(pq, pk, pv, poff, pts, prab, PR, block=block,
+                           time_mode="functional")
+    np.testing.assert_allclose(to_f32(out), to_f32(ora), atol=1e-5, rtol=0)
+    no_table = {n: t for n, t in prab.items() if n != "time_table"}
+    assert torch.equal(out, jagged_attention(
+        pq, pk, pv, poff, pts, no_table, PR, block=block,
+        time_mode="functional"))
+    with pytest.raises(ValueError, match="time_mode"):
         jagged_attention(pq, pk, pv, poff, pts, prab, PR, block=block,
-                         time_mode="functional")
+                         time_mode="linear")

@@ -190,7 +190,13 @@ def _assert_same_results(jr, pr, scan):
 
 @pytest.mark.parametrize("jax_attn", ["xla", "pallas"])
 def test_recall_engine_matches_jax(jax_attn):
-    (cj, dense, jtable), (cp, model, ptable) = models(seed=11)
+    recall_engine_vs_reference(jax_attn)
+
+
+def recall_engine_vs_reference(jax_attn, **model_kw):
+    """The body of :func:`test_recall_engine_matches_jax`; ``model_kw``
+    go to ``torch_parity.models`` (``arch``, ``tweak``)."""
+    (cj, dense, jtable), (cp, model, ptable) = models(seed=11, **model_kw)
     kw = dict(num_shards=2, users_per_shard=3, tokens_per_shard=160, k=10,
               retrieval_block=128, max_delay_ms=0.0)
     attn = (None if jax_attn == "xla" else

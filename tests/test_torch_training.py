@@ -7,6 +7,8 @@ dense params and AdamW state, master, accumulator and shadow, and the τ=1
 carry as a set of (id, row) pairs. Also the port's optimizer pieces and
 numpy copies (loader, load balance, candidate dedup) against the
 reference's."""
+from typing import NamedTuple
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -99,10 +101,21 @@ def _run_port(cp, dense_np, table_np, batches, qdtype):
     return state, losses
 
 
+class Tol(NamedTuple):
+    """An absolute limit ``atol`` that up to ``n`` elements of a compared
+    array may exceed, each by no more than ``outlier``."""
+    atol: float
+    n: int
+    outlier: float
+
+
 def _assert_close(a, b, atol, rtol, what):
-    np.testing.assert_allclose(np.asarray(a, np.float32),
-                               np.asarray(b, np.float32), atol=atol,
-                               rtol=rtol, err_msg=what)
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    if isinstance(atol, Tol):
+        over = np.abs(a - b) > atol.atol + rtol * np.abs(b)
+        assert over.sum() <= atol.n, (what, int(over.sum()), atol)
+        atol = atol.outlier
+    np.testing.assert_allclose(a, b, atol=atol, rtol=rtol, err_msg=what)
 
 
 def _assert_trees(a, b, atol, rtol, what):
@@ -135,9 +148,16 @@ TOLS = {
 
 @pytest.mark.parametrize("rows", ["fp32", "fp16_shadow"])
 def test_train_slice_matches_reference(rows):
-    tol = TOLS[rows]
+    train_vs_reference(rows)
+
+
+def train_vs_reference(rows, arch="hstu-tiny", tweak=None, tols=None):
+    """The body of :func:`test_train_slice_matches_reference` for reduced
+    ``arch``; ``tweak(dense) -> dense`` edits the JAX init first; ``tols``
+    replaces ``TOLS``."""
+    tol = (tols or TOLS)[rows]
     qdtype = None if rows == "fp32" else jnp.float16
-    cj, cp = configs("float32", n_items=600, max_seq_len=32)
+    cj, cp = configs("float32", n_items=600, max_seq_len=32, arch=arch)
     cj = cj.replace(num_negatives=R)
     cp = cp.replace(num_negatives=R)
     batches = _batches(cj.vocab_size, 2 * N_STEPS)
@@ -145,6 +165,8 @@ def test_train_slice_matches_reference(rows):
     key = jax.random.PRNGKey(0)
     jb = j_bundle(cj)
     dense = jb.init_dense(key)
+    if tweak is not None:
+        dense = tweak(dense)
     table = jb.init_table(key)
     jstate, jl = _run_reference(cj, dense, table, batches, qdtype)
     pstate, pl = _run_port(cp, tree_numpy(dense), table, batches,

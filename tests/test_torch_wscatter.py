@@ -15,8 +15,8 @@ from repro_torch.kernels.jagged_lookup import ops as PL
 from repro_torch.kernels.jagged_lookup.ref import weighted_run_totals_plain
 from repro_torch.models.model_zoo import GRBundle
 from repro_torch.training import (TableContribs, gr_train_state,
-                                  host_sort_contribs, make_gr_train_step,
-                                  state_tensors, to_device)
+                                  make_gr_train_step, state_tensors,
+                                  to_device)
 from repro_torch.training.trainer import _table_grad_pairs
 from torch_parity import configs
 
@@ -90,8 +90,7 @@ def test_table_grad_pairs_fused_equals_two_pass_bitwise():
     """One batch's contributions — negative slots with repeats and ids out
     of [0, V) (clipped, as the trainer clips), then ready input and label
     rows — reduced by K5 from the factored form and by K6 from the built
-    rows: the same unique ids and the same bits, with the device sort and
-    with the host sort."""
+    rows: the same unique ids and the same bits."""
     T, R, D, V = 40, 5, 12, 60
     rng = np.random.default_rng(3)
     o = torch.from_numpy(rng.standard_normal((T + 8, D)).astype(np.float32))
@@ -107,30 +106,8 @@ def test_table_grad_pairs_fused_equals_two_pass_bitwise():
         T * R, D), extra])
     two = _table_grad_pairs(TableContribs(ids, rows, None), V)
     fused = _table_grad_pairs(TableContribs(ids, extra, (w, o, scale)), V)
-    order, keys = host_sort_contribs(
-        {"neg_ids": neg, "ids": inp, "labels": lab}, V)
-    host = _table_grad_pairs(TableContribs(ids, extra, (w, o, scale)), V,
-                             torch.from_numpy(order), torch.from_numpy(keys))
     assert torch.equal(two[0], torch.unique(ids.clamp(0, V - 1)))
-    for got in (fused, host):
-        assert torch.equal(got[0], two[0]) and torch.equal(got[1], two[1])
-
-
-def test_host_sort_is_the_device_sort():
-    """``host_sort_contribs`` (numpy, stable) gives the permutation and keys
-    ``sort_pairs`` gives on the trainer's clipped slot ids."""
-    rng = np.random.default_rng(5)
-    V = 50
-    batch = {"neg_ids": rng.integers(0, V, (2, 30, 4)).astype(np.int32),
-             "ids": rng.integers(0, 8, (2, 30)).astype(np.int32),
-             "labels": rng.integers(0, V + 6, (2, 30)).astype(np.int32)}
-    order, keys = host_sort_contribs(batch, V)
-    ids = torch.from_numpy(np.concatenate(
-        [batch[k].reshape(-1) for k in ("neg_ids", "ids", "labels")]))
-    d_order, d_keys = PL.sort_pairs(ids.clamp(0, V - 1))
-    assert order.dtype == np.int64 and keys.dtype == np.int32
-    np.testing.assert_array_equal(order, d_order.numpy())
-    np.testing.assert_array_equal(keys, d_keys.numpy())
+    assert torch.equal(fused[0], two[0]) and torch.equal(fused[1], two[1])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

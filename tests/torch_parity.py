@@ -16,11 +16,11 @@ from repro_torch.convert import gr_params_from_numpy, table_from_numpy
 CPU = torch.device("cpu")
 
 
-def configs(dtype="float32", n_items=600, max_seq_len=64):
-    """(JAX config, port config): reduced hstu-tiny, field for field."""
+def configs(dtype="float32", n_items=600, max_seq_len=64, arch="hstu-tiny"):
+    """(JAX config, port config): reduced ``arch``, field for field."""
     kw = dict(vocab_size=n_items, max_seq_len=max_seq_len, dtype=dtype)
-    cj = JC.reduced(JC.get_arch("hstu-tiny")).replace(**kw)
-    cp = PC.reduced(PC.get_arch("hstu-tiny")).replace(**kw)
+    cj = JC.reduced(JC.get_arch(arch)).replace(**kw)
+    cp = PC.reduced(PC.get_arch(arch)).replace(**kw)
     return cj, cp
 
 
@@ -28,13 +28,17 @@ def tree_numpy(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def models(seed=0, dtype="float32", n_items=600, max_seq_len=64):
+def models(seed=0, dtype="float32", n_items=600, max_seq_len=64,
+           arch="hstu-tiny", tweak=None):
     """JAX (dense params, ShadowedTable) and the port's (GRModel,
-    ShadowedTable) holding the same values."""
-    cj, cp = configs(dtype, n_items, max_seq_len)
+    ShadowedTable) holding the same values. ``tweak(dense) -> dense``
+    edits the JAX init before it is carried over."""
+    cj, cp = configs(dtype, n_items, max_seq_len, arch)
     b = get_bundle(cj)
     key = jax.random.PRNGKey(seed)
     dense = b.init_dense(key)
+    if tweak is not None:
+        dense = tweak(dense)
     table = make_shadowed(b.init_table(key))
     model = gr_params_from_numpy(tree_numpy(dense), cp, device=CPU)
     ptable = table_from_numpy(np.asarray(table.master),
