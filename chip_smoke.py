@@ -25,7 +25,12 @@ one card, so each phase frees its own.
                run lengths) and K5 (the weighted run-sum scatter, on the
                same ids: ~1.05 M negative slots generated from bf16 o and
                ~16 K ready rows), K5 also bitwise against two-pass rows + K6
-               and beside its library call (cuSPARSE SpMM).
+               and beside its library call (cuSPARSE SpMM); K8 (the dense-
+               grid schedule of K1-fwd/K2) on K1/K2's inputs, bitwise
+               against them; K9 (logits over materialised negative rows,
+               T=8192, R=128, d 1024, bf16 and fp16 rows) and K7 (the
+               lookup's row gather, 8192 ids with -1s from the fp32 master
+               of 2^22 rows to bf16), beside their library calls.
   4. serve   — RecallEngine on full-width hstu-large (vocab 2^22, fp32
                master + fp16 shadow on the card, 16 layers, bf16) serves a
                cold, a pure-hit and an incremental round; the kernels'
@@ -47,15 +52,26 @@ one card, so each phase frees its own.
                schedule from the same init, which must give the same
                losses bit for bit. engine_fuxi: the same on full-width
                fuxi-large, 6 steps a schedule.
+  6b. ablation — the §4.3 / Table-7 ablation on hstu-large, the engine's
+               loader mix: the first step's loss from one init and batch in
+               the fused, segmented and baseline modes; GREngine
+               (Algorithm 1, tau=1) 6 steps with the baseline path (K9),
+               the kernel lookup (K7) and the dense-grid attention (K8),
+               and 6 steps with the segmented path and sharing (K9 per
+               segment), each with launch counts, step walls and the peak
+               above the state.
   7. parity  — at full width, 2 layers, vocab 2^18: one training step's
                dense pass and table-grad pairs with the kernels against the
                plain versions on the card (hstu-large two-pass and fused,
-               fuxi-large fused with the functional RAB grads); GREngine
+               fuxi-large fused with the functional RAB grads, with the
+               work-list and with the dense-grid attention); GREngine
                (algorithm1 and flat) against make_gr_train_step on
                hstu-large, 4 steps, sync and tau=1, bit for bit.
-  8. cli     — python -m repro_torch.launch.train as two subprocesses
+  8. cli     — python -m repro_torch.launch.train as four subprocesses
                side by side, on hstu-large (8 steps) and fuxi-large (4
-               steps), on preprocessed synthetic KuaiRand.
+               steps), and on hstu-large with --neg-mode segmented and
+               --neg-mode baseline (4 steps each), on preprocessed
+               synthetic KuaiRand.
   9. result  — one JSON line of kernel numbers, the nvidia-smi line, and
                the final status line.
 """
@@ -388,13 +404,45 @@ def phase_kernels():
                 results[(fname, pack_name, dname)] = dict(
                     max_abs_err=err, row_rel_err=rel, ms=ms,
                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                # K8-fwd: the dense-grid schedule on the same plan, held to
+                # K1-fwd's bits (its CTAs visit the same live k-blocks in
+                # the same order); its plain version is K1-fwd's
+                k8name = ops.launch_counter("fwd", dense=True,
+                                            functional=mode == "functional")
+                dkw = dict(kw, schedule="dense")
+                before = dict(ops.KERNEL_LAUNCHES)
+                dout = jagged_attention(*args, **dkw)
+                torch.cuda.synchronize()
+                moved = {n for n in before
+                         if ops.KERNEL_LAUNCHES[n] != before[n]}
+                check(moved == {k8name}, f"the dense schedule launched "
+                      f"{moved}, not {k8name}")
+                same = torch.equal(dout, out)
+                dms = timed_ms(lambda: jagged_attention(*args, **dkw), 20)
+                say(f"[kernels] {k8name} {pack_name} {dname}: bitwise equal "
+                    f"to {fname} {same} | kernel {dms:.4f} ms beside "
+                    f"{fname}'s {ms:.4f} ms (the dense grid's scan of "
+                    f"{plan.num_blocks} blocks per CTA: "
+                    f"{dms - ms:+.4f} ms)  bound {bound_ms:.5f} ms by "
+                    f"{bound_by} (the same live work) -> "
+                    f"{bound_ms / dms:.4f} of bound")
+                check(same, f"{k8name} {pack_name} {dname} differs from "
+                      f"{fname}")
+                results[(k8name, pack_name, dname)] = dict(
+                    max_abs_err=err, row_rel_err=rel, ms=dms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                del dout
                 bname = fname.replace("fwd", "bwd")
-                results[(bname, pack_name, dname)] = _check_attn_bwd(
-                    q, k, v, rabs[mode], plan, pack_name, dname, gen, mode)
+                results[(bname, pack_name, dname)], dense_bwd = \
+                    _check_attn_bwd(q, k, v, rabs[mode], plan, pack_name,
+                                    dname, gen, mode)
+                results[(ops.launch_counter(
+                    "bwd", dense=True, functional=mode == "functional"),
+                    pack_name, dname)] = dense_bwd
             del q, k, v, out, plain
-    say("[kernels] no single PyTorch call computes K1-fwd or K2 in either "
-        "time mode (scaled_dot_product_attention has no SiLU weights, RAB "
-        "or jagged rows): their library_ms is null")
+    say("[kernels] no single PyTorch call computes K1-fwd, K2 or K8 in "
+        "either time mode (scaled_dot_product_attention has no SiLU "
+        "weights, RAB or jagged rows): their library_ms is null")
     return results
 
 
@@ -407,7 +455,9 @@ def _check_attn_bwd(q, k, v, rab, plan, pack_name, dname, gen, mode):
     """K2 (its wrapper launches the dk/dv kernel, the dq + RAB-partials
     kernel and the fixed-order partial sum) against its plain version on
     the forward check's inputs and a random cotangent, in the time mode
-    ``mode``; in the functional mode the time grads are d(amp, σ, ρ)."""
+    ``mode``; in the functional mode the time grads are d(amp, σ, ρ). Then
+    K8-bwd, the dense-grid schedule, on the same inputs, held to K2's bits.
+    → (K2's results, K8-bwd's)."""
     import torch
     from repro_torch.kernels.jagged_attention import ops
     from repro_torch.kernels.jagged_attention.ref import (attention_bwd_plain,
@@ -489,8 +539,22 @@ def _check_attn_bwd(q, k, v, rab, plan, pack_name, dname, gen, mode):
             check(e["rel_to_max"] <= GRAD_TOL_FP32,
                   f"K2 {mode} {pack_name} {dname} {name}: "
                   f"{e['rel_to_max']} of max > {GRAD_TOL_FP32}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, errs=errs)
+    k2 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by, errs=errs)
+    k8name = ops.launch_counter("bwd", dense=True, functional=functional)
+    before = dict(ops.KERNEL_LAUNCHES)
+    dgot = ops._launch_bwd(*args, dense=True, **kw)
+    torch.cuda.synchronize()
+    moved = {n for n in before if ops.KERNEL_LAUNCHES[n] != before[n]}
+    check(moved == {k8name}, f"K8-bwd launched {moved}, not {k8name}")
+    dsame = all(torch.equal(a, b) for a, b in zip(dgot, got))
+    dms = timed_ms(lambda: ops._launch_bwd(*args, dense=True, **kw), 10)
+    say(f"[kernels] {k8name} {pack_name} {dname}: bitwise equal to {bname} "
+        f"(dq, dk, dv and the table grads) {dsame} | kernel {dms:.4f} ms "
+        f"beside {bname}'s {ms:.4f} ms ({dms - ms:+.4f} ms)  bound "
+        f"{bound_ms:.5f} ms by {bound_by} -> {bound_ms / dms:.4f} of bound")
+    check(dsame, f"{k8name} {pack_name} {dname} differs from {bname}")
+    return k2, dict(k2, ms=dms)
 
 
 def phase_neg_kernels():
@@ -791,6 +855,173 @@ def phase_wscatter_kernel():
                 bound_by=bound_by, library_ms=lib_ms, two_pass_ms=two_pass_ms)
 
 
+def _nl_bound(T, R, D, itemsize, bwd):
+    """K9's least time: n read once (and dn written once in backward), o,
+    g (backward) and the logits or do; 2 (forward) or 3 (backward, do's
+    FMA and dn's product) operations per element of n at the half-precision
+    tensor-core rate."""
+    if bwd:
+        byts = 2 * T * R * D * itemsize + T * D * 2 + T * R * 4 + T * D * 4
+        ops_ = 3 * T * R * D
+    else:
+        byts = T * R * D * itemsize + T * D * 2 + T * R * 4
+        ops_ = 2 * T * R * D
+    t_ops = ops_ / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = byts / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                 else "bytes"), byts
+
+
+def phase_neg_logits_kernel():
+    """K9 against its plain version at the ablation path's shape (T = 8192
+    tokens, R = 128, d 1024, bf16 o): n bf16 (the baseline's rows of the
+    master cast to the model's dtype) and fp16 (the segmented path's
+    fetch, over all T and over one 128-token segment, the launch that path
+    makes). The logits and do are fp32 sums in another order (1e-4 of
+    their largest value); dn is one rounding of the same fp32 product
+    (bitwise); both directions bit-identical run to run. Times beside the
+    byte bound and the library calls (torch.bmm, and for the backward
+    torch.bmm plus the broadcast multiply, on the bf16 inputs: the same
+    products, rounded to bf16 where K9 keeps fp32)."""
+    import torch
+    from repro_torch.kernels import neg_logits as NL
+    from repro_torch.kernels.neg_logits import ref as NR
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    T, R, D, seg = 8192, 128, 1024, 128
+    o = torch.randn(T, D, device=dev, generator=gen).to(torch.bfloat16)
+    n = torch.randn(T, R, D, device=dev, generator=gen,
+                    dtype=torch.bfloat16) * 0.02
+    g = torch.randn(T, R, device=dev, generator=gen) * 1e-4
+    out = {}
+    for name, nn, sl in (("bf16", n, slice(None)),
+                         ("fp16", None, slice(None)),
+                         ("fp16 segment", None, slice(0, seg))):
+        if nn is None:
+            nn = n.to(torch.float16)[sl].contiguous()
+        oo, gg = o[sl].contiguous(), g[sl].contiguous()
+        Tn = oo.shape[0]
+        before = dict(NL.KERNEL_LAUNCHES)
+        lg = NL.neg_logits_fwd(oo, nn, inv_tau=1.0)
+        do, dn = NL.neg_logits_bwd(oo, nn, gg, inv_tau=1.0)
+        torch.cuda.synchronize()
+        check(NL.KERNEL_LAUNCHES["neg_logits_fwd"]
+              == before["neg_logits_fwd"] + 1
+              and NL.KERNEL_LAUNCHES["neg_logits_bwd"]
+              == before["neg_logits_bwd"] + 1,
+              "the K9 wrappers did not launch their kernels")
+        do2, dn2 = NL.neg_logits_bwd(oo, nn, gg, inv_tau=1.0)
+        same = (torch.equal(NL.neg_logits_fwd(oo, nn, inv_tau=1.0), lg)
+                and torch.equal(do, do2) and torch.equal(dn, dn2))
+        del do2, dn2
+        p_lg = NR.neg_logits_ref(oo, nn)
+        r_lg, e_lg = _rel_to_max(lg, p_lg), (lg - p_lg).abs().max().item()
+        del p_lg
+        p_do, p_dn = NR.neg_logits_bwd_plain(oo, nn, gg, inv_tau=1.0)
+        r_do, e_do = _rel_to_max(do, p_do), (do - p_do).abs().max().item()
+        dn_bitwise = torch.equal(dn, p_dn)
+        del p_do, p_dn, dn
+        fwd_ms = timed_ms(lambda: NL.neg_logits_fwd(oo, nn, inv_tau=1.0), 10)
+        bwd_ms = timed_ms(lambda: NL.neg_logits_bwd(oo, nn, gg, inv_tau=1.0),
+                          10)
+        fwd_plain = timed_ms(lambda: NR.neg_logits_ref(oo, nn), 2, warmup=1)
+        bwd_plain = timed_ms(lambda: NR.neg_logits_bwd_plain(
+            oo, nn, gg, inv_tau=1.0), 2, warmup=1)
+        lib = {}
+        if nn.dtype == oo.dtype:
+            gb = gg.to(nn.dtype)
+            lib["fwd"] = timed_ms(lambda: torch.bmm(nn, oo[:, :, None]), 10)
+            lib["bwd"] = timed_ms(lambda: (torch.bmm(gb[:, None, :], nn),
+                                           gb[:, :, None] * oo[:, None, :]),
+                                  10)
+        res = {}
+        for kind, ms, plain_ms, err in (("fwd", fwd_ms, fwd_plain, e_lg),
+                                        ("bwd", bwd_ms, bwd_plain, e_do)):
+            bound_ms, bound_by, byts = _nl_bound(Tn, R, D, nn.element_size(),
+                                                 kind == "bwd")
+            res[f"neg_logits_{kind}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err, bytes=byts,
+                library_ms=lib.get(kind))
+        f, b = res["neg_logits_fwd"], res["neg_logits_bwd"]
+        say(f"[kernels] neg_logits {name} n (T={Tn}, R={R}, d={D}): logits "
+            f"max_abs {e_lg:.3e} ({r_lg:.3e} of max), do max_abs {e_do:.3e} "
+            f"({r_do:.3e} of max), dn bitwise "
+            f"{dn_bitwise}, bit-identical rerun {same} | K9-fwd {fwd_ms:.4f}"
+            f" ms (plain {fwd_plain:.3f}, torch.bmm "
+            f"{lib.get('fwd', float('nan')):.4f}) bound "
+            f"{f['bound_ms']:.4f} ms by {f['bound_by']} "
+            f"({f['bytes'] / 1e9:.3f} GB) -> {f['bound_ms'] / fwd_ms:.3f} of"
+            f" bound | K9-bwd {bwd_ms:.4f} ms (plain {bwd_plain:.3f}, "
+            f"torch.bmm + mul {lib.get('bwd', float('nan')):.4f}) bound "
+            f"{b['bound_ms']:.4f} ms ({b['bytes'] / 1e9:.3f} GB) -> "
+            f"{b['bound_ms'] / bwd_ms:.3f} of bound")
+        check(same, f"K9 {name} differs between two runs on the same inputs")
+        check(r_lg <= GRAD_TOL_FP32 and r_do <= GRAD_TOL_FP32 and dn_bitwise,
+              f"K9 {name} disagrees with its plain version")
+        out[name] = res
+        del nn
+    del n, o, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gather_kernel():
+    """K7 at the lookup's shape on the path: n = 8192 ids (a quarter −1,
+    padding) from the fp32 master of 2^22 x 1024 to bf16, through
+    ``gather_rows``, the wrapper ``jagged_lookup`` calls. Held bitwise
+    against the plain version and against index_select + mask + cast. The
+    rows are random, so a launch reads them from device memory, not from
+    L2: the timed launches cycle through 8 id sets (256 MB of rows)."""
+    import torch
+    from repro_torch.kernels import jagged_lookup as JL
+    from repro_torch.kernels.jagged_lookup import ref as JR
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    V, D, n = 2 ** 22, 1024, 8192
+    master = torch.randn(V, D, device=dev, generator=gen) * 0.02
+    sets = []
+    for _ in range(8):
+        ids = torch.randint(0, V, (n,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        ids[torch.rand(n, device=dev, generator=gen) < 0.25] = -1
+        sets.append(ids)
+    ids = sets[0]
+    before = JL.KERNEL_LAUNCHES["gather"]
+    out = JL.gather_rows(master, ids, torch.bfloat16)
+    torch.cuda.synchronize()
+    check(JL.KERNEL_LAUNCHES["gather"] == before + 1,
+          "the K7 wrapper did not launch the kernel")
+    valid = ids >= 0
+    plain = JR.jagged_lookup_ref(master, ids)
+    lib = (torch.index_select(master, 0, ids.clamp(min=0))
+           .to(torch.bfloat16) * valid[:, None].to(torch.bfloat16))
+    bit_plain, bit_lib = torch.equal(out, plain), torch.equal(out, lib)
+    it = iter(range(10 ** 9))
+    ms = timed_ms(lambda: JL.gather_rows(master, sets[next(it) % 8],
+                                         torch.bfloat16), 40)
+    plain_ms = timed_ms(lambda: JR.jagged_lookup_ref(
+        master, sets[next(it) % 8]), 16)
+    lib_ms = timed_ms(lambda: torch.index_select(
+        master, 0, sets[next(it) % 8].clamp(min=0)), 40)
+    n_valid = int(valid.sum())
+    byts = n_valid * D * 4 + n * D * 2 + n * 4
+    bound_ms = byts / PEAK_BYTES * 1e3
+    say(f"[kernels] gather: {n} ids ({n - n_valid} < 0) from {V} x {D} fp32 "
+        f"to bf16; bitwise equal to the plain version {bit_plain}, to "
+        f"index_select + mask + cast {bit_lib} | kernel {ms:.4f} ms  plain "
+        f"(clamp, gather, cast, where) {plain_ms:.4f} ms  index_select "
+        f"alone (fp32 rows, no mask or cast) {lib_ms:.4f} ms  bound "
+        f"{bound_ms:.5f} ms by bytes ({byts / 1e6:.2f} MB) -> "
+        f"{bound_ms / ms:.3f} of bound")
+    check(bit_plain and bit_lib, "K7 differs from its plain version or "
+          "from index_select + mask + cast")
+    del master, out, plain, lib
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
+
+
 # --------------------------------------------------------------------------
 # phase 4: serving
 # --------------------------------------------------------------------------
@@ -853,11 +1084,13 @@ def _trace(rng, users, vocab, max_len):
                   ("incremental", inc)]
 
 
-def _attn_counter(cfg, kind="fwd"):
+def _attn_counter(cfg, kind="fwd", schedule="worklist"):
     """The launch counter of the attention kernels' time mode that
-    ``cfg``'s block runs: HSTU the bucket table, FuXi the functional
-    encoder."""
-    return f"attn_{kind}" + ("_functional" if cfg.gr_block == "fuxi" else "")
+    ``cfg``'s block runs (HSTU the bucket table, FuXi the functional
+    encoder), in ``schedule`` (K1/K2 or, "dense", K8)."""
+    from repro_torch.kernels.jagged_attention import ops
+    return ops.launch_counter(kind, dense=schedule == "dense",
+                              functional=cfg.gr_block == "fuxi")
 
 
 def phase_serve(arch="hstu-large", tag="serve"):
@@ -1218,12 +1451,14 @@ def _device_rows(prof):
 ENGINE_STEPS = {"hstu-large": 8, "fuxi-large": 6}
 
 
-def _engine_run(arch, schedule, V, base_note, tag):
-    """GREngine on full-width ``arch``, tau=1, the default fused scatter,
-    ENGINE_STEPS[arch] steps; per step the loss, the host wall between the
-    ends of consecutive steps (each step's loss is realised on the host, so
-    the host waits on the card once a step) and the peak above the
-    tables."""
+def _engine_run(arch, schedule, V, base_note, tag, loss_kwargs=None,
+                n_steps=None, before_run=None):
+    """GREngine on full-width ``arch``, tau=1, ``loss_kwargs`` (default:
+    the fused path with its default scatter), ``n_steps`` steps (default
+    ENGINE_STEPS[arch]); per step the loss, the host wall between the ends
+    of consecutive steps (each step's loss is realised on the host, so the
+    host waits on the card once a step) and the peak above the tables.
+    ``before_run(engine)`` runs first, before the counts are zeroed."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.model_zoo import GRBundle
@@ -1232,12 +1467,15 @@ def _engine_run(arch, schedule, V, base_note, tag):
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_arch(arch)
-    n_steps = ENGINE_STEPS[arch]
+    n_steps = n_steps or ENGINE_STEPS[arch]
     t0 = time.perf_counter()
     eng = GREngine(GRBundle(cfg), _train_loader(V), seed=SEED,
-                   schedule=schedule, semi_async=True, device=dev)
+                   schedule=schedule, semi_async=True, device=dev,
+                   loss_kwargs=loss_kwargs)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
+    if before_run is not None:
+        before_run(eng)
     base = torch.cuda.memory_allocated()
     marks, peaks = [], []
 
@@ -1277,18 +1515,27 @@ def _engine_run(arch, schedule, V, base_note, tag):
                      timeline=tl, launches=counts)
 
 
-def _step_launches(cfg, scatter):
-    """The kernel launches of one training step of full-width ``cfg``: the
-    attention forward twice per layer (forward and checkpoint recompute)
-    and its backward once, in the block's time mode; K3, K4 and the
-    scatter's run-sum (K5 ``wscatter`` or K6 ``runsum``) once."""
+def _step_launches(cfg, scatter="wscatter", *, neg_mode="fused",
+                   schedule="worklist", lookup=False, neg_launches=1):
+    """The kernel launches of one training step of full-width ``cfg``, for
+    every counter of the port: the attention forward twice per layer
+    (forward and checkpoint recompute) and its backward once, in the
+    block's time mode and ``schedule``; in the fused ``neg_mode`` K3, K4
+    and the scatter's run-sum (K5 ``wscatter`` or K6 ``runsum``) once, in
+    the baseline and segmented modes K9 ``neg_launches`` times each way
+    (once, or once per segment) and K6 once; with a ``lookup`` (K7) two
+    gathers, the inputs' and the labels'."""
     L = cfg.num_layers
-    want = {"attn_fwd": 0, "attn_bwd": 0, "attn_fwd_functional": 0,
-            "attn_bwd_functional": 0, "neg_fwd": 1, "neg_bwd": 1,
-            "runsum": 0, "wscatter": 0}
-    want[_attn_counter(cfg, "fwd")] = 2 * L
-    want[_attn_counter(cfg, "bwd")] = L
-    want[scatter] = 1
+    want = {k: 0 for k in _read_counts()}
+    want[_attn_counter(cfg, "fwd", schedule)] = 2 * L
+    want[_attn_counter(cfg, "bwd", schedule)] = L
+    if neg_mode == "fused":
+        want.update({"neg_fwd": 1, "neg_bwd": 1, scatter: 1})
+    else:
+        want.update(neg_logits_fwd=neg_launches, neg_logits_bwd=neg_launches,
+                    runsum=1)
+    if lookup:
+        want["gather"] = 2
     return want
 
 
@@ -1376,6 +1623,114 @@ def phase_engine(arch="hstu-large", tag="engine"):
 
 
 # --------------------------------------------------------------------------
+# phase 6b: the §4.3 / Table-7 ablation (baseline and segmented negatives)
+# --------------------------------------------------------------------------
+
+ABLATION_STEPS = 6
+# Losses of one init and batch across the negative paths. segmented vs
+# fused: the same fp16 rows (the shadow is the master rounded to fp16) and
+# the same fp32 logits, summed in another order (K9 against K3): 1e-5 of
+# the loss. baseline vs fused: the baseline's rows are the master rounded
+# to bf16 (2^-9 relative per element against fp16's 2^-12), which moves
+# each logit by ~1e-3 of its size at random; over 8 K tokens x 128
+# negatives the mean loss moves far less: 1e-3 of the loss.
+ABLATION_LOSS_TOL = {"segmented": 1e-5, "baseline": 1e-3}
+
+
+def phase_ablation(fused_peak_gb):
+    """The §4.3 / Table-7 ablation on full-width hstu-large over the
+    engine's loader mix (1 x 4 x 2048, R 128, vocab 2^22), tau=1. First the
+    first step's loss from one init and batch in the fused, segmented and
+    baseline modes. Then GREngine (Algorithm 1) in two runs of
+    ABLATION_STEPS steps, launch counts zeroed before and read after: (a)
+    the baseline (K9 over the materialised (T, R, d) bf16 rows) with the
+    kernel lookup (K7) as lookup_fn and the dense-grid attention (K8); (b)
+    the segmented path (K9 per 128-token segment of fp16 rows) with §4.3.3
+    sharing, expansion 2. → (per-run results, the first-step losses)."""
+    from functools import partial
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.embedding.tables import live_shadow
+    from repro_torch.kernels.jagged_attention import make_attn_fn
+    from repro_torch.kernels.jagged_lookup import jagged_lookup
+    from repro_torch.training import to_device
+    cfg = get_arch("hstu-large")
+    V, d = cfg.vocab_size, cfg.d_model
+    dev = torch.device("cuda")
+    first = {}
+
+    def first_losses(eng):
+        batch = to_device(next(iter(_train_loader(V).batches(1))), dev)
+        st = eng.state
+        with torch.no_grad():
+            for mode in ("fused", "segmented", "baseline"):
+                kw = {"shadow": live_shadow(st.table)} if mode == "fused" \
+                    else {}
+                first[mode] = float(eng.bundle.loss(
+                    st.dense, st.table.master, batch, neg_mode=mode, **kw))
+        rel = {m: abs(first[m] - first["fused"]) / abs(first["fused"])
+               for m in ABLATION_LOSS_TOL}
+        say(f"[ablation] first-step loss, one init and batch: fused "
+            f"{first['fused']:.6f}, segmented {first['segmented']:.6f} "
+            f"({rel['segmented']:.2e} of fused), baseline "
+            f"{first['baseline']:.6f} ({rel['baseline']:.2e} of fused)")
+        for m, tol in ABLATION_LOSS_TOL.items():
+            check(rel[m] <= tol, f"{m} first loss {first[m]} is "
+                  f"{rel[m]:.2e} of fused's {first['fused']}, above {tol}")
+
+    T = _train_loader(V).batches(1).__next__()["ids"].size
+    runs = {
+        "a": (dict(neg_mode="baseline",
+                   lookup_fn=partial(jagged_lookup,
+                                     compute_dtype=torch.bfloat16),
+                   attn_fn=make_attn_fn(schedule="dense",
+                                        max_row_len=cfg.max_seq_len)),
+              _step_launches(cfg, neg_mode="baseline", schedule="dense",
+                             lookup=True),
+              "baseline, lookup_fn = K7, schedule dense (K8)", first_losses),
+        "b": (dict(neg_mode="segmented", expansion=2),
+              _step_launches(cfg, neg_mode="segmented",
+                             neg_launches=T // 128),
+              "segmented, expansion 2", None)}
+    out = {}
+    for key, (lk, per_step, note, before) in runs.items():
+        eng, res = _engine_run("hstu-large", "algorithm1", V, note,
+                               f"ablation {key}", loss_kwargs=lk,
+                               n_steps=ABLATION_STEPS, before_run=before)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        losses = [r["loss"] for r in res["steps"]]
+        walls = [r["wall_s"] for r in res["steps"]][3:]
+        peak = max(r["peak_above_tables_gb"] for r in res["steps"])
+        res.update(steady_ms=1e3 * sum(walls) / len(walls), peak_gb=peak,
+                   per_step_launches={k: v / ABLATION_STEPS
+                                      for k, v in res["launches"].items()
+                                      if v})
+        say(f"[ablation {key}] {note}: steady step (steps 3..) "
+            f"{res['steady_ms']:.1f} ms; peak above the state {peak:.2f} "
+            f"GB; launches per step {res['per_step_launches']}")
+        want = {k: ABLATION_STEPS * v for k, v in per_step.items()}
+        check(res["launches"] == want, f"ablation {key} launched "
+              f"{res['launches']}, expected {want}")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        check(4.6 <= losses[0] <= 5.6, f"ablation {key}: first loss "
+              f"{losses[0]} outside [4.6, 5.6]")
+        check(peak < V * d * 4 / 1e9, f"ablation {key} peaks {peak:.2f} GB "
+              f"above the state, not below a (V, d) fp32 array")
+        out[key] = res
+    say(f"[ablation] Table 7, peak device memory above the state (tables, "
+        f"dense params, AdamW moments) of a tau=1 engine step on "
+        f"hstu-large, T = {T} token slots, R = {cfg.num_negatives}: "
+        f"baseline {out['a']['peak_gb']:.2f} GB, segmented "
+        f"{out['b']['peak_gb']:.2f} GB, fused {fused_peak_gb:.2f} GB "
+        f"(phase engine); steady step baseline {out['a']['steady_ms']:.1f} "
+        f"ms, segmented {out['b']['steady_ms']:.1f} ms")
+    return out, first
+
+
+# --------------------------------------------------------------------------
 # phase 7: kernels against plain versions; the engine's bitwise contract
 # --------------------------------------------------------------------------
 
@@ -1408,8 +1763,8 @@ def phase_parity():
     """At full width, 2 layers, vocab 2^18, from one init: (a) one sync
     step's dense_fwd_bwd + table-grad pairs, kernels against plain
     versions on the card: hstu-large with the two-pass scatter (K6) and
-    the fused one (K5), fuxi-large (the functional K1-fwd and K2) with the
-    fused one; (b) GREngine on hstu-large, algorithm1 and flat, against
+    the fused one (K5), fuxi-large (the functional K1-fwd and K2, then the
+    functional K8 of the dense schedule) with the fused one; (b) GREngine on hstu-large, algorithm1 and flat, against
     make_gr_train_step over 4 steps, sync and tau=1: losses, every state
     tensor and the carry bit for bit. Returns the results and the kernel
     launches of the kernel runs of (a)."""
@@ -1432,22 +1787,25 @@ def phase_parity():
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    fuxi, state, _, _ = _dense_pass_parity("fuxi-large", ("fused",),
-                                           launches)
-    del state, fuxi["fused"]["ids"], fuxi["fused"]["pairs"]
-    res["fuxi"] = fuxi
-    gc.collect()
-    torch.cuda.empty_cache()
+    for schedule in ("worklist", "dense"):
+        fuxi, state, _, _ = _dense_pass_parity("fuxi-large", ("fused",),
+                                               launches, schedule)
+        del state, fuxi["fused"]["ids"], fuxi["fused"]["pairs"]
+        res["fuxi" if schedule == "worklist" else "fuxi_dense"] = fuxi
+        gc.collect()
+        torch.cuda.empty_cache()
     return res, launches
 
 
-def _dense_pass_parity(arch, impls, launches):
+def _dense_pass_parity(arch, impls, launches, schedule="worklist"):
     """One sync step's dense pass + table-grad pairs of full-width ``arch``
     cut to 2 layers and vocab 2^18, kernels against plain versions, per
-    scatter in ``impls``; adds the kernel runs' launches to ``launches``.
-    → (results by impl with "peak_gb", the init state, bundle, batches)."""
+    scatter in ``impls``, the attention in ``schedule``; adds the kernel
+    runs' launches to ``launches``. → (results by impl with "peak_gb", the
+    init state, bundle, batches)."""
     import torch
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.jagged_attention import make_attn_fn
     from repro_torch.models.model_zoo import GRBundle
     from repro_torch.training import gr_train_state, make_gr_stages, to_device
     from repro_torch.training.trainer import _table_grad_pairs
@@ -1469,10 +1827,13 @@ def _dense_pass_parity(arch, impls, launches):
 
     peaks = {}
 
+    attn_fn = make_attn_fn(schedule=schedule, max_row_len=cfg.max_seq_len)
+
     def run(impl):
         st = make_gr_stages(
             lambda dd, t, bt, **kw: bundle.loss(dd, t, bt,
-                                                neg_scatter_impl=impl, **kw),
+                                                neg_scatter_impl=impl,
+                                                attn_fn=attn_fn, **kw),
             input_gather=bundle.input_gather, semi_async=False)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -1496,7 +1857,7 @@ def _dense_pass_parity(arch, impls, launches):
             _zero_counts()
             pl, pg, pids, prows = run(impl)
             plain_counts = _read_counts()
-        want = _step_launches(cfg, kname)
+        want = _step_launches(cfg, kname, schedule=schedule)
         check(counts == want and not any(plain_counts.values()),
               f"{arch} {impl}: kernel run launched {counts}, expected "
               f"{want}; plain run {plain_counts}")
@@ -1505,7 +1866,8 @@ def _dense_pass_parity(arch, impls, launches):
         ids_equal = torch.equal(kids, pids)
         r_err = _rel_to_max(krows, prows) if ids_equal else math.inf
         say(f"[parity] {cfg.name} x {cfg.num_layers} layers, vocab {V}, "
-            f"bf16, {impl} scatter: loss kernels {kl:.6f} plain {pl:.6f} "
+            f"bf16, {impl} scatter, {schedule} attention: loss kernels "
+            f"{kl:.6f} plain {pl:.6f} "
             f"(|d| {abs(kl - pl):.2e}); dense grads worst {worst} "
             f"{g_err[worst]:.3e} of its max (median over {len(g_err)} "
             f"tensors {sorted(g_err.values())[len(g_err) // 2]:.3e}); "
@@ -1575,14 +1937,16 @@ def _engine_contract(bundle, init, batches):
 CLI_ARGS = ["--synthetic-users", "400", "--num-items", "200000",
             "--max-seq-len", "512", "--users-per-device", "2",
             "--num-negatives", "32", "--log-every", "4"]
-CLI_RUNS = (("hstu-large", 8), ("fuxi-large", 4))
+CLI_RUNS = (("hstu-large", 8, "fused"), ("fuxi-large", 4, "fused"),
+            ("hstu-large", 4, "segmented"), ("hstu-large", 4, "baseline"))
 
 
 def phase_cli():
     """``python -m repro_torch.launch.train`` on the card, as a user runs
-    it, for hstu-large and fuxi-large, the two processes side by side (each
-    holds a few GB): each must exit 0 and end with ``[done]`` and a finite
-    final loss."""
+    it: hstu-large and fuxi-large on the fused path, and hstu-large with
+    ``--neg-mode segmented`` and ``--neg-mode baseline``, the processes
+    side by side (each holds a few GB): each must exit 0 and end with
+    ``[done]`` and a finite final loss."""
     import torch
     torch.cuda.empty_cache()
     env = dict(os.environ)
@@ -1591,10 +1955,11 @@ def phase_cli():
                                else []))
     t = time.perf_counter()
     procs = {}
-    for arch, steps in CLI_RUNS:
-        args = ["--arch", arch, "--steps", str(steps), *CLI_ARGS]
+    for arch, steps, mode in CLI_RUNS:
+        args = ["--arch", arch, "--steps", str(steps), "--neg-mode", mode,
+                *CLI_ARGS]
         cmd = [sys.executable, "-m", "repro_torch.launch.train", *args]
-        procs[arch] = (args, subprocess.Popen(
+        procs[f"{arch} {mode}"] = (args, subprocess.Popen(
             cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
     out = {}
@@ -1614,7 +1979,7 @@ def phase_cli():
             final = float(done[0].rsplit("final loss", 1)[1])
             check(math.isfinite(final), f"the CLI's final loss {final}")
             say(f"[cli] {' '.join(args)}: exit 0, {wall:.1f} s after the "
-                f"start of both, final loss {final:.4f}")
+                f"start of all {len(procs)}, final loss {final:.4f}")
             out[arch] = dict(wall_s=wall, final_loss=final)
     finally:
         for _, p in procs.values():
@@ -1654,6 +2019,8 @@ def main():
         neg = run("neg_kernels", phase_neg_kernels)
         rs = run("runsum_kernel", phase_runsum_kernel)
         ws = run("wscatter_kernel", phase_wscatter_kernel)
+        k9 = run("neg_logits_kernel", phase_neg_logits_kernel)
+        k7 = run("gather_kernel", phase_gather_kernel)
         serve = run("serve", phase_serve, "hstu-large", "serve")
         serve_fuxi = run("serve_fuxi", phase_serve, "fuxi-large",
                          "serve_fuxi")
@@ -1662,6 +2029,9 @@ def main():
                                      "engine")
         f_alg, f_flat, f_prof = run("engine_fuxi", phase_engine,
                                     "fuxi-large", "engine_fuxi")
+        ablation, first_losses = run(
+            "ablation", phase_ablation,
+            max(r["peak_above_tables_gb"] for r in alg["steps"]))
         parity, parity_launches = run("parity", phase_parity)
         run("cli", phase_cli)
     except Failed as e:
@@ -1681,6 +2051,7 @@ def main():
     say(f"[result] train steps {json.dumps(per_step)}")
     say(f"[result] engine {json.dumps([alg, flat, engine_prof])}")
     say(f"[result] engine_fuxi {json.dumps([f_alg, f_flat, f_prof])}")
+    say(f"[result] ablation {json.dumps([ablation, first_losses])}")
     main_attn = lambda k: attn[(k, "long_tail", "bfloat16")]  # noqa: E731
     attn_src = "src/repro/kernels/jagged_attention/kernel.py"
     rows = [("attn_fwd", "jagged_attn_fwd.cu", f"{attn_src}:384",
@@ -1691,6 +2062,16 @@ def main():
              main_attn("attn_fwd_functional"), None),
             ("attn_bwd_functional", "jagged_attn_bwd.cu", f"{attn_src}:781",
              main_attn("attn_bwd_functional"), None),
+            ("attn_fwd_dense", "jagged_attn_fwd.cu", f"{attn_src}:333",
+             main_attn("attn_fwd_dense"), None),
+            ("attn_bwd_dense", "jagged_attn_bwd.cu", f"{attn_src}:696",
+             main_attn("attn_bwd_dense"), None),
+            ("attn_fwd_dense_functional", "jagged_attn_fwd.cu",
+             f"{attn_src}:333", main_attn("attn_fwd_dense_functional"),
+             None),
+            ("attn_bwd_dense_functional", "jagged_attn_bwd.cu",
+             f"{attn_src}:696", main_attn("attn_bwd_dense_functional"),
+             None),
             ("neg_fwd", "neg_fused.cu",
              "src/repro/kernels/neg_logits/fused.py:159", neg["neg_fwd"],
              None),
@@ -1702,7 +2083,18 @@ def main():
              rs["library_ms"]),
             ("wscatter", "wscatter.cu",
              "src/repro/kernels/jagged_lookup/kernel.py:177", ws,
-             ws["library_ms"])]
+             ws["library_ms"]),
+            ("gather", "gather.cu",
+             "src/repro/kernels/jagged_lookup/kernel.py:57", k7,
+             k7["library_ms"]),
+            ("neg_logits_fwd", "neg_logits.cu",
+             "src/repro/kernels/neg_logits/kernel.py:31",
+             k9["bf16"]["neg_logits_fwd"],
+             k9["bf16"]["neg_logits_fwd"]["library_ms"]),
+            ("neg_logits_bwd", "neg_logits.cu",
+             "src/repro/kernels/neg_logits/kernel.py:57",
+             k9["bf16"]["neg_logits_bwd"],
+             k9["bf16"]["neg_logits_bwd"]["library_ms"])]
     kernels = []
     for kname, src, replaces, r, lib in rows:
         by_path = {"serve": serve[0].get(kname, 0),
@@ -1712,6 +2104,8 @@ def main():
                    + flat["launches"][kname],
                    "engine_fuxi": f_alg["launches"][kname]
                    + f_flat["launches"][kname],
+                   "ablation": sum(r["launches"][kname]
+                                   for r in ablation.values()),
                    "parity": parity_launches.get(kname, 0)}
         if sum(by_path.values()) == 0:
             say(f"FAIL: {kname} was launched on no path")

@@ -55,10 +55,21 @@
 //   the rows are summed in order. E * z^rho is taken as 0 where E
 //   underflows to 0 (z^rho may be inf there), so a masked entry, whose ds
 //   is 0, adds exactly 0.
+//
+// K8-bwd, the dense-grid schedule, is a launch variant of these kernels
+// (`dense` set). It replaces bwd_pallas (bodies _bwd_kv_kernel and
+// _bwd_q_kernel, kernel.py:696), whose (nb, nb) grids skip dead pairs by
+// _block_live and whose dq kernel accumulates the table grads across the
+// whole grid. Each CTA loops over every block of its other axis instead of
+// its work-list run, testing each live on the plan's per-block segment
+// ranges (block_live.cuh): the same live blocks in the same ascending
+// order, so K8 gives K2's bits on the same plan. The table grads keep K2's
+// per-CTA partials and their fixed-order sum, so no CTA depends on another.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "block_live.cuh"
 #include "time_bias.cuh"
 
 namespace {
@@ -273,10 +284,11 @@ attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const int* __restrict__ meta_i32,
                    const float* __restrict__ meta_f32,
                    const int* __restrict__ kv_wl,
-                   const int* __restrict__ kv_rowptr, T* __restrict__ dk,
+                   const int* __restrict__ kv_rowptr,
+                   const int* __restrict__ seg_rng, T* __restrict__ dk,
                    T* __restrict__ dv, int cap, int H, int L, int npb,
                    int ntb, float scale, float tb_denom, int use_pos,
-                   int use_time) {
+                   int use_time, int dense) {
   constexpr int NC = D / 16;
   extern __shared__ float smem[];
   const Smem sm = carve<D>(smem, npb, ntb);
@@ -301,10 +313,14 @@ attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc_k[i][j] = acc_v[i][j] = 0.0f;
 
-  const int p0 = kv_rowptr[g * (nb + 1) + kb];
-  const int p1 = kv_rowptr[g * (nb + 1) + kb + 1];
+  // this CTA's live q-blocks in ascending order: its run of the k-major
+  // work-list (K2), or every q-block of the dense grid tested live (K8)
+  const int* rng = seg_rng + (size_t)g * nb * 2;
+  const int p0 = dense ? 0 : kv_rowptr[g * (nb + 1) + kb];
+  const int p1 = dense ? nb : kv_rowptr[g * (nb + 1) + kb + 1];
   for (int p = p0; p < p1; ++p) {
-    const int qb = kv_wl[((size_t)g * L + p) * 2 + 0];
+    if (dense && !block_live(rng, p, kb)) continue;  // uniform in the CTA
+    const int qb = dense ? p : kv_wl[((size_t)g * L + p) * 2 + 0];
     for (int qc = 0; qc < BLK / CH; ++qc) {
       const int q0 = qb * BLK + qc * CH;
       if (q0 + CH - 1 < key0) continue;  // every pair acausal: ds = a = 0
@@ -366,10 +382,11 @@ attn_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const int* __restrict__ meta_i32,
                   const float* __restrict__ meta_f32,
                   const int* __restrict__ q_wl,
-                  const int* __restrict__ q_rowptr, T* __restrict__ dq,
+                  const int* __restrict__ q_rowptr,
+                  const int* __restrict__ seg_rng, T* __restrict__ dq,
                   float* __restrict__ partial, int cap, int H, int L,
                   int npb, int ntb, float scale, float tb_denom, int use_pos,
-                  int use_time) {
+                  int use_time, int dense) {
   constexpr int NC = D / 16;
   extern __shared__ float smem[];
   const Smem sm = carve<D>(smem, npb, ntb);
@@ -395,10 +412,14 @@ attn_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.0f;
 
-  const int p0 = q_rowptr[g * (nb + 1) + qb];
-  const int p1 = q_rowptr[g * (nb + 1) + qb + 1];
+  // this CTA's live k-blocks in ascending order: its run of the q-major
+  // work-list (K2), or every k-block of the dense grid tested live (K8)
+  const int* rng = seg_rng + (size_t)g * nb * 2;
+  const int p0 = dense ? 0 : q_rowptr[g * (nb + 1) + qb];
+  const int p1 = dense ? nb : q_rowptr[g * (nb + 1) + qb + 1];
   for (int p = p0; p < p1; ++p) {
-    const int kb = q_wl[((size_t)g * L + p) * 2 + 1];
+    if (dense && !block_live(rng, qb, p)) continue;  // uniform in the CTA
+    const int kb = dense ? p : q_wl[((size_t)g * L + p) * 2 + 1];
     for (int kc = 0; kc < BLK / CH; ++kc) {
       const int key0 = kb * BLK + kc * CH;
       if (key0 > q0 + CH - 1) continue;  // every pair acausal: ds = 0
@@ -525,11 +546,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dy, const float* pt, const float* tt,
                    const int* meta_i32, const float* meta_f32,
                    const int* q_wl, const int* q_rowptr, const int* kv_wl,
-                   const int* kv_rowptr, void* dq, void* dk, void* dv,
-                   float* partial, float* dpt, float* dtt, int G, int cap,
-                   int H, int L, int npb, int ntb, float scale,
-                   float tb_denom, int use_pos, int use_time,
-                   cudaStream_t stream) {
+                   const int* kv_rowptr, const int* seg_rng, void* dq,
+                   void* dk, void* dv, float* partial, float* dpt,
+                   float* dtt, int G, int cap, int H, int L, int npb,
+                   int ntb, float scale, float tb_denom, int use_pos,
+                   int use_time, int dense, cudaStream_t stream) {
   const int smem =
       (int)((smem_words_fixed<D>() + smem_words_var(npb, ntb)) * 4);
   auto kv_kern = attn_bwd_kv_kernel<T, D, FUNC>;
@@ -547,14 +568,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 grid(2 * (cap / BLK), H, G);
   kv_kern<<<grid, THREADS, smem, stream>>>(
       qt, kt, vt, dyt, pt, tt, meta_i32, meta_f32, kv_wl, kv_rowptr,
-      static_cast<T*>(dk), static_cast<T*>(dv), cap, H, L, npb, ntb, scale,
-      tb_denom, use_pos, use_time);
+      seg_rng, static_cast<T*>(dk), static_cast<T*>(dv), cap, H, L, npb, ntb,
+      scale, tb_denom, use_pos, use_time, dense);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   q_kern<<<grid, THREADS, smem, stream>>>(
-      qt, kt, vt, dyt, pt, tt, meta_i32, meta_f32, q_wl, q_rowptr,
+      qt, kt, vt, dyt, pt, tt, meta_i32, meta_f32, q_wl, q_rowptr, seg_rng,
       static_cast<T*>(dq), partial, cap, H, L, npb, ntb, scale, tb_denom,
-      use_pos, use_time);
+      use_pos, use_time, dense);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int n = (npb + ntb) * H;
@@ -569,23 +590,24 @@ cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
                          const void* dy, const float* pt, const float* tt,
                          const int* mi, const float* mf, const int* q_wl,
                          const int* q_rowptr, const int* kv_wl,
-                         const int* kv_rowptr, void* dq, void* dk, void* dv,
-                         float* partial, float* dpt, float* dtt, int G,
-                         int cap, int H, int L, int npb, int ntb, float scale,
-                         float tb_denom, int use_pos, int use_time,
-                         cudaStream_t s) {
+                         const int* kv_rowptr, const int* seg_rng, void* dq,
+                         void* dk, void* dv, float* partial, float* dpt,
+                         float* dtt, int G, int cap, int H, int L, int npb,
+                         int ntb, float scale, float tb_denom, int use_pos,
+                         int use_time, int dense, cudaStream_t s) {
 #define JAB_CASE(DD)                                                        \
   case DD:                                                                  \
     return func ? launch<T, DD, true>(q, k, v, dy, pt, tt, mi, mf, q_wl,    \
-                                      q_rowptr, kv_wl, kv_rowptr, dq, dk,   \
-                                      dv, partial, dpt, dtt, G, cap, H, L,  \
-                                      npb, ntb, scale, tb_denom, use_pos,   \
-                                      use_time, s)                          \
+                                      q_rowptr, kv_wl, kv_rowptr, seg_rng,  \
+                                      dq, dk, dv, partial, dpt, dtt, G,     \
+                                      cap, H, L, npb, ntb, scale, tb_denom, \
+                                      use_pos, use_time, dense, s)          \
                 : launch<T, DD, false>(q, k, v, dy, pt, tt, mi, mf, q_wl,   \
-                                       q_rowptr, kv_wl, kv_rowptr, dq, dk,  \
-                                       dv, partial, dpt, dtt, G, cap, H, L, \
-                                       npb, ntb, scale, tb_denom, use_pos,  \
-                                       use_time, s);
+                                       q_rowptr, kv_wl, kv_rowptr, seg_rng, \
+                                       dq, dk, dv, partial, dpt, dtt, G,    \
+                                       cap, H, L, npb, ntb, scale,          \
+                                       tb_denom, use_pos, use_time, dense,  \
+                                       s);
   switch (D) {
     JAB_CASE(16)
     JAB_CASE(32)
@@ -604,34 +626,41 @@ cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
 // (with time_functional set, the packed (3, H) [amp; sigma; rho] and its
 // grad);
 // meta_i32 (G, cap, 3); meta_f32 (G, cap, 1); q_wl, kv_wl (G, L, 2);
-// q_rowptr, kv_rowptr (G, cap/128 + 1); partial (G * 2 * cap/128 * H,
-// npb + ntb) float32 scratch. Launches three kernels on `stream`, on the
-// calling thread's current device. Returns the first cudaError_t (0 on
-// success).
+// q_rowptr, kv_rowptr (G, cap/128 + 1); seg_rng (G, cap/128, 2); partial
+// (G * 2 * cap/128 * H, npb + ntb) float32 scratch. With `dense` set (K8)
+// the kernels walk the dense grid on seg_rng and read no work-list; else
+// (K2) they walk the work-lists and read no seg_rng. Launches three kernels
+// on `stream`, on the calling thread's current device. Returns the first
+// cudaError_t (0 on success).
 extern "C" int jagged_attn_bwd(
     const void* q, const void* k, const void* v, const void* dy,
     const float* pos_table, const float* time_table, const int* meta_i32,
     const float* meta_f32, const int* q_wl, const int* q_rowptr,
-    const int* kv_wl, const int* kv_rowptr, void* dq, void* dk, void* dv,
-    float* partial, float* dpt, float* dtt, int G, int cap, int H, int D,
-    int L, int npb, int ntb, float scale, float tb_denom, int use_pos,
-    int use_time, int time_functional, int dtype, void* stream) {
+    const int* kv_wl, const int* kv_rowptr, const int* seg_rng, void* dq,
+    void* dk, void* dv, float* partial, float* dpt, float* dtt, int G,
+    int cap, int H, int D, int L, int npb, int ntb, float scale,
+    float tb_denom, int use_pos, int use_time, int time_functional,
+    int dense, int dtype, void* stream) {
   if (G <= 0 || cap <= 0 || cap % BLK != 0 || H <= 0 || L <= 0 || npb <= 0 ||
-      ntb <= 0 || (time_functional && ntb != 3))
+      ntb <= 0 || (time_functional && ntb != 3) ||
+      (dense ? seg_rng == nullptr
+             : (q_wl == nullptr || q_rowptr == nullptr || kv_wl == nullptr ||
+                kv_rowptr == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
     e = launch_dtype<float>(D, time_functional, q, k, v, dy, pos_table,
-                            time_table, meta_i32,
-                            meta_f32, q_wl, q_rowptr, kv_wl, kv_rowptr, dq,
-                            dk, dv, partial, dpt, dtt, G, cap, H, L, npb, ntb,
-                            scale, tb_denom, use_pos, use_time, s);
+                            time_table, meta_i32, meta_f32, q_wl, q_rowptr,
+                            kv_wl, kv_rowptr, seg_rng, dq, dk, dv, partial,
+                            dpt, dtt, G, cap, H, L, npb, ntb, scale, tb_denom,
+                            use_pos, use_time, dense, s);
   else if (dtype == 1)
     e = launch_dtype<__nv_bfloat16>(
-        D, time_functional, q, k, v, dy, pos_table, time_table, meta_i32, meta_f32, q_wl,
-        q_rowptr, kv_wl, kv_rowptr, dq, dk, dv, partial, dpt, dtt, G, cap, H,
-        L, npb, ntb, scale, tb_denom, use_pos, use_time, s);
+        D, time_functional, q, k, v, dy, pos_table, time_table, meta_i32,
+        meta_f32, q_wl, q_rowptr, kv_wl, kv_rowptr, seg_rng, dq, dk, dv,
+        partial, dpt, dtt, G, cap, H, L, npb, ntb, scale, tb_denom, use_pos,
+        use_time, dense, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

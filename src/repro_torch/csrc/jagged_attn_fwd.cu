@@ -40,10 +40,20 @@
 // would, and the bias is computed per entry in fp32 with a true division
 // and the precise logf/expf (no fast-math), as the plain version computes
 // it. Dead pairs are never visited: the work-list holds live pairs only.
+//
+// K8-fwd, the dense-grid schedule, is a launch variant of this kernel
+// (`dense` set). It replaces fwd_pallas (body _fwd_kernel, kernel.py:333),
+// which walks the whole (nb, nb) grid and skips dead pairs by _block_live.
+// The TPU's sequential k-block axis becomes a loop inside the CTA over every
+// k-block, each tested live on the plan's per-block segment ranges
+// (block_live.cuh); the live ones are the work-list run's, in the same
+// ascending order, so K8 gives K1's bits on the same plan. Its extra cost is
+// the scan of nb dead-or-live tests per CTA.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "block_live.cuh"
 #include "time_bias.cuh"
 
 namespace {
@@ -90,9 +100,10 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const int* __restrict__ meta_i32,
                 const float* __restrict__ meta_f32,
                 const int* __restrict__ q_wl,
-                const int* __restrict__ q_rowptr, T* __restrict__ out,
+                const int* __restrict__ q_rowptr,
+                const int* __restrict__ seg_rng, T* __restrict__ out,
                 int cap, int H, int L, int npb, int ntb, float scale,
-                float tb_denom, int use_pos, int use_time) {
+                float tb_denom, int use_pos, int use_time, int dense) {
   constexpr int NC = D / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;
@@ -117,9 +128,11 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t row_stride = (size_t)H * D;
   const size_t pack = (size_t)g * cap;
 
-  // this CTA's run of the q-major work-list
-  const int p0 = q_rowptr[g * (nb + 1) + qb];
-  const int p1 = q_rowptr[g * (nb + 1) + qb + 1];
+  // this CTA's live k-blocks in ascending order: its run of the q-major
+  // work-list (K1), or every k-block of the dense grid tested live (K8)
+  const int* rng = seg_rng + (size_t)g * nb * 2;
+  const int p0 = dense ? 0 : q_rowptr[g * (nb + 1) + qb];
+  const int p1 = dense ? nb : q_rowptr[g * (nb + 1) + qb + 1];
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     int r = i / D, d = i % D;
@@ -142,7 +155,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.0f;
 
   for (int p = p0; p < p1; ++p) {
-    const int kb = q_wl[((size_t)g * L + p) * 2 + 1];
+    if (dense && !block_live(rng, qb, p)) continue;  // uniform in the CTA
+    const int kb = dense ? p : q_wl[((size_t)g * L + p) * 2 + 1];
     for (int c = 0; c < BK / KC; ++c) {
       const int key0 = kb * BK + c * KC;  // first key slot of the sub-tile
       __syncthreads();  // the previous sub-tile's readers are done
@@ -255,9 +269,10 @@ template <typename T, int D, bool FUNC>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* pt, const float* tt, const int* meta_i32,
                    const float* meta_f32, const int* q_wl,
-                   const int* q_rowptr, void* out, int G, int cap, int H,
-                   int L, int npb, int ntb, float scale, float tb_denom,
-                   int use_pos, int use_time, cudaStream_t stream) {
+                   const int* q_rowptr, const int* seg_rng, void* out, int G,
+                   int cap, int H, int L, int npb, int ntb, float scale,
+                   float tb_denom, int use_pos, int use_time, int dense,
+                   cudaStream_t stream) {
   const int smem =
       (int)((smem_floats_fixed<D>() + npb + ntb) * sizeof(float));
   auto kern = attn_fwd_kernel<T, D, FUNC>;
@@ -278,8 +293,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pt, tt, meta_i32, meta_f32, q_wl, q_rowptr,
-      static_cast<T*>(out), cap, H, L, npb, ntb, scale, tb_denom, use_pos,
-      use_time);
+      seg_rng, static_cast<T*>(out), cap, H, L, npb, ntb, scale, tb_denom,
+      use_pos, use_time, dense);
   return cudaGetLastError();
 }
 
@@ -287,20 +302,23 @@ template <typename T>
 cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
                          const void* v, const float* pt, const float* tt,
                          const int* meta_i32, const float* meta_f32,
-                         const int* q_wl, const int* q_rowptr, void* out,
-                         int G, int cap, int H, int L, int npb, int ntb,
-                         float scale, float tb_denom, int use_pos,
-                         int use_time, cudaStream_t stream) {
+                         const int* q_wl, const int* q_rowptr,
+                         const int* seg_rng, void* out, int G, int cap, int H,
+                         int L, int npb, int ntb, float scale,
+                         float tb_denom, int use_pos, int use_time, int dense,
+                         cudaStream_t stream) {
 #define JAF_CASE(DD)                                                       \
   case DD:                                                                 \
     return func ? launch<T, DD, true>(q, k, v, pt, tt, meta_i32, meta_f32, \
-                                      q_wl, q_rowptr, out, G, cap, H, L,   \
-                                      npb, ntb, scale, tb_denom, use_pos,  \
-                                      use_time, stream)                    \
+                                      q_wl, q_rowptr, seg_rng, out, G,     \
+                                      cap, H, L, npb, ntb, scale,          \
+                                      tb_denom, use_pos, use_time, dense,  \
+                                      stream)                              \
                 : launch<T, DD, false>(q, k, v, pt, tt, meta_i32,          \
-                                       meta_f32, q_wl, q_rowptr, out, G,   \
-                                       cap, H, L, npb, ntb, scale,         \
-                                       tb_denom, use_pos, use_time, stream);
+                                       meta_f32, q_wl, q_rowptr, seg_rng,  \
+                                       out, G, cap, H, L, npb, ntb, scale, \
+                                       tb_denom, use_pos, use_time, dense, \
+                                       stream);
   switch (D) {
     JAF_CASE(16)
     JAF_CASE(32)
@@ -317,33 +335,38 @@ cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
 // q, k, v, out: (G, cap, H, D) float32 (dtype 0) or bfloat16 (dtype 1);
 // pos_table (npb, H), time_table (ntb, H) float32 - with time_functional
 // set, the packed (3, H) [amp; sigma; rho]; meta_i32 (G, cap, 3);
-// meta_f32 (G, cap, 1); q_wl (G, L, 2); q_rowptr (G, cap/128 + 1).
+// meta_f32 (G, cap, 1); q_wl (G, L, 2); q_rowptr (G, cap/128 + 1);
+// seg_rng (G, cap/128, 2). With `dense` set (K8) the kernel walks the dense
+// grid on seg_rng and reads neither q_wl nor q_rowptr; else (K1) it walks
+// the work-list and reads no seg_rng.
 // Launches on the calling thread's current device, which the caller sets.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int jagged_attn_fwd(const void* q, const void* k, const void* v,
                                const float* pos_table,
                                const float* time_table, const int* meta_i32,
                                const float* meta_f32, const int* q_wl,
-                               const int* q_rowptr, void* out, int G, int cap,
-                               int H, int D, int L, int npb, int ntb,
-                               float scale, float tb_denom, int use_pos,
-                               int use_time, int time_functional, int dtype,
-                               void* stream) {
+                               const int* q_rowptr, const int* seg_rng,
+                               void* out, int G, int cap, int H, int D, int L,
+                               int npb, int ntb, float scale, float tb_denom,
+                               int use_pos, int use_time, int time_functional,
+                               int dense, int dtype, void* stream) {
   if (G <= 0 || cap <= 0 || cap % BQ != 0 || H <= 0 || L <= 0 || npb <= 0 ||
-      ntb <= 0 || (time_functional && ntb != 3))
+      ntb <= 0 || (time_functional && ntb != 3) ||
+      (dense ? seg_rng == nullptr : (q_wl == nullptr || q_rowptr == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
     e = launch_dtype<float>(D, time_functional, q, k, v, pos_table,
                             time_table, meta_i32, meta_f32, q_wl, q_rowptr,
-                            out, G, cap, H, L, npb, ntb, scale, tb_denom,
-                            use_pos, use_time, s);
+                            seg_rng, out, G, cap, H, L, npb, ntb, scale,
+                            tb_denom, use_pos, use_time, dense, s);
   else if (dtype == 1)
     e = launch_dtype<__nv_bfloat16>(D, time_functional, q, k, v, pos_table,
                                     time_table, meta_i32, meta_f32, q_wl,
-                                    q_rowptr, out, G, cap, H, L, npb, ntb,
-                                    scale, tb_denom, use_pos, use_time, s);
+                                    q_rowptr, seg_rng, out, G, cap, H, L, npb,
+                                    ntb, scale, tb_denom, use_pos, use_time,
+                                    dense, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

@@ -11,9 +11,12 @@ channel), as the reference's generator does.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+import torch
+
+from repro_torch.core.device import DeviceLike, resolve_device
 
 MONTH_S = 30 * 24 * 3600
 
@@ -67,3 +70,39 @@ class SyntheticKuaiRand:
         users = users or self.num_users
         parts = [self.interactions(u) for u in range(users)]
         return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def synth_jagged_batch(generator: Optional[torch.Generator], num_shards: int,
+                       capacity: int, vocab: int, num_negatives: int,
+                       offsets=None, device: DeviceLike = None
+                       ) -> Dict[str, torch.Tensor]:
+    """A random (G, cap) jagged GR training batch made where it is used:
+    on the card unless ``device="cpu"``, its numbers from ``generator``
+    (which must live on that device; vary it per step for a data stream).
+    The reference draws from a jax key, so the numbers differ; the fields,
+    ranges and layout are its: ids in [0, V), labels in [1, V), timestamps
+    the running sum of steps in [0, 60), negatives in [0, V), ``rng`` zeros.
+    ``offsets`` defaults to two equal samples per shard; pass a (G, S+1)
+    array for ragged layouts."""
+    dev = resolve_device(device)
+    G, cap = num_shards, capacity
+    if offsets is None:
+        offsets = torch.tensor([0, cap // 2, cap], dtype=torch.int32,
+                               device=dev).repeat(G, 1)
+    else:
+        offsets = torch.as_tensor(np.asarray(offsets), dtype=torch.int32,
+                                  device=dev)
+
+    def draw(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=generator, device=dev,
+                             dtype=torch.int32)
+
+    return {
+        "ids": draw(0, vocab, (G, cap)),
+        "labels": draw(1, vocab, (G, cap)),
+        "timestamps": torch.cumsum(draw(0, 60, (G, cap)), 1,
+                                   dtype=torch.int32),
+        "offsets": offsets,
+        "neg_ids": draw(0, vocab, (G, cap, num_negatives)),
+        "rng": torch.zeros((2,), dtype=torch.int64, device=dev),
+    }

@@ -1,6 +1,10 @@
-from repro_torch.embedding.tables import (ShadowedTable, live_shadow, lookup,
-                                          make_shadowed, rebuild_shadow,
+from repro_torch.embedding.tables import (ShadowedTable, TableSpec,
+                                          init_table, live_shadow, lookup,
+                                          lookup_quantized, make_shadowed,
+                                          multi_table_lookup, rebuild_shadow,
                                           shadow_consistent, strip_shadow)
 
-__all__ = ["ShadowedTable", "live_shadow", "lookup", "make_shadowed",
-           "rebuild_shadow", "shadow_consistent", "strip_shadow"]
+__all__ = ["ShadowedTable", "TableSpec", "init_table", "live_shadow",
+           "lookup", "lookup_quantized", "make_shadowed",
+           "multi_table_lookup", "rebuild_shadow", "shadow_consistent",
+           "strip_shadow"]

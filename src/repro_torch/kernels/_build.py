@@ -25,7 +25,9 @@ SOURCES = {"jagged_attn_fwd": "jagged_attn_fwd.cu",
            "jagged_attn_bwd": "jagged_attn_bwd.cu",
            "neg_fused": "neg_fused.cu",
            "runsum": "runsum.cu",
-           "wscatter": "wscatter.cu"}
+           "wscatter": "wscatter.cu",
+           "neg_logits": "neg_logits.cu",
+           "gather": "gather.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

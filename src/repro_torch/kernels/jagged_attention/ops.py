@@ -12,7 +12,12 @@ kernel in one launch.
 
 The core is a ``torch.autograd.Function``: its forward is K1-fwd
 (``csrc/jagged_attn_fwd.cu``), its backward K2 (``csrc/jagged_attn_bwd.cu``,
-the grads of q, k, v and both RAB tables). Both take either time mode:
+the grads of q, k, v and both RAB tables). ``schedule="dense"`` selects
+K8, their launch variants that walk the dense (nb, nb) block grid and skip
+dead pairs by the plan's per-block segment ranges (the reference's
+oracle schedule); it is chosen by the caller, never as a fallback. Both
+schedules compute one function, so they share the plain versions. Both
+take either time mode:
 HSTU's bucket table, or FuXi's functional encoder, whose raw parameters
 (amp, log σ, the ρ logit) :func:`run_attention` packs into a (3, H)
 ``[amp; σ; ρ]`` in plain differentiable torch, so autograd carries the
@@ -36,12 +41,26 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.jagged_attention import ref as R
 
 #: Launches of each kernel in this module, counted where the wrapper
-#: launches it and nowhere else: ``attn_fwd``/``attn_bwd`` in the bucket
-#: time mode, ``*_functional`` in the functional one.
-KERNEL_LAUNCHES: Dict[str, int] = {"attn_fwd": 0, "attn_bwd": 0,
-                                   "attn_fwd_functional": 0,
-                                   "attn_bwd_functional": 0}
+#: launches it and nowhere else: ``attn_fwd``/``attn_bwd`` (K1-fwd, K2) in
+#: the bucket time mode, ``*_functional`` in the functional one, and
+#: ``attn_*_dense*`` the dense-grid schedule (K8) in either mode.
+KERNEL_LAUNCHES: Dict[str, int] = {
+    f"attn_{kind}{sched}{mode}": 0 for kind in ("fwd", "bwd")
+    for sched in ("", "_dense") for mode in ("", "_functional")}
 TIME_MODES = ("bucket", "functional")
+SCHEDULES = ("worklist", "dense")
+
+
+def launch_counter(kind: str, *, dense: bool, functional: bool) -> str:
+    """The ``KERNEL_LAUNCHES`` key of a ``kind`` ("fwd"/"bwd") launch."""
+    return (f"attn_{kind}{'_dense' if dense else ''}"
+            f"{'_functional' if functional else ''}")
+
+
+def check_schedule(schedule: str) -> None:
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}; one of "
+                         f"{SCHEDULES}")
 
 #: Row tile of the CUDA kernel: it takes plans built with this block only.
 KERNEL_BLOCK = 128
@@ -237,8 +256,8 @@ def _as_batched(plan: JaggedAttnPlan) -> JaggedAttnPlan:
 # the kernel's wrapper
 # --------------------------------------------------------------------------
 
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
                  + [ctypes.c_void_p])
 _TB_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_int, ctypes.c_float, ctypes.c_int,
@@ -275,10 +294,11 @@ def _check_time_table(time_table, time_functional: bool) -> None:
 
 def _launch_fwd(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
                 scale: float, tb_denom: float, use_pos: bool,
-                use_time: bool, time_functional: bool = False
-                ) -> torch.Tensor:
+                use_time: bool, time_functional: bool = False,
+                dense: bool = False) -> torch.Tensor:
     """Launch the CUDA forward on q, k, v (G, capp, H, D) and a batched
-    plan; raises on anything the kernel does not take."""
+    plan: K1-fwd over the work-list, or with ``dense`` K8-fwd over the
+    dense block grid; raises on anything the kernel does not take."""
     G, capp, H, D = q.shape
     dev = q.device
     _require(dev.type == "cuda", f"tensors on {dev}, not on the card")
@@ -300,12 +320,13 @@ def _launch_fwd(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
                  f"{name} must be (n, {H}) float32 on {dev}")
     _check_time_table(time_table, time_functional)
     for name, dtype in (("meta_i32", torch.int32), ("meta_f32", torch.float32),
-                        ("q_wl", torch.int32), ("q_rowptr", torch.int32)):
+                        ("q_wl", torch.int32), ("q_rowptr", torch.int32),
+                        ("seg_rng", torch.int32)):
         t = getattr(plan, name)
         _require(t.device == dev and t.dtype == dtype,
                  f"plan.{name} is {t.dtype} on {t.device}")
     tensors = [q, k, v, pos_table, time_table, plan.meta_i32,
-               plan.meta_f32, plan.q_wl, plan.q_rowptr]
+               plan.meta_f32, plan.q_wl, plan.q_rowptr, plan.seg_rng]
     _require(all(t.is_contiguous() for t in tensors), "inputs must be "
              "contiguous")
     out = torch.empty_like(v)
@@ -315,12 +336,12 @@ def _launch_fwd(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
             *(t.data_ptr() for t in tensors), out.data_ptr(),
             G, capp, H, D, plan.num_pairs, pos_table.shape[0],
             time_table.shape[0], scale, tb_denom, int(use_pos),
-            int(use_time), int(time_functional), _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(use_time), int(time_functional), int(dense),
+            _DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"jagged_attn_fwd launch failed: CUDA error {rc}")
-    KERNEL_LAUNCHES["attn_fwd_functional" if time_functional
-                    else "attn_fwd"] += 1
+    KERNEL_LAUNCHES[launch_counter("fwd", dense=dense,
+                                   functional=time_functional)] += 1
     return out
 
 
@@ -345,8 +366,8 @@ def kernel_time_buckets(qts: torch.Tensor, kts: torch.Tensor,
     return out
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
-                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
+                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
                  + [ctypes.c_void_p])
 
 
@@ -360,10 +381,12 @@ def _bwd_lib():
 
 def _launch_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan,
                 *, scale: float, tb_denom: float, use_pos: bool,
-                use_time: bool, time_functional: bool = False):
+                use_time: bool, time_functional: bool = False,
+                dense: bool = False):
     """Launch K2 (the dk/dv kernel, the dq + RAB-partials kernel and the
-    fixed-order sum of the per-CTA RAB partials) on a batched plan; raises
-    on anything the kernels do not take. → (dq, dk, dv, dpt, dtt); in the
+    fixed-order sum of the per-CTA RAB partials) on a batched plan, or with
+    ``dense`` K8-bwd (the same three over the dense block grid); raises on
+    anything the kernels do not take. → (dq, dk, dv, dpt, dtt); in the
     functional time mode dtt is d(amp, σ, ρ) (3, H)."""
     G, capp, H, D = q.shape
     dev = q.device
@@ -386,7 +409,7 @@ def _launch_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan,
                  f"{name} must be (n, {H}) float32 on {dev}")
     _check_time_table(time_table, time_functional)
     for name in ("meta_i32", "meta_f32", "q_wl", "q_rowptr", "kv_wl",
-                 "kv_rowptr"):
+                 "kv_rowptr", "seg_rng"):
         t = getattr(plan, name)
         _require(t.device == dev and t.dtype in (torch.int32, torch.float32),
                  f"plan.{name} is {t.dtype} on {t.device}")
@@ -394,7 +417,7 @@ def _launch_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan,
     nb = capp // KERNEL_BLOCK
     tensors = [q, k, v, dy, pos_table, time_table, plan.meta_i32,
                plan.meta_f32, plan.q_wl, plan.q_rowptr, plan.kv_wl,
-               plan.kv_rowptr]
+               plan.kv_rowptr, plan.seg_rng]
     _require(all(t.is_contiguous() for t in tensors), "inputs must be "
              "contiguous")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -409,26 +432,31 @@ def _launch_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan,
             *(t.data_ptr() for t in tensors),
             *(t.data_ptr() for t in (dq, dk, dv, partial, dpt, dtt)),
             G, capp, H, D, plan.num_pairs, npb, ntb, scale, tb_denom,
-            int(use_pos), int(use_time), int(time_functional),
+            int(use_pos), int(use_time), int(time_functional), int(dense),
             _DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"jagged_attn_bwd launch failed: CUDA error {rc}")
-    KERNEL_LAUNCHES["attn_bwd_functional" if time_functional
-                    else "attn_bwd"] += 1
+    KERNEL_LAUNCHES[launch_counter("bwd", dense=dense,
+                                   functional=time_functional)] += 1
     return dq, dk, dv, dpt, dtt
 
 
 class _AttnCore(torch.autograd.Function):
-    """K1-fwd forward, K2 backward (``kernel=True``), or the plain
-    versions of both. The plan and the static settings ride along as
-    non-tensor arguments."""
+    """The kernels of ``schedule`` (K1-fwd/K2 for "worklist", K8 for
+    "dense"), or with ``schedule=None`` the plain versions, which serve
+    both. The plan and the static settings ride along as non-tensor
+    arguments."""
 
     @staticmethod
-    def forward(ctx, q, k, v, pos_table, time_table, plan, kw, kernel):
-        fwd = _launch_fwd if kernel else R.attention_fwd_plain
-        out = fwd(q, k, v, pos_table, time_table, plan, **kw)
+    def forward(ctx, q, k, v, pos_table, time_table, plan, kw, schedule):
+        if schedule is None:
+            out = R.attention_fwd_plain(q, k, v, pos_table, time_table, plan,
+                                        **kw)
+        else:
+            out = _launch_fwd(q, k, v, pos_table, time_table, plan,
+                              dense=schedule == "dense", **kw)
         ctx.save_for_backward(q, k, v, pos_table, time_table)
-        ctx.plan, ctx.kw, ctx.kernel = plan, kw, kernel
+        ctx.plan, ctx.kw, ctx.schedule = plan, kw, schedule
         return out
 
     @staticmethod
@@ -436,29 +464,36 @@ class _AttnCore(torch.autograd.Function):
         q, k, v, pt, tt = ctx.saved_tensors
         plan, kw = ctx.plan, ctx.kw
         dy = _masked(plan.meta_i32, dy).contiguous()
-        bwd = _launch_bwd if ctx.kernel else R.attention_bwd_plain
-        dq, dk, dv, dpt, dtt = bwd(q, k, v, dy, pt, tt, plan, **kw)
+        if ctx.schedule is None:
+            grads = R.attention_bwd_plain(q, k, v, dy, pt, tt, plan, **kw)
+        else:
+            grads = _launch_bwd(q, k, v, dy, pt, tt, plan,
+                                dense=ctx.schedule == "dense", **kw)
+        dq, dk, dv, dpt, dtt = grads
         dq, dk, dv = (_masked(plan.meta_i32, t) for t in (dq, dk, dv))
         dpt = dpt if kw["use_pos"] else torch.zeros_like(pt)
         dtt = dtt if kw["use_time"] else torch.zeros_like(tt)
         return dq, dk, dv, dpt, dtt, None, None, None
 
 
-def attention_core(q, k, v, pos_table, time_table, plan: JaggedAttnPlan,
-                   **kw) -> torch.Tensor:
-    """The kernels for card tensors, the plain versions for CPU tensors;
-    differentiable in q, k, v and both tables."""
+def attention_core(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
+                   schedule: str = "worklist", **kw) -> torch.Tensor:
+    """The kernels of ``schedule`` for card tensors, the plain versions for
+    CPU tensors; differentiable in q, k, v and both tables."""
+    check_schedule(schedule)
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"jagged attention: unsupported device {q.device}")
     return _AttnCore.apply(q, k, v, pos_table, time_table, plan, kw,
-                           q.device.type == "cuda")
+                           schedule if q.device.type == "cuda" else None)
 
 
-def plain_core(q, k, v, pos_table, time_table, plan: JaggedAttnPlan,
-               **kw) -> torch.Tensor:
-    """The plain versions on any device (what a check calls to recompute a
-    kernel result), differentiable like :func:`attention_core`."""
-    return _AttnCore.apply(q, k, v, pos_table, time_table, plan, kw, False)
+def plain_core(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
+               schedule: str = "worklist", **kw) -> torch.Tensor:
+    """The plain versions on any device, for either schedule (what a check
+    calls to recompute a kernel result), differentiable like
+    :func:`attention_core`."""
+    check_schedule(schedule)
+    return _AttnCore.apply(q, k, v, pos_table, time_table, plan, kw, None)
 
 
 # --------------------------------------------------------------------------
@@ -487,6 +522,7 @@ def run_attention(q, k, v, offsets, timestamps, rab_params,
                   rab: Optional[RABConfig], *, core: Callable,
                   time_mode: str = "bucket", block: int = 128,
                   plan: Optional[JaggedAttnPlan] = None,
+                  schedule: str = "worklist",
                   max_row_len: Optional[int] = None) -> torch.Tensor:
     """Shared body of :func:`jagged_attention` and the plain
     ``ref.jagged_attention_ref``: tables, padding, plan, ``core``, mask.
@@ -534,7 +570,7 @@ def run_attention(q, k, v, offsets, timestamps, rab_params,
     out = core(q.contiguous(), k.contiguous(), v.contiguous(), pt, tt, plan,
                scale=1.0 / math.sqrt(D), tb_denom=time_bucket_denom(tb_scale),
                use_pos=use_pos, use_time=use_time,
-               time_functional=functional and use_time)
+               time_functional=functional and use_time, schedule=schedule)
     out = _masked(plan.meta_i32, out)[:, :cap]
     return out if batched else out[0]
 
@@ -544,18 +580,22 @@ def jagged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      rab_params, rab: Optional[RABConfig], *,
                      time_mode: str = "bucket", block: int = 128,
                      plan: Optional[JaggedAttnPlan] = None,
+                     schedule: str = "worklist",
                      max_row_len: Optional[int] = None) -> torch.Tensor:
     """Fused jagged pointwise attention + RAB, forward, causal within each
     row. q, k, v (cap, H, D) with offsets (S+1,), or (G, cap, H, D) with
     offsets (G, S+1). ``time_mode`` "bucket" reads ``rab_params``'
     ``time_table``; "functional" its ``time_amp``, ``time_log_sigma`` and
-    ``time_rho`` (FuXi).
+    ``time_rho`` (FuXi). ``schedule`` "worklist" runs K1-fwd/K2 over the
+    live-pair work-list, "dense" K8 over the dense block grid: the same
+    function, bit for bit on one plan.
 
     ``plan`` reuses a :func:`build_attn_plan` result; it must match
     capacity and block (checked)."""
     return run_attention(q, k, v, offsets, timestamps, rab_params, rab,
                          core=attention_core, time_mode=time_mode,
-                         block=block, plan=plan, max_row_len=max_row_len)
+                         block=block, plan=plan, schedule=schedule,
+                         max_row_len=max_row_len)
 
 
 # --------------------------------------------------------------------------
@@ -566,9 +606,11 @@ class PlannedAttention:
     """attn_fn with one plan per micro-batch (models/gr.py detects
     ``make_plan`` and builds the plan once, outside the layer loop)."""
 
-    def __init__(self, *, block: int = 128,
+    def __init__(self, *, block: int = 128, schedule: str = "worklist",
                  max_row_len: Optional[int] = None):
+        check_schedule(schedule)
         self.block = block
+        self.schedule = schedule
         self.max_row_len = max_row_len
 
     def make_plan(self, offsets: torch.Tensor, timestamps: torch.Tensor,
@@ -583,10 +625,13 @@ class PlannedAttention:
         return jagged_attention(q, k, v, offsets, timestamps, rab_params,
                                 rab, time_mode=time_mode,
                                 block=self.block, plan=plan,
+                                schedule=self.schedule,
                                 max_row_len=self.max_row_len)
 
 
-def make_attn_fn(*, block: int = 128,
+def make_attn_fn(*, block: int = 128, schedule: str = "worklist",
                  max_row_len: Optional[int] = None) -> PlannedAttention:
-    """attn_fn factory for models.hstu.hstu_block(attn_fn=...)."""
-    return PlannedAttention(block=block, max_row_len=max_row_len)
+    """attn_fn factory for models.hstu.hstu_block(attn_fn=...):
+    ``schedule="dense"`` selects K8."""
+    return PlannedAttention(block=block, schedule=schedule,
+                            max_row_len=max_row_len)

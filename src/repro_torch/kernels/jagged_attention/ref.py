@@ -194,15 +194,17 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def jagged_attention_ref(q, k, v, offsets, timestamps, rab_params, rab, *,
                          time_mode: str = "bucket", block: int = 128,
-                         plan=None,
+                         plan=None, schedule: str = "worklist",
                          max_row_len: Optional[int] = None) -> torch.Tensor:
     """``ops.jagged_attention`` with the plain version in place of the
     kernel, on any device: what a check calls to recompute a kernel result
-    explicitly."""
+    explicitly. The plain version serves both schedules (K1/K2 and K8
+    compute one function)."""
     from repro_torch.kernels.jagged_attention import ops
     return ops.run_attention(q, k, v, offsets, timestamps, rab_params, rab,
                              core=ops.plain_core, time_mode=time_mode,
-                             block=block, plan=plan, max_row_len=max_row_len)
+                             block=block, plan=plan, schedule=schedule,
+                             max_row_len=max_row_len)
 
 
 def max_row_rel_err(out: torch.Tensor, plain: torch.Tensor) -> float:

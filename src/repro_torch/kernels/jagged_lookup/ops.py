@@ -1,5 +1,12 @@
-"""Sorted run-sum deduplication of sparse (id, row) pairs and the scatters
-built on it (the port of ``repro.kernels.jagged_lookup.ops``).
+"""The jagged embedding lookup: the row gather, and the sorted run-sum
+deduplication of sparse (id, row) pairs and the scatters built on it (the
+port of ``repro.kernels.jagged_lookup.ops``).
+
+:func:`jagged_lookup` is the differentiable packed-index gather (§4.1.2):
+forward K7 (``csrc/gather.cu``, the clip, the mask of ids < 0 and the cast
+fused into the gather), backward :func:`scatter_add_rows`;
+:func:`multi_table_lookup` runs it once over the tables stacked
+table-major.
 
 :func:`unique_pairs` sorts the pairs by id (the table-major regrouping) and
 reduces each run of equal ids with K6 (``csrc/runsum.cu``) for CUDA tensors
@@ -17,7 +24,7 @@ path.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -26,7 +33,7 @@ from repro_torch.kernels.jagged_lookup import ref as R
 
 #: Launches of each kernel in this module, counted where the wrapper
 #: launches it and nowhere else.
-KERNEL_LAUNCHES: Dict[str, int] = {"runsum": 0, "wscatter": 0}
+KERNEL_LAUNCHES: Dict[str, int] = {"runsum": 0, "wscatter": 0, "gather": 0}
 
 #: Sort key of dropped (negative) ids: they sort last, in one run.
 DROP_KEY = 2 ** 30
@@ -37,6 +44,9 @@ _RUNSUM_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
 _WSCATTER_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                       + [ctypes.c_float, ctypes.c_void_p])
 _O_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_G_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_GATHER_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p]
 
 
 def _lib(name: str):
@@ -305,3 +315,97 @@ def scatter_add_weighted_rows(weights: torch.Tensor, o: torch.Tensor,
     out = torch.zeros((vocab, D), dtype=torch.float32, device=o.device)
     out[u.long()] = rows
     return out
+
+
+# --------------------------------------------------------------------------
+# K7: the jagged lookup's row gather
+# --------------------------------------------------------------------------
+
+def _gather_lib():
+    lib = _build.load("gather")
+    if lib.gather_rows.argtypes is None:
+        lib.gather_rows.argtypes = _GATHER_ARGTYPES
+        lib.gather_rows.restype = ctypes.c_int
+    return lib
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """K7 for card tensors, its plain version for CPU tensors: ids (n,) →
+    (n, D) ``dtype``, ``table[min(id, V − 1)]`` cast once, zeros for ids
+    < 0 (no read)."""
+    if not _device_check(table):
+        return R.jagged_lookup_ref(table, ids, compute_dtype=dtype)
+    req = lambda c, m: _require(c, m, "gather")           # noqa: E731
+    V, D = table.shape
+    req(table.dtype in _G_CODE and dtype in _G_CODE,
+        f"table {table.dtype} to {dtype}; takes float32, bfloat16, float16")
+    req(table.is_contiguous() and table.data_ptr() % 16 == 0
+        and D % (16 // table.element_size()) == 0,
+        f"table must be contiguous, 16-byte aligned, its rows ({D}) a whole "
+        f"number of 16-byte vectors")
+    req(ids.dim() == 1 and ids.device == table.device,
+        "ids (n,) on the table's device")
+    ids = ids.to(torch.int32).contiguous()
+    out = torch.empty((ids.numel(), D), dtype=dtype, device=table.device)
+    if ids.numel() == 0:
+        return out
+    with torch.cuda.device(table.device):
+        rc = _gather_lib().gather_rows(
+            table.data_ptr(), ids.data_ptr(), out.data_ptr(), ids.numel(), V,
+            D, _G_CODE[table.dtype], _G_CODE[dtype],
+            torch.cuda.current_stream(table.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gather launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES["gather"] += 1
+    return out
+
+
+class _JaggedLookup(torch.autograd.Function):
+    """Forward K7 (or its plain version); backward the dense scatter of the
+    row grads (:func:`scatter_add_rows`, K6 on the card)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, dtype):
+        ctx.save_for_backward(ids)
+        ctx.vocab, ctx.table_dtype = table.shape[0], table.dtype
+        return gather_rows(table, ids, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        grad = scatter_add_rows(g.float(), ids, ctx.vocab)
+        return grad.to(ctx.table_dtype), None, None
+
+
+def jagged_lookup(table: torch.Tensor, ids: torch.Tensor, *,
+                  compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Differentiable packed-index gather: ids (...) int → (..., D)
+    ``compute_dtype`` (the reference takes flat (n,) ids only); ids < 0
+    give zero rows and no gradient, ids ≥ V read row V − 1 (the reference
+    clips them). The table's grad is dense (V, D): the lookup of test sizes
+    and of callers that bind it as the model's ``lookup_fn`` (the train
+    step takes its rows as leaves and never builds that grad)."""
+    out = _JaggedLookup.apply(table, ids.reshape(-1), compute_dtype)
+    return out.reshape(*ids.shape, table.shape[1])
+
+
+def multi_table_lookup(tables: Sequence[torch.Tensor],
+                       ids_per_table: Sequence[torch.Tensor], *,
+                       compute_dtype=torch.bfloat16
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Fused table-major lookup, one K7 launch over the stacked tables
+    (Fig. 3's batch restructuring): all tables share D; each table's ids
+    are shifted into the stacked row space (ids < 0 stay −1) and
+    concatenated table-major. → one (n_i, D) block per table."""
+    D = tables[0].shape[1]
+    if any(t.shape[1] != D for t in tables):
+        raise ValueError("multi_table_lookup: tables of different widths")
+    offs = [0]
+    for t in tables:
+        offs.append(offs[-1] + t.shape[0])
+    stacked = torch.cat(list(tables), dim=0)
+    flat = torch.cat([torch.where(i.reshape(-1) >= 0, i.reshape(-1) + off, -1)
+                      for i, off in zip(ids_per_table, offs[:-1])])
+    out = jagged_lookup(stacked, flat, compute_dtype=compute_dtype)
+    return tuple(torch.split(out, [i.numel() for i in ids_per_table]))

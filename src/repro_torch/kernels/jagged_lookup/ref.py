@@ -1,5 +1,5 @@
-"""The plain PyTorch versions of the sorted run-sum kernels (K6, K5), and
-the dense scatter oracle."""
+"""The plain PyTorch versions of the sorted run-sum kernels (K6, K5) and of
+the row gather (K7), and the dense scatter oracle."""
 from __future__ import annotations
 
 import torch
@@ -47,3 +47,15 @@ def scatter_add_ref(grad_rows: torch.Tensor, ids: torch.Tensor,
     out = torch.zeros((vocab, grad_rows.shape[1]), dtype=torch.float32,
                       device=grad_rows.device)
     return out.index_add_(0, ids[keep].long(), grad_rows[keep].float())
+
+
+def jagged_lookup_ref(table: torch.Tensor, ids: torch.Tensor, *,
+                      compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The plain version of K7 (``csrc/gather.cu``) and of
+    ``ops.jagged_lookup``'s forward: ids (n,) → (n, D) ``compute_dtype``,
+    row ``table[min(id, V − 1)]`` cast once, zeros for ids < 0."""
+    ids = ids.reshape(-1)
+    rows = table[ids.long().clamp(0, table.shape[0] - 1)].to(compute_dtype)
+    return torch.where((ids >= 0)[:, None], rows,
+                       torch.zeros((), dtype=compute_dtype,
+                                   device=rows.device))

@@ -1,5 +1,15 @@
-"""The fused ID-driven negative-sampling recall path (the port of
-``repro.kernels.neg_logits.ops.fused_recall_lse``).
+"""The negative-sampling logit kernels (the port of
+``repro.kernels.neg_logits.ops``): the fused ID-driven recall path
+:func:`fused_recall_lse` (K3/K4) and the logits over materialised negative
+rows :func:`neg_logits` (K9).
+
+:func:`neg_logits` is o·n/τ over a (T, R, D) negative tensor, the §4.3.1
+baseline of Table 7 and the per-segment logits of the segmented path: a
+``torch.autograd.Function`` whose forward is K9-fwd and backward K9-bwd
+(``csrc/neg_logits.cu``) for CUDA tensors, their plain versions
+(``ref.py``) for CPU tensors. Its backward can hand the negative rows'
+grad dn to a callback, which is how the training path takes their table
+gradient as sparse pairs.
 
 :func:`fused_recall_lse` returns each token's logsumexp over
 [pos | R negatives | (k−1)·R shared] as a ``torch.autograd.Function``:
@@ -23,7 +33,7 @@ numbers). ``expansion=1`` draws nothing.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -35,7 +45,8 @@ from repro_torch.kernels.neg_logits.ref import NEG_POOL
 
 #: Launches of each kernel in this module, counted where the wrapper
 #: launches it and nowhere else.
-KERNEL_LAUNCHES: Dict[str, int] = {"neg_fwd": 0, "neg_bwd": 0}
+KERNEL_LAUNCHES: Dict[str, int] = {"neg_fwd": 0, "neg_bwd": 0,
+                                   "neg_logits_fwd": 0, "neg_logits_bwd": 0}
 
 KERNEL_WIDTHS = (256, 512, 768, 1024)
 _O_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,6 +56,15 @@ _FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                  + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                  + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+_N_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_NL_FWD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                    + [ctypes.c_float] + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p])
+_NL_BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                    + [ctypes.c_float] + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p])
 
 
 def _lib():
@@ -72,13 +92,28 @@ class TableGradSink:
     first n_ready = T·R rows are w·o/τ and ``neg`` is None; with
     ``"fused"`` no negative row is built (n_ready = 0) and ``neg`` holds
     them in factored form, ``(w (Tp, R) fp32, o (Tp, D), 1/τ)``: slot j's
-    row is ``w.flat[j] · (o[j // R] · 1/τ)``, what K5 takes."""
+    row is ``w.flat[j] · (o[j // R] · 1/τ)``, what K5 takes. The baseline
+    and segmented paths (K9) hand over their rows through
+    :meth:`ready_rows`."""
 
     def __init__(self, extra_rows: int = 0):
         self.extra_rows = extra_rows
         self.ids: Optional[torch.Tensor] = None
         self.rows: Optional[torch.Tensor] = None
         self.neg: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None
+
+    def ready_rows(self, ids: torch.Tensor, D: int,
+                   device: torch.device) -> torch.Tensor:
+        """The rows form for n = ``ids.numel()`` negative slots whose rows
+        the caller builds itself (the baseline and segmented paths write
+        their dn there): sets ``ids`` and an fp32 ``rows`` buffer of n +
+        ``extra_rows`` rows, and returns its first n rows to fill."""
+        n = ids.numel()
+        self.ids = ids.reshape(-1).to(torch.int32)
+        self.rows = torch.empty((n + self.extra_rows, D), dtype=torch.float32,
+                                device=device)
+        self.neg = None
+        return self.rows[:n]
 
 
 def make_share_perms(n_seg: int, segment: int, expansion: int, *,
@@ -310,5 +345,129 @@ def fused_recall_lse(out_emb: torch.Tensor, pos_logit: torch.Tensor,
     return lse[:T]
 
 
+# --------------------------------------------------------------------------
+# K9: logits over materialised negative rows
+# --------------------------------------------------------------------------
+
+def _nl_lib():
+    lib = _build.load("neg_logits")
+    if lib.neg_logits_fwd.argtypes is None:
+        lib.neg_logits_fwd.argtypes = _NL_FWD_ARGTYPES
+        lib.neg_logits_fwd.restype = ctypes.c_int
+        lib.neg_logits_bwd.argtypes = _NL_BWD_ARGTYPES
+        lib.neg_logits_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _check_nl(o: torch.Tensor, n: torch.Tensor) -> None:
+    req = lambda c, m: _require(c, f"(neg_logits) {m}")    # noqa: E731
+    dev = o.device
+    req(dev.type == "cuda" and n.device == dev,
+        f"tensors on {dev} and {n.device}, not on one card")
+    req(o.dtype in _O_CODE and n.dtype in _N_CODE,
+        f"o {o.dtype}, n {n.dtype}; takes o float32/bfloat16 and n "
+        f"float32/bfloat16/float16")
+    req(o.dim() == 2 and n.dim() == 3 and n.shape[0] == o.shape[0]
+        and n.shape[2] == o.shape[1] and o.shape[0] > 0 and n.shape[1] > 0,
+        f"o {tuple(o.shape)}, n {tuple(n.shape)}; takes (T, D), (T, R, D)")
+    req(o.shape[1] % (16 // n.element_size()) == 0,
+        f"row width {o.shape[1]} is not a whole number of 16-byte vectors "
+        f"of {n.dtype}")
+    req(o.is_contiguous() and n.is_contiguous() and n.data_ptr() % 16 == 0,
+        "o and n must be contiguous, n 16-byte aligned")
+
+
+def neg_logits_fwd(o: torch.Tensor, n: torch.Tensor, *,
+                   inv_tau: float) -> torch.Tensor:
+    """K9-fwd for card tensors, its plain version for CPU tensors: o (T, D)
+    fp32/bf16, n (T, R, D) fp32/bf16/fp16 → (T, R) fp32 o·n · 1/τ."""
+    if o.device.type == "cpu":
+        return R_.neg_logits_fwd_plain(o, n, inv_tau=inv_tau)
+    _check_nl(o, n)
+    T, R, D = n.shape
+    out = torch.empty((T, R), dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        rc = _nl_lib().neg_logits_fwd(
+            o.data_ptr(), n.data_ptr(), out.data_ptr(), T, R, D, inv_tau,
+            _O_CODE[o.dtype], _N_CODE[n.dtype],
+            torch.cuda.current_stream(o.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"neg_logits_fwd launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES["neg_logits_fwd"] += 1
+    return out
+
+
+def neg_logits_bwd(o: torch.Tensor, n: torch.Tensor, g: torch.Tensor, *,
+                   inv_tau: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9-bwd for card tensors, its plain version for CPU tensors: with gs
+    = g · 1/τ, (do = Σ_r gs·n (T, D) fp32, dn = gs·o (T, R, D) in n's
+    dtype)."""
+    if o.device.type == "cpu":
+        return R_.neg_logits_bwd_plain(o, n, g, inv_tau=inv_tau)
+    _check_nl(o, n)
+    T, R, D = n.shape
+    _require(g.shape == (T, R) and g.dtype == torch.float32
+             and g.device == o.device and g.is_contiguous(),
+             f"(neg_logits) g {tuple(g.shape)} {g.dtype}; takes contiguous "
+             f"({T}, {R}) float32")
+    dout = torch.empty((T, D), dtype=torch.float32, device=o.device)
+    dn = torch.empty_like(n)
+    with torch.cuda.device(o.device):
+        rc = _nl_lib().neg_logits_bwd(
+            o.data_ptr(), n.data_ptr(), g.data_ptr(), dout.data_ptr(),
+            dn.data_ptr(), T, R, D, inv_tau, _O_CODE[o.dtype],
+            _N_CODE[n.dtype], torch.cuda.current_stream(o.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"neg_logits_bwd launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES["neg_logits_bwd"] += 1
+    return dout, dn
+
+
+class _NegLogits(torch.autograd.Function):
+    """o·n/τ: forward K9-fwd, backward K9-bwd (or their plain versions).
+    ``on_neg_grad(dn)``, when given, receives dn in backward, whether or
+    not n itself requires grad."""
+
+    @staticmethod
+    def forward(ctx, o, n, inv_tau, on_neg_grad):
+        ctx.save_for_backward(o, n)
+        ctx.inv_tau, ctx.on_neg_grad = inv_tau, on_neg_grad
+        return neg_logits_fwd(o, n, inv_tau=inv_tau)
+
+    @staticmethod
+    def backward(ctx, g):
+        o, n = ctx.saved_tensors
+        do, dn = neg_logits_bwd(o, n, g.float().contiguous(),
+                                inv_tau=ctx.inv_tau)
+        if ctx.on_neg_grad is not None:
+            ctx.on_neg_grad(dn)
+        return (do.to(o.dtype), dn if ctx.needs_input_grad[1] else None,
+                None, None)
+
+
+def neg_logits(out_emb: torch.Tensor, neg_emb: torch.Tensor, *,
+               segment: Optional[int] = 128, tau: float = 1.0,
+               on_neg_grad: Optional[Callable[[torch.Tensor], None]] = None
+               ) -> torch.Tensor:
+    """(T, D) × (T, R, D) → (T, R) fp32 logits o·n/τ, differentiable in
+    both: forward K9-fwd, backward K9-bwd; ``dn`` comes back in
+    ``neg_emb``'s dtype (fp16/bf16 on the §4.3.2 quantized paths), ``do``
+    in ``out_emb``'s. T is zero-padded to a ``segment`` multiple, as the
+    reference pads it for its segment grid (no effect on the values: the
+    kernels are per token; None pads nothing). ``on_neg_grad(dn)``, if
+    given, receives the (T, R, D) grad of ``neg_emb`` in backward: the
+    training path's table-grad rows."""
+    T = out_emb.shape[0]
+    pad = (-T) % segment if segment else 0
+    o = _pad_rows(out_emb, pad).contiguous()
+    n = _pad_rows(neg_emb, pad).contiguous()
+    hook = on_neg_grad
+    if hook is not None and pad:
+        hook = lambda dn: on_neg_grad(dn[:T])          # noqa: E731
+    out = _NegLogits.apply(o, n, 1.0 / tau, hook)
+    return out[:T] if pad else out
+
+
 __all__ = ["KERNEL_LAUNCHES", "NEG_POOL", "TableGradSink", "fused_recall_lse",
-           "make_share_perms", "neg_bwd", "neg_fwd", "prepare_fused_inputs"]
+           "make_share_perms", "neg_bwd", "neg_fwd", "neg_logits",
+           "neg_logits_bwd", "neg_logits_fwd", "prepare_fused_inputs"]

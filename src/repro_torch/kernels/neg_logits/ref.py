@@ -1,6 +1,7 @@
-"""The plain PyTorch versions of the fused negative-sampling kernels (K3,
-K4): the same per-segment arithmetic as ``csrc/neg_fused.cu`` with the
-segment's rows materialised, one segment at a time."""
+"""The plain PyTorch versions of the negative-sampling kernels: the fused
+kernels (K3, K4), with the same per-segment arithmetic as
+``csrc/neg_fused.cu`` and the segment's rows materialised one segment at a
+time, and the logits over materialised rows (K9, ``csrc/neg_logits.cu``)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -78,3 +79,28 @@ def neg_bwd_plain(o: torch.Tensor, pos: torch.Tensor, src: torch.Tensor,
         douts.append(((w[:, :, None] * rows) * inv_tau).sum(dim=1))
     dpos = g * torch.exp(pos - lse)
     return torch.cat(ws), torch.cat(douts), dpos
+
+
+def neg_logits_fwd_plain(o: torch.Tensor, n: torch.Tensor, *,
+                         inv_tau: float) -> torch.Tensor:
+    """K9-fwd: o (T, D), n (T, R, D) → (T, R) fp32 (o·n)·1/τ in fp32."""
+    return torch.einsum("td,trd->tr", o.float(), n.float()) * inv_tau
+
+
+def neg_logits_bwd_plain(o: torch.Tensor, n: torch.Tensor, g: torch.Tensor,
+                         *, inv_tau: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9-bwd: gs = g·1/τ first, as the reference's kernel takes it; do =
+    Σ_r gs·n (T, D) fp32 and dn = gs·o rounded once to n's dtype."""
+    gs = g.float() * inv_tau
+    do = torch.einsum("tr,trd->td", gs, n.float())
+    dn = (gs[:, :, None] * o.float()[:, None, :]).to(n.dtype)
+    return do, dn
+
+
+def neg_logits_ref(out_emb: torch.Tensor, neg_emb: torch.Tensor,
+                   tau: float = 1.0) -> torch.Tensor:
+    """The plain version of :func:`ops.neg_logits`'s forward (the
+    reference's ``neg_logits_ref``): o·n in fp32, times 1/τ as the kernel
+    takes it (the reference divides by τ: the same at τ = 1)."""
+    return neg_logits_fwd_plain(out_emb, neg_emb, inv_tau=1.0 / tau)

@@ -18,7 +18,10 @@ On the CPU, with the kernels' plain versions:
         --num-items 3000 --max-seq-len 64 --log-every 5
 
 ``--arch fuxi-large`` (``fuxi-tiny`` on the CPU) trains FuXi-α, whose
-attention runs the kernels' functional time mode.
+attention runs the kernels' functional time mode. ``--neg-mode baseline``
+and ``--neg-mode segmented`` run the §4.3 / Table-7 ablation's other
+negative paths (K9); segmented needs the loader's capacity
+(``--users-per-device`` × ``--max-seq-len``) to be a multiple of 128.
 """
 from __future__ import annotations
 
@@ -48,9 +51,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
     ap.add_argument("--num-negatives", type=int, default=32)
     ap.add_argument("--strategy", default="token_realloc",
                     choices=["fixed", "token_scaling", "token_realloc"])
-    ap.add_argument("--neg-mode", default="fused", choices=["fused"],
-                    help="the fused negative path (the other modes are "
-                         "not ported yet)")
+    ap.add_argument("--neg-mode", default="fused",
+                    choices=["baseline", "segmented", "fused"],
+                    help="the negative path: fused (K3/K4), or the §4.3 "
+                         "ablation's materialised baseline and segmented "
+                         "fetch (K9)")
     ap.add_argument("--schedule", default="algorithm1",
                     choices=["algorithm1", "flat"],
                     help="staged pipeline (Algorithm 1) vs serial stages")

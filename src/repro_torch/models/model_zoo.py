@@ -15,6 +15,9 @@ from repro_torch.models import gr as GR
 
 Batch = dict
 
+#: The recall loss's negative paths (the §4.3 / Table-7 ablation).
+NEG_MODES = ("fused", "baseline", "segmented")
+
 
 @dataclass(frozen=True)
 class GRBundle:
@@ -34,17 +37,22 @@ class GRBundle:
                            dtype=torch.float32, device=device,
                            generator=generator) * 0.02
 
-    def input_gather(self, table: torch.Tensor, batch: Batch
-                     ) -> torch.Tensor:
+    def input_gather(self, table: torch.Tensor, batch: Batch, *,
+                     lookup_fn: Optional[Callable] = None) -> torch.Tensor:
         """The input-side lookup as its own stage (Algorithm 1's emb_fwd):
-        a plain gather + cast, exactly the one :meth:`loss` performs."""
+        exactly the gather :meth:`loss` performs for ``batch["ids"]``, a
+        plain gather + cast or ``lookup_fn(table, ids)``."""
+        if lookup_fn is not None:
+            return lookup_fn(table, batch["ids"])
         return table[batch["ids"].long()].to(GR.torch_dtype(self.cfg.dtype))
 
     def loss(self, dense: GR.GRModel, table: torch.Tensor, batch: Batch, *,
+             lookup_fn: Optional[Callable] = None,
              neg_mode: str = "fused", expansion: int = 1,
              neg_segment: int = 128, fetch_dtype=torch.float16,
              neg_scatter_impl: str = "fused",
              perms: Optional[torch.Tensor] = None,
+             share_draws: Optional[torch.Tensor] = None,
              attn_fn: Optional[Callable] = None,
              x_emb: Optional[torch.Tensor] = None,
              pos_emb: Optional[torch.Tensor] = None,
@@ -55,43 +63,86 @@ class GRBundle:
         ids/timestamps/labels (G, cap), offsets (G, S+1), neg_ids
         (G, cap, R), rng (2,).
 
-        ``x_emb``/``pos_emb``: precomputed input and label rows (the train
-        step passes them as leaves, so their grads are the sparse table
-        contributions); else gathered from ``table``, which then gets a
-        dense grad if it requires one (test sizes). ``shadow``: the
-        half-precision table the negatives are gathered from.
+        ``neg_mode``: "fused" (default) runs the ID-driven kernels (K3/K4):
+        gather, dequant, §4.3.3 sharing and Eq.-2 logsumexp in one pass,
+        no (T, R, d) or (T, R·k) buffers; "baseline" materialises the
+        (G, cap, R, d) negative rows of the master in the model's dtype
+        (the Table-7 reference); "segmented" fetches fp16 rows one segment
+        of tokens at a time (§4.3.1 + §4.3.2; cap must be a ``neg_segment``
+        multiple). Both of the latter take their logits with K9 and share
+        them with :func:`~repro_torch.core.negative_sampling.share_logits`
+        for ``expansion`` > 1.
+
+        ``lookup_fn(table, ids)``: the input and label lookup (default a
+        plain gather + cast; ``kernels.jagged_lookup.jagged_lookup`` is
+        K7). ``x_emb``/``pos_emb``: precomputed input and label rows (the
+        train step passes them as leaves, so their grads are the sparse
+        table contributions); else looked up in ``table``, which then gets
+        a dense grad if it requires one (test sizes). ``shadow``: the
+        half-precision table the fused path gathers from.
         ``table_grad_pairs`` (a ``TableGradSink``) receives the negative
-        rows' table grad as sparse pairs, factored for K5 with
+        rows' table grad as sparse pairs: factored for K5 with
         ``neg_scatter_impl="fused"`` (the default) or as rows with
-        ``"two_pass"``. ``perms``: the §4.3.3 sharing
-        shuffle for expansion > 1, else drawn from a generator seeded by
-        ``batch["rng"][0]``."""
+        ``"two_pass"`` in the fused mode, as rows in the other two.
+        ``perms`` (fused) and ``share_draws`` (G, cap, (k−1)·R) (the
+        others): the §4.3.3 sharing draws for expansion > 1, else drawn
+        from a generator seeded by ``batch["rng"][0]``."""
         cfg = self.cfg
-        if neg_mode != "fused":
-            raise NotImplementedError(
-                f"neg_mode={neg_mode!r}: only the fused path is ported")
-        x = self.input_gather(table, batch) if x_emb is None else x_emb
+        if neg_mode not in NEG_MODES:
+            raise ValueError(f"neg_mode {neg_mode!r} not in {NEG_MODES}")
+        if x_emb is None:
+            x = self.input_gather(table, batch, lookup_fn=lookup_fn)
+        else:
+            x = x_emb
         G, cap = batch["ids"].shape
         h = GR.gr_hidden_sharded(dense, cfg, x, batch["offsets"],
                                  batch["timestamps"], attn_fn=attn_fn,
                                  remat=remat)
         if pos_emb is None:
-            pos_emb = table[batch["labels"].long()].to(x.dtype)
+            pos_emb = (lookup_fn(table, batch["labels"]) if lookup_fn
+                       else table[batch["labels"].long()].to(x.dtype))
         valid = (torch.arange(cap, device=x.device)[None, :]
                  < batch["offsets"][:, -1:])
         R = batch["neg_ids"].shape[-1]
+        T, d = G * cap, h.shape[-1]
+        neg_ids = batch["neg_ids"].reshape(T, R)
         generator = None
-        if expansion > 1 and perms is None:
+        given = perms if neg_mode == "fused" else share_draws
+        if expansion > 1 and given is None:
             generator = torch.Generator(device=x.device).manual_seed(
                 int(batch["rng"][0]))
-        return NS.fused_sampled_softmax_loss(
-            h.reshape(G * cap, -1), pos_emb.reshape(G * cap, -1), table,
-            batch["neg_ids"].reshape(G * cap, R), perms=perms,
-            generator=generator, tau=1.0, valid=valid.reshape(-1),
-            segment=neg_segment, expansion=expansion,
-            fetch_dtype=fetch_dtype, shadow=shadow,
-            scatter_impl=neg_scatter_impl,
-            table_grad_pairs=table_grad_pairs)
+        if neg_mode == "fused":
+            return NS.fused_sampled_softmax_loss(
+                h.reshape(T, d), pos_emb.reshape(T, -1), table, neg_ids,
+                perms=perms, generator=generator, tau=1.0,
+                valid=valid.reshape(-1), segment=neg_segment,
+                expansion=expansion, fetch_dtype=fetch_dtype, shadow=shadow,
+                scatter_impl=neg_scatter_impl,
+                table_grad_pairs=table_grad_pairs)
+        sink = table_grad_pairs
+        if neg_mode == "baseline":
+            neg_emb = table[neg_ids.long()].to(h.dtype)      # (T, R, d)
+            hook = None
+            if sink is not None:
+                hook = lambda dn: sink.ready_rows(          # noqa: E731
+                    neg_ids, d, dn.device).copy_(dn.reshape(-1, d))
+            logits = NS.neg_logits_baseline(h.reshape(T, d), neg_emb,
+                                            on_neg_grad=hook)
+        else:
+            if cap % neg_segment:
+                raise ValueError(f"capacity {cap} is not a multiple of the "
+                                 f"segment {neg_segment}")
+            logits = NS.neg_logits_segmented(
+                h.reshape(T, d), table, neg_ids, segment=neg_segment,
+                fetch_dtype=fetch_dtype, table_grad_pairs=sink)
+        if expansion > 1:
+            per_pack = logits.view(G, cap, R)
+            logits = torch.cat([NS.share_logits(
+                per_pack[g], expansion, valid[g], generator=generator,
+                draws=None if share_draws is None else share_draws[g])
+                for g in range(G)])
+        return NS.recall_loss(h.reshape(T, d), pos_emb.reshape(T, -1),
+                              logits, valid=valid.reshape(-1))
 
 
 def get_bundle(cfg: ArchConfig) -> GRBundle:

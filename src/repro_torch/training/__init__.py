@@ -1,7 +1,8 @@
 from repro_torch.training.engine import GREngine, make_gr_step_fn
-from repro_torch.training.optim import (AdamWState, adagrad_apply_unique,
-                                        adagrad_sparse_update, adamw_init,
-                                        adamw_update)
+from repro_torch.training.optim import (AdaGradState, AdamWState,
+                                        adagrad_apply_unique, adagrad_init,
+                                        adagrad_sparse_update, adagrad_update,
+                                        adamw_init, adamw_update)
 from repro_torch.training.trainer import (GRDenseOut, GRStages, GRTrainState,
                                           TableContribs, clone_state,
                                           gr_pending_slots, gr_train_state,
@@ -9,8 +10,9 @@ from repro_torch.training.trainer import (GRDenseOut, GRStages, GRTrainState,
                                           make_gr_stages, make_gr_train_step,
                                           state_tensors, to_device)
 
-__all__ = ["AdamWState", "GRDenseOut", "GREngine", "GRStages", "GRTrainState",
-           "TableContribs", "adagrad_apply_unique", "adagrad_sparse_update",
+__all__ = ["AdaGradState", "AdamWState", "GRDenseOut", "GREngine", "GRStages",
+           "GRTrainState", "TableContribs", "adagrad_apply_unique",
+           "adagrad_init", "adagrad_sparse_update", "adagrad_update",
            "adamw_init", "adamw_update", "clone_state", "gr_pending_slots",
            "gr_train_state", "host_unique_candidates",
            "make_gr_stages", "make_gr_step_fn", "make_gr_train_step",

@@ -80,9 +80,16 @@ SCHEDULES = ("algorithm1", "flat")
 _NOT_PORTED = {"cache": 10, "fault_policy": 9, "fault_injector": 9, "obs": 8}
 
 
-def _bundle_loss_fn(bundle, loss_kwargs: Optional[Dict[str, Any]]):
+def _step_fns(bundle, loss_kwargs: Optional[Dict[str, Any]]):
+    """(the loss with ``loss_kwargs`` bound, the input gather and label
+    lookup of its ``lookup_fn`` (None: the plain gather) as the stages'
+    keyword arguments): one rule for the flat step and the engine, so they
+    never disagree on the dataflow."""
     lk = dict(loss_kwargs or {})
-    return lambda d, t, b, **kw: bundle.loss(d, t, b, **lk, **kw)
+    lookup_fn = lk.get("lookup_fn")
+    return (lambda d, t, b, **kw: bundle.loss(d, t, b, **lk, **kw),
+            dict(input_gather=lambda t, b: bundle.input_gather(
+                t, b, lookup_fn=lookup_fn), lookup_fn=lookup_fn))
 
 
 def make_gr_step_fn(bundle, *, loss_kwargs: Optional[Dict[str, Any]] = None,
@@ -91,10 +98,9 @@ def make_gr_step_fn(bundle, *, loss_kwargs: Optional[Dict[str, Any]] = None,
     """The engine's flat train step as a standalone ``(state, batch) ->
     (state, metrics)`` function: what ``GREngine(schedule="flat")``
     computes, and what both schedules are bit-identical to."""
-    return make_gr_train_step(_bundle_loss_fn(bundle, loss_kwargs),
-                              input_gather=bundle.input_gather,
-                              lr_dense=lr_dense, lr_sparse=lr_sparse,
-                              semi_async=semi_async)
+    loss_fn, fns = _step_fns(bundle, loss_kwargs)
+    return make_gr_train_step(loss_fn, **fns, lr_dense=lr_dense,
+                              lr_sparse=lr_sparse, semi_async=semi_async)
 
 
 class GREngine:
@@ -110,8 +116,10 @@ class GREngine:
         from ``bundle`` with a generator seeded by ``seed`` on ``device``
         (None = the card, which raises without one; ``"cpu"`` runs the
         kernels' plain versions). A given state trains where it lies.
-    loss_kwargs: bound into ``bundle.loss`` (expansion, neg_segment,
-        neg_scatter_impl, ...).
+    loss_kwargs: bound into ``bundle.loss`` (neg_mode, expansion,
+        neg_segment, neg_scatter_impl, attn_fn, lookup_fn, ...); a
+        ``lookup_fn`` also gathers the input rows in emb_fwd and the label
+        rows in dense_fwd.
     schedule: "algorithm1" (six-stage pipelined execution) or "flat"
         (same stages, serial per step).
     step_callback: optional ``fn(i, record, state)`` invoked after each
@@ -163,8 +171,8 @@ class GREngine:
         self.workers = workers
         self.step_callback = step_callback
         self.events: List[StageEvent] = []
-        self.stages = make_gr_stages(_bundle_loss_fn(bundle, loss_kwargs),
-                                     input_gather=bundle.input_gather,
+        loss_fn, fns = _step_fns(bundle, loss_kwargs)
+        self.stages = make_gr_stages(loss_fn, **fns,
                                      lr_dense=lr_dense, lr_sparse=lr_sparse,
                                      semi_async=semi_async)
         self._h2d = (torch.cuda.Stream(self.device)

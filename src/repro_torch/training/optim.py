@@ -1,7 +1,8 @@
 """Optimizers of the GR training step (the port of ``repro.training.optim``).
 
 AdamW for the dense backbone (paper Appendix A: lr 4e-3, no weight decay
-for GR) and the row-sparse Eq.-1 AdaGrad for the embedding table. Both
+for GR) and the row-sparse Eq.-1 AdaGrad for the embedding table (with
+the dense Eq.-1 :func:`adagrad_update` for whole parameters). All
 update in place: the dense parameters and moments where they lie, and the
 table's master, accumulator and shadow at the touched rows only — the
 (V, D) tables are never copied.
@@ -72,6 +73,34 @@ def adamw_update(grads: Params, state: AdamWState,
         m.copy_(m32)
         v.copy_(v32)
     return state._replace(count=c)
+
+
+class AdaGradState(NamedTuple):
+    """The accumulator S of Eq. 1, by parameter name."""
+    accum: Params
+
+
+def adagrad_init(params: Union[Params, torch.nn.Module], init: float = 0.0,
+                 dtype=torch.float32) -> AdaGradState:
+    return AdaGradState(accum={
+        n: torch.full(p.shape, init, dtype=dtype, device=p.device)
+        for n, p in _named(params).items()})
+
+
+@torch.no_grad()
+def adagrad_update(grads: Params, state: AdaGradState,
+                   params: Union[Params, torch.nn.Module], *,
+                   lr: float = 4e-3, eps: float = 1e-10) -> AdaGradState:
+    """Paper Eq. 1 on dense parameters, S += g², p −= lr·g·rsqrt(S + eps),
+    in fp32 in the reference's order, in place on the parameters and the
+    accumulators (cast back to their dtypes); returns the state."""
+    for name, p in _named(params).items():
+        g = grads[name].float()
+        s = state.accum[name]
+        s32 = s.float() + g * g
+        p.copy_((p.float() - lr * g * torch.rsqrt(s32 + eps)).to(p.dtype))
+        s.copy_(s32)
+    return state
 
 
 @torch.no_grad()

@@ -18,9 +18,19 @@ reduces to the unique (id, row) pairs the reference's
 ``_table_grad_pairs`` returns (equal per id up to fp32 summation order):
 K5 with the negative rows left in factored form (``scatter_impl="fused"``,
 the default: the (T·R, D) rows are never built) or K6 over built rows
-(``"two_pass"``); the two give the same bits. The τ=1 carry holds only
-those unique pairs, and the stale master is never copied: ``emb_fwd``
-gathers x before the pending pairs land in place.
+(``"two_pass"``); the two give the same bits. The baseline and segmented
+negative paths hand over their rows (K9's dn) ready, and K6 reduces them
+as it does two-pass rows. The τ=1 carry holds only those unique pairs,
+and the stale master is never copied: ``emb_fwd`` gathers x before the
+pending pairs land in place.
+
+A bound ``lookup_fn`` (the loss's input and label lookup, e.g. K7's
+``jagged_lookup``) gathers x in ``emb_fwd`` and the labels in
+``dense_fwd_bwd``; the gathered rows stay leaves whose grads join the
+sparse pairs, as the plain gather's do (rows of ids < 0, which the lookup
+gives as zeros, get no gradient). The reference instead keeps a custom
+lookup inline in the dense stage, differentiated against the stale master:
+the same values and per-id grads (a declared divergence).
 """
 from __future__ import annotations
 
@@ -194,15 +204,18 @@ class GRStages(NamedTuple):
 
 
 def make_gr_stages(loss_fn: Callable[..., torch.Tensor], *,
-                   input_gather: Callable, lr_dense: float = 4e-3,
-                   lr_sparse: float = 4e-3,
+                   input_gather: Callable,
+                   lookup_fn: Optional[Callable] = None,
+                   lr_dense: float = 4e-3, lr_sparse: float = 4e-3,
                    semi_async: bool = True) -> GRStages:
     """``loss_fn(dense, master, batch, *, x_emb, pos_emb, shadow,
     table_grad_pairs)`` → scalar (``GRBundle.loss`` with its modes bound);
-    ``input_gather(master, batch)`` → x (``GRBundle.input_gather``). The
-    port always gathers x as its own stage, so the reference's inline
-    stale-table mode has no counterpart: in place, the stale master exists
-    only until the pending pairs land."""
+    ``input_gather(master, batch)`` → x (``GRBundle.input_gather``, with
+    the same ``lookup_fn`` bound); ``lookup_fn(master, ids)`` gathers the
+    label rows (None: a plain gather + cast). The port always gathers x as
+    its own stage, so the reference's inline stale-table mode has no
+    counterpart: in place, the stale master exists only until the pending
+    pairs land."""
 
     def emb_fwd(master, batch):
         return input_gather(master, batch) if semi_async else None
@@ -213,7 +226,9 @@ def make_gr_stages(loss_fn: Callable[..., torch.Tensor], *,
         if x is None:
             x = input_gather(master, batch)
         x = x.detach().requires_grad_()
-        pos = master[batch["labels"].long()].to(x.dtype).requires_grad_()
+        pos = (lookup_fn(master, batch["labels"]) if lookup_fn is not None
+               else master[batch["labels"].long()].to(x.dtype))
+        pos = pos.detach().requires_grad_()
         n_in, n_lab = batch["ids"].numel(), batch["labels"].numel()
         sink = TableGradSink(extra_rows=n_in + n_lab)
         names, params = zip(*[(n, p) for n, p in dense.named_parameters()
@@ -223,6 +238,12 @@ def make_gr_stages(loss_fn: Callable[..., torch.Tensor], *,
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip([x, pos, *params], torch.autograd.grad(
                      loss, [x, pos, *params], allow_unused=True))]
+        if lookup_fn is not None:
+            # the lookup's zero rows of ids < 0 pass no gradient
+            for i, key in enumerate(("ids", "labels")):
+                keep = (batch[key] >= 0)[..., None]
+                grads[i] = torch.where(keep, grads[i],
+                                       torch.zeros_like(grads[i]))
         # the input and label rows join the negative slots in the sink's
         # buffer: one stream of slots for the whole batch
         D = master.shape[1]
@@ -256,9 +277,10 @@ def make_gr_stages(loss_fn: Callable[..., torch.Tensor], *,
 
 
 def make_gr_train_step(loss_fn: Callable[..., torch.Tensor], *,
-                       input_gather: Callable, lr_dense: float = 4e-3,
-                       lr_sparse: float = 4e-3, semi_async: bool = True,
-                       stage_times: bool = False):
+                       input_gather: Callable,
+                       lookup_fn: Optional[Callable] = None,
+                       lr_dense: float = 4e-3, lr_sparse: float = 4e-3,
+                       semi_async: bool = True, stage_times: bool = False):
     """train_step(state, batch) → (state, {"loss"}), the flat composition
     of the :func:`make_gr_stages` stages. The dense params, the optimizer
     moments and the table are updated in place; the returned state holds
@@ -270,8 +292,8 @@ def make_gr_train_step(loss_fn: Callable[..., torch.Tensor], *,
     stage's wall seconds to the metrics (host clock around work that ends
     in a device synchronise: it costs the overlap of the stages)."""
     st = make_gr_stages(loss_fn, input_gather=input_gather,
-                        lr_dense=lr_dense, lr_sparse=lr_sparse,
-                        semi_async=semi_async)
+                        lookup_fn=lookup_fn, lr_dense=lr_dense,
+                        lr_sparse=lr_sparse, semi_async=semi_async)
 
     def train_step(state: GRTrainState, batch: Batch):
         tbl = state.table

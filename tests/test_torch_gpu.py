@@ -402,9 +402,10 @@ def test_train_steps_on_card_match_cpu(cuda):
         runs[dev] = (state, losses, counts)
     (sg, lg, cg), (sc, lc, cc) = runs["cuda"], runs["cpu"]
     L = cfg.num_layers
-    assert cg == [{"attn_fwd": 2 * L, "attn_bwd": L, "attn_fwd_functional": 0,
-                   "attn_bwd_functional": 0, "neg_fwd": 1, "neg_bwd": 1,
-                   "runsum": 1, "wscatter": 0}] * 4
+    want = {k: 0 for k in cg[0]}
+    want.update({"attn_fwd": 2 * L, "attn_bwd": L, "neg_fwd": 1,
+                 "neg_bwd": 1, "runsum": 1})
+    assert cg == [want] * 4
     assert all(v == 0 for c in cc for v in c.values())
     np.testing.assert_allclose(lg, lc, atol=1e-4, rtol=0)
     assert torch.equal(sg.table.shadow, sg.table.master.half())
@@ -487,10 +488,169 @@ def test_engine_on_card_matches_flat_step(cuda):
         ref, m = step(ref, to_device(batch, cuda))
         losses.append(float(m["loss"]))
     for sched in ("algorithm1", "flat"):
-        JL.KERNEL_LAUNCHES.update(runsum=0, wscatter=0)
+        JL.KERNEL_LAUNCHES.update(runsum=0, wscatter=0, gather=0)
         eng = GREngine(b, lambda i: batches[i], state=clone_state(init),
                        schedule=sched)
         assert [r["loss"] for r in eng.run(4)] == losses, sched
-        assert JL.KERNEL_LAUNCHES == {"runsum": 0, "wscatter": 4}
+        assert JL.KERNEL_LAUNCHES == {"runsum": 0, "wscatter": 4,
+                                      "gather": 0}
         assert all(torch.equal(x, y) for x, y in
                    zip(state_tensors(eng.state), state_tensors(ref))), sched
+
+
+@pytest.mark.parametrize("mode", ["bucket", "functional"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_schedule_kernels_match_worklist_and_plain(cuda, dtype, mode):
+    """K8 (``schedule="dense"``) against K1-fwd/K2 on the same plan, bit
+    for bit (the dense grid visits each CTA's live blocks in the
+    work-list's order), and against the plain version at K1/K2's
+    tolerances; only the dense counters move."""
+    H, D, cap = 8, 128, 1024
+    q, k, v, offs, ts = _pack(cuda, dtype, H, D,
+                              [[500, 3, 0, 300, 129], [0, 0, 0]], cap)
+    pt = torch.randn(256, H, device=cuda) * 0.5
+    functional = mode == "functional"
+    tt = (_functional_time(cuda, H) if functional
+          else torch.randn(32, H, device=cuda) * 0.5)
+    plan = ops._as_batched(build_attn_plan(offs, ts, cap, block=128,
+                                           max_row_len=1024))
+    kw = dict(scale=D ** -0.5, tb_denom=ops.time_bucket_denom(0.301),
+              use_pos=True, use_time=True, time_functional=functional)
+    dy = ops._masked(plan.meta_i32, torch.randn_like(q))
+    before = dict(ops.KERNEL_LAUNCHES)
+    out = ops._launch_fwd(q, k, v, pt, tt, plan, dense=True, **kw)
+    got = ops._launch_bwd(q, k, v, dy, pt, tt, plan, dense=True, **kw)
+    torch.cuda.synchronize()
+    moved = {n: ops.KERNEL_LAUNCHES[n] - before[n] for n in before}
+    fwd = ops.launch_counter("fwd", dense=True, functional=functional)
+    bwd = ops.launch_counter("bwd", dense=True, functional=functional)
+    assert moved == {n: int(n in (fwd, bwd)) for n in before}
+    wl_out = ops._launch_fwd(q, k, v, pt, tt, plan, **kw)
+    wl = ops._launch_bwd(q, k, v, dy, pt, tt, plan, **kw)
+    assert torch.equal(out, wl_out)
+    for name, a, b in zip(("dq", "dk", "dv", "dpt", "dtt"), got, wl):
+        assert torch.equal(a, b), name
+    plain = attention_fwd_plain(q, k, v, pt, tt, plan, **kw)
+    out, plain = (ops._masked(plan.meta_i32, t) for t in (out, plain))
+    if dtype == torch.float32:
+        assert (out - plain).abs().max().item() <= 1e-4
+    else:
+        assert max_row_rel_err(out, plain) <= 1e-2
+
+
+def test_dense_schedule_through_the_entry_points(cuda):
+    """``make_attn_fn(schedule="dense")`` launches K8 and never K1/K2, and
+    gives ``jagged_attention``'s worklist output and grads bit for bit; an
+    unknown schedule raises."""
+    from repro_torch.kernels.jagged_attention import make_attn_fn
+    H, D, cap = 8, 64, 512
+    q, k, v, offs, ts = _pack(cuda, torch.bfloat16, H, D,
+                              [[300, 0, 200, 12]], cap)
+    rab = {"pos_table": torch.randn(256, H, device=cuda) * 0.5,
+           "time_table": torch.randn(32, H, device=cuda) * 0.5}
+    outs, grads = {}, {}
+    for schedule in ("worklist", "dense"):
+        fn = make_attn_fn(schedule=schedule, max_row_len=512)
+        plan = fn.make_plan(offs[0], ts[0], cap)
+        qq, kk, vv = (t[0].clone().requires_grad_() for t in (q, k, v))
+        before = dict(ops.KERNEL_LAUNCHES)
+        outs[schedule] = fn(qq, kk, vv, offs[0], ts[0], rab, RABConfig(),
+                            plan=plan)
+        outs[schedule].float().square().sum().backward()
+        moved = {n for n in before if ops.KERNEL_LAUNCHES[n] != before[n]}
+        assert moved == ({"attn_fwd_dense", "attn_bwd_dense"}
+                         if schedule == "dense" else
+                         {"attn_fwd", "attn_bwd"})
+        grads[schedule] = (qq.grad, kk.grad, vv.grad)
+    assert torch.equal(outs["dense"], outs["worklist"])
+    for a, b in zip(grads["dense"], grads["worklist"]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="unknown schedule"):
+        make_attn_fn(schedule="diagonal")
+
+
+@pytest.mark.parametrize("case", ["bf16_o_bf16_n", "bf16_o_fp16_n",
+                                  "fp32_o_fp32_n_tau"])
+def test_neg_logits_kernels_match_plain_version(cuda, case):
+    """K9 against its plain version: the logits and do are fp32 sums over D
+    and R in another order (1e-4 of their largest value), dn is one
+    rounding of the same fp32 product (bitwise); both bit-identical run to
+    run; D of a few widths."""
+    from repro_torch.kernels import neg_logits as NL
+    from repro_torch.kernels.neg_logits import ref as NR
+    o_dt, n_dt, tau, D = {
+        "bf16_o_bf16_n": (torch.bfloat16, torch.bfloat16, 1.0, 1024),
+        "bf16_o_fp16_n": (torch.bfloat16, torch.float16, 1.0, 256),
+        "fp32_o_fp32_n_tau": (torch.float32, torch.float32, 0.7, 68)}[case]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    T, R = 300, 24
+    o = torch.randn(T, D, device=cuda, generator=g).to(o_dt)
+    n = (torch.randn(T, R, D, device=cuda, generator=g) * 0.05).to(n_dt)
+    gr = torch.randn(T, R, device=cuda, generator=g)
+    before = dict(NL.KERNEL_LAUNCHES)
+    out = NL.neg_logits_fwd(o, n, inv_tau=1 / tau)
+    do, dn = NL.neg_logits_bwd(o, n, gr, inv_tau=1 / tau)
+    torch.cuda.synchronize()
+    assert NL.KERNEL_LAUNCHES["neg_logits_fwd"] == \
+        before["neg_logits_fwd"] + 1
+    assert NL.KERNEL_LAUNCHES["neg_logits_bwd"] == \
+        before["neg_logits_bwd"] + 1
+    assert torch.equal(NL.neg_logits_fwd(o, n, inv_tau=1 / tau), out)
+    do2, dn2 = NL.neg_logits_bwd(o, n, gr, inv_tau=1 / tau)
+    assert torch.equal(do, do2) and torch.equal(dn, dn2)
+    assert dn.dtype == n_dt and do.dtype == torch.float32
+    assert _rel_to_max(out, NR.neg_logits_ref(o, n, tau)) <= 1e-4
+    p_do, p_dn = NR.neg_logits_bwd_plain(o, n, gr, inv_tau=1 / tau)
+    assert _rel_to_max(do, p_do) <= 1e-4
+    assert torch.equal(dn, p_dn)
+
+
+def test_neg_logits_op_and_wrapper_checks(cuda):
+    """``neg_logits`` pads T to a segment multiple and hands dn to its
+    callback; the wrapper raises on a row width that is no whole number of
+    16-byte vectors."""
+    from repro_torch.kernels import neg_logits as NL
+    o = torch.randn(70, 64, device=cuda, requires_grad=True)
+    n = torch.randn(70, 5, 64, device=cuda).to(torch.bfloat16)
+    seen = []
+    out = NL.neg_logits(o, n, segment=32, on_neg_grad=seen.append)
+    out.sum().backward()
+    assert out.shape == (70, 5) and seen[0].shape == (70, 5, 64)
+    assert torch.equal(seen[0], (o.detach()[:, None, :]
+                                 .expand(70, 5, 64)).to(torch.bfloat16))
+    with pytest.raises(ValueError, match="16-byte vectors"):
+        NL.neg_logits_fwd(o.detach()[:, :60].contiguous(),
+                          n[:, :, :60].contiguous(), inv_tau=1.0)
+
+
+@pytest.mark.parametrize("tdt,odt", [(torch.float32, torch.bfloat16),
+                                     (torch.float32, torch.float32),
+                                     (torch.float16, torch.float16)])
+def test_gather_kernel_matches_plain_version(cuda, tdt, odt):
+    """K7 bitwise against its plain version and against index_select +
+    mask + cast, with ids < 0 (zero rows) and ids ≥ V (row V − 1); the
+    lookup's grad is the dense scatter of the row grads."""
+    from repro_torch.kernels import jagged_lookup as JL
+    from repro_torch.kernels.jagged_lookup import ref as JR
+    V, D, n = 1000, 96, 777
+    g = torch.Generator(device=cuda).manual_seed(9)
+    table = torch.randn(V, D, device=cuda, generator=g).to(tdt)
+    ids = torch.randint(-3, V + 4, (n,), device=cuda, generator=g)
+    before = JL.KERNEL_LAUNCHES["gather"]
+    out = JL.gather_rows(table, ids, odt)
+    torch.cuda.synchronize()
+    assert JL.KERNEL_LAUNCHES["gather"] == before + 1
+    assert torch.equal(out, JR.jagged_lookup_ref(table, ids,
+                                                 compute_dtype=odt))
+    lib = torch.index_select(table, 0, ids.clamp(0, V - 1)).to(odt)
+    lib = lib * (ids >= 0)[:, None].to(odt)
+    assert torch.equal(out, lib)
+    t = table.float().requires_grad_()
+    y = JL.jagged_lookup(t, ids, compute_dtype=odt)
+    dy = torch.randn(y.shape, device=cuda, generator=g)
+    (y.float() * dy).sum().backward()
+    # the rows' cotangent reaches the lookup in the compute dtype
+    keep = (ids >= 0) & (ids < V)
+    want = torch.zeros_like(t).index_add_(0, ids[keep],
+                                          dy.to(odt).float()[keep])
+    assert _rel_to_max(t.grad, want) <= 1e-6

@@ -1,6 +1,7 @@
 """The port stands alone: it imports no jax and nothing of the JAX package
-(every module, serving and training alike, HSTU and FuXi, runs with both
-blocked), and
+(every module, serving and training alike, HSTU and FuXi, the fused,
+baseline and segmented negative paths, the kernel lookup and the dense
+attention schedule, runs with both blocked), and
 its entry points run on the card unless the caller asks for the CPU."""
 import re
 import subprocess
@@ -14,6 +15,7 @@ import torch
 import repro_torch.configs as PC
 from repro_torch.convert import (gr_params_from_numpy, pending_from_numpy,
                                  shadowed_table_from_numpy, table_from_numpy)
+from repro_torch.data import synth_jagged_batch
 from repro_torch.launch import train as train_cli
 from repro_torch.models.gr import GRModel
 from repro_torch.models.model_zoo import GRBundle
@@ -69,6 +71,27 @@ for semi in (False, True):
         st, m = step(st, to_device(batch, "cpu"))
         assert np.isfinite(float(m["loss"]))
 assert st.pending_ids.numel() > 0
+from functools import partial
+from repro_torch.core.jagged import JaggedBatch, from_dense, to_dense
+from repro_torch.data import synth_jagged_batch
+from repro_torch.embedding import (TableSpec, init_table, lookup_quantized,
+                                   multi_table_lookup)
+from repro_torch.kernels.jagged_attention import make_attn_fn
+from repro_torch.kernels.jagged_lookup import jagged_lookup
+from repro_torch.training import adagrad_init, adagrad_update
+from repro_torch.training.engine import make_gr_step_fn
+for mode in ("baseline", "segmented"):
+    step = make_gr_step_fn(b, loss_kwargs=dict(
+        neg_mode=mode, neg_segment=16, expansion=2,
+        attn_fn=make_attn_fn(schedule="dense", max_row_len=40),
+        lookup_fn=partial(jagged_lookup,
+                          compute_dtype=getattr(torch, cfg.dtype))))
+    for batch in loader.batches(2):
+        st, m = step(st, to_device(batch, "cpu"))
+        assert np.isfinite(float(m["loss"]))
+sb = synth_jagged_batch(g, 2, 32, 300, 4, device="cpu")
+assert np.isfinite(float(b.loss(st.dense, st.table.master, sb,
+                                neg_mode="baseline", neg_segment=16)))
 import repro_torch.core.pipeline, repro_torch.data.kuairand
 import repro_torch.launch.train, repro_torch.training.engine
 from repro_torch.training import GREngine
@@ -144,6 +167,7 @@ ENTRY_POINTS = {
     "table_from_numpy": lambda: table_from_numpy(np.zeros((4, 2),
                                                           np.float32)),
     "GREngine": lambda: GREngine(GRBundle(_cfg()), lambda i: None),
+    "synth_jagged_batch": lambda: synth_jagged_batch(None, 1, 8, 10, 2),
     "launch.train.main": lambda: train_cli.main(["--arch", "hstu-tiny"]),
 }
 

@@ -143,7 +143,7 @@ def test_sink_receives_the_dense_grad_as_pairs():
     torch.testing.assert_close(dense, tb.grad, atol=1e-6, rtol=0)
 
 
-def test_fused_scatter_is_not_ported_and_raises():
+def test_fused_scatter_runs_and_equals_two_pass():
     """The default ``scatter_impl="fused"`` (K5's plain version here) runs,
     for the dense table grad of ``fused_recall_lse`` and for
     ``scatter_add_weighted_rows``, and gives two-pass's bits; an unknown
