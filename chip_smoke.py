@@ -10,13 +10,17 @@ one card, so each phase frees its own.
   1. device  — the card's name, count, power limit, maximum SM clock; no
                card is a failure.
   2. build   — nvcc builds every CUDA source of the port from this
-               checkout (one nvcc per source, all started together).
+               checkout (one nvcc per source, all started together);
+               cuobjdump shows K2's bf16 kernels on the tensor cores (HMMA
+               in their SASS) and its fp32 kernels on the FMA path.
   3. kernels — every kernel of the serving and training paths against its
                plain PyTorch version on the card, at the paths' shapes, with
                its time beside its bound: K1-fwd and K2 (attention forward
                and backward; H=8, D=128, block 128; bf16 and fp32; a
-               long-tail pack of G=2 shards of 8192 tokens, and a pack with
-               empty rows beside an all-padding shard) in both time modes,
+               long-tail pack of G=2 shards of 8192 tokens, a pack with
+               empty rows beside an all-padding shard, and, in bf16 only,
+               the engine's training pack of 1 shard x 4 users x 2048) in
+               both time modes,
                HSTU's bucket table and FuXi's functional encoder (amp ~1,
                sigma = exp(linspace(2, 12)), rho from linspace(-2, 2)), K3/K4
                (the fused negative path; T=8192 tokens, R=128, d 1024, bf16
@@ -25,7 +29,9 @@ one card, so each phase frees its own.
                run lengths) and K5 (the weighted run-sum scatter, on the
                same ids: ~1.05 M negative slots generated from bf16 o and
                ~16 K ready rows), K5 also bitwise against two-pass rows + K6
-               and beside its library call (cuSPARSE SpMM); K8 (the dense-
+               and beside its library call (cuSPARSE SpMM) and on the same
+               slots without its long runs; K2 also split by kernel (the
+               profiler); K8 (the dense-
                grid schedule of K1-fwd/K2) on K1/K2's inputs, bitwise
                against them; K9 (logits over materialised negative rows,
                T=8192, R=128, d 1024, bf16 and fp16 rows) and K7 (the
@@ -198,7 +204,36 @@ def phase_build():
         say(f"[build] {name}: {i['seconds']:.1f} s; ptxas:")
         for ln in lines:
             say(f"[build]   {ln}")
+    # K2's bf16 kernels run their products on the tensor cores (HMMA in
+    # their SASS); its fp32 kernels keep the FMA path (no HMMA)
+    hmma = _sass_hmma_counts(_build.library_path("jagged_attn_bwd"),
+                             Path(_build._nvcc()).parent / "cuobjdump")
+    tc = {f: n for f, n in hmma.items() if "_tc_kernel" in f}
+    fp32 = {f: n for f, n in hmma.items()
+            if "attn_bwd_kv_kernelIf" in f or "attn_bwd_q_kernelIf" in f}
+    say(f"[build] jagged_attn_bwd SASS: HMMA per bf16 kernel "
+        f"{sorted(tc.values())} ({len(tc)} kernels), per fp32 kernel "
+        f"{sorted(fp32.values())} ({len(fp32)} kernels)")
+    check(len(tc) == 16 and min(tc.values()) > 0,
+          "the bf16 K2 kernels are not all on the tensor cores")
+    check(len(fp32) == 16 and max(fp32.values()) == 0,
+          "the fp32 K2 kernels left the FMA path")
     return info
+
+
+def _sass_hmma_counts(lib, cuobjdump):
+    """{kernel function (mangled): HMMA instructions in its SASS}."""
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    counts, fn = {}, None
+    for ln in out.stdout.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            counts[fn] += 1
+    return counts
 
 
 def _long_tail_lengths(rng, total, max_len):
@@ -228,7 +263,9 @@ def _packs(rng, cap, max_len):
     long_tail[0] = _fit(long_tail[0], cap)
     sparse = [0, 700, 0, 0, 2048, 0, 1, 300, 0]
     return {"long_tail": stack(long_tail),
-            "empty_rows+all_padding": stack([sparse, [0, 0, 0]])}
+            "empty_rows+all_padding": stack([sparse, [0, 0, 0]]),
+            # the engine's training pack: 1 shard x 4 users x 2048 events
+            "train_1x4x2048": stack([[max_len] * 4])}
 
 
 def _fit(lens, cap):
@@ -354,7 +391,11 @@ def phase_kernels():
         say(f"[kernels] time-bucket mismatches kernel vs plain: {mism} of "
             f"{pairs} causal pairs; dt -> (kernel, plain, float64): "
             f"{dict(sorted(bad.items())[:8])}")
-        for dtype in (torch.bfloat16, torch.float32):
+        # the engine's training pack in the engine's dtype: the launches a
+        # step pays for
+        dtypes = ((torch.bfloat16,) if pack_name.startswith("train")
+                  else (torch.bfloat16, torch.float32))
+        for dtype in dtypes:
             dname = str(dtype).split(".")[1]
             q, k, v = (torch.randn(G, cap, H, D, device=dev, generator=gen)
                        .to(dtype) for _ in range(3))
@@ -510,6 +551,7 @@ def _check_attn_bwd(q, k, v, rab, plan, pack_name, dname, gen, mode):
     bound_ms, bound_by, parts = _bound(flops, byts,
                                        _attn_mufu(n_live, H, mode), dname)
     err = max(e["max_abs"] for e in errs.values())
+    unit = "tensor cores" if dname == "bfloat16" else "fp32 FMA"
     say(f"[kernels] {bname} {pack_name} {dname}: "
         + "; ".join(f"{n} max_abs {e['max_abs']:.3e} rel_to_max "
                     f"{e['rel_to_max']:.3e}"
@@ -521,7 +563,10 @@ def _check_attn_bwd(q, k, v, rab, plan, pack_name, dname, gen, mode):
         f"{parts['bytes']:.5f}, special functions "
         f"{parts['special functions']:.5f} ms; {flops / 1e9:.2f} GFLOP, "
         f"{byts / 1e6:.2f} MB, {n_live} live pairs) -> "
-        f"{bound_ms / ms:.4f} of bound")
+        f"{bound_ms / ms:.4f} of bound; {flops / ms / 1e9:.1f} TFLOP/s "
+        f"of the needed products ({unit})")
+    if dname == "bfloat16" and pack_name == "long_tail":
+        _attn_bwd_split(lambda: ops._launch_bwd(*args, **kw), bname)
     check(same, "K2 differs between two runs on the same inputs")
     for name, e in errs.items():
         # fp32 (and the fp32 table and time grads): the same fp32
@@ -540,7 +585,7 @@ def _check_attn_bwd(q, k, v, rab, plan, pack_name, dname, gen, mode):
                   f"K2 {mode} {pack_name} {dname} {name}: "
                   f"{e['rel_to_max']} of max > {GRAD_TOL_FP32}")
     k2 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-              bound_by=bound_by, errs=errs)
+              bound_by=bound_by, errs=errs, tflops=flops / ms / 1e9)
     k8name = ops.launch_counter("bwd", dense=True, functional=functional)
     before = dict(ops.KERNEL_LAUNCHES)
     dgot = ops._launch_bwd(*args, dense=True, **kw)
@@ -552,9 +597,33 @@ def _check_attn_bwd(q, k, v, rab, plan, pack_name, dname, gen, mode):
     say(f"[kernels] {k8name} {pack_name} {dname}: bitwise equal to {bname} "
         f"(dq, dk, dv and the table grads) {dsame} | kernel {dms:.4f} ms "
         f"beside {bname}'s {ms:.4f} ms ({dms - ms:+.4f} ms)  bound "
-        f"{bound_ms:.5f} ms by {bound_by} -> {bound_ms / dms:.4f} of bound")
+        f"{bound_ms:.5f} ms by {bound_by} -> {bound_ms / dms:.4f} of bound; "
+        f"{flops / dms / 1e9:.1f} TFLOP/s")
     check(dsame, f"{k8name} {pack_name} {dname} differs from {bname}")
-    return k2, dict(k2, ms=dms)
+    return k2, dict(k2, ms=dms, tflops=flops / dms / 1e9)
+
+
+def _attn_bwd_split(launch, bname, iters=5):
+    """Where K2's time goes: the device time of each of its three kernels
+    (dk/dv, dq + RAB partials, the partials' sum) over `iters` calls,
+    from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            launch()
+        torch.cuda.synchronize()
+    split = {}
+    for ms, n, key in _device_rows(prof):
+        for part, tag in (("kv", "attn_bwd_kv"), ("q", "attn_bwd_q"),
+                          ("partial sum", "rab_partial_sum")):
+            if tag in key:
+                split[part] = split.get(part, 0.0) + ms / iters
+    say(f"[kernels] {bname} long_tail bfloat16 by kernel (profiler, "
+        f"{iters} calls): " + ", ".join(f"{k} {v:.4f} ms"
+                                        for k, v in split.items()))
 
 
 def phase_neg_kernels():
@@ -838,9 +907,26 @@ def phase_wscatter_kernel():
         f"run-count sync {wrapper_ms:.4f} ms)  plain {plain_ms:.3f} ms  "
         f"two-pass (mul + K6) {two_pass_ms:.4f} ms  bound {bound_ms:.4f} ms "
         f"by {bound_by} ({byts / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP) -> "
-        f"{bound_ms / ms:.3f} of bound")
+        f"{bound_ms / ms:.3f} of bound; {byts / ms / 1e6:.1f} GB/s")
     say(f"[kernels] wscatter library call, CSR (runs x [o; extra]) "
         f"torch.sparse.mm: {lib_ms:.4f} ms, {lib_rel:.3e} of max from K5")
+    # the same slots with every ready row's id made unique: no run longer
+    # than the warp path takes, so the difference is the long runs' share
+    lens = torch.diff(starts[:n_runs + 1])
+    uniq = torch.cat([ids[:TR], torch.arange(V - (n - TR), V, device=dev,
+                                             dtype=ids.dtype)])
+    u_order, u_sids = JL.sort_pairs(uniq)
+    u_starts, u_num, u_runs, _, _ = JL._runs(u_sids)
+    u_buf = torch.empty((u_runs, D), device=dev)
+    short_ms = timed_ms(lambda: JL._launch_wscatter(
+        o, w, extra, u_order, u_sids, u_starts, u_num, u_buf, scale=scale),
+        10)
+    say(f"[kernels] wscatter runs longer than 32 rows: "
+        f"{int((lens > 32).sum())} with {int(lens[lens > 32].sum())} rows "
+        f"(longest {int(lens.max())}); the same slots with unique ready "
+        f"ids ({u_runs} runs, none longer than "
+        f"{int(torch.diff(u_starts[:u_runs + 1]).max())}): {short_ms:.4f} ms")
+    del u_buf
     # fp32 sums of up to thousands of rows in another order (the plain
     # version and cuSPARSE add on the card in their own orders): 1e-4 of
     # the largest total; against two-pass + K6 the same products added in
@@ -852,7 +938,8 @@ def phase_wscatter_kernel():
     del out, buf, extra, o, w
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms, two_pass_ms=two_pass_ms)
+                bound_by=bound_by, library_ms=lib_ms,
+                two_pass_ms=two_pass_ms, gb_per_s=byts / ms / 1e6)
 
 
 def _nl_bound(T, R, D, itemsize, bwd):
@@ -2121,6 +2208,16 @@ def main():
             "bound_by": ("bytes" if r["bound_by"] == "bytes"
                          else "operations"),
             "bound_detail": r["bound_by"], "library_ms": lib})
+        # the achieved rate (K2: TFLOP/s of the needed products; K5: GB/s
+        # of the bytes it must move) and the attention's time at the
+        # engine's training pack
+        if "tflops" in r:
+            kernels[-1]["tflops"] = r["tflops"]
+        if "gb_per_s" in r:
+            kernels[-1]["gb_per_s"] = r["gb_per_s"]
+        train_pack = attn.get((kname, "train_1x4x2048", "bfloat16"))
+        if train_pack is not None:
+            kernels[-1]["train_pack_ms"] = train_pack["ms"]
     say(json.dumps({"kernels": kernels}))
     say(smi_line)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

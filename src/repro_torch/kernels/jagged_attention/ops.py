@@ -420,6 +420,9 @@ def _launch_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan,
                plan.kv_rowptr, plan.seg_rng]
     _require(all(t.is_contiguous() for t in tensors), "inputs must be "
              "contiguous")
+    # the bf16 kernels copy q, k, v and dy rows in 16-byte pieces
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v, dy)),
+             "q, k, v and dy must be 16-byte aligned")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     # one (npb + ntb)-wide partial per dq CTA (64-row q chunk, head, pack)
     partial = torch.empty((G * 2 * nb * H, npb + ntb), dtype=torch.float32,

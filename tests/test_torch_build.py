@@ -60,3 +60,24 @@ def test_flags_keep_precise_math():
                  "prec-sqrt=false"):
         assert fast not in flags, fast
     assert "sm_90a" in flags
+
+
+@pytest.mark.parametrize("name", sorted(_build.SOURCES))
+def test_sources_sum_without_atomics(name):
+    """Every kernel's sums are taken in a fixed order, so its results are
+    the same bits from run to run: no source uses an atomic add."""
+    src = (_build.CSRC / _build.SOURCES[name]).read_text()
+    assert not re.search(r"\batomic[A-Z]\w*\(|[\s\"](red|atom)\.", src), name
+
+
+def test_attention_backward_bf16_products_on_tensor_cores():
+    """K2's bf16 kernels take their products from the tensor cores
+    (mma.sync fed by ldmatrix, the chunks brought in by cp.async), and the
+    launcher sends bf16 to them and fp32 to the FMA kernels."""
+    src = (_build.CSRC / _build.SOURCES["jagged_attn_bwd"]).read_text()
+    for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                   "ldmatrix.sync.aligned", ".trans", "cp.async.cg",
+                   "attn_bwd_kv_tc_kernel<D, FUNC>",
+                   "attn_bwd_q_tc_kernel<D, FUNC>",
+                   "std::is_same<T, __nv_bfloat16>"):
+        assert needle in src, needle

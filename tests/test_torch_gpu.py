@@ -654,3 +654,107 @@ def test_gather_kernel_matches_plain_version(cuda, tdt, odt):
     want = torch.zeros_like(t).index_add_(0, ids[keep],
                                           dy.to(odt).float()[keep])
     assert _rel_to_max(t.grad, want) <= 1e-6
+
+
+# --------------------------------------------------------------------------
+# the redesigned kernels: K2's tensor-core path, K5's tiles of runs
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["bucket", "functional"])
+def test_attn_bwd_tensor_cores_on_a_2048_token_row(cuda, mode):
+    """bf16 K2 (the tensor-core kernels) at hstu-large's head dim 128 on a
+    pack with a 2048-token row beside an all-padding pack, in both time
+    modes: dq, dk, dv per (token, head) within 1e-2 relative L2 of the
+    plain version (which keeps a and ds in fp32: the kernels' bf16
+    operands are a declared divergence), the fp32 table grads within 1e-4
+    of their largest value, every result the same bits run to run, pad
+    rows zero, and K8-bwd (the dense grid) bitwise equal to K2."""
+    from repro_torch.kernels.jagged_attention.ref import attention_bwd_plain
+    H, D, cap = 8, 128, 4096
+    q, k, v, offs, ts = _pack(cuda, torch.bfloat16, H, D,
+                              [[2048, 700, 3, 0, 300], [0, 0, 0]], cap)
+    functional = mode == "functional"
+    pt = torch.randn(256, H, device=cuda) * 0.5
+    tt = (_functional_time(cuda, H) if functional
+          else torch.randn(32, H, device=cuda) * 0.5)
+    plan = ops._as_batched(build_attn_plan(offs, ts, cap, block=128,
+                                           max_row_len=2048))
+    kw = dict(scale=D ** -0.5, tb_denom=ops.time_bucket_denom(0.301),
+              use_pos=True, use_time=True, time_functional=functional)
+    dy = ops._masked(plan.meta_i32, torch.randn_like(q))
+    got = ops._launch_bwd(q, k, v, dy, pt, tt, plan, **kw)
+    again = ops._launch_bwd(q, k, v, dy, pt, tt, plan, **kw)
+    dense = ops._launch_bwd(q, k, v, dy, pt, tt, plan, dense=True, **kw)
+    torch.cuda.synchronize()
+    want = attention_bwd_plain(q, k, v, dy, pt, tt, plan, **kw)
+    for name, a, b, c, d in zip(("dq", "dk", "dv", "dpt", "dtt"), got,
+                                want, again, dense):
+        assert torch.equal(a, c), f"{name} differs between runs"
+        assert torch.equal(a, d), f"{name}: K8-bwd differs from K2"
+        assert torch.isfinite(a.float()).all(), name
+        if name in ("dpt", "dtt"):
+            assert _rel_to_max(a, b) <= 1e-4, (name, _rel_to_max(a, b))
+        else:
+            assert max_row_rel_err(a, b) <= 1e-2, name
+            assert torch.count_nonzero(a[1]) == 0, name
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("o_dtype,D", [(torch.bfloat16, 1024),
+                                       (torch.float32, 1024),
+                                       (torch.bfloat16, 2048),
+                                       (torch.bfloat16, 1020)])
+def test_wscatter_every_class_of_run_length(cuda, o_dtype, D):
+    """K5 over runs of 1, of 2 to 32 rows (one warp each), of 33 to 4096
+    (the whole CTA), ready-row-only runs, a dropped run longer than a warp
+    takes, and rows of −0.0 (a run of them totals +0.0, as K6's does); D
+    1024, 2048 (four 512-column passes of a warp) and 1020 (a ragged last
+    pass). Bitwise equal to two-pass rows + K6, the same bits run to run,
+    within 1e-5 of the largest total of the plain version."""
+    from repro_torch.kernels.jagged_lookup import ops as JL
+    from repro_torch.kernels.jagged_lookup.ref import \
+        weighted_run_totals_plain
+    rng = np.random.default_rng(11)
+    R = 16
+    lens = [1] * 400 + list(range(2, 33)) * 3 + [33, 34, 64, 200, 777, 4096]
+    neg = np.concatenate([np.full(n, i) for i, n in enumerate(lens)])
+    n_ids = len(lens)
+    T = -(-(neg.size + 40) // R)
+    neg = np.concatenate([neg, np.full(T * R - neg.size, -1)])
+    rng.shuffle(neg)
+    ready = np.concatenate([rng.integers(0, n_ids, 150),       # shared
+                            n_ids + rng.integers(0, 60, 120),  # ready only
+                            np.full(30, -1)])
+    ids = torch.from_numpy(np.concatenate([neg, ready]).astype(np.int32)
+                           ).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    o = torch.randn(T, D, device=cuda, generator=g).to(o_dtype)
+    o[::7] = -0.0
+    w = torch.rand(T, R, device=cuda, generator=g) - 0.5
+    extra = torch.randn(ready.size, D, device=cuda, generator=g)
+    extra[::5] = -0.0
+    extra[-31] = -0.0                     # a ready-only id of one −0 row
+    ids[-31] = n_ids + 100
+    order, sids = JL.sort_pairs(ids)
+    scale = 1 / 0.7
+    before = JL.KERNEL_LAUNCHES["wscatter"]
+    u, out = JL.weighted_run_totals(o, w, extra, order, sids, scale=scale)
+    u2, again = JL.weighted_run_totals(o, w, extra, order, sids,
+                                       scale=scale)
+    torch.cuda.synchronize()
+    assert JL.KERNEL_LAUNCHES["wscatter"] == before + 2
+    assert torch.equal(u, u2) and torch.equal(_bits(out), _bits(again))
+    assert torch.equal(u, torch.unique(ids[ids >= 0]))
+    rows = torch.cat([(w[:, :, None] * (o.float() * scale)[:, None])
+                      .reshape(T * R, D), extra])
+    u6, out6 = JL.run_totals(rows, order, sids)
+    assert torch.equal(u6, u) and torch.equal(_bits(out6), _bits(out))
+    lone = int((u == n_ids + 100).nonzero())
+    assert torch.equal(_bits(out[lone]), torch.zeros_like(_bits(out[lone])))
+    _, _, n_runs, _, _ = JL._runs(sids)
+    plain = weighted_run_totals_plain(o, w, extra, order, sids, n_runs,
+                                      JL.DROP_KEY, scale)[:u.numel()]
+    assert _rel_to_max(out, plain) <= 1e-5

@@ -246,3 +246,78 @@ def test_functional_time_mode_matches_oracle():
     with pytest.raises(ValueError, match="time_mode"):
         jagged_attention(pq, pk, pv, poff, pts, prab, PR, block=block,
                          time_mode="linear")
+
+
+def _bwd_with_bf16_operands(q, k, v, dy, pt, tt, plan, *, scale, tb_denom,
+                            functional):
+    """The bf16 K2 kernels' rounding points, emulated densely on one pack
+    (G = 1): s and dy·vᵀ from bf16 q, k, v, dy in fp32, a and ds in fp32,
+    then each rounded to bf16 once as the operand of dv = aᵀ·dy, dk =
+    dsᵀ·q·scale and dq = ds·k·scale (fp32 sums, bf16 outputs)."""
+    seg = plan.meta_i32[0, :, 0].long()
+    ts = plan.meta_i32[0, :, 2]
+    ninv = plan.meta_f32[0, :, 0]
+    qf, kf, vf, dyf = (t[0].float() for t in (q, k, v, dy))
+    cap = qf.shape[0]
+    i = torch.arange(cap)
+    s = torch.einsum("qhd,khd->qkh", qf, kf) * scale
+    s = s + pt[(i[:, None] - i[None, :]).clamp(0, pt.shape[0] - 1)]
+    dt = (ts[:, None] - ts[None, :]).abs()
+    if functional:
+        s = s + tt[0] * R.functional_terms(dt, tt)[0]
+    else:
+        s = s + tt[R.time_buckets(dt, tb_denom, tt.shape[0])]
+    live = ((seg[:, None] == seg[None, :]) & (seg[:, None] >= 0)
+            & (i[:, None] >= i[None, :]))
+    mw = (live.float() * ninv[:, None])[..., None]
+    sig = torch.sigmoid(s)
+    a = s * sig * mw
+    da = torch.einsum("qhd,khd->qkh", dyf, vf)
+    ds = da * (sig * (1.0 + s * (1.0 - sig))) * mw
+    a16, ds16 = (t.to(torch.bfloat16).float() for t in (a, ds))
+    dv = torch.einsum("qkh,qhd->khd", a16, dyf)
+    dk = torch.einsum("qkh,qhd->khd", ds16, qf) * scale
+    dq = torch.einsum("qkh,khd->qhd", ds16, kf) * scale
+    return tuple(t[None].to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+# The bf16 K2 kernels round a and ds to bf16 before the dv, dk and dq
+# products (the reference multiplies them in fp32): a declared divergence.
+# Its budget at hstu-large's head dim 128 and a 2048-key row, in both time
+# modes, against the plain version (fp32 a and ds, the function the
+# existing tests hold against the reference): the 1e-2 per-(token, head)
+# relative L2 that the card checks allow bf16 grads.
+@pytest.mark.parametrize("layout", ["one_row_2048", "long_tail_padded"])
+@pytest.mark.parametrize("mode", ["bucket", "functional"])
+def test_bf16_operand_rounding_within_grad_budget(mode, layout):
+    cap, lens = {"one_row_2048": (2048, [2048]),
+                 "long_tail_padded": (2176, [1200, 600, 1, 300])}[layout]
+    rng = np.random.default_rng(17)
+    H, D = 2, 128
+    q, k, v, offs, ts = jagged_pack(rng, cap, lens, H, D, ts_gap=4000)
+    dy = rng.standard_normal((cap, H, D)).astype(np.float32)
+    q, k, v, dy = (torch.from_numpy(x)[None].to(torch.bfloat16)
+                   for x in (q, k, v, dy))
+    offs, ts = to_t(offs, ts)
+    pt = torch.from_numpy((rng.standard_normal((256, H)) * 0.5)
+                          .astype(np.float32))
+    functional = mode == "functional"
+    if functional:
+        tt = ops.functional_time_table(
+            {"time_amp": torch.tensor([0.8, 1.2]),
+             "time_log_sigma": torch.tensor([2.0, 12.0]),
+             "time_rho": torch.tensor([-2.0, 2.0])})
+    else:
+        tt = torch.from_numpy((rng.standard_normal((32, H)) * 0.5)
+                              .astype(np.float32))
+    plan = ops._as_batched(build_attn_plan(offs[None], ts[None], cap,
+                                           block=128, max_row_len=2048))
+    kw = dict(scale=D ** -0.5, tb_denom=ops.time_bucket_denom(0.301))
+    plain = R.attention_bwd_plain(q, k, v, dy, pt, tt, plan, use_pos=True,
+                                  use_time=True, time_functional=functional,
+                                  **kw)
+    emul = _bwd_with_bf16_operands(q, k, v, dy, pt, tt, plan,
+                                   functional=functional, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), emul, plain):
+        err = R.max_row_rel_err(a, b)
+        assert 0.0 < err <= 1e-2, (name, err)
