@@ -11,16 +11,17 @@ one card, so each phase frees its own.
                card is a failure.
   2. build   — nvcc builds every CUDA source of the port from this
                checkout (one nvcc per source, all started together);
-               cuobjdump shows K2's bf16 kernels on the tensor cores (HMMA
-               in their SASS) and its fp32 kernels on the FMA path.
+               cuobjdump shows K1-fwd's and K2's bf16 kernels on the tensor
+               cores (HMMA in their SASS) and their fp32 kernels on the FMA
+               path; ptxas shows no spill in K1-fwd's bf16 kernels.
   3. kernels — every kernel of the serving and training paths against its
                plain PyTorch version on the card, at the paths' shapes, with
                its time beside its bound: K1-fwd and K2 (attention forward
                and backward; H=8, D=128, block 128; bf16 and fp32; a
                long-tail pack of G=2 shards of 8192 tokens, a pack with
-               empty rows beside an all-padding shard, and, in bf16 only,
-               the engine's training pack of 1 shard x 4 users x 2048) in
-               both time modes,
+               empty rows beside an all-padding shard, and the engine's
+               training pack of 1 shard x 4 users x 2048, where fp32 is
+               held to the float64 plain version) in both time modes,
                HSTU's bucket table and FuXi's functional encoder (amp ~1,
                sigma = exp(linspace(2, 12)), rho from linspace(-2, 2)), K3/K4
                (the fused negative path; T=8192 tokens, R=128, d 1024, bf16
@@ -34,7 +35,8 @@ one card, so each phase frees its own.
                profiler); K8 (the dense-
                grid schedule of K1-fwd/K2) on K1/K2's inputs, bitwise
                against them; K9 (logits over materialised negative rows,
-               T=8192, R=128, d 1024, bf16 and fp16 rows) and K7 (the
+               T=8192, R=128, d 1024, bf16 and fp16 rows, and a 128-token
+               segment timed on the profiler's device clock) and K7 (the
                lookup's row gather, 8192 ids with -1s from the fp32 master
                of 2^22 rows to bf16), beside their library calls.
   4. serve   — RecallEngine on full-width hstu-large (vocab 2^22, fp32
@@ -158,6 +160,26 @@ def timed_ms(fn, iters, warmup=2):
     return e0.elapsed_time(e1) / iters
 
 
+def fenced_ms(fn, iters, pre):
+    """Device time of one call of ``fn`` without the host's share: each call
+    is enqueued behind ``pre`` (work that keeps the stream busy for longer
+    than the host takes to enqueue the call) and timed by the events around
+    it alone; the median over ``iters`` calls. For kernels of a few µs,
+    whose Python wrappers take longer to call than the card to run them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for e0, e1 in ev:
+        pre()
+        e0.record()
+        fn()
+        e1.record()
+    torch.cuda.synchronize()
+    return sorted(e0.elapsed_time(e1) for e0, e1 in ev)[iters // 2]
+
+
 # --------------------------------------------------------------------------
 # phase 1: device
 # --------------------------------------------------------------------------
@@ -204,21 +226,62 @@ def phase_build():
         say(f"[build] {name}: {i['seconds']:.1f} s; ptxas:")
         for ln in lines:
             say(f"[build]   {ln}")
-    # K2's bf16 kernels run their products on the tensor cores (HMMA in
-    # their SASS); its fp32 kernels keep the FMA path (no HMMA)
-    hmma = _sass_hmma_counts(_build.library_path("jagged_attn_bwd"),
-                             Path(_build._nvcc()).parent / "cuobjdump")
-    tc = {f: n for f, n in hmma.items() if "_tc_kernel" in f}
-    fp32 = {f: n for f, n in hmma.items()
-            if "attn_bwd_kv_kernelIf" in f or "attn_bwd_q_kernelIf" in f}
-    say(f"[build] jagged_attn_bwd SASS: HMMA per bf16 kernel "
-        f"{sorted(tc.values())} ({len(tc)} kernels), per fp32 kernel "
-        f"{sorted(fp32.values())} ({len(fp32)} kernels)")
-    check(len(tc) == 16 and min(tc.values()) > 0,
-          "the bf16 K2 kernels are not all on the tensor cores")
-    check(len(fp32) == 16 and max(fp32.values()) == 0,
-          "the fp32 K2 kernels left the FMA path")
+    # K1-fwd's and K2's bf16 kernels run their products on the tensor
+    # cores (HMMA in their SASS; 8 K1-fwd kernels: 4 head dims x 2 time
+    # modes, 16 K2 kernels: two per pair), their fp32 kernels keep the FMA
+    # path (no HMMA); ptxas spills none of K1-fwd's bf16 kernels
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    for src, n_tc, fp32_tags in (
+            ("jagged_attn_fwd", 8, ("attn_fwd_kernelIf",)),
+            ("jagged_attn_bwd", 16, ("attn_bwd_kv_kernelIf",
+                                     "attn_bwd_q_kernelIf"))):
+        hmma = _sass_hmma_counts(_build.library_path(src), cuobjdump)
+        tc = {f: n for f, n in hmma.items() if "_tc_kernel" in f}
+        fp32 = {f: n for f, n in hmma.items()
+                if any(tag in f for tag in fp32_tags)}
+        say(f"[build] {src} SASS: HMMA per bf16 kernel "
+            f"{sorted(tc.values())} ({len(tc)} kernels), per fp32 kernel "
+            f"{sorted(fp32.values())} ({len(fp32)} kernels)")
+        check(len(tc) == n_tc and min(tc.values()) > 0,
+              f"the bf16 {src} kernels are not all on the tensor cores")
+        check(len(fp32) == n_tc and max(fp32.values()) == 0,
+              f"the fp32 {src} kernels left the FMA path")
+    usage = _ptxas_usage(str(info["jagged_attn_fwd"]["log"]))
+    tc = {f: u for f, u in usage.items() if "attn_fwd_tc_kernel" in f}
+    say(f"[build] jagged_attn_fwd bf16 kernels (ptxas): registers "
+        f"{sorted(u['registers'] for u in tc.values())}, spill stores "
+        f"{sorted(u['spill_stores'] for u in tc.values())}, spill loads "
+        f"{sorted(u['spill_loads'] for u in tc.values())}")
+    check(len(tc) == 8, f"ptxas reported {len(tc)} bf16 K1-fwd kernels")
+    check(all(u["spill_stores"] == u["spill_loads"] == 0
+              for u in tc.values()), "a bf16 K1-fwd kernel spills")
     return info
+
+
+def _ptxas_usage(log):
+    """{kernel function (mangled): registers, spill stores and loads in
+    bytes} from ``ptxas -v`` output."""
+    import re
+    usage, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", ln)
+        if m:
+            fn = m.group(1)
+            usage.setdefault(fn, dict(registers=-1, spill_stores=-1,
+                                      spill_loads=-1))
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            usage[fn]["spill_stores"] = int(m.group(1))
+            usage[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            usage[fn]["registers"] = int(m.group(1))
+    return {f: u for f, u in usage.items() if u["registers"] >= 0}
 
 
 def _sass_hmma_counts(lib, cuobjdump):
@@ -391,11 +454,12 @@ def phase_kernels():
         say(f"[kernels] time-bucket mismatches kernel vs plain: {mism} of "
             f"{pairs} causal pairs; dt -> (kernel, plain, float64): "
             f"{dict(sorted(bad.items())[:8])}")
-        # the engine's training pack in the engine's dtype: the launches a
-        # step pays for
-        dtypes = ((torch.bfloat16,) if pack_name.startswith("train")
-                  else (torch.bfloat16, torch.float32))
-        for dtype in dtypes:
+        # fp32 at the engine's training pack is held to the float64 plain
+        # version: its RAB-table grads sum millions of terms of both signs,
+        # whose fp32 order alone moves them by ~1e-4 of their largest value
+        # (the fp32 plain version's own order is printed beside it)
+        f64 = pack_name.startswith("train")
+        for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             q, k, v = (torch.randn(G, cap, H, D, device=dev, generator=gen)
                        .to(dtype) for _ in range(3))
@@ -411,6 +475,18 @@ def phase_kernels():
                       f"the wrapper did not launch the {mode} kernel")
                 plain = jagged_attention_ref(*args, **kw)
                 torch.cuda.synchronize()
+                if f64 and dtype == torch.float32:
+                    plain32 = plain
+                    plain = ops.run_attention(*args, core=_plain_core_f64,
+                                              **kw)
+                    say(f"[kernels] {fname} {pack_name} {dname} against the "
+                        f"float64 plain version: kernel max_abs "
+                        f"{(out - plain).abs().max().item():.3e}, the fp32 "
+                        f"plain version "
+                        f"{(plain32 - plain).abs().max().item():.3e}; kernel "
+                        f"vs fp32 plain "
+                        f"{(out - plain32).abs().max().item():.3e}")
+                    del plain32
                 err = (out.float() - plain.float()).abs().max().item()
                 rel = max_row_rel_err(out, plain)
                 pf = plain.float()
@@ -432,7 +508,10 @@ def phase_kernels():
                     f"bytes {parts['bytes']:.5f}, special functions "
                     f"{parts['special functions']:.5f} ms; "
                     f"{flops / 1e9:.2f} GFLOP, {byts / 1e6:.2f} MB, "
-                    f"{n_live} live pairs) -> {bound_ms / ms:.4f} of bound")
+                    f"{n_live} live pairs) -> {bound_ms / ms:.4f} of bound; "
+                    f"{flops / ms / 1e9:.1f} TFLOP/s of the needed products "
+                    f"({'tensor cores' if dname == 'bfloat16' else 'fp32 FMA'}"
+                    f")")
                 check(torch.isfinite(out.float()).all().item(),
                       "non-finite kernel output")
                 if dtype == torch.float32:
@@ -444,7 +523,8 @@ def phase_kernels():
                 check(pad_ok, "pad slots not zero")
                 results[(fname, pack_name, dname)] = dict(
                     max_abs_err=err, row_rel_err=rel, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    tflops=flops / ms / 1e9)
                 # K8-fwd: the dense-grid schedule on the same plan, held to
                 # K1-fwd's bits (its CTAs visit the same live k-blocks in
                 # the same order); its plain version is K1-fwd's
@@ -471,12 +551,14 @@ def phase_kernels():
                       f"{fname}")
                 results[(k8name, pack_name, dname)] = dict(
                     max_abs_err=err, row_rel_err=rel, ms=dms,
-                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    tflops=flops / dms / 1e9)
                 del dout
                 bname = fname.replace("fwd", "bwd")
                 results[(bname, pack_name, dname)], dense_bwd = \
                     _check_attn_bwd(q, k, v, rabs[mode], plan, pack_name,
-                                    dname, gen, mode)
+                                    dname, gen, mode,
+                                    f64=f64 and dtype == torch.float32)
                 results[(ops.launch_counter(
                     "bwd", dense=True, functional=mode == "functional"),
                     pack_name, dname)] = dense_bwd
@@ -487,18 +569,28 @@ def phase_kernels():
     return results
 
 
+def _plain_core_f64(q, k, v, pt, tt, plan, *, schedule="worklist", **kw):
+    """K1-fwd's plain version in float64 (an ``ops.run_attention`` core)."""
+    import torch
+    from repro_torch.kernels.jagged_attention.ref import attention_fwd_plain
+    return attention_fwd_plain(q, k, v, pt, tt, plan,
+                               acc_dtype=torch.float64, **kw)
+
+
 def _rel_to_max(a, b):
     a, b = a.float(), b.float()
     return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
 
 
-def _check_attn_bwd(q, k, v, rab, plan, pack_name, dname, gen, mode):
+def _check_attn_bwd(q, k, v, rab, plan, pack_name, dname, gen, mode,
+                    f64=False):
     """K2 (its wrapper launches the dk/dv kernel, the dq + RAB-partials
     kernel and the fixed-order partial sum) against its plain version on
     the forward check's inputs and a random cotangent, in the time mode
-    ``mode``; in the functional mode the time grads are d(amp, σ, ρ). Then
-    K8-bwd, the dense-grid schedule, on the same inputs, held to K2's bits.
-    → (K2's results, K8-bwd's)."""
+    ``mode``; in the functional mode the time grads are d(amp, σ, ρ). With
+    ``f64`` the plain version runs in float64 (the fp32 plain version's
+    errors printed beside). Then K8-bwd, the dense-grid schedule, on the
+    same inputs, held to K2's bits. → (K2's results, K8-bwd's)."""
     import torch
     from repro_torch.kernels.jagged_attention import ops
     from repro_torch.kernels.jagged_attention.ref import (attention_bwd_plain,
@@ -525,6 +617,15 @@ def _check_attn_bwd(q, k, v, rab, plan, pack_name, dname, gen, mode):
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     errs = {}
     tname = "d(amp,sigma,rho)" if functional else "dtt"
+    if f64:
+        want32 = want
+        want = attention_bwd_plain(*args, acc_dtype=torch.float64, **kw)
+        say(f"[kernels] {bname} {pack_name} {dname}, of the largest value "
+            f"of the float64 plain version: " + "; ".join(
+                f"{n} kernel {_rel_to_max(a, b):.3e}, fp32 plain "
+                f"{_rel_to_max(c, b):.3e}" for n, a, b, c in zip(
+                    ("dq", "dk", "dv", "dpt", tname), got, want, want32)))
+        del want32
     for name, a, b in zip(("dq", "dk", "dv", "dpt", tname), got, want):
         check(torch.isfinite(a.float()).all().item(), f"K2 {name} non-finite")
         errs[name] = dict(max_abs=(a.float() - b.float()).abs().max().item(),
@@ -968,8 +1069,15 @@ def phase_neg_logits_kernel():
     their largest value); dn is one rounding of the same fp32 product
     (bitwise); both directions bit-identical run to run. Times beside the
     byte bound and the library calls (torch.bmm, and for the backward
-    torch.bmm plus the broadcast multiply, on the bf16 inputs: the same
-    products, rounded to bf16 where K9 keeps fp32)."""
+    torch.bmm plus the broadcast multiply, on o and g in n's dtype: the
+    same products, rounded to n's dtype where K9 keeps fp32). The
+    segment's calls take a few µs, less than their Python wrappers, so
+    there each call is timed alone on the card (:func:`fenced_ms`): warm,
+    behind a sleep kernel and the rows' cast from fp32, as the path meets
+    them (its fetch has just written them), and cold, behind a sum over
+    256 MB that leaves them in device memory only. Kernel and library call
+    are timed in turns (kernel, library, library, kernel, ...), the means
+    of their medians kept."""
     import torch
     from repro_torch.kernels import neg_logits as NL
     from repro_torch.kernels.neg_logits import ref as NR
@@ -1008,19 +1116,49 @@ def phase_neg_logits_kernel():
         r_do, e_do = _rel_to_max(do, p_do), (do - p_do).abs().max().item()
         dn_bitwise = torch.equal(dn, p_dn)
         del p_do, p_dn, dn
-        fwd_ms = timed_ms(lambda: NL.neg_logits_fwd(oo, nn, inv_tau=1.0), 10)
-        bwd_ms = timed_ms(lambda: NL.neg_logits_bwd(oo, nn, gg, inv_tau=1.0),
-                          10)
+        k9f = lambda: NL.neg_logits_fwd(oo, nn, inv_tau=1.0)  # noqa: E731
+        k9b = lambda: NL.neg_logits_bwd(oo, nn, gg, inv_tau=1.0)  # noqa
         fwd_plain = timed_ms(lambda: NR.neg_logits_ref(oo, nn), 2, warmup=1)
         bwd_plain = timed_ms(lambda: NR.neg_logits_bwd_plain(
             oo, nn, gg, inv_tau=1.0), 2, warmup=1)
-        lib = {}
-        if nn.dtype == oo.dtype:
-            gb = gg.to(nn.dtype)
-            lib["fwd"] = timed_ms(lambda: torch.bmm(nn, oo[:, :, None]), 10)
-            lib["bwd"] = timed_ms(lambda: (torch.bmm(gb[:, None, :], nn),
-                                           gb[:, :, None] * oo[:, None, :]),
-                                  10)
+        # the library calls take o and g in n's dtype (cast outside the
+        # timed region: the fp16 rows' calls see o rounded to fp16)
+        ol, gb = oo.to(nn.dtype), gg.to(nn.dtype)
+        lbf = lambda: torch.bmm(nn, ol[:, :, None])  # noqa: E731
+        lbb = lambda: (torch.bmm(gb[:, None, :], nn),  # noqa: E731
+                       gb[:, :, None] * ol[:, None, :])
+        turns = (("fwd", k9f), ("fwd lib", lbf), ("bwd", k9b),
+                 ("bwd lib", lbb), ("bwd lib", lbb), ("bwd", k9b),
+                 ("fwd lib", lbf), ("fwd", k9f))
+        fenced = {}
+        if Tn == T:
+            looped = {}
+            for name_, fn in turns + turns[:4]:
+                looped.setdefault(name_, []).append(timed_ms(fn, 20))
+            fwd_ms, bwd_ms, lib = (
+                sum(looped["fwd"]) / 3, sum(looped["bwd"]) / 3,
+                {k: sum(looped[f"{k} lib"]) / 3 for k in ("fwd", "bwd")})
+        else:
+            # one call at a time, warm and cold; the first of four passes
+            # warms the sleep, cast and fill kernels and the clocks up and
+            # is not kept
+            flush = torch.zeros(64 << 20, dtype=torch.float32, device=dev)
+            src = n[sl].float()
+            pres = {"warm": lambda: (torch.cuda._sleep(200_000),
+                                     nn.copy_(src)),
+                    "cold": flush.sum}
+            for rep in range(4):
+                for temp, pre in pres.items():
+                    for name_, fn in turns:
+                        ms_ = fenced_ms(fn, 25, pre)
+                        if rep:
+                            fenced.setdefault((name_, temp), []).append(ms_)
+            fenced = {k: sum(v) / len(v) for k, v in fenced.items()}
+            del flush, src
+            fwd_ms, bwd_ms = fenced[("fwd", "warm")], fenced[("bwd", "warm")]
+            lib = {"fwd": fenced[("fwd lib", "warm")],
+                   "bwd": fenced[("bwd lib", "warm")]}
+        del ol, gb
         res = {}
         for kind, ms, plain_ms, err in (("fwd", fwd_ms, fwd_plain, e_lg),
                                         ("bwd", bwd_ms, bwd_plain, e_do)):
@@ -1031,16 +1169,38 @@ def phase_neg_logits_kernel():
                 bound_by=bound_by, max_abs_err=err, bytes=byts,
                 library_ms=lib.get(kind))
         f, b = res["neg_logits_fwd"], res["neg_logits_bwd"]
-        say(f"[kernels] neg_logits {name} n (T={Tn}, R={R}, d={D}): logits "
+        if fenced:
+            say(f"[kernels] neg_logits {name} n, one call at a time on the "
+                f"card (ms, warm: rows in L2 as on the path | cold: after a "
+                f"256 MB sum): K9-fwd {fenced[('fwd', 'warm')]:.4f} | "
+                f"{fenced[('fwd', 'cold')]:.4f}, torch.bmm "
+                f"{fenced[('fwd lib', 'warm')]:.4f} | "
+                f"{fenced[('fwd lib', 'cold')]:.4f}, byte bound "
+                f"{f['bound_ms']:.4f} ({f['bytes'] / 1e6:.1f} MB); K9-bwd "
+                f"{fenced[('bwd', 'warm')]:.4f} | "
+                f"{fenced[('bwd', 'cold')]:.4f}, torch.bmm + mul "
+                f"{fenced[('bwd lib', 'warm')]:.4f} | "
+                f"{fenced[('bwd lib', 'cold')]:.4f}, byte bound "
+                f"{b['bound_ms']:.4f}; K9-fwd / torch.bmm warm "
+                f"{fenced[('fwd', 'warm')] / fenced[('fwd lib', 'warm')]:.3f}"
+                f", cold "
+                f"{fenced[('fwd', 'cold')] / fenced[('fwd lib', 'cold')]:.3f}")
+            f["cold_ms"], f["cold_library_ms"] = (fenced[("fwd", "cold")],
+                                                  fenced[("fwd lib", "cold")])
+            b["cold_ms"], b["cold_library_ms"] = (fenced[("bwd", "cold")],
+                                                  fenced[("bwd lib", "cold")])
+        say(f"[kernels] neg_logits {name} n (T={Tn}, R={R}, d={D}; K9-fwd "
+            f"{NL.fwd_row_split(Tn, R)} CTA(s) a token): logits "
             f"max_abs {e_lg:.3e} ({r_lg:.3e} of max), do max_abs {e_do:.3e} "
             f"({r_do:.3e} of max), dn bitwise "
             f"{dn_bitwise}, bit-identical rerun {same} | K9-fwd {fwd_ms:.4f}"
             f" ms (plain {fwd_plain:.3f}, torch.bmm "
-            f"{lib.get('fwd', float('nan')):.4f}) bound "
+            f"{lib['fwd']:.4f}: K9-fwd / torch.bmm "
+            f"{fwd_ms / lib['fwd']:.3f}) bound "
             f"{f['bound_ms']:.4f} ms by {f['bound_by']} "
             f"({f['bytes'] / 1e9:.3f} GB) -> {f['bound_ms'] / fwd_ms:.3f} of"
             f" bound | K9-bwd {bwd_ms:.4f} ms (plain {bwd_plain:.3f}, "
-            f"torch.bmm + mul {lib.get('bwd', float('nan')):.4f}) bound "
+            f"torch.bmm + mul {lib['bwd']:.4f}) bound "
             f"{b['bound_ms']:.4f} ms ({b['bytes'] / 1e9:.3f} GB) -> "
             f"{b['bound_ms'] / bwd_ms:.3f} of bound")
         check(same, f"K9 {name} differs between two runs on the same inputs")
@@ -2218,6 +2378,13 @@ def main():
         train_pack = attn.get((kname, "train_1x4x2048", "bfloat16"))
         if train_pack is not None:
             kernels[-1]["train_pack_ms"] = train_pack["ms"]
+        # K9 at the segmented path's 128-token launch, fp16 rows, one call
+        # at a time (warm, and cold beside it)
+        seg = k9["fp16 segment"].get(kname)
+        if seg is not None:
+            kernels[-1]["segment"] = {
+                k: seg[k] for k in ("ms", "library_ms", "bound_ms",
+                                    "cold_ms", "cold_library_ms")}
     say(json.dumps({"kernels": kernels}))
     say(smi_line)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

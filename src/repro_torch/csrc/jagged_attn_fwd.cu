@@ -21,25 +21,29 @@
 // entry; the bucket's division per query-key pair, or the functional
 // bias's two exps per entry); chip_smoke.py counts the ones the function
 // needs, which at 16 per clock per SM outlast the tensor-core bound in the
-// functional mode, and states which bound binds. This first version does
-// its math in fp32 FMA on the CUDA cores (67 TFLOP/s peak), so it is bound
-// by those operations, far from either bound; wgmma/TMA tiles are later
-// work.
+// functional mode, and states which bound binds.
+// - bf16 (the training and serving path): both products on the tensor
+//   cores (mma.sync m16n8k16, bf16 in, fp32 accumulate, fed by ldmatrix;
+//   see "The bf16 instantiation" below). The per-entry epilogue (the bias
+//   with its precise logf/expf and true divisions, SiLU, the mask), not
+//   the products, then sets the pace.
+// - fp32: the products in fp32 FMA on the CUDA cores (67 TFLOP/s), the
+//   first version's path kept as it was, since it is held to 1e-4.
 //
-// What the design does about it: the TPU grid ran the q-major work-list in
-// order and carried an accumulator across grid steps with first/last flags.
-// Here the list is read as CSR runs (q_rowptr, built in ops.py): one CTA per
-// (q-block, head, pack) walks its own run of live k-blocks in parallel with
-// the others, keeps the 128 x D fp32 accumulator in registers across the
-// whole run, and writes its output once - zeros when the run is empty, so
-// no output window is left unwritten. Each 128-key block is taken in two
-// 64-key sub-tiles so Q, K, V, the weights and the bias tables fit in shared
-// memory (about 165 KB at D = 128). The bias tables are indexed directly in
-// shared memory; the TPU's one-hot matmul gathers are not needed. In the
-// functional mode the head's (amp, sigma, rho) sit where the bucket table
-// would, and the bias is computed per entry in fp32 with a true division
-// and the precise logf/expf (no fast-math), as the plain version computes
-// it. Dead pairs are never visited: the work-list holds live pairs only.
+// What the design does about the TPU's sequential grid: the TPU ran the
+// q-major work-list in order and carried an accumulator across grid steps
+// with first/last flags. Here the list is read as CSR runs (q_rowptr,
+// built in ops.py): one CTA per (q-block, head, pack) walks its own run of
+// live k-blocks in parallel with the others, keeps the 128 x D fp32
+// accumulator in registers across the whole run, and writes its output
+// once - zeros when the run is empty, so no output window is left
+// unwritten. Each 128-key block is taken in two 64-key sub-tiles. The bias
+// tables are indexed directly in shared memory; the TPU's one-hot matmul
+// gathers are not needed. In the functional mode the head's (amp, sigma,
+// rho) sit where the bucket table would, and the bias is computed per
+// entry in fp32 with a true division and the precise logf/expf (no
+// fast-math), as the plain version computes it. Dead pairs are never
+// visited: the work-list holds live pairs only.
 //
 // K8-fwd, the dense-grid schedule, is a launch variant of this kernel
 // (`dense` set). It replaces fwd_pallas (body _fwd_kernel, kernel.py:333),
@@ -53,7 +57,11 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <climits>
+#include <type_traits>
+
 #include "block_live.cuh"
+#include "mma_bf16.cuh"
 #include "time_bias.cuh"
 
 namespace {
@@ -255,6 +263,302 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 instantiation: both products on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// q, k and v stay bf16 in shared memory, rows padded by 8 elements (16
+// bytes) so that the eight 16-byte rows an ldmatrix reads fall in eight
+// different bank groups. The CTA's 128 x D q tile is loaded once; the
+// k-block's 64-key K and V sub-tiles (and their segment and timestamp) are
+// double-buffered: the next live sub-tile is brought in with cp.async while
+// the current one is computed. Eight warps each own 16 query rows and all
+// D output columns, and take each sub-tile 16 keys at a time:
+// - s = q.k^T with mma.sync m16n8k16 (bf16 in, fp32 accumulate), q and k
+//   fed by ldmatrix; q is read again from shared memory for each 16 keys
+//   rather than held in registers (32 more per thread at D = 128);
+// - the epilogue on the accumulator fragments in registers, each thread
+//   knowing its (row, key) from the m16n8 C layout, in the FMA kernel's
+//   expression (the precise expf, the true division, time_bias.cuh);
+// - a rounded to bf16 (as the FMA kernel and the reference round it to v's
+//   dtype) and repacked as the A operand of out += a.v straight from the
+//   registers: the two n8 C tiles of the 16 keys make one k16 A fragment.
+//   v comes in by ldmatrix.trans. No a tile goes through shared memory.
+// The products of bf16 operands are exact and summed in fp32, so the
+// result differs from the FMA kernel's only in the fp32 summation order.
+// Registers: 64 fp32 of the output accumulator per thread at D = 128, 8
+// of s and 4 of packed a per 16 keys: two CTAs per SM (128 registers,
+// about 107 KB of shared memory each at D = 128). Under that cap ptxas
+// spilled at D = 64 and 128 with 32 keys a step (16 of s, 8 of a), and at
+// D = 128 still with the 16-key steps unrolled or the q.k^T loop unrolled
+// in full; the loops below (16-key steps one at a time, q.k^T four
+// k16 slices at a time) spill nothing. One CTA per SM at 180 registers
+// took 1.3-1.5x as long on the long-tail and training packs.
+// A sub-tile whose keys share no segment with the q-block's rows (or
+// whose rows are all padding) adds exactly zero and is skipped; the test
+// is the same for K1 and K8, so they keep equal bits.
+// Grid (head, q-block, pack), the q-blocks in descending order: a row's
+// last q-blocks have the longest runs of k-blocks, so they start first and
+// the short ones fill in behind them; the heads of a q-block start
+// together and read the same token rows.
+
+constexpr int PAD = 8;     // bf16 elements of row padding
+constexpr int TC_MIN_CTAS = 2;
+
+using bf16 = __nv_bfloat16;
+
+// Shared memory of the tensor-core kernel, in bytes, every piece 16-byte
+// aligned: the q tile, two stages of the K and V sub-tiles and of their
+// segment and timestamp, and the bias tables.
+__host__ __device__ constexpr size_t align16(size_t b) {
+  return (b + 15) / 16 * 16;
+}
+
+struct SmemTC {
+  bf16 *q, *k, *v;   // k, v: two stages, KC rows each
+  int *kseg, *kts;   // two stages, KC each
+  float *pt, *tt;
+};
+
+template <int D>
+__host__ __device__ size_t layout_tc(unsigned char* base, SmemTC& s,
+                                     int npb, int ntb) {
+  size_t used = 0;
+  auto take = [&](size_t bytes) {
+    unsigned char* r = base ? base + used : nullptr;
+    used += align16(bytes);
+    return r;
+  };
+  s.q = reinterpret_cast<bf16*>(take((size_t)BQ * (D + PAD) * 2));
+  s.k = reinterpret_cast<bf16*>(take((size_t)2 * KC * (D + PAD) * 2));
+  s.v = reinterpret_cast<bf16*>(take((size_t)2 * KC * (D + PAD) * 2));
+  s.kseg = reinterpret_cast<int*>(take(2 * KC * 4));
+  s.kts = reinterpret_cast<int*>(take(2 * KC * 4));
+  s.pt = reinterpret_cast<float*>(take((size_t)npb * 4));
+  s.tt = reinterpret_cast<float*>(take((size_t)ntb * 4));
+  return used;
+}
+
+// ROWS rows of one head from token slot `slot0` into a padded bf16 tile by
+// cp.async; the caller commits.
+template <int D, int ROWS>
+__device__ void copy_rows_async(bf16* dst, const bf16* __restrict__ src,
+                                size_t slot0, int H, int h) {
+  constexpr int C8 = D / 8;  // 16-byte chunks per row
+  const size_t row_stride = (size_t)H * D;
+  for (int i = threadIdx.x; i < ROWS * C8; i += THREADS) {
+    const int r = i / C8, c = i % C8;
+    cp_async16(dst + r * (D + PAD) + c * 8,
+               src + (slot0 + r) * row_stride + (size_t)h * D + c * 8);
+  }
+}
+
+// Can the q-block's rows at slot q0 and the sub-tile's keys at slot key0
+// of a pack hold a pair of one row? A pack's segments ascend with the slot
+// and its padding (segment < 0) comes last, so each range's rows lie in
+// the segments from its first slot's to its last's (to any, if the last
+// is padding), and the two meet only where those ranges do.
+__device__ __forceinline__ bool tile_meets(const int* __restrict__ meta_i32,
+                                           size_t pack, int q0, int key0) {
+  const int qlo = meta_i32[(pack + q0) * 3];
+  const int klo = meta_i32[(pack + key0) * 3];
+  if (qlo < 0 || klo < 0) return false;  // all padding
+  int qhi = meta_i32[(pack + q0 + BQ - 1) * 3];
+  int khi = meta_i32[(pack + key0 + KC - 1) * 3];
+  qhi = qhi < 0 ? INT_MAX : qhi;
+  khi = khi < 0 ? INT_MAX : khi;
+  return qlo <= khi && klo <= qhi;
+}
+
+template <int D, bool FUNC>
+__global__ void __launch_bounds__(THREADS, TC_MIN_CTAS)
+attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v,
+                   const float* __restrict__ pos_table,
+                   const float* __restrict__ time_table,
+                   const int* __restrict__ meta_i32,
+                   const float* __restrict__ meta_f32,
+                   const int* __restrict__ q_wl,
+                   const int* __restrict__ q_rowptr,
+                   const int* __restrict__ seg_rng, bf16* __restrict__ out,
+                   int cap, int H, int L, int npb, int ntb, float scale,
+                   float tb_denom, int use_pos, int use_time, int dense) {
+  constexpr int LD = D + PAD;
+  constexpr int NT = D / 8;  // n8 tiles of the output per warp: all of D
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  SmemTC sm;
+  layout_tc<D>(smem_tc, sm, npb, ntb);
+  const int h = blockIdx.x;
+  const int nb = cap / BQ;
+  const int qb = nb - 1 - (int)blockIdx.y;
+  const int gp = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t pack = (size_t)gp * cap;
+  const int q0 = qb * BQ;
+
+  copy_rows_async<D, BQ>(sm.q, q, pack + q0, H, h);
+  for (int i = tid; i < npb; i += THREADS) sm.pt[i] = pos_table[i * H + h];
+  for (int i = tid; i < ntb; i += THREADS) sm.tt[i] = time_table[i * H + h];
+  // this thread's two rows (g and g + 8 of the warp's 16) and their
+  // segment, timestamp and 1/(pos+1)
+  int qseg[2], qts[2], qslot[2];
+  float qninv[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    qslot[hr] = q0 + 16 * warp + g + 8 * hr;
+    const size_t slot = pack + qslot[hr];
+    qseg[hr] = meta_i32[slot * 3 + 0];
+    qts[hr] = meta_i32[slot * 3 + 2];
+    qninv[hr] = meta_f32[slot];
+  }
+
+  // this CTA's live 64-key sub-tiles in ascending order, as a flat index
+  // i over its run (K1) or the dense grid (K8): k-block entry p0 + i / 2,
+  // half i % 2
+  const int* rng = seg_rng + (size_t)gp * nb * 2;
+  const int p0 = dense ? 0 : q_rowptr[gp * (nb + 1) + qb];
+  const int p1 = dense ? nb : q_rowptr[gp * (nb + 1) + qb + 1];
+  const int end = 2 * (p1 - p0);
+  auto key0_of = [&](int i) {
+    const int p = p0 + (i >> 1);
+    const int kb = dense ? p : q_wl[((size_t)gp * L + p) * 2 + 1];
+    return kb * BK + (i & 1) * KC;
+  };
+  auto next_live = [&](int i) {
+    for (; i < end; ++i) {
+      if (dense && !block_live(rng, qb, p0 + (i >> 1))) continue;
+      if (!tile_meets(meta_i32, pack, q0, key0_of(i))) continue;
+      return i;
+    }
+    return end;
+  };
+  auto prefetch = [&](int i, int st) {
+    const size_t s0 = pack + key0_of(i);
+    copy_rows_async<D, KC>(sm.k + st * KC * LD, k, s0, H, h);
+    copy_rows_async<D, KC>(sm.v + st * KC * LD, v, s0, H, h);
+    for (int r = tid; r < KC; r += THREADS) {
+      cp_async4(sm.kseg + st * KC + r, meta_i32 + (s0 + r) * 3 + 0);
+      cp_async4(sm.kts + st * KC + r, meta_i32 + (s0 + r) * 3 + 2);
+    }
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  // ldmatrix lane addressing: A (q rows) and B (k rows, keys x head dims)
+  const int arow = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int acol = (lane >> 4) * 8;
+  const int brow = (lane & 7) + (lane >> 4) * 8;
+  const int bcol = ((lane >> 3) & 1) * 8;
+  // ... and v by ldmatrix.trans (keys x head dims, read as k x n)
+  const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int vcol = (lane >> 4) * 8;
+
+  int cur = next_live(0), st = 0;
+  if (cur < end) prefetch(cur, 0);
+  cp_async_commit();
+  while (cur < end) {
+    cp_async_wait_all();  // the q tile and this sub-tile have landed
+    // ... for every thread, and the last sub-tile's readers are done with
+    // the other stage
+    __syncthreads();
+    const int nxt = next_live(cur + 1);
+    if (nxt < end) prefetch(nxt, st ^ 1);
+    cp_async_commit();
+    const int key0 = key0_of(cur);
+    const bf16* K = sm.k + st * KC * LD;
+    const bf16* V = sm.v + st * KC * LD;
+    const int* kseg = sm.kseg + st * KC;
+    const int* kts = sm.kts + st * KC;
+    // the head's functional time parameters (FUNC: tt is (3, H))
+    float amp = 0.0f, sigma = 1.0f, rho = 1.0f;
+    if constexpr (FUNC) {
+      amp = sm.tt[0];
+      sigma = sm.tt[1];
+      rho = sm.tt[2];
+    }
+#pragma unroll 1
+    for (int kq = 0; kq < KC / 16; ++kq) {
+      // s[nt][e]: row g + 8 (e >= 2) of the warp's 16, key 16 kq + 8 nt +
+      // 2 t + (e & 1) of the sub-tile
+      float s[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll 4
+      for (int kk = 0; kk < D / 16; ++kk) {
+        unsigned aq[4], bk[4];
+        ldsm_x4(aq, sm.q + arow * LD + 16 * kk + acol);
+        ldsm_x4(bk, K + (16 * kq + brow) * LD + 16 * kk + bcol);
+        mma16816(s[0], aq, bk[0], bk[1]);
+        mma16816(s[1], aq, bk[2], bk[3]);
+      }
+      // the epilogue in registers; af is the A fragment of a for the 16
+      // keys: a0 / a1 (rows g, g + 8) from n8 tile 0, a2 / a3 from tile 1
+      unsigned af[4];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          float av[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 16 * kq + 8 * nt + 2 * t + e;
+            const int kslot = key0 + c;
+            float bias = 0.0f;
+            if (use_pos)
+              bias += sm.pt[min(max(qslot[hr] - kslot, 0), npb - 1)];
+            if (use_time) {
+              if constexpr (FUNC) {
+                float zr, lnz;
+                bias += __fmul_rn(
+                    amp, functional_E(qts[hr], kts[c], sigma, rho, zr, lnz));
+              } else {
+                bias += sm.tt[time_bucket(qts[hr], kts[c], tb_denom, ntb)];
+              }
+            }
+            const float x = s[nt][2 * hr + e] * scale + bias;
+            const bool live = qseg[hr] == kseg[c] && qseg[hr] >= 0 &&
+                              qslot[hr] >= kslot;
+            const float mw = live ? qninv[hr] : 0.0f;
+            av[e] = x * (1.0f / (1.0f + expf(-x))) * mw;
+          }
+          af[nt * 2 + hr] = pack_bf16(av[0], av[1]);
+        }
+      }
+      // out += a.v over the 16 keys
+      const bf16* vr = V + (16 * kq + vrow) * LD + vcol;
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned bv[4];
+        ldsm_x4_t(bv, vr + 16 * np);
+        mma16816(acc[2 * np], af, bv[0], bv[1]);
+        mma16816(acc[2 * np + 1], af, bv[2], bv[3]);
+      }
+    }
+    cur = nxt;
+    st ^= 1;
+  }
+  cp_async_wait_all();
+
+  const size_t row_stride = (size_t)H * D;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const size_t slot = pack + qslot[hr];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<unsigned*>(out + slot * row_stride + (size_t)h * D
+                                   + 8 * n + 2 * t) =
+          pack_bf16(acc[n][2 * hr], acc[n][2 * hr + 1]);
+  }
+}
+
 __global__ void time_bucket_kernel(const int* __restrict__ qts, int nq,
                                    const int* __restrict__ kts, int nk,
                                    float denom, int ntb,
@@ -273,9 +577,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int cap, int H, int L, int npb, int ntb, float scale,
                    float tb_denom, int use_pos, int use_time, int dense,
                    cudaStream_t stream) {
+  // bf16: the tensor-core kernel; fp32: the FMA kernel
+  constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
+  SmemTC sizes;
   const int smem =
-      (int)((smem_floats_fixed<D>() + npb + ntb) * sizeof(float));
-  auto kern = attn_fwd_kernel<T, D, FUNC>;
+      TC ? (int)layout_tc<D>(nullptr, sizes, npb, ntb)
+         : (int)((smem_floats_fixed<D>() + npb + ntb) * sizeof(float));
+  auto kern = [] {
+    if constexpr (TC)
+      return attn_fwd_tc_kernel<D, FUNC>;
+    else
+      return attn_fwd_kernel<T, D, FUNC>;
+  }();
   // Opt in to more than 48 KB of shared memory once per device, and again
   // only when longer bias tables need more than was set there before.
   static int smem_set[MAX_DEVICES] = {};
@@ -289,7 +602,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return e;
     smem_set[dev] = smem;
   }
-  dim3 grid(cap / BQ, H, G);
+  const dim3 grid = TC ? dim3(H, cap / BQ, G) : dim3(cap / BQ, H, G);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pt, tt, meta_i32, meta_f32, q_wl, q_rowptr,

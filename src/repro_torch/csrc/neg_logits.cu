@@ -19,18 +19,28 @@
 //
 // What the design does about it. The TPU walked segments of tokens in order
 // with the segment's (seg, R, D) tile double-buffered in VMEM; the tokens
-// are independent, so here every token is its own CTA and nothing crosses
-// CTAs. Forward: o[t] sits in shared memory in fp32; each warp takes rows
-// r, lanes read 16-byte vectors of the row (neighbouring lanes on
-// neighbouring addresses), each lane sums its products in a fixed order,
-// and a fixed xor-shuffle tree sums the lanes: the same bits from run to
-// run. Backward: one pass over n does both outputs; each thread owns a
-// 16-byte column vector of the token, walks r in order for do, and writes
-// dn[t, r] for the same vector as it goes. gs is the reference's g * inv_tau,
-// taken first, and dn's product is rounded once (__fmul_rn, no FMA
-// contraction), so dn equals the plain version's gs * o cast to n's dtype bit
-// for bit. n is read with streaming loads and dn written with streaming
-// stores: neither is read again.
+// are independent, so here a token's rows go to its own CTAs and nothing
+// crosses CTAs.
+// - Forward: each warp takes a few rows at a time; lanes read 16-byte
+//   vectors of each row (neighbouring lanes on neighbouring addresses),
+//   every row's loads in flight together and kept raw until the products,
+//   beside the same vector of o[t] read through the cache (a token's rows
+//   all read it; no shared-memory copy, no barrier); each lane sums its
+//   products of a row in a fixed order and a fixed xor-shuffle tree sums
+//   the lanes: the same bits from run to run, whatever the grid. The grid
+//   is T x `split` CTAs, each taking R / split of the token's rows: the
+//   wrapper raises `split` when T is small (a 128-token segment of the
+//   segmented path would otherwise be 128 CTAs on 132 SMs, each warp
+//   walking its 16 rows one after another), and then each warp's one group
+//   of 4 rows is in flight at once (4 vectors a row).
+// - Backward: one pass over n does both outputs; each thread owns a
+//   16-byte column vector of the token, walks r in order for do, and
+//   writes dn[t, r] for the same vector as it goes. gs is the reference's
+//   g * inv_tau, taken first, and dn's product is rounded once (__fmul_rn,
+//   no FMA contraction), so dn equals the plain version's gs * o cast to
+//   n's dtype bit for bit.
+// n is read with streaming loads and dn written with streaming stores:
+// neither is read again.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -38,7 +48,7 @@
 
 namespace {
 
-constexpr int FWD_THREADS = 256;  // 8 warps, one token
+constexpr int FWD_THREADS = 256;  // 8 warps, R / split rows of one token
 constexpr int BWD_THREADS = 128;  // one token, a 16-byte column per thread
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -79,34 +89,81 @@ __device__ __forceinline__ void store16(T* __restrict__ p,
   __stcs(reinterpret_cast<uint4*>(p), u);
 }
 
-template <typename TO, typename TN>
+// V elements of o as floats (V * sizeof(TO) bytes, aligned to that size
+// up to 16), read through the cache: a token's rows all read them.
+template <typename TO, int V>
+__device__ __forceinline__ void load_o(const TO* __restrict__ p,
+                                       float (&f)[V]) {
+  constexpr int B = V * (int)sizeof(TO);
+  static_assert(B == 8 || B == 16 || B == 32, "o vector size");
+  uint4 u[B >= 16 ? B / 16 : 1];
+  if constexpr (B == 8) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+    u[0] = make_uint4(w.x, w.y, 0u, 0u);
+  } else {
+#pragma unroll
+    for (int i = 0; i < B / 16; ++i)
+      u[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
+  }
+  const TO* e = reinterpret_cast<const TO*>(u);
+#pragma unroll
+  for (int i = 0; i < V; ++i) f[i] = to_f32(e[i]);
+}
+
+// ROWS: rows a warp keeps in flight together; UNROLL: 16-byte vectors of
+// each of them per lane. 8 x 2 when a token's rows fill the card by
+// themselves (T = 8192: bound by device memory); 4 x 4 for the split grid
+// of small T, whose warps take one group of rows each and are held by
+// latency (a 128-token segment: 32 rows a CTA).
+template <typename TO, typename TN, int ROWS, int UNROLL>
 __global__ void __launch_bounds__(FWD_THREADS)
 neg_logits_fwd_kernel(const TO* __restrict__ o, const TN* __restrict__ n,
-                      float* __restrict__ out, int R, int D,
+                      float* __restrict__ out, int R, int D, int split,
                       float inv_tau) {
   constexpr int V = 16 / sizeof(TN);
-  extern __shared__ float o_s[];  // D floats
-  const int t = blockIdx.x;
-  for (int d = threadIdx.x; d < D; d += FWD_THREADS)
-    o_s[d] = to_f32(o[(size_t)t * D + d]);
-  __syncthreads();
+  const int t = blockIdx.x / split;
+  const int per = (R + split - 1) / split;  // rows per CTA
+  const int r_begin = (blockIdx.x % split) * per;
+  const int r_end = min(R, r_begin + per);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nv = D / V;
+  const TO* ot = o + (size_t)t * D;
   const TN* nt = n + (size_t)t * R * D;
-  for (int r = warp; r < R; r += FWD_THREADS / 32) {
-    const TN* row = nt + (size_t)r * D;
-    float acc = 0.0f;
-#pragma unroll 4
-    for (int vi = lane; vi < nv; vi += 32) {
-      float f[V];
-      load16(row + vi * V, f);
+  for (int r0 = r_begin + warp * ROWS; r0 < r_end;
+       r0 += ROWS * (FWD_THREADS / 32)) {
+    // rows r0 .. r0 + ROWS - 1 below r_end (uniform in the warp): their
+    // 16-byte loads are issued together, kept raw until the products, and
+    // each row is summed by the lanes in the order of a warp per row
+    float acc[ROWS];
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc = fmaf(o_s[vi * V + e], f[e], acc);
+    for (int j = 0; j < ROWS; ++j) acc[j] = 0.0f;
+#pragma unroll (UNROLL)
+    for (int vi = lane; vi < nv; vi += 32) {
+      uint4 raw[ROWS];
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j)
+        if (r0 + j < r_end)
+          raw[j] = __ldcs(reinterpret_cast<const uint4*>(
+              nt + (size_t)(r0 + j) * D + vi * V));
+      float ov[V];
+      load_o<TO, V>(ot + vi * V, ov);
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j)
+        if (r0 + j < r_end) {
+          const TN* el = reinterpret_cast<const TN*>(&raw[j]);
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            acc[j] = fmaf(ov[e], to_f32(el[e]), acc[j]);
+        }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) out[(size_t)t * R + r] = __fmul_rn(acc, inv_tau);
+    for (int j = 0; j < ROWS; ++j) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+      if (lane == 0 && r0 + j < r_end)
+        out[(size_t)t * R + r0 + j] = __fmul_rn(acc[j], inv_tau);
+    }
   }
 }
 
@@ -151,13 +208,14 @@ neg_logits_bwd_kernel(const TO* __restrict__ o, const TN* __restrict__ n,
 template <typename TO, typename TN>
 cudaError_t launch(bool bwd, const void* o, const void* n, const float* g,
                    float* out, float* dout, void* dn, int T, int R, int D,
-                   float inv_tau, cudaStream_t s) {
+                   int split, float inv_tau, cudaStream_t s) {
   if (D % (16 / sizeof(TN)) != 0) return cudaErrorInvalidValue;
   if (!bwd) {
-    neg_logits_fwd_kernel<TO, TN>
-        <<<T, FWD_THREADS, D * sizeof(float), s>>>(
-            static_cast<const TO*>(o), static_cast<const TN*>(n), out, R, D,
-            inv_tau);
+    auto kern = split > 1 ? neg_logits_fwd_kernel<TO, TN, 4, 4>
+                          : neg_logits_fwd_kernel<TO, TN, 8, 2>;
+    kern<<<(unsigned)T * split, FWD_THREADS, 0, s>>>(
+        static_cast<const TO*>(o), static_cast<const TN*>(n), out, R, D,
+        split, inv_tau);
   } else {
     neg_logits_bwd_kernel<TO, TN>
         <<<T, BWD_THREADS, R * sizeof(float), s>>>(
@@ -170,16 +228,16 @@ cudaError_t launch(bool bwd, const void* o, const void* n, const float* g,
 template <typename TO>
 cudaError_t launch_n(int n_dtype, bool bwd, const void* o, const void* n,
                      const float* g, float* out, float* dout, void* dn, int T,
-                     int R, int D, float inv_tau, cudaStream_t s) {
+                     int R, int D, int split, float inv_tau, cudaStream_t s) {
   switch (n_dtype) {
     case 0:
-      return launch<TO, float>(bwd, o, n, g, out, dout, dn, T, R, D, inv_tau,
-                               s);
+      return launch<TO, float>(bwd, o, n, g, out, dout, dn, T, R, D, split,
+                               inv_tau, s);
     case 1:
       return launch<TO, __nv_bfloat16>(bwd, o, n, g, out, dout, dn, T, R, D,
-                                       inv_tau, s);
+                                       split, inv_tau, s);
     case 2:
-      return launch<TO, __half>(bwd, o, n, g, out, dout, dn, T, R, D,
+      return launch<TO, __half>(bwd, o, n, g, out, dout, dn, T, R, D, split,
                                 inv_tau, s);
     default:
       return cudaErrorInvalidValue;
@@ -188,17 +246,19 @@ cudaError_t launch_n(int n_dtype, bool bwd, const void* o, const void* n,
 
 int dispatch(int o_dtype, int n_dtype, bool bwd, const void* o,
              const void* n, const float* g, float* out, float* dout,
-             void* dn, int T, int R, int D, float inv_tau, void* stream) {
-  if (T <= 0 || R <= 0 || D <= 0)
+             void* dn, int T, int R, int D, int split, float inv_tau,
+             void* stream) {
+  if (T <= 0 || R <= 0 || D <= 0 || split <= 0 || split > R ||
+      (long long)T * split > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (o_dtype == 0)
-    e = launch_n<float>(n_dtype, bwd, o, n, g, out, dout, dn, T, R, D,
+    e = launch_n<float>(n_dtype, bwd, o, n, g, out, dout, dn, T, R, D, split,
                         inv_tau, s);
   else if (o_dtype == 1)
     e = launch_n<__nv_bfloat16>(n_dtype, bwd, o, n, g, out, dout, dn, T, R,
-                                D, inv_tau, s);
+                                D, split, inv_tau, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;
@@ -208,13 +268,14 @@ int dispatch(int o_dtype, int n_dtype, bool bwd, const void* o,
 
 // o (T, D) float32 (o_dtype 0) or bfloat16 (1); n (T, R, D) float32 (n_dtype
 // 0), bfloat16 (1) or float16 (2), 16-byte aligned, D a multiple of a
-// 16-byte vector of n; out (T, R) float32. Launches on `stream`, on the
-// calling thread's current device; returns the launch's cudaError_t.
+// 16-byte vector of n; out (T, R) float32; `split` CTAs per token (1 .. R),
+// which changes no bit of out. Launches on `stream`, on the calling
+// thread's current device; returns the launch's cudaError_t.
 extern "C" int neg_logits_fwd(const void* o, const void* n, float* out,
-                              int T, int R, int D, float inv_tau, int o_dtype,
-                              int n_dtype, void* stream) {
+                              int T, int R, int D, int split, float inv_tau,
+                              int o_dtype, int n_dtype, void* stream) {
   return dispatch(o_dtype, n_dtype, false, o, n, nullptr, out, nullptr,
-                  nullptr, T, R, D, inv_tau, stream);
+                  nullptr, T, R, D, split, inv_tau, stream);
 }
 
 // The same o, n; g (T, R) float32; dout (T, D) float32; dn (T, R, D) in n's
@@ -224,5 +285,5 @@ extern "C" int neg_logits_bwd(const void* o, const void* n, const float* g,
                               float inv_tau, int o_dtype, int n_dtype,
                               void* stream) {
   return dispatch(o_dtype, n_dtype, true, o, n, g, nullptr, dout, dn, T, R,
-                  D, inv_tau, stream);
+                  D, 1, inv_tau, stream);
 }

@@ -56,14 +56,24 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _info(name: str) -> Dict[str, object]:
+    """This process's build of ``name``, or the log kept beside a library
+    an earlier process built."""
+    if name in BUILD_INFO:
+        return BUILD_INFO[name]
+    log = library_path(name).with_suffix(".log")
+    return {"seconds": 0.0,
+            "log": log.read_text() if log.exists() else "cached"}
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Dict]:
     """Compile every named source that is not built yet, one nvcc each,
-    started together; raises with nvcc's output if any fails."""
+    started together; raises with nvcc's output if any fails. Each
+    library's nvcc/ptxas output is kept beside it (``.log``)."""
     names = list(SOURCES if names is None else names)
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
-        return {n: BUILD_INFO.get(n, {"seconds": 0.0, "log": "cached"})
-                for n in names}
+        return {n: _info(n) for n in names}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -83,11 +93,11 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Dict]:
             failed.append(f"{n} (nvcc exit {p.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            library_path(n).with_suffix(".log").write_text(log)
             os.replace(tmp, library_path(n))
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
-    return {n: BUILD_INFO.get(n, {"seconds": 0.0, "log": "cached"})
-            for n in names}
+    return {n: _info(n) for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:

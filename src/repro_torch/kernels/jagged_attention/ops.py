@@ -329,6 +329,10 @@ def _launch_fwd(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
                plan.meta_f32, plan.q_wl, plan.q_rowptr, plan.seg_rng]
     _require(all(t.is_contiguous() for t in tensors), "inputs must be "
              "contiguous")
+    # the bf16 kernel copies rows in by 16-byte cp.async
+    _require(q.dtype != torch.bfloat16
+             or all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+             "bf16 q, k and v must be 16-byte aligned")
     out = torch.empty_like(v)
     lib = _kernel_lib()
     with torch.cuda.device(dev):

@@ -11,6 +11,15 @@ packed (3, H) ``[amp; σ; ρ]`` in place of the time table; SiLU weights
 scaled by 1/(pos+1) and, in the forward, rounded to v's dtype before the
 a·v product; products accumulated in fp32. The wrapper uses them for CPU
 tensors; ``chip_smoke.py`` holds the kernels against them on the card.
+
+Both take an accumulation dtype, ``acc_dtype`` (float32 by default, the
+kernels' arithmetic bit for bit). With float64 the scores, the bias
+values, the SiLU weights, every product and every sum run in float64 on
+the same inputs: the yardstick for an fp32 kernel whose sums are long
+enough for their order to show (the RAB-table grads sum millions of
+terms of both signs). The time bucket stays the fp32 integer function the
+kernels and the reference define; only the table value it picks is
+widened. The forward still rounds the SiLU weights to v's dtype.
 """
 from __future__ import annotations
 
@@ -35,10 +44,11 @@ def time_buckets(dt: torch.Tensor, tb_denom: float,
 
 def functional_terms(dt: torch.Tensor, tt: torch.Tensor):
     """FuXi's time encoder on |Δt| (…) int32 with ``tt`` the packed (3, H)
-    fp32 [amp; σ; ρ] → (E, z^ρ, ln z), each (…, H) fp32, in the Pallas
-    kernel's order of operations (z^ρ as exp(ρ·ln z)); the bias is amp·E.
-    σ stays a tensor, so z is a true fp32 division on every device."""
-    z = (dt.to(torch.float32)[..., None] + 1e-6) / tt[1]
+    [amp; σ; ρ] → (E, z^ρ, ln z), each (…, H) in tt's dtype (fp32 on the
+    kernels' path), in the Pallas kernel's order of operations (z^ρ as
+    exp(ρ·ln z)); the bias is amp·E. σ stays a tensor, so z is a true
+    division on every device."""
+    z = (dt.to(tt.dtype)[..., None] + 1e-6) / tt[1]
     lnz = torch.log(z)
     zr = torch.exp(tt[2] * lnz)
     return torch.exp(-zr), zr, lnz
@@ -61,28 +71,32 @@ def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         pos_table: torch.Tensor, time_table: torch.Tensor,
                         plan, *, scale: float, tb_denom: float,
                         use_pos: bool, use_time: bool,
-                        time_functional: bool = False) -> torch.Tensor:
+                        time_functional: bool = False,
+                        acc_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
     """q, k, v (G, capp, H, D), a batched plan → (G, capp, H, D) v.dtype.
     q-blocks with no live pair come out zero. ``time_functional``: the
-    time table is the packed (3, H) [amp; σ; ρ] of FuXi's encoder."""
+    time table is the packed (3, H) [amp; σ; ρ] of FuXi's encoder.
+    ``acc_dtype``: the arithmetic's dtype (module docstring)."""
     G, capp, H, D = q.shape
     block = plan.block
     nb = capp // block
     npb, ntb = pos_table.shape[0], time_table.shape[0]
     dev = q.device
     ar = torch.arange(block, device=dev)
-    out = torch.zeros((G, nb, block, H, D), dtype=torch.float32, device=dev)
+    pos_table, time_table = pos_table.to(acc_dtype), time_table.to(acc_dtype)
+    out = torch.zeros((G, nb, block, H, D), dtype=acc_dtype, device=dev)
     for g in range(G):
         n = int(plan.n_live[g, 0])
         wl = plan.q_wl[g, :n].long()
         qg, kg, vg = (t[g].view(nb, block, H, D) for t in (q, k, v))
         seg = plan.meta_i32[g, :, 0].view(nb, block)
         ts = plan.meta_i32[g, :, 2].view(nb, block)
-        ninv = plan.meta_f32[g, :, 0].view(nb, block)
+        ninv = plan.meta_f32[g, :, 0].view(nb, block).to(acc_dtype)
         for lo in range(0, n, PAIR_CHUNK):
             qb, kb = wl[lo:lo + PAIR_CHUNK, 0], wl[lo:lo + PAIR_CHUNK, 1]
-            s = torch.einsum("pqhd,pkhd->pqkh", qg[qb].float(),
-                             kg[kb].float()) * scale
+            s = torch.einsum("pqhd,pkhd->pqkh", qg[qb].to(acc_dtype),
+                             kg[kb].to(acc_dtype)) * scale
             qslot = qb[:, None] * block + ar                 # (P, bq)
             kslot = kb[:, None] * block + ar                 # (P, bk)
             bias = torch.zeros_like(s)
@@ -102,11 +116,11 @@ def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask = ((qseg[:, :, None] == kseg[:, None, :])
                     & (qseg[:, :, None] >= 0)
                     & (qslot[:, :, None] >= kslot[:, None, :]))
-            mw = mask.float() * ninv[qb][:, :, None]
+            mw = mask.to(acc_dtype) * ninv[qb][:, :, None]
             a = (s * torch.sigmoid(s)) * mw[..., None]
-            a = a.to(v.dtype).float()
+            a = a.to(v.dtype).to(acc_dtype)
             out[g].index_add_(0, qb, torch.einsum("pqkh,pkhd->pqhd", a,
-                                                  vg[kb].float()))
+                                                  vg[kb].to(acc_dtype)))
     return out.view(G, capp, H, D).to(v.dtype)
 
 
@@ -114,12 +128,14 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dy: torch.Tensor, pos_table: torch.Tensor,
                         time_table: torch.Tensor, plan, *, scale: float,
                         tb_denom: float, use_pos: bool, use_time: bool,
-                        time_functional: bool = False):
+                        time_functional: bool = False,
+                        acc_dtype: torch.dtype = torch.float32):
     """The plain version of the backward kernels (K2): q, k, v, dy
     (G, capp, H, D), a batched plan → (dq, dk, dv) in q's dtype and the
-    fp32 grads of ``pos_table`` (npb, H) and ``time_table`` (ntb, H);
-    with ``time_functional`` the latter is d(amp, σ, ρ) (3, H), summed
-    per entry as :func:`functional_grad_terms` gives them.
+    grads of ``pos_table`` (npb, H) and ``time_table`` (ntb, H) in
+    ``acc_dtype`` (the arithmetic's dtype, module docstring; fp32 by
+    default); with ``time_functional`` the latter is d(amp, σ, ρ) (3, H),
+    summed per entry as :func:`functional_grad_terms` gives them.
 
     Per live pair it recomputes s and, like the TPU kernel, keeps the
     SiLU weights a in fp32 for dv (the forward's rounding of a to v's
@@ -133,19 +149,20 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     npb, ntb = pos_table.shape[0], time_table.shape[0]
     dev = q.device
     ar = torch.arange(block, device=dev)
-    dq = torch.zeros((G, nb, block, H, D), dtype=torch.float32, device=dev)
+    pos_table, time_table = pos_table.to(acc_dtype), time_table.to(acc_dtype)
+    dq = torch.zeros((G, nb, block, H, D), dtype=acc_dtype, device=dev)
     dk = torch.zeros_like(dq)
     dv = torch.zeros_like(dq)
-    dpt = torch.zeros((npb, H), dtype=torch.float32, device=dev)
-    dtt = torch.zeros((ntb, H), dtype=torch.float32, device=dev)
+    dpt = torch.zeros((npb, H), dtype=acc_dtype, device=dev)
+    dtt = torch.zeros((ntb, H), dtype=acc_dtype, device=dev)
     for g in range(G):
         n = int(plan.n_live[g, 0])
         wl = plan.q_wl[g, :n].long()
-        qg, kg, vg, dyg = (t[g].view(nb, block, H, D).float()
+        qg, kg, vg, dyg = (t[g].view(nb, block, H, D).to(acc_dtype)
                            for t in (q, k, v, dy))
         seg = plan.meta_i32[g, :, 0].view(nb, block)
         ts = plan.meta_i32[g, :, 2].view(nb, block)
-        ninv = plan.meta_f32[g, :, 0].view(nb, block)
+        ninv = plan.meta_f32[g, :, 0].view(nb, block).to(acc_dtype)
         for lo in range(0, n, PAIR_CHUNK):
             qb, kb = wl[lo:lo + PAIR_CHUNK, 0], wl[lo:lo + PAIR_CHUNK, 1]
             s = torch.einsum("pqhd,pkhd->pqkh", qg[qb], kg[kb]) * scale
@@ -168,7 +185,7 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask = ((qseg[:, :, None] == kseg[:, None, :])
                     & (qseg[:, :, None] >= 0)
                     & (qslot[:, :, None] >= kslot[:, None, :]))
-            mw = (mask.float() * ninv[qb][:, :, None])[..., None]
+            mw = (mask.to(acc_dtype) * ninv[qb][:, :, None])[..., None]
             sig = torch.sigmoid(s)
             a = s * sig * mw
             da = torch.einsum("pqhd,pkhd->pqkh", dyg[qb], vg[kb])

@@ -59,9 +59,14 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
 
 
 _N_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_NL_FWD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+_NL_FWD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                     + [ctypes.c_float] + [ctypes.c_int] * 2
                     + [ctypes.c_void_p])
+#: K9-fwd's grid: enough CTAs to fill the card (8 per SM, 132 SMs, ~1024)
+#: with each still taking at least NL_FWD_MIN_ROWS rows (a group of 4 for
+#: each of its 8 warps)
+NL_FWD_CTAS = 1024
+NL_FWD_MIN_ROWS = 32
 _NL_BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                     + [ctypes.c_float] + [ctypes.c_int] * 2
                     + [ctypes.c_void_p])
@@ -373,8 +378,20 @@ def _check_nl(o: torch.Tensor, n: torch.Tensor) -> None:
     req(o.shape[1] % (16 // n.element_size()) == 0,
         f"row width {o.shape[1]} is not a whole number of 16-byte vectors "
         f"of {n.dtype}")
-    req(o.is_contiguous() and n.is_contiguous() and n.data_ptr() % 16 == 0,
-        "o and n must be contiguous, n 16-byte aligned")
+    req(o.is_contiguous() and n.is_contiguous() and o.data_ptr() % 16 == 0
+        and n.data_ptr() % 16 == 0,
+        "o and n must be contiguous and 16-byte aligned")
+
+
+def fwd_row_split(T: int, R: int) -> int:
+    """CTAs per token of K9-fwd: doubled from 1 while T·split is below
+    ``NL_FWD_CTAS`` and each CTA keeps at least ``NL_FWD_MIN_ROWS`` of the
+    token's R rows. 1 at T = 8192; 4 for a 128-token segment of R = 128.
+    The split changes which CTA sums a logit, never how (its bits)."""
+    split = 1
+    while T * split < NL_FWD_CTAS and R >= 2 * split * NL_FWD_MIN_ROWS:
+        split *= 2
+    return split
 
 
 def neg_logits_fwd(o: torch.Tensor, n: torch.Tensor, *,
@@ -388,8 +405,8 @@ def neg_logits_fwd(o: torch.Tensor, n: torch.Tensor, *,
     out = torch.empty((T, R), dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):
         rc = _nl_lib().neg_logits_fwd(
-            o.data_ptr(), n.data_ptr(), out.data_ptr(), T, R, D, inv_tau,
-            _O_CODE[o.dtype], _N_CODE[n.dtype],
+            o.data_ptr(), n.data_ptr(), out.data_ptr(), T, R, D,
+            fwd_row_split(T, R), inv_tau, _O_CODE[o.dtype], _N_CODE[n.dtype],
             torch.cuda.current_stream(o.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"neg_logits_fwd launch failed: CUDA error {rc}")

@@ -81,3 +81,55 @@ def test_attention_backward_bf16_products_on_tensor_cores():
                    "attn_bwd_q_tc_kernel<D, FUNC>",
                    "std::is_same<T, __nv_bfloat16>"):
         assert needle in src, needle
+
+
+def _with_local_headers(name):
+    """A source's text followed by the text of the local headers it
+    includes, where the primitives it calls are written out."""
+    src = (_build.CSRC / _build.SOURCES[name]).read_text()
+    return "\n".join([src] + [(_build.CSRC / h).read_text()
+                              for h in INCLUDE_RE.findall(src)])
+
+
+def test_attention_forward_bf16_products_on_tensor_cores():
+    """K1-fwd's bf16 kernel takes both products from the tensor cores
+    (mma.sync fed by ldmatrix, .trans for v, the K and V sub-tiles brought
+    in by cp.async), a goes from the accumulators to the A operand without
+    a shared-memory tile, and the launcher sends bf16 to it and fp32 to the
+    FMA kernel, which remains."""
+    src = (_build.CSRC / _build.SOURCES["jagged_attn_fwd"]).read_text()
+    full = _with_local_headers("jagged_attn_fwd")
+    for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                   "ldmatrix.sync.aligned", ".trans", "cp.async.cg"):
+        assert needle in full, needle
+    for needle in ("attn_fwd_tc_kernel<D, FUNC>", "attn_fwd_kernel<T, D, FUNC>",
+                   "std::is_same<T, __nv_bfloat16>", "mma16816(", "ldsm_x4(",
+                   "ldsm_x4_t(", "cp_async16(", "fmaf("):
+        assert needle in src, needle
+    assert "a_s[" not in src.split("attn_fwd_tc_kernel", 1)[1]
+
+
+def test_neg_logits_forward_keeps_one_warp_sum_per_logit():
+    """K9-fwd's logits keep their bits whatever its grid: each is one
+    warp's sum (lanes in order, then a fixed xor tree) scaled by
+    __fmul_rn; the grid takes the wrapper's split."""
+    src = (_build.CSRC / _build.SOURCES["neg_logits"]).read_text()
+    fwd = src.split("neg_logits_fwd_kernel", 1)[1].split(
+        "neg_logits_bwd_kernel", 1)[0]
+    for needle in ("__shfl_xor_sync", "__fmul_rn(acc[j], inv_tau)",
+                   "acc[j] = fmaf(ov[e], to_f32(el[e]), acc[j])",
+                   "blockIdx.x / split"):
+        assert needle in fwd, needle
+
+
+def test_cached_library_keeps_its_build_log(tmp_path, monkeypatch):
+    """A library built by an earlier process reports the nvcc/ptxas output
+    kept beside it (what chip_smoke.py's register and spill check reads),
+    and "cached" when there is none."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_INFO", {})
+    lib = _build.library_path("runsum")
+    lib.write_bytes(b"")
+    assert _build.build_all(["runsum"])["runsum"]["log"] == "cached"
+    lib.with_suffix(".log").write_text("ptxas info    : Used 40 registers")
+    assert "40 registers" in _build.build_all(["runsum"])["runsum"]["log"]

@@ -758,3 +758,83 @@ def test_wscatter_every_class_of_run_length(cuda, o_dtype, D):
     plain = weighted_run_totals_plain(o, w, extra, order, sids, n_runs,
                                       JL.DROP_KEY, scale)[:u.numel()]
     assert _rel_to_max(out, plain) <= 1e-5
+
+
+# --------------------------------------------------------------------------
+# K1-fwd on the tensor cores, the fp32 K2 at the training pack, K9-fwd's grid
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["bucket", "functional"])
+def test_attn_fwd_tensor_cores_on_a_2048_token_row(cuda, mode):
+    """bf16 K1-fwd (the tensor-core kernel) at hstu-large's head dim 128 on
+    a pack with a 2048-token row beside an all-padding pack, in both time
+    modes: per (token, head) within 1e-2 relative L2 of the plain version,
+    the same bits run to run, pad rows zero, and K8-fwd (the dense grid)
+    bitwise equal to it."""
+    H, D, cap = 8, 128, 4096
+    q, k, v, offs, ts = _pack(cuda, torch.bfloat16, H, D,
+                              [[2048, 700, 3, 0, 300], [0, 0, 0]], cap)
+    functional = mode == "functional"
+    pt = torch.randn(256, H, device=cuda) * 0.5
+    tt = (_functional_time(cuda, H) if functional
+          else torch.randn(32, H, device=cuda) * 0.5)
+    plan = ops._as_batched(build_attn_plan(offs, ts, cap, block=128,
+                                           max_row_len=2048))
+    kw = dict(scale=D ** -0.5, tb_denom=ops.time_bucket_denom(0.301),
+              use_pos=True, use_time=True, time_functional=functional)
+    before = dict(ops.KERNEL_LAUNCHES)
+    got = ops._launch_fwd(q, k, v, pt, tt, plan, **kw)
+    again = ops._launch_fwd(q, k, v, pt, tt, plan, **kw)
+    dense = ops._launch_fwd(q, k, v, pt, tt, plan, dense=True, **kw)
+    torch.cuda.synchronize()
+    name = "attn_fwd_functional" if functional else "attn_fwd"
+    assert ops.KERNEL_LAUNCHES[name] == before[name] + 2
+    want = attention_fwd_plain(q, k, v, pt, tt, plan, **kw)
+    assert torch.equal(got, again)
+    assert torch.equal(got, dense)
+    assert max_row_rel_err(ops._masked(plan.meta_i32, got),
+                           ops._masked(plan.meta_i32, want)) <= 1e-2
+    assert torch.count_nonzero(got[0, 3051:]) == 0
+    assert torch.count_nonzero(got[1]) == 0
+
+
+def test_fp32_attn_bwd_functional_training_pack_against_float64(cuda):
+    """fp32 K2 in the functional time mode at the engine's training pack
+    (1 x 4 rows of 2048): every grad within 1e-4 of the largest value of
+    the float64 plain version. The far position bucket sums millions of
+    terms of both signs, so the fp32 plain version's own order is no
+    yardstick there."""
+    from repro_torch.kernels.jagged_attention.ref import attention_bwd_plain
+    H, D, cap = 8, 128, 8192
+    q, k, v, offs, ts = _pack(cuda, torch.float32, H, D, [[2048] * 4], cap)
+    pt = torch.randn(256, H, device=cuda) * 0.5
+    tt = _functional_time(cuda, H)
+    plan = ops._as_batched(build_attn_plan(offs, ts, cap, block=128,
+                                           max_row_len=2048))
+    kw = dict(scale=D ** -0.5, tb_denom=ops.time_bucket_denom(0.301),
+              use_pos=True, use_time=True, time_functional=True)
+    dy = torch.randn_like(q)
+    got = ops._launch_bwd(q, k, v, dy, pt, tt, plan, **kw)
+    want = attention_bwd_plain(q, k, v, dy, pt, tt, plan,
+                               acc_dtype=torch.float64, **kw)
+    for name, a, b in zip(("dq", "dk", "dv", "dpt", "dtt"), got, want):
+        assert _rel_to_max(a, b) <= 1e-4, (name, _rel_to_max(a, b))
+
+
+@pytest.mark.parametrize("T", [128, 8192])
+@pytest.mark.parametrize("n_dtype", [torch.float16, torch.bfloat16])
+def test_neg_logits_fwd_grid_at_segment_and_baseline_shapes(cuda, T,
+                                                            n_dtype):
+    """K9-fwd at a 128-token segment (several CTAs a token) and at the
+    baseline's 8192 tokens (one), R = 128, d 1024, bf16 o: within 1e-4 of
+    the largest logit of the plain version, the same bits run to run."""
+    from repro_torch.kernels import neg_logits as NL
+    from repro_torch.kernels.neg_logits import ref as NR
+    g = torch.Generator(device=cuda).manual_seed(11)
+    R, D = 128, 1024
+    o = torch.randn(T, D, device=cuda, generator=g).to(torch.bfloat16)
+    n = (torch.randn(T, R, D, device=cuda, generator=g) * 0.02).to(n_dtype)
+    out = NL.neg_logits_fwd(o, n, inv_tau=1.0)
+    assert torch.equal(out, NL.neg_logits_fwd(o, n, inv_tau=1.0))
+    assert _rel_to_max(out, NR.neg_logits_ref(o, n)) <= 1e-4
+    assert NL.fwd_row_split(T, R) == (4 if T == 128 else 1)

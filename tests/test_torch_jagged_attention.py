@@ -321,3 +321,55 @@ def test_bf16_operand_rounding_within_grad_budget(mode, layout):
     for name, a, b in zip(("dq", "dk", "dv"), emul, plain):
         err = R.max_row_rel_err(a, b)
         assert 0.0 < err <= 1e-2, (name, err)
+
+
+# The plain versions' accumulation dtype: float32 by default (the kernels'
+# arithmetic, which every other test here holds against the reference),
+# float64 as the yardstick of an fp32 kernel's long sums. On a small pack
+# the two agree to 1e-4 of the largest value (fp32 summation order only),
+# and the default is the explicit float32 call bit for bit.
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("mode", ["bucket", "functional"])
+def test_plain_versions_accumulate_in_float64_on_request(mode, direction):
+    rng = np.random.default_rng(23)
+    cap, H, D = 384, 2, 16
+    q, k, v, offs, ts = jagged_pack(rng, cap, [200, 41, 0, 1, 90], H, D,
+                                    ts_gap=4000)
+    dy = rng.standard_normal((cap, H, D)).astype(np.float32)
+    q, k, v, dy = (torch.from_numpy(x)[None] for x in (q, k, v, dy))
+    offs, ts = to_t(offs, ts)
+    pt = torch.from_numpy((rng.standard_normal((64, H)) * 0.5)
+                          .astype(np.float32))
+    functional = mode == "functional"
+    if functional:
+        tt = ops.functional_time_table(
+            {"time_amp": torch.tensor([0.8, 1.2]),
+             "time_log_sigma": torch.tensor([2.0, 12.0]),
+             "time_rho": torch.tensor([-2.0, 2.0])})
+    else:
+        tt = torch.from_numpy((rng.standard_normal((16, H)) * 0.5)
+                              .astype(np.float32))
+    plan = ops._as_batched(build_attn_plan(offs[None], ts[None], cap,
+                                           block=128, max_row_len=256))
+    kw = dict(scale=D ** -0.5, tb_denom=ops.time_bucket_denom(0.301),
+              use_pos=True, use_time=True, time_functional=functional)
+    if direction == "fwd":
+        def run(**acc):
+            return (R.attention_fwd_plain(q, k, v, pt, tt, plan, **kw, **acc),)
+        names = ("out",)
+    else:
+        def run(**acc):
+            return R.attention_bwd_plain(q, k, v, dy, pt, tt, plan, **kw,
+                                         **acc)
+        names = ("dq", "dk", "dv", "dpt", "dtt")
+    default, f32, f64 = run(), run(acc_dtype=torch.float32), run(
+        acc_dtype=torch.float64)
+    for name, a, b, c in zip(names, default, f32, f64):
+        assert torch.equal(a, b), name
+        assert a.dtype == torch.float32, name
+        assert c.dtype == (torch.float64 if name in ("dpt", "dtt")
+                           else torch.float32), name
+        assert not torch.equal(a.double(), c.double()), name  # float64 ran
+        rel = ((a.double() - c.double()).abs().max()
+               / c.double().abs().max()).item()
+        assert rel <= 1e-4, (name, rel)

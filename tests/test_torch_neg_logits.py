@@ -485,3 +485,21 @@ def test_cli_neg_modes_train_on_cpu(mode):
     losses = [r["loss"] for r in recs]
     assert all(np.isfinite(losses))
     assert np.mean(losses[-3:]) < losses[0]
+
+
+@pytest.mark.parametrize("T,R", [(8192, 128), (128, 128), (300, 24),
+                                 (70, 5), (1, 128), (512, 256)])
+def test_fwd_row_split_fills_the_card_only_where_it_must(T, R):
+    """K9-fwd's CTAs per token: 1 at the baseline's T = 8192, more for a
+    128-token segment, a power of two, never fewer than NL_FWD_MIN_ROWS
+    rows a CTA once split, and no larger than it takes to reach
+    NL_FWD_CTAS CTAs."""
+    from repro_torch.kernels.neg_logits import ops as NO
+    split = NO.fwd_row_split(T, R)
+    assert split >= 1 and split & (split - 1) == 0
+    if split > 1:
+        assert R // split >= NO.NL_FWD_MIN_ROWS
+        assert T * (split // 2) < NO.NL_FWD_CTAS
+    grows = R >= 2 * split * NO.NL_FWD_MIN_ROWS
+    assert T * split >= NO.NL_FWD_CTAS or not grows
+    assert {(8192, 128): 1, (128, 128): 4}.get((T, R), split) == split
