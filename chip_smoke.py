@@ -743,6 +743,7 @@ def phase_neg_kernels():
     ids = torch.randint(0, V, (T, R), device=dev, generator=gen)
     valid = torch.rand(T, device=dev, generator=gen) > 0.25
     pos = torch.randn(T, device=dev, generator=gen) * 0.64
+    per_cta = NL.ops.NEG_BWD_TOKENS
     out = {}
     for expansion in (1, 4):
         o_p, pos_p, ids_p, valid_p, perms, _ = NL.prepare_fused_inputs(
@@ -801,9 +802,11 @@ def phase_neg_kernels():
             f"({fwd_bytes / 1e9:.3f} GB) -> "
             f"{res['neg_fwd']['bound_ms'] / fwd_ms:.3f} of bound | K4 "
             f"{bwd_ms:.4f} ms (plain {bwd_plain:.2f}) bound "
-            f"{res['neg_bwd']['bound_ms']:.4f} ms ({bwd_bytes / 1e9:.3f} GB;"
-            f" the kernel gathers the rows twice) -> "
-            f"{res['neg_bwd']['bound_ms'] / bwd_ms:.3f} of bound")
+            f"{res['neg_bwd']['bound_ms']:.4f} ms ({bwd_bytes / 1e9:.3f} GB)"
+            f" -> {res['neg_bwd']['bound_ms'] / bwd_ms:.3f} of bound; K4 grid "
+            f"{T // per_cta} CTAs of {per_cta} warps, a warp a token, each "
+            f"row gathered once through a {NL.ops.NEG_BWD_STAGES}-row ring "
+            f"per warp")
         check(same, "K3/K4 differ between two runs on the same inputs")
         # fp32 sums over d and R in another order: lse to 1e-4 absolute
         # (values O(5)); w, dout and dpos (scaled by g <= 1/T) to
@@ -1184,13 +1187,20 @@ def phase_neg_logits_kernel():
                 f"{b['bound_ms']:.4f}; K9-fwd / torch.bmm warm "
                 f"{fenced[('fwd', 'warm')] / fenced[('fwd lib', 'warm')]:.3f}"
                 f", cold "
-                f"{fenced[('fwd', 'cold')] / fenced[('fwd lib', 'cold')]:.3f}")
+                f"{fenced[('fwd', 'cold')] / fenced[('fwd lib', 'cold')]:.3f}"
+                f" ({NL.fwd_row_split(Tn, R)} CTAs a token); K9-bwd / "
+                f"(torch.bmm + mul) warm "
+                f"{fenced[('bwd', 'warm')] / fenced[('bwd lib', 'warm')]:.3f}"
+                f", cold "
+                f"{fenced[('bwd', 'cold')] / fenced[('bwd lib', 'cold')]:.3f}"
+                f" ({NL.bwd_row_split(Tn, R)} row groups a token)")
             f["cold_ms"], f["cold_library_ms"] = (fenced[("fwd", "cold")],
                                                   fenced[("fwd lib", "cold")])
             b["cold_ms"], b["cold_library_ms"] = (fenced[("bwd", "cold")],
                                                   fenced[("bwd lib", "cold")])
         say(f"[kernels] neg_logits {name} n (T={Tn}, R={R}, d={D}; K9-fwd "
-            f"{NL.fwd_row_split(Tn, R)} CTA(s) a token): logits "
+            f"{NL.fwd_row_split(Tn, R)} CTA(s) a token, K9-bwd "
+            f"{NL.bwd_row_split(Tn, R)} row group(s)): logits "
             f"max_abs {e_lg:.3e} ({r_lg:.3e} of max), do max_abs {e_do:.3e} "
             f"({r_do:.3e} of max), dn bitwise "
             f"{dn_bitwise}, bit-identical rerun {same} | K9-fwd {fwd_ms:.4f}"

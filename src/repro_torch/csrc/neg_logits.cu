@@ -33,12 +33,23 @@
 //   segmented path would otherwise be 128 CTAs on 132 SMs, each warp
 //   walking its 16 rows one after another), and then each warp's one group
 //   of 4 rows is in flight at once (4 vectors a row).
-// - Backward: one pass over n does both outputs; each thread owns a
-//   16-byte column vector of the token, walks r in order for do, and
-//   writes dn[t, r] for the same vector as it goes. gs is the reference's
-//   g * inv_tau, taken first, and dn's product is rounded once (__fmul_rn,
-//   no FMA contraction), so dn equals the plain version's gs * o cast to
-//   n's dtype bit for bit.
+// - Backward: one pass over n does both outputs, the thread that reads a
+//   16-byte vector of n[t, r] adding it into do and writing dn[t, r] for
+//   it. gs is the reference's g * inv_tau, taken first, and dn's product
+//   is rounded once (__fmul_rn, no FMA contraction), so dn equals the plain
+//   version's gs * o cast to n's dtype bit for bit. A CTA takes one token:
+//   `split` groups of 128 threads, each thread a column vector of its
+//   group's R / split rows, 8 rows' loads in flight at once. The wrapper
+//   raises `split` when T is small: a 128-token segment was 128 CTAs of 128
+//   threads, each thread walking all R rows with a few loads in flight
+//   (held by latency, slower than torch.bmm plus the multiply). The
+//   groups' do partials meet in shared memory, group 0 adding the others
+//   in group order, rather than in a cluster of CTAs through distributed
+//   shared memory: a token's rows fit one CTA of 512 threads, and 128 such
+//   CTAs already fill 128 of the 132 SMs, so a cluster would add a launch
+//   attribute and a cluster barrier for no more parallelism. With split 1
+//   (T = 8192) each do is the r-order fmaf sum it was; with split > 1 it
+//   is another fixed order (the same bits run to run).
 // n is read with streaming loads and dn written with streaming stores:
 // neither is read again.
 
@@ -49,7 +60,9 @@
 namespace {
 
 constexpr int FWD_THREADS = 256;  // 8 warps, R / split rows of one token
-constexpr int BWD_THREADS = 128;  // one token, a 16-byte column per thread
+constexpr int BWD_COLS = 128;     // a row group: a 16-byte column a thread
+constexpr int BWD_MAX_SPLIT = 4;  // row groups a CTA (512 threads)
+constexpr int BWD_ROWS = 8;       // rows a thread keeps in flight
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -69,16 +82,7 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
 }
 
-// 16 bytes of T as floats, read once (evict first).
-template <typename T>
-__device__ __forceinline__ void load16(const T* __restrict__ p,
-                                       float (&f)[16 / sizeof(T)]) {
-  const uint4 u = __ldcs(reinterpret_cast<const uint4*>(p));
-  const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-  for (int i = 0; i < (int)(16 / sizeof(T)); ++i) f[i] = to_f32(e[i]);
-}
-
+// 16 bytes of T from floats, written once (evict first).
 template <typename T>
 __device__ __forceinline__ void store16(T* __restrict__ p,
                                         const float (&f)[16 / sizeof(T)]) {
@@ -167,41 +171,90 @@ neg_logits_fwd_kernel(const TO* __restrict__ o, const TN* __restrict__ n,
   }
 }
 
+// One CTA per token: `split` groups of BWD_COLS threads, group y taking
+// rows [y * per, (y + 1) * per) of the token (per = ceil(R / split)), each
+// thread a 16-byte column vector of them, BWD_ROWS rows' loads issued
+// together. Each group's do partial goes through shared memory and group 0
+// adds the others' in group order.
 template <typename TO, typename TN>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(BWD_COLS * BWD_MAX_SPLIT)
 neg_logits_bwd_kernel(const TO* __restrict__ o, const TN* __restrict__ n,
                       const float* __restrict__ g, float* __restrict__ dout,
-                      TN* __restrict__ dn, int R, int D, float inv_tau) {
+                      TN* __restrict__ dn, int R, int D, int split,
+                      float inv_tau) {
   constexpr int V = 16 / sizeof(TN);
-  extern __shared__ float gs_s[];  // R floats: g[t, :] * inv_tau
+  extern __shared__ float4 smem4[];
+  float* gs_s = reinterpret_cast<float*>(smem4);  // R: g[t, :] * inv_tau
+  float4* part = smem4 + (R + 3) / 4;  // (split - 1) x BWD_COLS x V floats
   const int t = blockIdx.x;
-  for (int r = threadIdx.x; r < R; r += BWD_THREADS)
+  const int col = threadIdx.x % BWD_COLS, grp = threadIdx.x / BWD_COLS;
+  for (int r = threadIdx.x; r < R; r += blockDim.x)
     gs_s[r] = __fmul_rn(g[(size_t)t * R + r], inv_tau);
   __syncthreads();
+  const int per = (R + split - 1) / split;
+  const int r_begin = min(R, grp * per), r_end = min(R, r_begin + per);
   const int nv = D / V;
   const size_t base = (size_t)t * R * D;
-  for (int vi = threadIdx.x; vi < nv; vi += BWD_THREADS) {
-    float ov[V], acc[V];
+  for (int v0 = 0; v0 < nv; v0 += BWD_COLS) {
+    const int vi = v0 + col;
+    float acc[V];
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      ov[e] = to_f32(o[(size_t)t * D + vi * V + e]);
-      acc[e] = 0.0f;
-    }
-#pragma unroll 4
-    for (int r = 0; r < R; ++r) {
-      const float gs = gs_s[r];
-      const size_t at = base + (size_t)r * D + vi * V;
-      float f[V], d[V];
-      load16(n + at, f);
+    for (int e = 0; e < V; ++e) acc[e] = 0.0f;
+    if (vi < nv) {
+      float ov[V];
+      load_o<TO, V>(o + (size_t)t * D + vi * V, ov);
+      for (int r0 = r_begin; r0 < r_end; r0 += BWD_ROWS) {
+        uint4 raw[BWD_ROWS];
 #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        acc[e] = fmaf(gs, f[e], acc[e]);
-        d[e] = __fmul_rn(gs, ov[e]);
+        for (int j = 0; j < BWD_ROWS; ++j)
+          if (r0 + j < r_end)
+            raw[j] = __ldcs(reinterpret_cast<const uint4*>(
+                n + base + (size_t)(r0 + j) * D + vi * V));
+#pragma unroll
+        for (int j = 0; j < BWD_ROWS; ++j)
+          if (r0 + j < r_end) {
+            const float gs = gs_s[r0 + j];
+            const TN* el = reinterpret_cast<const TN*>(&raw[j]);
+            float d[V];
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+              acc[e] = fmaf(gs, to_f32(el[e]), acc[e]);
+              d[e] = __fmul_rn(gs, ov[e]);
+            }
+            store16(dn + base + (size_t)(r0 + j) * D + vi * V, d);
+          }
       }
-      store16(dn + at, d);
     }
+    if (split > 1) {
+      if (grp > 0) {
+        float4* mine = part + ((grp - 1) * BWD_COLS + col) * (V / 4);
 #pragma unroll
-    for (int e = 0; e < V; ++e) dout[(size_t)t * D + vi * V + e] = acc[e];
+        for (int q = 0; q < V / 4; ++q)
+          mine[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                                acc[4 * q + 3]);
+      }
+      __syncthreads();
+      if (grp == 0)
+        for (int y = 1; y < split; ++y) {
+          const float4* p = part + ((y - 1) * BWD_COLS + col) * (V / 4);
+#pragma unroll
+          for (int q = 0; q < V / 4; ++q) {
+            const float4 f = p[q];
+            acc[4 * q] += f.x;
+            acc[4 * q + 1] += f.y;
+            acc[4 * q + 2] += f.z;
+            acc[4 * q + 3] += f.w;
+          }
+        }
+      __syncthreads();  // part is written again by the next columns
+    }
+    if (grp == 0 && vi < nv) {
+      float4* dst = reinterpret_cast<float4*>(dout + (size_t)t * D + vi * V);
+#pragma unroll
+      for (int q = 0; q < V / 4; ++q)
+        dst[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                             acc[4 * q + 3]);
+    }
   }
 }
 
@@ -209,7 +262,9 @@ template <typename TO, typename TN>
 cudaError_t launch(bool bwd, const void* o, const void* n, const float* g,
                    float* out, float* dout, void* dn, int T, int R, int D,
                    int split, float inv_tau, cudaStream_t s) {
-  if (D % (16 / sizeof(TN)) != 0) return cudaErrorInvalidValue;
+  constexpr int V = 16 / sizeof(TN);
+  if (D % V != 0 || (bwd && split > BWD_MAX_SPLIT))
+    return cudaErrorInvalidValue;
   if (!bwd) {
     auto kern = split > 1 ? neg_logits_fwd_kernel<TO, TN, 4, 4>
                           : neg_logits_fwd_kernel<TO, TN, 8, 2>;
@@ -217,10 +272,10 @@ cudaError_t launch(bool bwd, const void* o, const void* n, const float* g,
         static_cast<const TO*>(o), static_cast<const TN*>(n), out, R, D,
         split, inv_tau);
   } else {
-    neg_logits_bwd_kernel<TO, TN>
-        <<<T, BWD_THREADS, R * sizeof(float), s>>>(
-            static_cast<const TO*>(o), static_cast<const TN*>(n), g, dout,
-            static_cast<TN*>(dn), R, D, inv_tau);
+    const int smem = ((R + 3) / 4 + (split - 1) * BWD_COLS * (V / 4)) * 16;
+    neg_logits_bwd_kernel<TO, TN><<<T, BWD_COLS * split, smem, s>>>(
+        static_cast<const TO*>(o), static_cast<const TN*>(n), g, dout,
+        static_cast<TN*>(dn), R, D, split, inv_tau);
   }
   return cudaGetLastError();
 }
@@ -279,11 +334,12 @@ extern "C" int neg_logits_fwd(const void* o, const void* n, float* out,
 }
 
 // The same o, n; g (T, R) float32; dout (T, D) float32; dn (T, R, D) in n's
-// dtype.
+// dtype; `split` row groups a token (1 .. min(R, 4)), whose do partials are
+// added in group order: split 1 sums each do in r order.
 extern "C" int neg_logits_bwd(const void* o, const void* n, const float* g,
                               float* dout, void* dn, int T, int R, int D,
-                              float inv_tau, int o_dtype, int n_dtype,
-                              void* stream) {
+                              int split, float inv_tau, int o_dtype,
+                              int n_dtype, void* stream) {
   return dispatch(o_dtype, n_dtype, true, o, n, g, nullptr, dout, dn, T, R,
-                  D, 1, inv_tau, stream);
+                  D, split, inv_tau, stream);
 }

@@ -67,9 +67,19 @@ _NL_FWD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
 #: each of its 8 warps)
 NL_FWD_CTAS = 1024
 NL_FWD_MIN_ROWS = 32
-_NL_BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+_NL_BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                     + [ctypes.c_float] + [ctypes.c_int] * 2
                     + [ctypes.c_void_p])
+#: K9-bwd's row groups per token (a CTA of 128 threads each): raised while
+#: T·split is below NL_BWD_CTAS (4 per SM of 132) and each group keeps at
+#: least NL_BWD_MIN_ROWS rows, up to NL_BWD_MAX_SPLIT (512 threads)
+NL_BWD_CTAS = 512
+NL_BWD_MIN_ROWS = 16
+NL_BWD_MAX_SPLIT = 4
+#: K4's tokens per CTA (a warp each; ``csrc/neg_fused.cu`` BWD_WARPS), its
+#: rows in each warp's ring (STAGES)
+NEG_BWD_TOKENS = 8
+NEG_BWD_STAGES = 4
 
 
 def _lib():
@@ -179,7 +189,8 @@ def prepare_fused_inputs(out_emb, pos_logit, vocab: int, neg_ids, *,
     return o_p, pos_p, ids_p.reshape(-1).contiguous(), valid_p, perms, n_seg
 
 
-def _check(o, pos, src, ids, valid, perms, segment, R, fetch_dtype):
+def _check(o, pos, src, ids, valid, perms, segment, R, fetch_dtype,
+           backward=False):
     dev = o.device
     _require(dev.type == "cuda", f"tensors on {dev}, not on the card")
     _require(o.dtype in _O_CODE, f"o dtype {o.dtype}; takes float32 or "
@@ -204,7 +215,16 @@ def _check(o, pos, src, ids, valid, perms, segment, R, fetch_dtype):
     for name, t in (("o", o), ("table", src)):
         _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
                  f"{name} must be contiguous and 16-byte aligned")
-    smem = (2 * segment * R + 2 * segment + perms.shape[1] * segment) * 4
+    nsh = perms.shape[1]                 # at least expansion - 1 slots
+    if backward:
+        _require(segment % NEG_BWD_TOKENS == 0, f"segment {segment} is not "
+                 f"a multiple of {NEG_BWD_TOKENS} tokens (a CTA of K4)")
+        smem = (NEG_BWD_TOKENS * (NEG_BWD_STAGES * D * src.element_size()
+                                  + R * 4 + nsh * -(-segment // 32) * 4
+                                  + (nsh + 1) * 4 + 4)
+                + (2 + nsh) * segment * 4)
+    else:
+        smem = (segment * R + nsh * segment) * 4
     _require(smem <= 227 * 1024, f"segment {segment} x R {R} needs {smem} "
              f"bytes of shared memory")
 
@@ -242,7 +262,8 @@ def neg_bwd(o, pos, src, ids, valid, perms, lse, g, *, segment: int, R: int,
               fetch_dtype=fetch_dtype)
     if o.device.type == "cpu":
         return R_.neg_bwd_plain(o, pos, src, ids, valid, perms, lse, g, **kw)
-    _check(o, pos, src, ids, valid, perms, segment, R, fetch_dtype)
+    _check(o, pos, src, ids, valid, perms, segment, R, fetch_dtype,
+           backward=True)
     _require(lse.shape == pos.shape and g.shape == pos.shape
              and lse.dtype == torch.float32 and g.dtype == torch.float32
              and lse.is_contiguous() and g.is_contiguous(),
@@ -394,6 +415,21 @@ def fwd_row_split(T: int, R: int) -> int:
     return split
 
 
+def bwd_row_split(T: int, R: int) -> int:
+    """Row groups per token of K9-bwd (each 128 threads of the token's
+    CTA): doubled from 1 while T·split is below ``NL_BWD_CTAS``, each group
+    keeps at least ``NL_BWD_MIN_ROWS`` of the R rows and split stays within
+    ``NL_BWD_MAX_SPLIT``. 1 at T = 8192 (each do summed in r order, as
+    before); 4 for a 128-token segment of R = 128, whose do partials are
+    then added in group order (another fixed order, the same bits run to
+    run); dn keeps its bits whatever the split."""
+    split = 1
+    while (T * split < NL_BWD_CTAS and split < NL_BWD_MAX_SPLIT
+           and R >= 2 * split * NL_BWD_MIN_ROWS):
+        split *= 2
+    return split
+
+
 def neg_logits_fwd(o: torch.Tensor, n: torch.Tensor, *,
                    inv_tau: float) -> torch.Tensor:
     """K9-fwd for card tensors, its plain version for CPU tensors: o (T, D)
@@ -432,8 +468,9 @@ def neg_logits_bwd(o: torch.Tensor, n: torch.Tensor, g: torch.Tensor, *,
     with torch.cuda.device(o.device):
         rc = _nl_lib().neg_logits_bwd(
             o.data_ptr(), n.data_ptr(), g.data_ptr(), dout.data_ptr(),
-            dn.data_ptr(), T, R, D, inv_tau, _O_CODE[o.dtype],
-            _N_CODE[n.dtype], torch.cuda.current_stream(o.device).cuda_stream)
+            dn.data_ptr(), T, R, D, bwd_row_split(T, R), inv_tau,
+            _O_CODE[o.dtype], _N_CODE[n.dtype],
+            torch.cuda.current_stream(o.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"neg_logits_bwd launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["neg_logits_bwd"] += 1
@@ -485,6 +522,7 @@ def neg_logits(out_emb: torch.Tensor, neg_emb: torch.Tensor, *,
     return out[:T] if pad else out
 
 
-__all__ = ["KERNEL_LAUNCHES", "NEG_POOL", "TableGradSink", "fused_recall_lse",
-           "make_share_perms", "neg_bwd", "neg_fwd", "neg_logits",
+__all__ = ["KERNEL_LAUNCHES", "NEG_POOL", "TableGradSink", "bwd_row_split",
+           "fused_recall_lse", "fwd_row_split", "make_share_perms",
+           "neg_bwd", "neg_fwd", "neg_logits",
            "neg_logits_bwd", "neg_logits_fwd", "prepare_fused_inputs"]

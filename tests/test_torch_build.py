@@ -122,6 +122,54 @@ def test_neg_logits_forward_keeps_one_warp_sum_per_logit():
         assert needle in fwd, needle
 
 
+def _kernel_body(name, kernel):
+    """The text of ``kernel``'s definition in source ``name``: from its
+    name up to the next function at the top level."""
+    src = (_build.CSRC / _build.SOURCES[name]).read_text()
+    body = src.split(f"\n{kernel}(", 1)[1]
+    return re.split(r"\n(?:template <|cudaError_t |__device__ )", body)[0]
+
+
+def test_neg_bwd_gathers_each_row_once_with_the_two_pass_arithmetic():
+    """K4 gathers the table's rows at one site, into its ring (no second
+    pass, no segment_logits), keeps no (seg, R) logit or weight array, and
+    keeps the arithmetic of the two-pass kernel it replaced: the logit's
+    fmaf order, xor tree and 1/tau, the weight expression and its fold
+    over the consumers, and dout's __fmul_rn/__fadd_rn sum in r order."""
+    body = _kernel_body("neg_fused", "neg_bwd_kernel")
+    assert len(re.findall(r"\btable\b", body)) == 2, "one gather site"
+    assert body.count("stage_row<TT, NCH>(") == 1
+    assert "segment_logits<" not in body
+    for gone in ("float* lg", "float* ws", "lg[", "ws["):
+        assert gone not in body, gone
+    for needle in ("part = fmaf(ov[i], x[i], part)",
+                   "__fmul_rn(warp_sum(part), inv_tau)",
+                   "float wv = g_t * expf(l - lse_t)",
+                   "const float masked = valid_t ? l : NEG_POOL",
+                   "fold += g_s[c] * expf(masked - lse_s[c])",
+                   "wv += fold",
+                   "acc[i] = __fadd_rn(acc[i], __fmul_rn(__fmul_rn(wv, x[i]), "
+                   "inv_tau))",
+                   "dpos[tok] = g_t * expf(pos[tok] - lse_t)",
+                   "cp_async_wait<STAGES - 1>()"):
+        assert needle in body, needle
+
+
+def test_neg_logits_backward_splits_rows_and_keeps_dn_product():
+    """K9-bwd adds its row groups' do partials through shared memory in
+    group order (no atomic), takes gs = g * inv_tau first and rounds dn's
+    product once (__fmul_rn); the wrapper's split reaches the kernel."""
+    body = _kernel_body("neg_logits", "neg_logits_bwd_kernel")
+    for needle in ("gs_s[r] = __fmul_rn(g[(size_t)t * R + r], inv_tau)",
+                   "d[e] = __fmul_rn(gs, ov[e])",
+                   "acc[e] = fmaf(gs, to_f32(el[e]), acc[e])",
+                   "for (int y = 1; y < split; ++y)", "__syncthreads()"):
+        assert needle in body, needle
+    assert not re.search(r"atomic|\bred\.|\batom\.", body)
+    src = (_build.CSRC / _build.SOURCES["neg_logits"]).read_text()
+    assert "BWD_COLS * split" in src
+
+
 def test_cached_library_keeps_its_build_log(tmp_path, monkeypatch):
     """A library built by an earlier process reports the nvcc/ptxas output
     kept beside it (what chip_smoke.py's register and spill check reads),

@@ -838,3 +838,93 @@ def test_neg_logits_fwd_grid_at_segment_and_baseline_shapes(cuda, T,
     assert torch.equal(out, NL.neg_logits_fwd(o, n, inv_tau=1.0))
     assert _rel_to_max(out, NR.neg_logits_ref(o, n)) <= 1e-4
     assert NL.fwd_row_split(T, R) == (4 if T == 128 else 1)
+
+
+def _uneven_perms(n_seg, seg, expansion, seed):
+    """Sharing perms that are no permutation: in every slot some sources
+    have two or four consumers and others none."""
+    rng = np.random.default_rng(seed)
+    perms = np.empty((n_seg, expansion - 1, seg), np.int32)
+    for s in range(n_seg):
+        for e in range(expansion - 1):
+            p = (np.arange(seg) + rng.integers(1, seg)) % seg
+            c = rng.choice(seg, 4, replace=False)
+            p[c[1]] = p[c[0]]
+            p[c[2]] = p[c[3]] = p[c[0]]
+            perms[s, e] = p
+    return torch.from_numpy(perms)
+
+
+@pytest.mark.parametrize("case", ["e1", "e4", "e3_uneven"])
+def test_neg_bwd_at_the_engine_shape(cuda, case):
+    """K4 at the engine's shape (T 8192, R 128, d 1024, bf16 o, fp16
+    shadow) with a quarter of the tokens invalid: at expansion 1, 4
+    (generator-drawn shifts) and 3 with perms where sources have several
+    consumers or none. w to 1e-6 and dpos to 1e-5 absolute, dout to 1e-4
+    of its largest value against the plain version (sums over D and R in
+    another order); the same bits run to run."""
+    from repro_torch.kernels import neg_logits as NL
+    from repro_torch.kernels.neg_logits import ref as NR
+    expansion = {"e1": 1, "e4": 4, "e3_uneven": 3}[case]
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    T, R, D, V, seg = 8192, 128, 1024, 1 << 20, 128
+    shadow = (torch.randn(V, D, device=cuda, generator=gen) * 0.02).half()
+    o = torch.randn(T, D, device=cuda, generator=gen).to(torch.bfloat16)
+    ids = torch.randint(0, V, (T, R), device=cuda, generator=gen)
+    valid = torch.rand(T, device=cuda, generator=gen) > 0.25
+    pos = torch.randn(T, device=cuda, generator=gen) * 0.64
+    perms = (_uneven_perms(T // seg, seg, expansion, 3).to(cuda)
+             if case.endswith("uneven") else None)
+    o_p, pos_p, ids_p, valid_p, perms, _ = NL.prepare_fused_inputs(
+        o, pos, V, ids, segment=seg, expansion=expansion, generator=gen,
+        valid=valid, perms=perms)
+    kw = dict(segment=seg, R=R, expansion=expansion, inv_tau=1.0,
+              fetch_dtype=None)
+    args = (o_p, pos_p, shadow, ids_p, valid_p, perms)
+    lse = NL.neg_fwd(*args, **kw)
+    g = torch.rand(T, device=cuda, generator=gen) * valid_p / T
+    before = NL.KERNEL_LAUNCHES["neg_bwd"]
+    got = NL.neg_bwd(*args, lse, g, **kw)
+    again = NL.neg_bwd(*args, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert NL.KERNEL_LAUNCHES["neg_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    w, dout, dpos = got
+    pw, pdout, pdpos = NR.neg_bwd_plain(*args, lse, g, **kw)
+    assert (w - pw).abs().max().item() <= 1e-6
+    assert (dpos - pdpos).abs().max().item() <= 1e-5
+    assert _rel_to_max(dout, pdout) <= 1e-4
+
+
+@pytest.mark.parametrize("T,R,D,n_dtype,o_dtype", [
+    (128, 128, 1024, torch.float16, torch.bfloat16),
+    (128, 128, 1024, torch.bfloat16, torch.bfloat16),
+    (8192, 128, 1024, torch.float16, torch.bfloat16),
+    (8192, 128, 1024, torch.bfloat16, torch.bfloat16),
+    (64, 99, 68, torch.float32, torch.float32),
+    (128, 33, 1032, torch.bfloat16, torch.float32),
+    (300, 24, 68, torch.float32, torch.bfloat16)])
+def test_neg_logits_bwd_split_at_segment_and_baseline_shapes(cuda, T, R, D,
+                                                             n_dtype,
+                                                             o_dtype):
+    """K9-bwd at a 128-token segment (4 row groups a token), at the
+    baseline's 8192 tokens (one), and at R and d that the split leaves
+    uneven (99 rows in 4 groups, 33 in 2; d 68 and 1032, more than one
+    column vector a thread): dn bitwise equal to the plain version, do
+    within 1e-4 of its largest value, both the same bits run to run."""
+    from repro_torch.kernels import neg_logits as NL
+    from repro_torch.kernels.neg_logits import ref as NR
+    g = torch.Generator(device=cuda).manual_seed(13)
+    o = torch.randn(T, D, device=cuda, generator=g).to(o_dtype)
+    n = (torch.randn(T, R, D, device=cuda, generator=g) * 0.02).to(n_dtype)
+    gr = torch.randn(T, R, device=cuda, generator=g) * 1e-3
+    do, dn = NL.neg_logits_bwd(o, n, gr, inv_tau=1 / 0.9)
+    do2, dn2 = NL.neg_logits_bwd(o, n, gr, inv_tau=1 / 0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(do, do2) and torch.equal(dn, dn2)
+    p_do, p_dn = NR.neg_logits_bwd_plain(o, n, gr, inv_tau=1 / 0.9)
+    assert torch.equal(dn, p_dn)
+    assert _rel_to_max(do, p_do) <= 1e-4
+    assert NL.bwd_row_split(T, R) == {(128, 128): 4, (8192, 128): 1,
+                                      (64, 99): 4, (128, 33): 2,
+                                      (300, 24): 1}[(T, R)]

@@ -503,3 +503,77 @@ def test_fwd_row_split_fills_the_card_only_where_it_must(T, R):
     grows = R >= 2 * split * NO.NL_FWD_MIN_ROWS
     assert T * split >= NO.NL_FWD_CTAS or not grows
     assert {(8192, 128): 1, (128, 128): 4}.get((T, R), split) == split
+
+
+@pytest.mark.parametrize("T,R", [(8192, 128), (128, 128), (300, 24),
+                                 (64, 99), (128, 33), (1, 128), (70, 5)])
+def test_bwd_row_split_fills_the_card_only_where_it_must(T, R):
+    """K9-bwd's row groups per token: 1 at the baseline's T = 8192 (each
+    do summed in r order, as before), more for a 128-token segment, a power
+    of two up to NL_BWD_MAX_SPLIT, never fewer than NL_BWD_MIN_ROWS rows a
+    group once split, and no larger than it takes to reach NL_BWD_CTAS."""
+    from repro_torch.kernels.neg_logits import ops as NO
+    split = NO.bwd_row_split(T, R)
+    assert split >= 1 and split & (split - 1) == 0
+    assert split <= NO.NL_BWD_MAX_SPLIT
+    if split > 1:
+        assert R // split >= NO.NL_BWD_MIN_ROWS
+        assert T * (split // 2) < NO.NL_BWD_CTAS
+    grows = (R >= 2 * split * NO.NL_BWD_MIN_ROWS
+             and split < NO.NL_BWD_MAX_SPLIT)
+    assert T * split >= NO.NL_BWD_CTAS or not grows
+    assert {(8192, 128): 1, (128, 128): 4}.get((T, R), split) == split
+
+
+def _uneven_perms(n_seg, seg, expansion, seed):
+    """Per-segment sharing perms that are no permutation: in every slot
+    some sources have two or three consumers and others none."""
+    rng = np.random.default_rng(seed)
+    perms = np.empty((n_seg, expansion - 1, seg), np.int32)
+    for s in range(n_seg):
+        for e in range(expansion - 1):
+            p = (np.arange(seg) + rng.integers(1, seg)) % seg
+            c = rng.choice(seg, 4, replace=False)
+            p[c[1]] = p[c[0]]                  # a source with two consumers
+            p[c[2]] = p[c[3]] = p[c[0]]        # ... or with four
+            perms[s, e] = p
+    return torch.from_numpy(perms)
+
+
+@pytest.mark.parametrize("expansion", [1, 2, 3])
+def test_neg_bwd_plain_is_the_grad_of_the_plain_lse(expansion):
+    """K4's plain version, which the kernel is held to on the card, is the
+    gradient of K3's plain version: with perms where sources have several
+    consumers or none, and invalid tokens, its dout and dpos equal autograd
+    of Σ g·lse through ``neg_fwd_plain``, and its w (each slot's gathered
+    row once, distinct ids) gives the table grad w·o/τ. fp32 sums in
+    another order: 1e-5 of the largest value."""
+    from repro_torch.kernels.neg_logits import ref as NR
+    rng = np.random.default_rng(21 + expansion)
+    seg, n_seg, R_, D = 16, 2, 4, 8
+    Tp = seg * n_seg
+    o = torch.from_numpy(rng.standard_normal((Tp, D)).astype(np.float32))
+    pos = torch.from_numpy(rng.standard_normal(Tp).astype(np.float32))
+    table = torch.from_numpy(
+        (rng.standard_normal((Tp * R_, D)) * 0.5).astype(np.float32))
+    ids = torch.from_numpy(rng.permutation(Tp * R_).astype(np.int32))
+    valid = torch.from_numpy((rng.random(Tp) > 0.25).astype(np.float32))
+    g = torch.from_numpy(rng.random(Tp).astype(np.float32))
+    perms = (_uneven_perms(n_seg, seg, expansion, 5) if expansion > 1
+             else torch.zeros((n_seg, 1, seg), dtype=torch.int32))
+    if expansion > 1:
+        counts = np.bincount(perms[0, 0].numpy(), minlength=seg)
+        assert counts.max() >= 2 and counts.min() == 0
+    kw = dict(segment=seg, R=R_, expansion=expansion, inv_tau=1 / 0.8,
+              fetch_dtype=None)
+    o_, pos_, tb_ = (t.clone().requires_grad_() for t in (o, pos, table))
+    lse = NR.neg_fwd_plain(o_, pos_, tb_, ids, valid, perms, **kw)
+    (lse * g).sum().backward()
+    w, dout, dpos = NR.neg_bwd_plain(o, pos, table, ids, valid, perms,
+                                     lse.detach(), g, **kw)
+    rows = w[:, :, None] * o[:, None, :] * kw["inv_tau"]
+    for got, want in ((dout, o_.grad), (dpos, pos_.grad),
+                      (rows.reshape(-1, D), tb_.grad[ids.long()])):
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+
