@@ -45,6 +45,28 @@ one card, so each phase frees its own.
                launch counts are zeroed just before and read just after
                each round. serve_fuxi: the same on full-width fuxi-large
                (d_ff 2368, the functional time encoder).
+  4b. stream — StreamingRecallEngine (64 slots, 32 rows a tick, k 100) on
+               full-width hstu-large with prefix reuse: the norms' row
+               statistics at 1-32 rows against 32768 (none may differ),
+               warmup, then the
+               serve trace's cold, pure-hit and incremental rounds and two
+               more chained append rounds (1 event; 3 events with one row
+               crossing a 128-row block), launch counts zeroed before and
+               read after each (a cold encode: one K1-fwd launch per layer;
+               a warm one: one append launch per layer); after each append
+               round every appended user's embedding and live K/V of all
+               layers held bit for bit to a from-scratch cold encode; the
+               append launch against its plain version (bf16 and fp32) at
+               the round's shapes; both engines against an fp32 encode of
+               the same histories and against each other (STREAM_TOL:
+               per-row relative L2, top-100 overlap, the "sure" ids); the
+               rank step's CUDA graph against the eager rank step,
+               bitwise; an open-loop run (Poisson arrivals, OPEN_LOOP_MIX,
+               the proportions of examples/serve_recall.py) at two
+               multiples of the closed-loop rate, with warm == cold held
+               bit for bit on the users it appended to. Then fuxi-large and
+               sasrec-large through the flat, cold-only path (FuXi: K1-fwd's
+               functional mode; SASRec: no kernel).
   5. train   — make_gr_train_step on full-width hstu-large (16 layers,
                vocab 2^22; fp32 master, fp32 AdaGrad accumulator and fp16
                shadow on the card) over the port's GRLoader on synthetic
@@ -83,6 +105,7 @@ one card, so each phase frees its own.
   9. result  — one JSON line of kernel numbers, the nvidia-smi line, and
                the final status line.
 """
+import copy
 import gc
 import json
 import math
@@ -109,6 +132,18 @@ SEED = 0
 ABS_TOL_FP32 = 1e-4
 REL_TOL_BF16 = 1e-2
 EMB_TOL_BF16 = 5e-2
+# The streaming engine and RecallEngine serve the same bf16 function with
+# K1-fwd's keys tiled at other offsets, so each carries its own bf16
+# rounding. An fp32 encode of the same histories (the bf16 weights
+# widened) is the witness: on the H100 each engine's user embedding lies
+# up to 0.110 (median 0.031) per-row relative L2 from it, with top-100
+# overlaps down to 0.76, while the two engines lie 0.0174 apart with
+# overlaps of at least 0.93, less than either's own distance from the fp32
+# encode. Each engine is held to the fp32 encode (fp32_*), the two to each
+# other (pair_*), every limit just outside its reading; pair_rel lies
+# between the reading and the sum of the two distances from fp32.
+STREAM_TOL = dict(fp32_rel=0.15, pair_rel=3e-2, fp32_overlap=0.7,
+                  pair_overlap=0.9)
 # fp32 results summed in another order (K2's table grads, K4's dout, K6's
 # totals): max abs error over the largest value
 GRAD_TOL_FP32 = 1e-4
@@ -227,12 +262,13 @@ def phase_build():
         for ln in lines:
             say(f"[build]   {ln}")
     # K1-fwd's and K2's bf16 kernels run their products on the tensor
-    # cores (HMMA in their SASS; 8 K1-fwd kernels: 4 head dims x 2 time
-    # modes, 16 K2 kernels: two per pair), their fp32 kernels keep the FMA
-    # path (no HMMA); ptxas spills none of K1-fwd's bf16 kernels
+    # cores (HMMA in their SASS; 16 K1-fwd kernels: 4 head dims x 2 time
+    # modes x the cold and the append launch, 16 K2 kernels: two per
+    # pair), their fp32 kernels keep the FMA path (no HMMA); ptxas spills
+    # none of K1-fwd's bf16 kernels
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     for src, n_tc, fp32_tags in (
-            ("jagged_attn_fwd", 8, ("attn_fwd_kernelIf",)),
+            ("jagged_attn_fwd", 16, ("attn_fwd_kernelIf",)),
             ("jagged_attn_bwd", 16, ("attn_bwd_kv_kernelIf",
                                      "attn_bwd_q_kernelIf"))):
         hmma = _sass_hmma_counts(_build.library_path(src), cuobjdump)
@@ -252,9 +288,10 @@ def phase_build():
         f"{sorted(u['registers'] for u in tc.values())}, spill stores "
         f"{sorted(u['spill_stores'] for u in tc.values())}, spill loads "
         f"{sorted(u['spill_loads'] for u in tc.values())}")
-    check(len(tc) == 8, f"ptxas reported {len(tc)} bf16 K1-fwd kernels")
-    check(all(u["spill_stores"] == u["spill_loads"] == 0
-              for u in tc.values()), "a bf16 K1-fwd kernel spills")
+    check(len(tc) == 16, f"ptxas reported {len(tc)} bf16 K1-fwd kernels")
+    spills = sorted(f for f, u in tc.items()
+                    if u["spill_stores"] or u["spill_loads"])
+    check(not spills, f"bf16 K1-fwd kernels spill: {spills}")
     return info
 
 
@@ -1519,6 +1556,684 @@ def _profile_encode(model, cfg, x, args, attn, tag):
 
 
 # --------------------------------------------------------------------------
+# phase 4b: continuous-batching serving (StreamingRecallEngine)
+# --------------------------------------------------------------------------
+
+# Open-loop traffic in the proportions of the client in
+# examples/serve_recall.py (:63-101): 32 new sessions sending their full
+# history, 32 pure hits, 32 appends of one event, and a burst of 3
+# one-event submits to one user at once. Each arrival draws its kind with
+# these weights; a new user's history length is drawn as _trace draws it.
+OPEN_LOOP_MIX = {"new": 32, "hit": 32, "append": 32, "burst": 1}
+OPEN_LOOP_BURST = 3
+OPEN_LOOP_SECONDS = 3.0
+OPEN_LOOP_RATES = (0.5, 1.5)          # multiples of the closed-loop rate
+STREAM_KW = dict(max_users=64, max_rows_per_tick=32, k=100)
+
+
+class _Ticks:
+    """Counts the engine's cold and warm encodes (each one a tick's batch
+    of rows) by wrapping its two encode methods."""
+
+    def __init__(self, eng):
+        self.cold = self.warm = 0
+        run_cold, run_warm = eng._run_cold, eng._run_warm
+
+        def cold(*a):
+            self.cold += 1
+            return run_cold(*a)
+
+        def warm(*a):
+            self.warm += 1
+            return run_warm(*a)
+        eng._run_cold, eng._run_warm = cold, warm
+
+
+def _stream_setup(arch):
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gr as GR
+    from repro_torch.serving import StreamingRecallEngine
+    dev = torch.device("cuda")
+    cfg = get_arch(arch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = GR.GRModel(cfg, device=dev, generator=gen)
+    master = torch.randn(cfg.vocab_size, cfg.d_model, device=dev,
+                         generator=gen) * 0.02
+    eng = StreamingRecallEngine(cfg, model, master, device=dev, **STREAM_KW)
+    torch.cuda.synchronize()
+    say(f"[stream] {arch}: prefix reuse {eng.prefix_reuse}, "
+        f"{STREAM_KW}; slot buffer {eng.buffer.device_bytes / 1e9:.2f} GB "
+        f"on the card (K/V caches "
+        f"{tuple(eng.buffer.kv_k.shape) if eng.prefix_reuse else None}); "
+        f"set-up {time.perf_counter() - t0:.3f} s")
+    return cfg, model, eng
+
+
+def _stream_round(eng, ticks, reqs, tag, rname):
+    """Serve one closed-loop round with the launch counts zeroed before and
+    read after; → (results by user, record)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.jagged_attention import ops
+    c0, w0, r0 = ticks.cold, ticks.warm, eng.rank_batches
+    _zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {k: v for k, v in ops.KERNEL_LAUNCHES.items() if v}
+    rec = dict(round=rname, requests=len(reqs),
+               hits=sum(r.cache_hit for r in res), cold_ticks=ticks.cold - c0,
+               warm_ticks=ticks.warm - w0,
+               rank_batches=eng.rank_batches - r0, launches=counts,
+               wall_s=wall)
+    say(f"[{tag}] round {rname}: {len(reqs)} requests, {rec['hits']} hits, "
+        f"{rec['cold_ticks']} cold / {rec['warm_ticks']} warm encodes, "
+        f"{rec['rank_batches']} rank batches, launches {counts}, wall "
+        f"{wall * 1e3:.1f} ms")
+    check(len(res) == len(reqs), f"{tag} {rname}: a request got no result")
+    for r in res:
+        check(np.isfinite(r.user_emb).all() and np.isfinite(r.scores).all()
+              and ((r.item_ids >= 0) & (r.item_ids < eng.cfg.vocab_size))
+              .all(), f"{tag} {rname}: non-finite or out-of-range result")
+    return {r.user: r for r in res}, rec
+
+
+def _check_stream_launches(cfg, rec, tag):
+    """A cold encode is one K1-fwd launch per layer in the block's time
+    mode, a warm one one append launch per layer; SASRec launches none."""
+    from repro_torch.kernels.jagged_attention import ops
+    L = cfg.num_layers
+    want = {}
+    if cfg.gr_block != "sasrec":
+        if rec["cold_ticks"]:
+            want[_attn_counter(cfg)] = L * rec["cold_ticks"]
+        if rec["warm_ticks"]:
+            want[ops.launch_counter("fwd_append", dense=False,
+                                    functional=False)] = L * rec["warm_ticks"]
+    check(rec["launches"] == want, f"{tag} {rec['round']}: launches "
+          f"{rec['launches']}, expected {want}")
+
+
+def _rel_rows(a, b):
+    """Per-row relative L2 of a against b, (n, d) numpy."""
+    import numpy as np
+    return np.linalg.norm(a - b, axis=1) / np.linalg.norm(b, axis=1)
+
+
+def _compare_engines(eng, res_s, res_r, emb32, tag, rname):
+    """StreamingRecallEngine's results against RecallEngine's on the same
+    requests, and each against ``emb32``, an fp32 encode of the same
+    histories (the users in sorted order). Not bitwise: RecallEngine
+    places a user at another offset of a shared pack, so K1-fwd sums the
+    user's keys in other tiles and the two take different bf16 roundings
+    through 16 layers. The fp32 encode shows that: each engine's
+    distance from it is held to STREAM_TOL's fp32 limits, the two engines'
+    distance from each other to its tighter pair limits. The top-k lists of the two engines may differ where
+    scores lie within the embeddings' score difference of the (k+1)-th:
+    with D the largest score difference over the union of the two lists,
+    every id one engine ranks above its (k+1)-th score by more than 2D
+    (the "sure" ids) must be in the other engine's list (an exact
+    consequence; the CPU tests hold the same)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import topk_blocked
+    users = sorted(res_s)
+    dev = eng.device
+    k = eng.k
+    E = {w: torch.from_numpy(np.stack([res[u].user_emb for u in users]))
+         .to(dev) for w, res in (("s", res_s), ("r", res_r))}
+    kth1 = {w: topk_blocked(e, eng._scan, k=k + 1, block_v=eng._block_v)[0]
+            [:, k].cpu().numpy() for w, e in E.items()}
+    ids32 = topk_blocked(emb32, eng._scan, k=k, block_v=eng._block_v)[1] \
+        .cpu().numpy()
+    e32 = emb32.cpu().numpy()
+    rel = {"s": _rel_rows(E["s"].cpu().numpy(), e32),
+           "r": _rel_rows(E["r"].cpu().numpy(), e32),
+           "sr": _rel_rows(E["s"].cpu().numpy(), E["r"].cpu().numpy())}
+    ov = {"s": [], "r": [], "sr": []}
+    sure_n = []
+    for i, u in enumerate(users):
+        a, b = res_s[u], res_r[u]
+        ov["sr"].append(len(set(a.item_ids) & set(b.item_ids)) / k)
+        ov["s"].append(len(set(a.item_ids) & set(ids32[i])) / k)
+        ov["r"].append(len(set(b.item_ids) & set(ids32[i])) / k)
+        union = np.union1d(a.item_ids, b.item_ids)
+        rows = eng._scan[torch.from_numpy(union).to(dev).long()].float()
+        sc = {w: (rows @ E[w][i]).cpu().numpy() for w in E}
+        delta = float(np.abs(sc["s"] - sc["r"]).max()) + 1e-4
+        for w, other in (("s", b.item_ids), ("r", a.item_ids)):
+            sure = union[sc[w] > kth1[w][i] + 2 * delta]
+            sure_n.append(len(sure))
+            check(set(sure.tolist()) <= set(other.tolist()),
+                  f"{tag} {rname}: user {u}: ids ranked clearly above the "
+                  f"(k+1)-th by one engine are missing from the other's "
+                  f"top-{k}")
+    rec = {f"{w}_rel_max": float(rel[w].max()) for w in rel}
+    rec.update({f"{w}_rel_median": float(np.median(rel[w])) for w in rel})
+    rec.update({f"{w}_overlap_min": float(min(ov[w])) for w in ov})
+    rec.update({f"{w}_overlap_mean": float(np.mean(ov[w])) for w in ov})
+    rec.update(sure_min=min(sure_n), sure_max=max(sure_n), users=len(users))
+    names = {"s": "streaming vs fp32", "r": "RecallEngine vs fp32",
+             "sr": "streaming vs RecallEngine"}
+    for w, name in names.items():
+        u = users[int(np.argmax(rel[w]))]
+        say(f"[{tag}] {rname}: {name}: per-user relative L2 max "
+            f"{rec[w + '_rel_max']:.4e} (user {u}, "
+            f"{int(eng.buffer.length[eng.buffer.slot_of(u)])} events) median "
+            f"{rec[w + '_rel_median']:.4e}; top-{k} overlap min "
+            f"{rec[w + '_overlap_min']:.3f} mean "
+            f"{rec[w + '_overlap_mean']:.3f}")
+    say(f"[{tag}] {rname}: {len(users)} users; every sure id in both "
+        f"engines' lists (sure sets of {min(sure_n)} to {max(sure_n)} ids); "
+        f"limits {STREAM_TOL}")
+    for w in ("s", "r"):
+        check(rec[w + "_rel_max"] <= STREAM_TOL["fp32_rel"]
+              and rec[w + "_overlap_min"] >= STREAM_TOL["fp32_overlap"],
+              f"{tag} {rname}: {names[w]}: relative {rec[w + '_rel_max']}, "
+              f"overlap {rec[w + '_overlap_min']}; limits {STREAM_TOL}")
+    check(rec["sr_rel_max"] <= STREAM_TOL["pair_rel"]
+          and rec["sr_overlap_min"] >= STREAM_TOL["pair_overlap"],
+          f"{tag} {rname}: {names['sr']}: relative {rec['sr_rel_max']}, "
+          f"overlap {rec['sr_overlap_min']}; limits {STREAM_TOL}")
+    return rec
+
+
+def _stream_cold_reference(eng, model, cfg, slots):
+    """From-scratch cold encodes of the given slots' host histories in
+    ``cfg.dtype``, into caches of their own: (emb (n, d), k, v
+    (L, n, cap, H, D), lengths)."""
+    import numpy as np
+    import torch
+    from repro_torch.embedding.tables import lookup
+    from repro_torch.models import gr as GR
+    b = eng.buffer
+    dev = b.device
+    dt = GR.torch_dtype(cfg.dtype)
+    n, S = len(slots), b.max_seq_len
+    ids = np.zeros((n, S), np.int32)
+    ts = np.zeros((n, S), np.int32)
+    lens = np.zeros(n, np.int32)
+    for i, s in enumerate(slots):
+        L = int(b.length[s])
+        ids[i, :L], ts[i, :L], lens[i] = b.h_ids[s, :L], b.h_ts[s, :L], L
+    shape = (cfg.num_layers, n) + tuple(b.kv_k.shape[2:])
+    k = torch.zeros(shape, dtype=dt, device=dev)
+    v = torch.zeros_like(k)
+    x = lookup(eng.table.master, torch.from_numpy(ids).to(dev), dtype=dt)
+    emb = GR.gr_encode_slots(model, cfg, x, torch.from_numpy(ts).to(dev),
+                             torch.from_numpy(lens).to(dev), k, v,
+                             torch.arange(n, device=dev, dtype=torch.int32))
+    return emb, k, v, lens
+
+
+def _fp32_encode(eng, model32, cfg32, users, chunk=8):
+    """The users' resident histories encoded from scratch in fp32 (the
+    model's weights widened, K1-fwd's fp32 kernel), ``chunk`` users at a
+    time to bound the fp32 K/V scratch: (n, d) fp32, the yardstick both
+    bf16 engines approximate."""
+    import torch
+    slots = [eng.buffer.slot_of(u) for u in users]
+    return torch.cat([_stream_cold_reference(eng, model32, cfg32,
+                                             slots[i:i + chunk])[0]
+                      for i in range(0, len(slots), chunk)])
+
+
+def _row_stats_check(d, tag):
+    """The premise of the warm path's norms (``models/hstu.py``
+    ``_row_stats``): a row's fp32 variance in a tensor of M rows equals
+    its variance in one of 32768. For M rows drawn at random (2048 rows a
+    size), count the rows that differ, with PyTorch's own reduction over
+    the M rows and with ``_row_stats``; the latter must count none."""
+    import torch
+    from repro_torch.models.hstu import _row_stats
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    X = (torch.randn(32768, d, device=dev, generator=g) * 3 + 0.5
+         ).bfloat16().float()
+
+    def plain_var(x):
+        return ((x - x.mean(-1, keepdim=True)) ** 2).mean(-1, keepdim=True)
+
+    full_plain, full_stats = plain_var(X), _row_stats(X)[1]
+    out = {}
+    for M in (1, 2, 4, 8, 16, 32):
+        n_plain = n_stats = 0
+        for _ in range(2048 // M):
+            idx = torch.randint(0, X.shape[0], (M,), device=dev, generator=g)
+            n_plain += int((plain_var(X[idx]) != full_plain[idx]).sum())
+            n_stats += int((_row_stats(X[idx])[1] != full_stats[idx]).sum())
+        out[M] = dict(rows=2048 // M * M, plain=n_plain, row_stats=n_stats)
+    say(f"[{tag}] norm statistics at d {d}, rows whose fp32 variance at M "
+        f"rows differs from a 32768-row tensor's (PyTorch's reduction / "
+        f"_row_stats): " + ", ".join(
+            f"M={M}: {r['plain']} / {r['row_stats']} of {r['rows']}"
+            for M, r in out.items()))
+    check(all(r["row_stats"] == 0 for r in out.values()),
+          f"{tag}: _row_stats depends on the row count: {out}")
+    return out
+
+
+def _check_warm_equals_cold(eng, model, cfg, users, tag, rname):
+    """Every given user's device embedding row and the live K/V of every
+    layer equal a from-scratch cold encode bit for bit."""
+    import torch
+    b = eng.buffer
+    slots = [b.slot_of(u) for u in users]
+    emb, k, v, lens = _stream_cold_reference(eng, model, cfg, slots)
+    bad = []
+    for i, s in enumerate(slots):
+        n = int(lens[i])
+        if not (torch.equal(b.emb[s], emb[i])
+                and torch.equal(b.kv_k[:, s, :n], k[:, i, :n])
+                and torch.equal(b.kv_v[:, s, :n], v[:, i, :n])):
+            bad.append((users[i], n))
+    check(not bad, f"{tag} {rname}: warm != cold for (user, length) {bad}")
+    return len(slots)
+
+
+def _append_bound(rows_n, pref, total, H, D, itemsize, dtype_name):
+    """The append launch's least time, as K1-fwd's (:func:`_attn_bound`)
+    from the window's live (query, key) pairs: each live query at position
+    i sees the i + 1 keys before and at it; 4·D flops per pair and head,
+    the special functions of each entry; bytes: the window's q read and
+    output written, each row's K and V read over its T live keys, the
+    rows' timestamps and 1/(pos+1), the tables."""
+    pairs = sum((T * (T + 1) - p * (p + 1)) // 2 for p, T in zip(pref, total))
+    live_q = sum(T - p for p, T in zip(pref, total))
+    flops = 4 * D * H * pairs
+    byts = (2 * rows_n * H * D * itemsize               # q read, out written
+            + 2 * sum(total) * H * D * itemsize         # K, V prefixes
+            + 4 * sum(total) + 4 * max(total) + (256 + 32) * H * 4)
+    mufu = pairs * (H * MUFU_PER_ENTRY_HEAD["bucket"]
+                    + MUFU_PER_PAIR["bucket"])
+    bound_ms, bound_by, parts = _bound(flops, byts, mufu, dtype_name)
+    return bound_ms, bound_by, pairs, live_q, flops, byts
+
+
+def _append_kernel_check(eng, cfg, slots, tag):
+    """The append launch at the main path's shapes (the incremental
+    round's rows, each with a window of its last 3 events in a 4-wide
+    bucket, layer 0's cache of hstu-large) against its plain version, bf16
+    and fp32, bitwise run to run; its time one call at a time (fenced_ms)
+    beside the plain version's and its bound."""
+    import torch
+    from repro_torch.kernels.jagged_attention import ops
+    from repro_torch.kernels.jagged_attention.ref import (
+        attention_append_plain, max_row_rel_err)
+    b = eng.buffer
+    dev = b.device
+    # rows whose 4-wide window ending a row past its last event fits
+    warm_slots = [s for s in slots if int(b.length[s]) < b.max_seq_len]
+    H, D = cfg.num_heads, cfg.qkv_dim
+    R = eng.row_ladder.bucket(len(warm_slots))
+    slots = list(warm_slots) + [b.pad_row] * (R - len(warm_slots))
+    p = [int(b.length[s]) - 3 if s != b.pad_row else 0 for s in slots]
+    p = [max(x, 1) for x in p]
+    total = [min(x + 3, int(b.length[s])) if s != b.pad_row else 0
+             for x, s in zip(p, slots)]
+    total = [max(t, x) for t, x in zip(total, p)]
+    Q = 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cap = b.kv_k.shape[2]
+    ts = torch.zeros((R, cap), dtype=torch.int32, device=dev)
+    ts[:, :b.max_seq_len] = b.timestamps[torch.tensor(slots, device=dev)]
+    t32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
+    rab = dict(eng.model.blocks[0].rab.items())
+    pt, tt, tkw = ops.rab_tables(rab, cfg.rab, H, dev, "bucket")
+    out = {}
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        kc = b.kv_k[0] if dt == torch.bfloat16 else b.kv_k[0].float()
+        vc = b.kv_v[0] if dt == torch.bfloat16 else b.kv_v[0].float()
+        q = (torch.randn((R, Q, H, D), generator=gen, device=dev)
+             * 0.5).to(dt)
+        args = (q, kc, vc, t32(slots), ts, t32(p), t32(total), pt, tt,
+                ops.position_ninv(cap, dev))
+        kw = dict(scale=D ** -0.5, **tkw)
+        a = ops.attention_append(*args, **kw)
+        a2 = ops.attention_append(*args, **kw)
+        plain = attention_append_plain(*args, block=128, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(a, a2), f"append launch {dname}: not bitwise run "
+              "to run")
+        if dt == torch.bfloat16:
+            err = max_row_rel_err(a, plain)
+            check(err <= REL_TOL_BF16, f"append launch bf16: row relative "
+                  f"{err} > {REL_TOL_BF16}")
+        else:
+            err = (a - plain).abs().max().item()
+            check(err <= ABS_TOL_FP32, f"append launch fp32: max abs {err} "
+                  f"> {ABS_TOL_FP32}")
+        ms = fenced_ms(lambda: ops.attention_append(*args, **kw), 21,
+                       lambda: torch.cuda._sleep(200_000))
+        plain_ms = timed_ms(lambda: attention_append_plain(
+            *args, block=128, **kw), 2, warmup=0)
+        bound_ms, bound_by, pairs, live_q, flops, byts = _append_bound(
+            R * Q, p, total, H, D, q.element_size(), dname)
+        out[dname] = dict(max_abs_err=(a.float() - plain.float()).abs().max()
+                          .item(), row_rel_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None, rows=R, window=Q,
+                          live_queries=live_q, live_pairs=pairs)
+        say(f"[{tag}] append launch {dname}: {R} rows x window {Q} (live "
+            f"queries {live_q}, query-key pairs {pairs}, K/V prefixes of "
+            f"{sum(total)} tokens), {ms:.4f} ms one call at a time, bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({byts / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP) -> {bound_ms / ms:.3f}; plain "
+            f"{plain_ms:.1f} ms; {'row relative' if dname == 'bfloat16' else 'max abs'} "
+            f"err {err:.3e}; bitwise run to run")
+    return out
+
+
+def _open_loop(eng, model, hist, gone, rate, seconds, rng, counts, tag):
+    """Poisson arrivals at ``rate`` per second for ``seconds`` on the host's
+    monotonic clock, the traffic of :data:`OPEN_LOOP_MIX`; requests are
+    submitted at their arrival time and the engine ticks whenever work is
+    pending. A client that gets ``resend_full`` (its user was evicted)
+    resends the full history at once. Afterwards up to 16 of the users it
+    appended to that are still resident are held bit for bit to cold
+    encodes (emb and live K/V). ``hist`` holds every user the client has
+    met, ``gone`` those it gave up (shed while not resident: the engine
+    holds no history for them), both carried from run to run.
+    ``counts`` is the engine's :class:`_Ticks`. → the run's record."""
+    import numpy as np
+    import torch
+    V = eng.cfg.vocab_size
+    S = eng.cfg.max_seq_len
+    n = int(rng.poisson(rate * seconds))
+    arrivals = time.monotonic() + 0.01 + np.cumsum(
+        rng.exponential(1.0 / rate, n))
+    w = np.array(list(OPEN_LOOP_MIX.values()), np.float64)
+    kinds = rng.choice(list(OPEN_LOOP_MIX), size=n, p=w / w.sum())
+    users = [u for u in hist if u not in gone]
+    appended = set()
+    rid0 = eng.sched._next_rid
+    c0 = eng.compile_cache.compiles
+    g0 = eng.graph_captures
+    cold0, warm0 = counts.cold, counts.warm
+    out0 = dict(eng.sched.outcomes)
+    resends = 0
+    requests = 0
+
+    def submit(u, ids, ts, at):
+        """One client request for a known user: the client keeps the
+        user's full history, adds the events once the engine accepted
+        them, and answers ``resend_full`` (the user was evicted) with the
+        full history at once."""
+        nonlocal resends, requests
+        requests += 1
+        a = eng.submit(u, ids, ts, now=at)
+        if a.accepted or a.outcome == "resend_full":
+            hist[u] = (np.concatenate([hist[u][0], ids])[-S:],
+                       np.concatenate([hist[u][1], ts])[-S:])
+        if a.accepted and len(ids):
+            appended.add(u)
+        if a.outcome == "resend_full":
+            resends += 1
+            appended.discard(u)
+            a = eng.submit(u, *hist[u], now=at)
+        if not a.accepted and eng.buffer.slot_of(u) is None:
+            users.remove(u)            # shed while not resident: give it up
+            gone.add(u)
+        return a
+
+    def events(u, m):
+        ids = rng.integers(0, V, m).astype(np.int32)
+        ts = (int(hist[u][1][-1]) + np.cumsum(rng.integers(1, 3600, m))
+              ).astype(np.int32)
+        return ids, ts
+
+    def arrive(kind, at):
+        nonlocal requests
+        if kind == "new":
+            u = max(hist) + 1
+            m = int(min(S, max(1, rng.lognormal(5.5, 1.3))))
+            hist[u] = (rng.integers(0, V, m).astype(np.int32),
+                       np.cumsum(rng.integers(1, 3600, m)).astype(np.int32))
+            requests += 1
+            if eng.submit(u, *hist[u], now=at).accepted:
+                users.append(u)
+            else:
+                gone.add(u)
+            return
+        u = users[int(rng.integers(len(users)))]
+        if kind == "hit":
+            submit(u, np.zeros(0, np.int32), np.zeros(0, np.int32), at)
+            return
+        for _ in range(OPEN_LOOP_BURST if kind == "burst" else 1):
+            if u in users:
+                submit(u, *events(u, 1), at)
+
+    _zero_counts()
+    i = 0
+    ticks = 0
+    t_start = time.monotonic()
+    while True:
+        now = time.monotonic()
+        while i < n and arrivals[i] <= now:
+            arrive(kinds[i], float(arrivals[i]))
+            i += 1
+        if eng.pending:
+            eng.tick()
+            ticks += 1
+        elif i < n:
+            time.sleep(max(0.0, arrivals[i] - time.monotonic()))
+        else:
+            break
+    torch.cuda.synchronize()
+    from repro_torch.kernels.jagged_attention import ops
+    launches = {k: v for k, v in ops.KERNEL_LAUNCHES.items() if v}
+    recs = [r for rid, r in eng.sched.records.items() if rid >= rid0]
+    done = [r for r in recs if np.isfinite(r["t_done"])]
+    lat = np.array([r["t_done"] - r["t_enqueue"] for r in done])
+    span = max(r["t_done"] for r in done) - float(arrivals[0])
+    outcomes = {k: eng.sched.outcomes[k] - out0.get(k, 0)
+                for k in eng.sched.outcomes}
+    rec = dict(offered_qps=rate, arrivals=n, requests=requests,
+               offered_requests_qps=rate * requests / max(n, 1),
+               kinds={k: int((kinds == k).sum()) for k in OPEN_LOOP_MIX},
+               resends=resends, completed=len(done),
+               cold_encodes=counts.cold - cold0,
+               warm_encodes=counts.warm - warm0,
+               sustained_qps=len(done) / span,
+               p50_ms=float(np.percentile(lat, 50)) * 1e3,
+               p99_ms=float(np.percentile(lat, 99)) * 1e3,
+               outcomes=outcomes, ticks=ticks,
+               wall_s=time.monotonic() - t_start,
+               compiles_after_warmup=eng.compile_cache.compiles - c0,
+               graph_captures_after_warmup=eng.graph_captures - g0,
+               launches=launches)
+    say(f"[{tag}] open loop at {rate:.1f} arrivals/s offered for {seconds} "
+        f"s: {n} arrivals {rec['kinds']}, {requests} requests "
+        f"({rec['offered_requests_qps']:.1f} req/s offered; +{resends} full "
+        f"resends after eviction), {len(done)} done, sustained "
+        f"{rec['sustained_qps']:.1f} req/s, latency p50 {rec['p50_ms']:.1f} "
+        f"ms p99 {rec['p99_ms']:.1f} ms, outcomes {outcomes}, {ticks} ticks "
+        f"({rec['cold_encodes']} cold / {rec['warm_encodes']} warm encodes),"
+        f" compiles / graph captures after warmup "
+        f"{rec['compiles_after_warmup']} / "
+        f"{rec['graph_captures_after_warmup']}, launches {launches}")
+    check(len(done) == len(recs), f"{tag}: {len(recs) - len(done)} admitted "
+          "requests never finished")
+    check(rec["warm_encodes"] > 0, f"{tag}: the open loop ran no warm encode")
+    sample = [u for u in sorted(appended) if eng.buffer.slot_of(u) is not None]
+    check(sample, f"{tag}: no user it appended to is still resident")
+    sample = [sample[int(j)] for j in rng.choice(
+        len(sample), size=min(16, len(sample)), replace=False)]
+    rec["warm_checked"] = _check_warm_equals_cold(
+        eng, model, eng.cfg, sample, tag, f"open loop at {rate:.1f} req/s")
+    say(f"[{tag}] open loop at {rate:.1f} req/s: warm == cold bit for bit "
+        f"for {rec['warm_checked']} resident users it appended to")
+    return rec
+
+
+def phase_stream():
+    """StreamingRecallEngine on full-width hstu-large (prefix reuse),
+    fuxi-large and sasrec-large (cold-only, the flat path): cold, pure-hit
+    and incremental rounds of phase_serve's trace with launch counts
+    zeroed before and read after each; on hstu-large chained appends
+    (a 1-wide one, one crossing a 128-row block) held bit for bit to
+    from-scratch cold encodes, the append launch against its plain
+    version, the engine against RecallEngine, the rank graph against the
+    eager rank step, and an open-loop run at two offered rates."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import RecallEngine, topk_from_slots
+    out = {"rounds": {}, "launches": {}, "vs_recall_engine": {}}
+    tag = "stream"
+    cfg, model, eng = _stream_setup("hstu-large")
+    out["row_stats"] = _row_stats_check(cfg.d_model, tag)
+    ticks = _Ticks(eng)
+    t = time.perf_counter()
+    built = eng.warmup(q_caps=(1, 2, 4, 8, 16))
+    say(f"[{tag}] warmup: {built} step entries ({eng.stats()['compile']}) "
+        f"in {time.perf_counter() - t:.2f} s")
+    rng = np.random.default_rng(SEED)
+    hist, rounds = _trace(rng, 40, cfg.vocab_size, cfg.max_seq_len)
+    base = RecallEngine(cfg, model, eng.table, device=eng.device,
+                        num_shards=2, users_per_shard=8,
+                        tokens_per_shard=8192, k=STREAM_KW["k"])
+    model32 = copy.deepcopy(model).float()
+    cfg32 = cfg.replace(dtype="float32")
+    launches = {}
+    res = {}
+    recs = []
+    S = cfg.max_seq_len
+    inc_users = [u for u, _, _ in rounds[2][1]]
+
+    def grow(u, ids, ts):
+        hist[u] = (np.concatenate([hist[u][0], ids])[-S:],
+                   np.concatenate([hist[u][1], ts])[-S:])
+
+    def serve(rname, reqs, compare=False):
+        r, rec = _stream_round(eng, ticks, reqs, tag, rname)
+        _check_stream_launches(cfg, rec, tag)
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        recs.append(rec)
+        res[rname] = r
+        if compare:
+            emb32 = _fp32_encode(eng, model32, cfg32, sorted(r))
+            out["vs_recall_engine"][rname] = _compare_engines(
+                eng, r, {x.user: x for x in base.serve(reqs)}, emb32, tag,
+                rname)
+        return r, rec
+
+    serve("cold", rounds[0][1], compare=True)
+    hit, rec = serve("hit", rounds[1][1])
+    check(rec["hits"] == len(hist) and rec["cold_ticks"] == rec[
+        "warm_ticks"] == rec["rank_batches"] == 0, "the hit round encoded")
+    for u, x in hit.items():
+        c = res["cold"][u]
+        check(np.array_equal(x.item_ids, c.item_ids)
+              and np.array_equal(x.user_emb, c.user_emb),
+              f"hit for user {u} differs from its cold result")
+    for u, ids, ts in rounds[2][1]:
+        grow(u, ids, ts)
+    serve("incremental", rounds[2][1], compare=True)
+    n_checked = _check_warm_equals_cold(eng, model, cfg, inc_users, tag,
+                                        "incremental")
+    # a 1-wide append for each of the same users, then a round where one
+    # row crosses a 128-row block and the others add 3 events
+    chain = [("append_1", lambda L: 1),
+             ("append_cross_128", None)]
+    lens = {u: len(hist[u][0]) for u in inc_users}
+    cross_u = max((u for u in inc_users if lens[u] < S - 256),
+                  key=lambda u: lens[u] % 128)
+    for rname, m_of in chain:
+        reqs = []
+        for u in inc_users:
+            m = (m_of(lens[u]) if m_of else
+                 (128 - lens[u] % 128 + 2 if u == cross_u else 3))
+            ids = rng.integers(0, cfg.vocab_size, m).astype(np.int32)
+            ts = (int(hist[u][1][-1]) + np.cumsum(rng.integers(1, 3600, m))
+                  ).astype(np.int32)
+            grow(u, ids, ts)
+            reqs.append((u, ids, ts))
+        serve(rname, reqs)
+        n_checked += _check_warm_equals_cold(eng, model, cfg, inc_users, tag,
+                                             rname)
+        lens = {u: len(hist[u][0]) for u in inc_users}
+    say(f"[{tag}] warm == cold bit for bit (emb and the live K/V of all "
+        f"{cfg.num_layers} layers) for {n_checked} user rows over three "
+        f"chained append rounds (1-3 events, 1 event, and user {cross_u} "
+        f"crossing position {lens[cross_u] // 128 * 128})")
+    out["append_kernel"] = _append_kernel_check(
+        eng, cfg, [eng.buffer.slot_of(u) for u in inc_users], tag)
+    # the rank graph against the eager rank step, one batch of 32 slots
+    rows = torch.tensor([eng.buffer.slot_of(u) for u in list(hist)[:32]],
+                        dtype=torch.int32, device=eng.device)
+    B = eng.row_ladder.bucket(len(rows))
+    graph_fn = eng._rank_fn(B)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    g = [x.clone() for x in graph_fn(rows)]
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    e = topk_from_slots(eng.buffer.emb, rows, eng._scan, k=eng.k,
+                        block_v=eng._block_v)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t) * 1e3
+    check(all(torch.equal(a, b) for a, b in zip(g, e)),
+          "rank graph replay != eager topk_from_slots")
+    say(f"[{tag}] rank batch of {B} rows over {eng._scan.shape[0]} items "
+        f"({eng._scan.dtype}, {-(-eng._scan.shape[0] // eng._block_v)} "
+        f"blocks): graph replay {graph_ms:.2f} ms, eager {eager_ms:.2f} ms "
+        f"(wall, host clock); results bitwise equal")
+    out["rank_ms"] = {"graph": graph_ms, "eager": eager_ms, "rows": B}
+    # open loop on the same engine, at multiples of the closed-loop rate
+    # of the cold, hit and incremental rounds (the example's three rounds)
+    closed = (sum(r["requests"] for r in recs[:3])
+              / sum(r["wall_s"] for r in recs[:3]))
+    say(f"[{tag}] closed-loop rate of the cold, hit and incremental rounds:"
+        f" {closed:.1f} req/s")
+    del model32
+    gone = set()
+    out["open_loop"] = [_open_loop(eng, model, hist, gone, m * closed,
+                                   OPEN_LOOP_SECONDS, rng, ticks, tag)
+                        for m in OPEN_LOOP_RATES]
+    for r in out["open_loop"]:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["rounds"]["hstu-large"] = recs
+    out["stats"] = eng.stats()
+    del eng, base, model, ticks
+    gc.collect()
+    torch.cuda.empty_cache()
+    # FuXi and SASRec: the flat path, cold-only
+    for arch in ("fuxi-large", "sasrec-large"):
+        cfg, model, eng = _stream_setup(arch)
+        ticks = _Ticks(eng)
+        t = time.perf_counter()
+        built = eng.warmup()
+        say(f"[{tag}] {arch} warmup: {built} step entries in "
+            f"{time.perf_counter() - t:.2f} s")
+        rng = np.random.default_rng(SEED)
+        hist, rounds = _trace(rng, 40, cfg.vocab_size, cfg.max_seq_len)
+        arecs = []
+        for rname, reqs in rounds:
+            _, rec = _stream_round(eng, ticks, reqs, tag, rname)
+            _check_stream_launches(cfg, rec, tag)
+            check(rec["warm_ticks"] == 0, f"{arch}: a warm encode without "
+                  "prefix reuse")
+            for k, v in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            arecs.append(rec)
+        out["rounds"][arch] = arecs
+        del eng, model, ticks
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    say(f"[{tag}] launches over the rounds and open-loop runs: {launches}")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 5: training
 # --------------------------------------------------------------------------
 
@@ -2281,6 +2996,7 @@ def main():
         serve = run("serve", phase_serve, "hstu-large", "serve")
         serve_fuxi = run("serve_fuxi", phase_serve, "fuxi-large",
                          "serve_fuxi")
+        stream = run("stream", phase_stream)
         per_step, train_prof = run("train", phase_train)
         alg, flat, engine_prof = run("engine", phase_engine, "hstu-large",
                                      "engine")
@@ -2305,6 +3021,7 @@ def main():
     say(f"[result] total {time.perf_counter() - t_start:.1f} s; phases "
         f"{times}; rounds {json.dumps(serve[1])}; FuXi rounds "
         f"{json.dumps(serve_fuxi[1])}")
+    say(f"[result] stream {json.dumps({k: v for k, v in stream.items() if k != 'stats'})}")
     say(f"[result] train steps {json.dumps(per_step)}")
     say(f"[result] engine {json.dumps([alg, flat, engine_prof])}")
     say(f"[result] engine_fuxi {json.dumps([f_alg, f_flat, f_prof])}")
@@ -2317,6 +3034,8 @@ def main():
              main_attn("attn_bwd"), None),
             ("attn_fwd_functional", "jagged_attn_fwd.cu", f"{attn_src}:384",
              main_attn("attn_fwd_functional"), None),
+            ("attn_fwd_append", "jagged_attn_fwd.cu", f"{attn_src}:384",
+             stream["append_kernel"]["bfloat16"], None),
             ("attn_bwd_functional", "jagged_attn_bwd.cu", f"{attn_src}:781",
              main_attn("attn_bwd_functional"), None),
             ("attn_fwd_dense", "jagged_attn_fwd.cu", f"{attn_src}:333",
@@ -2356,6 +3075,7 @@ def main():
     for kname, src, replaces, r, lib in rows:
         by_path = {"serve": serve[0].get(kname, 0),
                    "serve_fuxi": serve_fuxi[0].get(kname, 0),
+                   "stream": stream["launches"].get(kname, 0),
                    "train": train_launches.get(kname, 0),
                    "engine": alg["launches"][kname]
                    + flat["launches"][kname],
@@ -2385,6 +3105,11 @@ def main():
             kernels[-1]["tflops"] = r["tflops"]
         if "gb_per_s" in r:
             kernels[-1]["gb_per_s"] = r["gb_per_s"]
+        if kname == "attn_fwd_append":
+            # K1-fwd's launch for the warm window, where the reference runs
+            # pointwise_attention_append in XLA; fp32 beside it
+            kernels[-1]["computes"] = "src/repro/models/hstu.py:333"
+            kernels[-1]["fp32_ms"] = stream["append_kernel"]["float32"]["ms"]
         train_pack = attn.get((kname, "train_1x4x2048", "bfloat16"))
         if train_pack is not None:
             kernels[-1]["train_pack_ms"] = train_pack["ms"]

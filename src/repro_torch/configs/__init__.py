@@ -1,16 +1,17 @@
 """Config registry: ``get_arch(name)`` / ``ARCHS`` for the GR models the
-port serves and trains, HSTU and FuXi (the SASRec configs arrive with
-their block)."""
+port serves and trains: HSTU, FuXi-α and SASRec."""
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import fuxi as _fuxi
 from repro_torch.configs import hstu as _hstu
+from repro_torch.configs import sasrec as _sasrec
 from repro_torch.configs.base import (ArchConfig, MoEConfig, RABConfig,
                                       SSMConfig)
 
-ARCHS: Dict[str, ArchConfig] = {**_hstu.CONFIGS, **_fuxi.CONFIGS}
+ARCHS: Dict[str, ArchConfig] = {**_hstu.CONFIGS, **_fuxi.CONFIGS,
+                                 **_sasrec.CONFIGS}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -67,7 +67,7 @@ class ArchConfig:
     frontend: str = "token"
     # --- GR (paper) specifics ----------------------------------------------
     gr: bool = False                # HSTU/FuXi jagged GR model
-    gr_block: str = ""              # hstu | fuxi
+    gr_block: str = ""              # hstu | fuxi | sasrec
     rab: Optional[RABConfig] = None
     qkv_dim: int = 0                # GR per-head qkv dim (paper Appendix A)
     num_negatives: int = 128

@@ -40,9 +40,11 @@ def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def gr_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
                          device: DeviceLike = None) -> GRModel:
     """The ``init_gr`` pytree as numpy arrays → a :class:`GRModel` holding
-    the same values, for HSTU and FuXi blocks alike (the FFN leaves, and
-    the functional time encoder's ``time_amp``/``time_log_sigma``/
-    ``time_rho`` in place of ``time_table``). The stacked layer axis is
+    the same values, for HSTU, FuXi and SASRec blocks alike (FuXi's FFN
+    leaves and its functional time encoder's ``time_amp``/
+    ``time_log_sigma``/``time_rho`` in place of ``time_table``; SASRec's
+    ``w_qkv``, ``w_o``, ``ffn_w1``/``ffn_b1``/``ffn_w2``/``ffn_b2`` and
+    ``ln1_*``/``ln2_*``, and no RAB). The stacked layer axis is
     split per block; ``w_uvqk`` keeps its (d, H·(2dv+2dqk)) u, v, q, k
     layout; the RAB leaves keep their own dtype (fp32) whatever the
     weights' dtype. The tree's block leaves and RAB leaves must be the
@@ -51,7 +53,8 @@ def gr_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
     blocks = tree["blocks"]
     dtype = tensor_from_numpy(np.asarray(tree["out_ln_w"])[:1],
                               torch.device("cpu")).dtype
-    n_layers = np.asarray(blocks["ln_w"]).shape[0]
+    n_layers = np.asarray(next(v for k, v in sorted(blocks.items())
+                               if k != "rab")).shape[0]
     if n_layers != cfg.num_layers:
         raise ValueError(f"tree has {n_layers} layers, config "
                          f"{cfg.num_layers}")

@@ -53,6 +53,20 @@
 // (block_live.cuh); the live ones are the work-list run's, in the same
 // ascending order, so K8 gives K1's bits on the same plan. Its extra cost is
 // the scan of nb dead-or-live tests per CTA.
+//
+// The append launch (APPEND set) computes the serving warm path's attention
+// (pointwise_attention_append, src/repro/models/hstu.py:333, which the TPU
+// reference computes in XLA): the Q new queries at rows [p, p + Q) of each of
+// R slot rows, against keys [0, p + Q) of the row's cached K/V, read by slot
+// index from the layer's cache (N+1, cap, H, D). It must give each live query
+// the bits the cold work-list launch gives it on a pack holding that row of
+// T = p + n tokens alone, so it is that launch with the pack's meta computed
+// in place: position i has segment 0 if i < T (else padding), the row's
+// timestamp and 1/(i+1) from the same table the plan holds. A CTA takes one
+// 128-row q-block of the window (its rows before p hold zeros in the q tile,
+// and their outputs are dropped: an mma output row depends on its own A row
+// only) and walks the k-blocks 0..qb the cold run walks for that q-block,
+// skipping the same sub-tiles, in the same order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -89,6 +103,26 @@ from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// The warm window of the append launch: R slot rows, row r's Q new queries
+// at positions [pref[r], pref[r] + Q) of a row of total[r] live tokens.
+struct Window {
+  const int* rows;     // (R,) the row's slot in the cache
+  const int* pref;     // (R,) p, the first window position
+  const int* total;    // (R,) T = p + n, the row's live tokens
+  const int* ts;       // (R, cap) the row's timestamps
+  const float* ninv;   // (cap,) 1/(i+1) at position i, as the plan has it
+  int Q;
+};
+
+// The pack meta of position i of a one-row pack of T tokens: segment 0 or
+// padding (-1), and 1/(i+1) or 0 for padding.
+__device__ __forceinline__ int window_seg(int i, int T) {
+  return i < T ? 0 : -1;
+}
+__device__ __forceinline__ float window_ninv(const Window& w, int i, int T) {
+  return i < T ? w.ninv[i] : 0.0f;
+}
+
 template <int D>
 __host__ __device__ constexpr size_t smem_floats_fixed() {
   return (size_t)BQ * (D + 1)     // q tile, padded rows
@@ -99,7 +133,7 @@ __host__ __device__ constexpr size_t smem_floats_fixed() {
          + 2 * KC;                // k seg / ts
 }
 
-template <typename T, int D, bool FUNC>
+template <typename T, int D, bool FUNC, bool APPEND>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v,
@@ -111,7 +145,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const int* __restrict__ q_rowptr,
                 const int* __restrict__ seg_rng, T* __restrict__ out,
                 int cap, int H, int L, int npb, int ntb, float scale,
-                float tb_denom, int use_pos, int use_time, int dense) {
+                float tb_denom, int use_pos, int use_time, int dense,
+                Window win) {
   constexpr int NC = D / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;
@@ -126,7 +161,6 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* pt_s = reinterpret_cast<float*>(kts_s + KC);
   float* tt_s = pt_s + npb;
 
-  const int qb = blockIdx.x;
   const int h = blockIdx.y;
   const int g = blockIdx.z;
   const int nb = cap / BQ;
@@ -135,23 +169,58 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid >> 4;
   const size_t row_stride = (size_t)H * D;
   const size_t pack = (size_t)g * cap;
+  // APPEND: the window's q-block blockIdx.x of row g, its keys and values
+  // at the row's slot of the cache
+  int qb = blockIdx.x, wp = 0, wt = 0;
+  size_t kv_pack = pack;
+  if constexpr (APPEND) {
+    wp = win.pref[g];
+    wt = win.total[g];
+    qb += wp / BQ;
+    if (qb >= nb || qb * BQ >= wp + win.Q) return;  // past the window
+    kv_pack = (size_t)win.rows[g] * cap;
+  }
 
   // this CTA's live k-blocks in ascending order: its run of the q-major
-  // work-list (K1), or every k-block of the dense grid tested live (K8)
+  // work-list (K1), or every k-block of the dense grid tested live (K8),
+  // or for the append launch the cold run of a one-row pack, k-blocks
+  // 0..qb when the q-block holds a live row
   const int* rng = seg_rng + (size_t)g * nb * 2;
-  const int p0 = dense ? 0 : q_rowptr[g * (nb + 1) + qb];
-  const int p1 = dense ? nb : q_rowptr[g * (nb + 1) + qb + 1];
+  int p0, p1;
+  if constexpr (APPEND) {
+    p0 = 0;
+    p1 = qb * BQ < wt ? qb + 1 : 0;
+  } else {
+    p0 = dense ? 0 : q_rowptr[g * (nb + 1) + qb];
+    p1 = dense ? nb : q_rowptr[g * (nb + 1) + qb + 1];
+  }
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     int r = i / D, d = i % D;
-    size_t slot = pack + (size_t)qb * BQ + r;
-    q_s[r * (D + 1) + d] = to_f32(q[slot * row_stride + (size_t)h * D + d]);
+    if constexpr (APPEND) {
+      const int j = qb * BQ + r - wp;
+      q_s[r * (D + 1) + d] =
+          j >= 0 && j < win.Q
+              ? to_f32(q[((size_t)g * win.Q + j) * row_stride +
+                         (size_t)h * D + d])
+              : 0.0f;
+    } else {
+      size_t slot = pack + (size_t)qb * BQ + r;
+      q_s[r * (D + 1) + d] = to_f32(q[slot * row_stride + (size_t)h * D + d]);
+    }
   }
   for (int r = tid; r < BQ; r += THREADS) {
-    size_t slot = pack + (size_t)qb * BQ + r;
-    qseg_s[r] = meta_i32[slot * 3 + 0];
-    qts_s[r] = meta_i32[slot * 3 + 2];
-    qninv_s[r] = meta_f32[slot];
+    if constexpr (APPEND) {
+      const int i = qb * BQ + r;
+      qseg_s[r] = window_seg(i, wt);
+      qts_s[r] = win.ts[pack + i];
+      qninv_s[r] = window_ninv(win, i, wt);
+    } else {
+      size_t slot = pack + (size_t)qb * BQ + r;
+      qseg_s[r] = meta_i32[slot * 3 + 0];
+      qts_s[r] = meta_i32[slot * 3 + 2];
+      qninv_s[r] = meta_f32[slot];
+    }
   }
   for (int t = tid; t < npb; t += THREADS) pt_s[t] = pos_table[t * H + h];
   for (int t = tid; t < ntb; t += THREADS) tt_s[t] = time_table[t * H + h];
@@ -163,21 +232,26 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.0f;
 
   for (int p = p0; p < p1; ++p) {
-    if (dense && !block_live(rng, qb, p)) continue;  // uniform in the CTA
-    const int kb = dense ? p : q_wl[((size_t)g * L + p) * 2 + 1];
+    if (!APPEND && dense && !block_live(rng, qb, p)) continue;  // uniform
+    const int kb = APPEND || dense ? p : q_wl[((size_t)g * L + p) * 2 + 1];
     for (int c = 0; c < BK / KC; ++c) {
       const int key0 = kb * BK + c * KC;  // first key slot of the sub-tile
       __syncthreads();  // the previous sub-tile's readers are done
       for (int i = tid; i < KC * D; i += THREADS) {
         int r = i / D, d = i % D;
-        size_t src = (pack + key0 + r) * row_stride + (size_t)h * D + d;
+        size_t src = (kv_pack + key0 + r) * row_stride + (size_t)h * D + d;
         k_s[r * (D + 1) + d] = to_f32(k[src]);
         v_s[r * D + d] = to_f32(v[src]);
       }
       for (int r = tid; r < KC; r += THREADS) {
-        size_t slot = pack + key0 + r;
-        kseg_s[r] = meta_i32[slot * 3 + 0];
-        kts_s[r] = meta_i32[slot * 3 + 2];
+        if constexpr (APPEND) {
+          kseg_s[r] = window_seg(key0 + r, wt);
+          kts_s[r] = win.ts[pack + key0 + r];
+        } else {
+          size_t slot = pack + key0 + r;
+          kseg_s[r] = meta_i32[slot * 3 + 0];
+          kts_s[r] = meta_i32[slot * 3 + 2];
+        }
       }
       __syncthreads();
 
@@ -256,6 +330,11 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     size_t slot = pack + (size_t)qb * BQ + ty + 16 * i;
+    if constexpr (APPEND) {  // the window's rows only
+      const int w = qb * BQ + ty + 16 * i - wp;
+      if (w < 0 || w >= win.Q) continue;
+      slot = (size_t)g * win.Q + w;
+    }
 #pragma unroll
     for (int j = 0; j < NC; ++j)
       out[slot * row_stride + (size_t)h * D + tx + 16 * j] =
@@ -293,7 +372,11 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // D = 128 still with the 16-key steps unrolled or the q.k^T loop unrolled
 // in full; the loops below (16-key steps one at a time, q.k^T four
 // k16 slices at a time) spill nothing. One CTA per SM at 180 registers
-// took 1.3-1.5x as long on the long-tail and training packs.
+// took 1.3-1.5x as long on the long-tail and training packs. The append
+// launch's instantiations keep the window's row, start and length live as
+// well and spilled under the 128 cap, so they take one CTA per SM: a warm
+// tick's few hundred CTAs fill the card either way, and its time is set
+// by the longest row's walk.
 // A sub-tile whose keys share no segment with the q-block's rows (or
 // whose rows are all padding) adds exactly zero and is skipped; the test
 // is the same for K1 and K8, so they keep equal bits.
@@ -370,8 +453,8 @@ __device__ __forceinline__ bool tile_meets(const int* __restrict__ meta_i32,
   return qlo <= khi && klo <= qhi;
 }
 
-template <int D, bool FUNC>
-__global__ void __launch_bounds__(THREADS, TC_MIN_CTAS)
+template <int D, bool FUNC, bool APPEND>
+__global__ void __launch_bounds__(THREADS, APPEND ? 1 : TC_MIN_CTAS)
 attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v,
                    const float* __restrict__ pos_table,
@@ -382,7 +465,8 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const int* __restrict__ q_rowptr,
                    const int* __restrict__ seg_rng, bf16* __restrict__ out,
                    int cap, int H, int L, int npb, int ntb, float scale,
-                   float tb_denom, int use_pos, int use_time, int dense) {
+                   float tb_denom, int use_pos, int use_time, int dense,
+                   Window win) {
   constexpr int LD = D + PAD;
   constexpr int NT = D / 8;  // n8 tiles of the output per warp: all of D
   extern __shared__ __align__(16) unsigned char smem_tc[];
@@ -390,15 +474,43 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   layout_tc<D>(smem_tc, sm, npb, ntb);
   const int h = blockIdx.x;
   const int nb = cap / BQ;
-  const int qb = nb - 1 - (int)blockIdx.y;
   const int gp = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const size_t pack = (size_t)gp * cap;
+  // APPEND: the window's q-block blockIdx.y of row gp, its keys and values
+  // at the row's slot of the cache
+  int qb, wp = 0, wt = 0;
+  size_t kv_pack = pack;
+  if constexpr (APPEND) {
+    wp = win.pref[gp];
+    wt = win.total[gp];
+    qb = wp / BQ + (int)blockIdx.y;
+    if (qb >= nb || qb * BQ >= wp + win.Q) return;  // past the window
+    kv_pack = (size_t)win.rows[gp] * cap;
+  } else {
+    qb = nb - 1 - (int)blockIdx.y;
+  }
   const int q0 = qb * BQ;
 
-  copy_rows_async<D, BQ>(sm.q, q, pack + q0, H, h);
+  if constexpr (APPEND) {
+    // the window's queries at their rows of the q-block, zeros elsewhere
+    constexpr int C8 = D / 8;
+    const size_t row_stride = (size_t)H * D;
+    for (int i = tid; i < BQ * C8; i += THREADS) {
+      const int r = i / C8, c = i % C8;
+      const int j = q0 + r - wp;
+      bf16* dst = sm.q + r * LD + c * 8;
+      if (j >= 0 && j < win.Q)
+        cp_async16(dst, q + ((size_t)gp * win.Q + j) * row_stride +
+                            (size_t)h * D + c * 8);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    copy_rows_async<D, BQ>(sm.q, q, pack + q0, H, h);
+  }
   for (int i = tid; i < npb; i += THREADS) sm.pt[i] = pos_table[i * H + h];
   for (int i = tid; i < ntb; i += THREADS) sm.tt[i] = time_table[i * H + h];
   // this thread's two rows (g and g + 8 of the warp's 16) and their
@@ -409,38 +521,61 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int hr = 0; hr < 2; ++hr) {
     qslot[hr] = q0 + 16 * warp + g + 8 * hr;
     const size_t slot = pack + qslot[hr];
-    qseg[hr] = meta_i32[slot * 3 + 0];
-    qts[hr] = meta_i32[slot * 3 + 2];
-    qninv[hr] = meta_f32[slot];
+    if constexpr (APPEND) {
+      qseg[hr] = window_seg(qslot[hr], wt);
+      qts[hr] = win.ts[slot];
+      qninv[hr] = window_ninv(win, qslot[hr], wt);
+    } else {
+      qseg[hr] = meta_i32[slot * 3 + 0];
+      qts[hr] = meta_i32[slot * 3 + 2];
+      qninv[hr] = meta_f32[slot];
+    }
   }
 
   // this CTA's live 64-key sub-tiles in ascending order, as a flat index
   // i over its run (K1) or the dense grid (K8): k-block entry p0 + i / 2,
-  // half i % 2
+  // half i % 2; for the append launch the cold run of a one-row pack,
+  // k-blocks 0..qb, and the sub-tiles that tile_meets would keep there
   const int* rng = seg_rng + (size_t)gp * nb * 2;
-  const int p0 = dense ? 0 : q_rowptr[gp * (nb + 1) + qb];
-  const int p1 = dense ? nb : q_rowptr[gp * (nb + 1) + qb + 1];
+  int p0, p1;
+  if constexpr (APPEND) {
+    p0 = 0;
+    p1 = qb + 1;
+  } else {
+    p0 = dense ? 0 : q_rowptr[gp * (nb + 1) + qb];
+    p1 = dense ? nb : q_rowptr[gp * (nb + 1) + qb + 1];
+  }
   const int end = 2 * (p1 - p0);
   auto key0_of = [&](int i) {
     const int p = p0 + (i >> 1);
-    const int kb = dense ? p : q_wl[((size_t)gp * L + p) * 2 + 1];
+    const int kb = APPEND || dense ? p : q_wl[((size_t)gp * L + p) * 2 + 1];
     return kb * BK + (i & 1) * KC;
   };
   auto next_live = [&](int i) {
     for (; i < end; ++i) {
-      if (dense && !block_live(rng, qb, p0 + (i >> 1))) continue;
-      if (!tile_meets(meta_i32, pack, q0, key0_of(i))) continue;
+      if constexpr (APPEND) {
+        if (q0 >= wt || key0_of(i) >= wt) continue;
+      } else {
+        if (dense && !block_live(rng, qb, p0 + (i >> 1))) continue;
+        if (!tile_meets(meta_i32, pack, q0, key0_of(i))) continue;
+      }
       return i;
     }
     return end;
   };
   auto prefetch = [&](int i, int st) {
-    const size_t s0 = pack + key0_of(i);
-    copy_rows_async<D, KC>(sm.k + st * KC * LD, k, s0, H, h);
-    copy_rows_async<D, KC>(sm.v + st * KC * LD, v, s0, H, h);
+    const int key0 = key0_of(i);
+    const size_t s0 = pack + key0;
+    copy_rows_async<D, KC>(sm.k + st * KC * LD, k, kv_pack + key0, H, h);
+    copy_rows_async<D, KC>(sm.v + st * KC * LD, v, kv_pack + key0, H, h);
     for (int r = tid; r < KC; r += THREADS) {
-      cp_async4(sm.kseg + st * KC + r, meta_i32 + (s0 + r) * 3 + 0);
-      cp_async4(sm.kts + st * KC + r, meta_i32 + (s0 + r) * 3 + 2);
+      if constexpr (APPEND) {
+        sm.kseg[st * KC + r] = window_seg(key0 + r, wt);
+        cp_async4(sm.kts + st * KC + r, win.ts + s0 + r);
+      } else {
+        cp_async4(sm.kseg + st * KC + r, meta_i32 + (s0 + r) * 3 + 0);
+        cp_async4(sm.kts + st * KC + r, meta_i32 + (s0 + r) * 3 + 2);
+      }
     }
   };
 
@@ -550,7 +685,12 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t row_stride = (size_t)H * D;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const size_t slot = pack + qslot[hr];
+    size_t slot = pack + qslot[hr];
+    if constexpr (APPEND) {  // the window's rows only
+      const int w = qslot[hr] - wp;
+      if (w < 0 || w >= win.Q) continue;
+      slot = (size_t)gp * win.Q + w;
+    }
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<unsigned*>(out + slot * row_stride + (size_t)h * D
@@ -569,14 +709,16 @@ __global__ void time_bucket_kernel(const int* __restrict__ qts, int nq,
     out[i] = time_bucket(qts[i / nk], kts[i % nk], denom, ntb);
 }
 
-template <typename T, int D, bool FUNC>
+// The kernel for (T, D, FUNC, APPEND), launched on a grid of G packs (the
+// append launch: G window rows of `nqb` q-blocks each; else nqb is cap/BQ).
+template <typename T, int D, bool FUNC, bool APPEND>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* pt, const float* tt, const int* meta_i32,
                    const float* meta_f32, const int* q_wl,
                    const int* q_rowptr, const int* seg_rng, void* out, int G,
                    int cap, int H, int L, int npb, int ntb, float scale,
                    float tb_denom, int use_pos, int use_time, int dense,
-                   cudaStream_t stream) {
+                   const Window& win, int nqb, cudaStream_t stream) {
   // bf16: the tensor-core kernel; fp32: the FMA kernel
   constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
   SmemTC sizes;
@@ -585,9 +727,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
          : (int)((smem_floats_fixed<D>() + npb + ntb) * sizeof(float));
   auto kern = [] {
     if constexpr (TC)
-      return attn_fwd_tc_kernel<D, FUNC>;
+      return attn_fwd_tc_kernel<D, FUNC, APPEND>;
     else
-      return attn_fwd_kernel<T, D, FUNC>;
+      return attn_fwd_kernel<T, D, FUNC, APPEND>;
   }();
   // Opt in to more than 48 KB of shared memory once per device, and again
   // only when longer bias tables need more than was set there before.
@@ -602,16 +744,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return e;
     smem_set[dev] = smem;
   }
-  const dim3 grid = TC ? dim3(H, cap / BQ, G) : dim3(cap / BQ, H, G);
+  const dim3 grid = TC ? dim3(H, nqb, G) : dim3(nqb, H, G);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pt, tt, meta_i32, meta_f32, q_wl, q_rowptr,
       seg_rng, static_cast<T*>(out), cap, H, L, npb, ntb, scale, tb_denom,
-      use_pos, use_time, dense);
+      use_pos, use_time, dense, win);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool APPEND>
 cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
                          const void* v, const float* pt, const float* tt,
                          const int* meta_i32, const float* meta_f32,
@@ -619,19 +761,19 @@ cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
                          const int* seg_rng, void* out, int G, int cap, int H,
                          int L, int npb, int ntb, float scale,
                          float tb_denom, int use_pos, int use_time, int dense,
-                         cudaStream_t stream) {
+                         const Window& win, int nqb, cudaStream_t stream) {
 #define JAF_CASE(DD)                                                       \
   case DD:                                                                 \
-    return func ? launch<T, DD, true>(q, k, v, pt, tt, meta_i32, meta_f32, \
-                                      q_wl, q_rowptr, seg_rng, out, G,     \
-                                      cap, H, L, npb, ntb, scale,          \
-                                      tb_denom, use_pos, use_time, dense,  \
-                                      stream)                              \
-                : launch<T, DD, false>(q, k, v, pt, tt, meta_i32,          \
-                                       meta_f32, q_wl, q_rowptr, seg_rng,  \
-                                       out, G, cap, H, L, npb, ntb, scale, \
-                                       tb_denom, use_pos, use_time, dense, \
-                                       stream);
+    return func ? launch<T, DD, true, APPEND>(                             \
+                      q, k, v, pt, tt, meta_i32, meta_f32, q_wl, q_rowptr, \
+                      seg_rng, out, G, cap, H, L, npb, ntb, scale,         \
+                      tb_denom, use_pos, use_time, dense, win, nqb,        \
+                      stream)                                              \
+                : launch<T, DD, false, APPEND>(                            \
+                      q, k, v, pt, tt, meta_i32, meta_f32, q_wl, q_rowptr, \
+                      seg_rng, out, G, cap, H, L, npb, ntb, scale,         \
+                      tb_denom, use_pos, use_time, dense, win, nqb,        \
+                      stream);
   switch (D) {
     JAF_CASE(16)
     JAF_CASE(32)
@@ -668,18 +810,56 @@ extern "C" int jagged_attn_fwd(const void* q, const void* k, const void* v,
       (dense ? seg_rng == nullptr : (q_wl == nullptr || q_rowptr == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Window none = {};
   cudaError_t e;
   if (dtype == 0)
-    e = launch_dtype<float>(D, time_functional, q, k, v, pos_table,
-                            time_table, meta_i32, meta_f32, q_wl, q_rowptr,
-                            seg_rng, out, G, cap, H, L, npb, ntb, scale,
-                            tb_denom, use_pos, use_time, dense, s);
+    e = launch_dtype<float, false>(
+        D, time_functional, q, k, v, pos_table, time_table, meta_i32,
+        meta_f32, q_wl, q_rowptr, seg_rng, out, G, cap, H, L, npb, ntb,
+        scale, tb_denom, use_pos, use_time, dense, none, cap / BQ, s);
   else if (dtype == 1)
-    e = launch_dtype<__nv_bfloat16>(D, time_functional, q, k, v, pos_table,
-                                    time_table, meta_i32, meta_f32, q_wl,
-                                    q_rowptr, seg_rng, out, G, cap, H, L, npb,
-                                    ntb, scale, tb_denom, use_pos, use_time,
-                                    dense, s);
+    e = launch_dtype<__nv_bfloat16, false>(
+        D, time_functional, q, k, v, pos_table, time_table, meta_i32,
+        meta_f32, q_wl, q_rowptr, seg_rng, out, G, cap, H, L, npb, ntb,
+        scale, tb_denom, use_pos, use_time, dense, none, cap / BQ, s);
+  else
+    e = cudaErrorInvalidValue;
+  return (int)e;
+}
+
+// The append launch: q, out (R, Q, H, D); k_cache, v_cache (N+1, cap, H, D)
+// of one layer, float32 (dtype 0) or bfloat16 (dtype 1); rows, pref, total
+// (R,) int32: row r's slot, first window position p and live tokens
+// T = p + n (p + Q <= cap); ts (R, cap) int32 the rows' timestamps; ninv
+// (cap,) float32 1/(i+1); the tables as for jagged_attn_fwd. Writes every
+// window row, 0 at positions at or past T. Returns the launch's
+// cudaError_t (0 on success).
+extern "C" int jagged_attn_fwd_append(
+    const void* q, const void* k_cache, const void* v_cache,
+    const float* pos_table, const float* time_table, const int* rows,
+    const int* pref, const int* total, const int* ts, const float* ninv,
+    void* out, int R, int Q, int cap, int H, int D, int npb, int ntb,
+    float scale, float tb_denom, int use_pos, int use_time,
+    int time_functional, int dtype, void* stream) {
+  if (R <= 0 || Q <= 0 || cap <= 0 || cap % BQ != 0 || H <= 0 || npb <= 0 ||
+      ntb <= 0 || (time_functional && ntb != 3))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Window win = {rows, pref, total, ts, ninv, Q};
+  // the most q-blocks a window of Q rows touches, wherever it starts
+  int nqb = (Q + 2 * BQ - 2) / BQ;
+  if (nqb > cap / BQ) nqb = cap / BQ;
+  cudaError_t e;
+  if (dtype == 0)
+    e = launch_dtype<float, true>(
+        D, time_functional, q, k_cache, v_cache, pos_table, time_table,
+        nullptr, nullptr, nullptr, nullptr, nullptr, out, R, cap, H, 1, npb,
+        ntb, scale, tb_denom, use_pos, use_time, 0, win, nqb, s);
+  else if (dtype == 1)
+    e = launch_dtype<__nv_bfloat16, true>(
+        D, time_functional, q, k_cache, v_cache, pos_table, time_table,
+        nullptr, nullptr, nullptr, nullptr, nullptr, out, R, cap, H, 1, npb,
+        ntb, scale, tb_denom, use_pos, use_time, 0, win, nqb, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

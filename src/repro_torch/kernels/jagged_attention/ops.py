@@ -42,17 +42,21 @@ from repro_torch.kernels.jagged_attention import ref as R
 
 #: Launches of each kernel in this module, counted where the wrapper
 #: launches it and nowhere else: ``attn_fwd``/``attn_bwd`` (K1-fwd, K2) in
-#: the bucket time mode, ``*_functional`` in the functional one, and
-#: ``attn_*_dense*`` the dense-grid schedule (K8) in either mode.
+#: the bucket time mode, ``*_functional`` in the functional one,
+#: ``attn_*_dense*`` the dense-grid schedule (K8) in either mode, and
+#: ``attn_fwd_append*`` K1-fwd's append launch (the serving warm window).
 KERNEL_LAUNCHES: Dict[str, int] = {
     f"attn_{kind}{sched}{mode}": 0 for kind in ("fwd", "bwd")
     for sched in ("", "_dense") for mode in ("", "_functional")}
+KERNEL_LAUNCHES.update({f"attn_fwd_append{mode}": 0
+                        for mode in ("", "_functional")})
 TIME_MODES = ("bucket", "functional")
 SCHEDULES = ("worklist", "dense")
 
 
 def launch_counter(kind: str, *, dense: bool, functional: bool) -> str:
-    """The ``KERNEL_LAUNCHES`` key of a ``kind`` ("fwd"/"bwd") launch."""
+    """The ``KERNEL_LAUNCHES`` key of a ``kind`` ("fwd"/"bwd", or
+    "fwd_append" with ``dense`` False) launch."""
     return (f"attn_{kind}{'_dense' if dense else ''}"
             f"{'_functional' if functional else ''}")
 
@@ -271,11 +275,18 @@ def time_bucket_denom(tb_scale: float) -> float:
     return float(np.float32(math.log(10.0)) * np.float32(tb_scale))
 
 
+_APPEND_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+                    + [ctypes.c_void_p])
+
+
 def _kernel_lib():
     lib = _build.load("jagged_attn_fwd")
     if lib.jagged_attn_fwd.argtypes is None:
         lib.jagged_attn_fwd.argtypes = _FWD_ARGTYPES
         lib.jagged_attn_fwd.restype = ctypes.c_int
+        lib.jagged_attn_fwd_append.argtypes = _APPEND_ARGTYPES
+        lib.jagged_attn_fwd_append.restype = ctypes.c_int
         lib.jagged_attn_time_buckets.argtypes = _TB_ARGTYPES
         lib.jagged_attn_time_buckets.restype = ctypes.c_int
     return lib
@@ -347,6 +358,101 @@ def _launch_fwd(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
     KERNEL_LAUNCHES[launch_counter("fwd", dense=dense,
                                    functional=time_functional)] += 1
     return out
+
+
+def position_ninv(capacity: int, device) -> torch.Tensor:
+    """(capacity,) fp32 1/(i+1) at position i: the plan's per-query count
+    (``_token_meta``) by the same expression, so the append launch reads
+    the bits the cold launch reads."""
+    n = (torch.arange(capacity, dtype=torch.int32, device=device)
+         + 1).to(torch.float32)
+    return 1.0 / n
+
+
+def _launch_append(q, k_cache, v_cache, rows, timestamps, prefix_len,
+                   total_len, pos_table, time_table, ninv, *, scale: float,
+                   tb_denom: float, use_pos: bool, use_time: bool,
+                   time_functional: bool = False) -> torch.Tensor:
+    """Launch K1-fwd's append variant: the window q (R, Q, H, D) against
+    the layer's cache (N+1, cap, H, D) at slots ``rows``; raises on
+    anything the kernel does not take."""
+    R, Q, H, D = q.shape
+    dev = q.device
+    _require(dev.type == "cuda", f"tensors on {dev}, not on the card")
+    _require(q.dtype in _DTYPE_CODE,
+             f"dtype {q.dtype}; takes float32 or bfloat16")
+    _require(k_cache.dim() == 4 and k_cache.shape[2:] == (H, D)
+             and v_cache.shape == k_cache.shape,
+             f"caches {tuple(k_cache.shape)}, {tuple(v_cache.shape)} do "
+             f"not match q {tuple(q.shape)}")
+    cap = k_cache.shape[1]
+    _require(cap % KERNEL_BLOCK == 0,
+             f"cache rows of {cap}; the kernel tiles {KERNEL_BLOCK}")
+    _require(D in KERNEL_HEAD_DIMS, f"head dim {D} not in {KERNEL_HEAD_DIMS}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        _require(t.dtype == q.dtype and t.device == dev,
+                 f"{name} {t.dtype} on {t.device}, q {q.dtype} on {dev}")
+    for name, t in (("pos_table", pos_table), ("time_table", time_table)):
+        _require(t.dtype == torch.float32 and t.dim() == 2
+                 and t.shape[1] == H and t.device == dev,
+                 f"{name} must be (n, {H}) float32 on {dev}")
+    _check_time_table(time_table, time_functional)
+    for name, t, shape in (("rows", rows, (R,)), ("prefix_len", prefix_len,
+                                                   (R,)),
+                           ("total_len", total_len, (R,)),
+                           ("timestamps", timestamps, (R, cap))):
+        _require(t.dtype == torch.int32 and tuple(t.shape) == shape
+                 and t.device == dev, f"{name} must be {shape} int32 on "
+                 f"{dev}, got {tuple(t.shape)} {t.dtype}")
+    _require(ninv.dtype == torch.float32 and tuple(ninv.shape) == (cap,)
+             and ninv.device == dev, f"ninv must be ({cap},) float32")
+    tensors = [q, k_cache, v_cache, pos_table, time_table, rows, prefix_len,
+               total_len, timestamps, ninv]
+    _require(all(t.is_contiguous() for t in tensors), "inputs must be "
+             "contiguous")
+    _require(q.dtype != torch.bfloat16
+             or all(t.data_ptr() % 16 == 0 for t in (q, k_cache, v_cache)),
+             "bf16 q and the caches must be 16-byte aligned")
+    out = torch.empty_like(q)
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        rc = lib.jagged_attn_fwd_append(
+            *(t.data_ptr() for t in tensors), out.data_ptr(),
+            R, Q, cap, H, D, pos_table.shape[0], time_table.shape[0],
+            scale, tb_denom, int(use_pos), int(use_time),
+            int(time_functional), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"jagged_attn_fwd_append launch failed: CUDA "
+                           f"error {rc}")
+    KERNEL_LAUNCHES[launch_counter("fwd_append", dense=False,
+                                   functional=time_functional)] += 1
+    return out
+
+
+def attention_append(q, k_cache, v_cache, rows, timestamps, prefix_len,
+                     total_len, pos_table, time_table, ninv, *, scale: float,
+                     tb_denom: float, use_pos: bool, use_time: bool,
+                     time_functional: bool = False) -> torch.Tensor:
+    """K1-fwd's append launch for card tensors, its plain version
+    (``ref.attention_append_plain``) for CPU tensors: the warm window's
+    queries q (R, Q, H, D) at rows [p_r, p_r + Q) of slot ``rows[r]``
+    against keys [0, p_r + Q) of the layer's cache (N+1, cap, H, D), with
+    ``total_len`` T_r = p_r + n_r live tokens; each live query gets the
+    bits of the cold work-list launch on its row. → (R, Q, H, D), 0 at
+    window rows at or past T_r. Forward only (serving)."""
+    kw = dict(scale=scale, tb_denom=tb_denom, use_pos=use_pos,
+              use_time=use_time, time_functional=time_functional)
+    if q.device.type == "cuda":
+        return _launch_append(q, k_cache, v_cache, rows, timestamps,
+                              prefix_len, total_len, pos_table, time_table,
+                              ninv, **kw)
+    if q.device.type != "cpu":
+        raise ValueError(f"append attention: unsupported device {q.device}")
+    return R.attention_append_plain(q, k_cache, v_cache, rows, timestamps,
+                                    prefix_len, total_len, pos_table,
+                                    time_table, ninv, block=KERNEL_BLOCK,
+                                    **kw)
 
 
 def kernel_time_buckets(qts: torch.Tensor, kts: torch.Tensor,
@@ -525,6 +631,34 @@ def functional_time_table(rab_params) -> torch.Tensor:
                         torch.sigmoid(f32["time_rho"]) * 1.5 + 0.25])
 
 
+def rab_tables(rab_params, rab: Optional[RABConfig], H: int, device,
+               time_mode: str = "bucket"):
+    """The kernels' RAB inputs: (pos_table, time_table, settings), the
+    tables (n, H) fp32 (an (8, H) zero table where the config has none;
+    in the functional time mode the packed ``[amp; σ; ρ]``) and the
+    keywords ``tb_denom``, ``use_pos``, ``use_time``, ``time_functional``
+    the kernels take beside ``scale``."""
+    if time_mode not in TIME_MODES:
+        raise ValueError(f"time_mode {time_mode!r} not in {TIME_MODES}")
+    functional = time_mode == "functional"
+    use_pos = bool(rab and rab.use_pos and "pos_table" in rab_params)
+    use_time = bool(rab and rab.use_time and (
+        "time_amp" if functional else "time_table") in rab_params)
+    zeros = torch.zeros((8, H), dtype=torch.float32, device=device)
+    pt = (rab_params["pos_table"].to(torch.float32).contiguous() if use_pos
+          else zeros)
+    if use_time and functional:
+        tt = functional_time_table(rab_params)
+    elif use_time:
+        tt = rab_params["time_table"].to(torch.float32).contiguous()
+    else:
+        tt = zeros
+    tb_scale = rab.time_bucket_scale if rab else 0.301
+    return pt, tt, dict(tb_denom=time_bucket_denom(tb_scale),
+                        use_pos=use_pos, use_time=use_time,
+                        time_functional=functional and use_time)
+
+
 def run_attention(q, k, v, offsets, timestamps, rab_params,
                   rab: Optional[RABConfig], *, core: Callable,
                   time_mode: str = "bucket", block: int = 128,
@@ -536,9 +670,6 @@ def run_attention(q, k, v, offsets, timestamps, rab_params,
     In the functional time mode the kernels take
     :func:`functional_time_table`, built here, outside the autograd
     Function, as the reference builds it outside its custom VJP."""
-    if time_mode not in TIME_MODES:
-        raise ValueError(f"time_mode {time_mode!r} not in {TIME_MODES}")
-    functional = time_mode == "functional"
     batched = q.dim() == 4
     if not batched:
         q, k, v = (t.unsqueeze(0) for t in (q, k, v))
@@ -546,20 +677,7 @@ def run_attention(q, k, v, offsets, timestamps, rab_params,
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} must match")
     G, cap, H, D = q.shape
-    dev = q.device
-    use_pos = bool(rab and rab.use_pos and "pos_table" in rab_params)
-    use_time = bool(rab and rab.use_time and (
-        "time_amp" if functional else "time_table") in rab_params)
-    zeros = torch.zeros((8, H), dtype=torch.float32, device=dev)
-    pt = (rab_params["pos_table"].to(torch.float32).contiguous() if use_pos
-          else zeros)
-    if use_time and functional:
-        tt = functional_time_table(rab_params)
-    elif use_time:
-        tt = rab_params["time_table"].to(torch.float32).contiguous()
-    else:
-        tt = zeros
-    tb_scale = rab.time_bucket_scale if rab else 0.301
+    pt, tt, tkw = rab_tables(rab_params, rab, H, q.device, time_mode)
     pad = (-cap) % block
     if pad:
         zpad = q.new_zeros((G, pad, H, D))
@@ -575,9 +693,7 @@ def run_attention(q, k, v, offsets, timestamps, rab_params,
             f"{plan.capacity}, block={plan.block}) does not match call "
             f"(packs={G}, capacity={cap + pad}, block={block})")
     out = core(q.contiguous(), k.contiguous(), v.contiguous(), pt, tt, plan,
-               scale=1.0 / math.sqrt(D), tb_denom=time_bucket_denom(tb_scale),
-               use_pos=use_pos, use_time=use_time,
-               time_functional=functional and use_time, schedule=schedule)
+               scale=1.0 / math.sqrt(D), schedule=schedule, **tkw)
     out = _masked(plan.meta_i32, out)[:, :cap]
     return out if batched else out[0]
 

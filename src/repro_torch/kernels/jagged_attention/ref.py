@@ -209,6 +209,53 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.view(shape).to(q.dtype), dpt, dtt)
 
 
+def attention_append_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, rows: torch.Tensor,
+                           timestamps: torch.Tensor,
+                           prefix_len: torch.Tensor, total_len: torch.Tensor,
+                           pos_table: torch.Tensor, time_table: torch.Tensor,
+                           ninv: torch.Tensor, *, block: int, scale: float,
+                           tb_denom: float, use_pos: bool, use_time: bool,
+                           time_functional: bool = False,
+                           acc_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """The plain version of K1-fwd's append launch: the warm window's
+    queries q (R, Q, H, D) at rows [p_r, p_r + Q) of slot row
+    ``rows[r]`` against that row's cached keys (N+1, cap, H, D)
+    → (R, Q, H, D) v's dtype.
+
+    ``timestamps`` (R, cap) are the rows' timestamps, ``prefix_len`` p_r
+    and ``total_len`` T_r = p_r + n_r (R,) int, ``ninv`` (cap,) the
+    1/(pos+1) the launch reads, which must equal the cold plan's (checked).
+    Each row runs as the cold launch's pack of that row alone: the
+    window's queries at their rows and zeros elsewhere, the row's cache as
+    K and V, the plan of offsets [0, T_r]; :func:`attention_fwd_plain`
+    walks that plan and the window's rows are cut out. So a live query
+    gets the bits of the cold plain version on its row, and window rows at
+    or past T_r come out 0."""
+    from repro_torch.kernels.jagged_attention import ops
+    R, Q = q.shape[:2]
+    cap = k_cache.shape[1]
+    out = torch.zeros(q.shape, dtype=v_cache.dtype, device=q.device)
+    for r in range(R):
+        p, T, slot = int(prefix_len[r]), int(total_len[r]), int(rows[r])
+        n = min(Q, cap - p)
+        qr = q.new_zeros(k_cache.shape[1:])
+        qr[p:p + n] = q[r, :n]
+        offs = torch.tensor([0, T], dtype=torch.int32, device=q.device)
+        plan = ops._as_batched(ops.build_attn_plan(offs, timestamps[r], cap,
+                                                   block=block))
+        if not torch.equal(plan.meta_f32[0, :T, 0], ninv[:T]):
+            raise ValueError("ninv differs from the cold plan's 1/(pos+1)")
+        y = attention_fwd_plain(
+            qr[None], k_cache[slot][None], v_cache[slot][None], pos_table,
+            time_table, plan, scale=scale, tb_denom=tb_denom,
+            use_pos=use_pos, use_time=use_time,
+            time_functional=time_functional, acc_dtype=acc_dtype)
+        out[r, :n] = y[0, p:p + n]
+    return out
+
+
 def jagged_attention_ref(q, k, v, offsets, timestamps, rab_params, rab, *,
                          time_mode: str = "bucket", block: int = 128,
                          plan=None, schedule: str = "worklist",

@@ -27,6 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, RABConfig
 from repro_torch.core.jagged import positions, segment_ids
+from repro_torch.kernels.jagged_attention import ops as attn_ops
 from repro_torch.kernels.jagged_attention.ops import PlannedAttention
 
 Params = Dict[str, torch.Tensor]
@@ -194,11 +195,38 @@ class HSTUBlock(nn.Module):
                     normal(cfg.rab.num_time_buckets, H) * 0.02)
 
 
+# PyTorch's CUDA row reduction splits each row over several blocks when a
+# tensor has few rows (on the H100 at d 1024: fewer than 16), so the sum
+# of a row would take another order, and its fp32 mean or variance
+# another last bit, in a small tensor than in a large one. The serving
+# warm path normalises its few window rows and must give the bits a cold
+# encode gives on thousands: on the card every norm takes its statistics
+# over at least ROW_STATS_MIN_ROWS rows, zero rows padding fewer. On the
+# CPU the statistics are taken as they come (the CPU tests hold the warm
+# path's bits there).
+ROW_STATS_MIN_ROWS = 128
+
+
+def _row_stats(xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and (biased) variance over the last dim of fp32 ``xf``
+    (…, d) → two (…, 1), each row's bits independent of the row count."""
+    lead, d = xf.shape[:-1], xf.shape[-1]
+    m = lead.numel()
+    pad = xf.is_cuda and m < ROW_STATS_MIN_ROWS
+    flat = (torch.cat([xf.reshape(m, d),
+                       xf.new_zeros(ROW_STATS_MIN_ROWS - m, d)])
+            if pad else xf)
+    mu = flat.mean(-1, keepdim=True)
+    var = ((flat - mu) ** 2).mean(-1, keepdim=True)
+    if pad:
+        mu, var = mu[:m].reshape(*lead, 1), var[:m].reshape(*lead, 1)
+    return mu, var
+
+
 def _block_norm(x: torch.Tensor, w, b, eps: float) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
-    mu = x.mean(-1, keepdim=True)
-    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    mu, var = _row_stats(x)
     y = (x - mu) * torch.rsqrt(var + eps)
     return (y * w.float() + b.float()).to(dt)
 
@@ -224,22 +252,40 @@ def _hstu_output(p: HSTUBlock, cfg: ArchConfig, x: torch.Tensor,
     U, projected by f2, residual. y (…, n, H, dv)."""
     y = y.reshape(*y.shape[:-2], -1)
     yf = y.float()
-    mu = yf.mean(-1, keepdim=True)
-    var = ((yf - mu) ** 2).mean(-1, keepdim=True)
+    mu, var = _row_stats(yf)
     yn = ((yf - mu) * torch.rsqrt(var + cfg.norm_eps)).to(x.dtype)
     return x + (yn * u) @ p.w_o
 
 
-def default_attn_fn(cfg: ArchConfig) -> Callable:
+def default_attn_fn(cfg: ArchConfig) -> Optional[Callable]:
     """The kernel-backed work-list attention for every HSTU and FuXi
     config, on any device (max_row_len = cfg.max_seq_len bounds the
-    work-list). The block passes its time mode ("functional" for FuXi) on
+    work-list); None for SASRec, whose block inlines its softmax
+    attention. The block passes its time mode ("functional" for FuXi) on
     each call; the wrapper picks the kernel or the plain version by where
     the tensors lie."""
-    if (cfg.gr_block or "hstu") not in ("hstu", "fuxi"):
-        raise NotImplementedError(
-            f"gr_block={cfg.gr_block!r}: not ported yet")
+    kind = cfg.gr_block or "hstu"
+    if kind == "sasrec":
+        return None
+    if kind not in ("hstu", "fuxi"):
+        raise NotImplementedError(f"gr_block={kind!r}: not ported yet")
     return PlannedAttention(block=128, max_row_len=cfg.max_seq_len)
+
+
+def hstu_block_kv(p: HSTUBlock, cfg: ArchConfig, x: torch.Tensor,
+                  offsets: torch.Tensor, timestamps: torch.Tensor, *,
+                  attn_fn=None, time_mode: str = "bucket", plan=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`hstu_block` that also returns the block's K/V projections
+    (…, cap, H, ·): the serving cold path seeds the slots' K/V caches from
+    them."""
+    u, v, q, k = _hstu_uvqk(p, cfg, x)
+    attn_fn = attn_fn or default_attn_fn(cfg)
+    rab_params = dict(p.rab.items())
+    kw = {"plan": plan} if plan is not None else {}
+    y = attn_fn(q, k, v, offsets, timestamps, rab_params, cfg.rab,
+                time_mode=time_mode, **kw)
+    return _hstu_output(p, cfg, x, y, u), k, v
 
 
 def hstu_block(p: HSTUBlock, cfg: ArchConfig, x: torch.Tensor,
@@ -252,10 +298,58 @@ def hstu_block(p: HSTUBlock, cfg: ArchConfig, x: torch.Tensor,
     ``attn_fn`` defaults to :func:`default_attn_fn`. ``plan`` is a
     precomputed attention plan forwarded to a plan-aware ``attn_fn``,
     which takes all G packs in one call."""
-    u, v, q, k = _hstu_uvqk(p, cfg, x)
-    attn_fn = attn_fn or default_attn_fn(cfg)
-    rab_params = dict(p.rab.items())
-    kw = {"plan": plan} if plan is not None else {}
-    y = attn_fn(q, k, v, offsets, timestamps, rab_params, cfg.rab,
-                time_mode=time_mode, **kw)
-    return _hstu_output(p, cfg, x, y, u)
+    return hstu_block_kv(p, cfg, x, offsets, timestamps, attn_fn=attn_fn,
+                         time_mode=time_mode, plan=plan)[0]
+
+
+# --------------------------------------------------------------------------
+# incremental prefix reuse: the serving warm path
+# --------------------------------------------------------------------------
+
+def pointwise_attention_append(q, k_cache, v_cache, rows, timestamps,
+                               prefix_len, total_len, ninv, rab_params,
+                               rab: Optional[RABConfig], *,
+                               time_mode: str = "bucket") -> torch.Tensor:
+    """The warm path's attention: the appended tokens' queries q
+    (R, Q, H, dqk) at rows [p_r, p_r + Q) of slot ``rows[r]`` against keys
+    [0, p_r + Q) of the layer's caches (N+1, cap, H, ·) (the new
+    projections already in), for rows of ``total_len`` T_r = p_r + n_r
+    live tokens. K1-fwd's append launch on the card, its plain version on
+    the CPU: both follow K1-fwd's per-query arithmetic (the SiLU weights
+    scaled by 1/(pos+1) and rounded to v's dtype before a·v, the same
+    k-block walk), so every live query gets the bits a cold encode of its
+    row gives; the reference's XLA order is not followed. Window rows at
+    or past T_r come out 0. ``timestamps`` (R, cap) and ``ninv`` (cap,)
+    (``ops.position_ninv``) as the launch takes them."""
+    H, dqk = q.shape[-2:]
+    pt, tt, tkw = attn_ops.rab_tables(rab_params, rab, H, q.device,
+                                      time_mode)
+    return attn_ops.attention_append(
+        q.contiguous(), k_cache, v_cache, rows, timestamps, prefix_len,
+        total_len, pt, tt, ninv, scale=1.0 / math.sqrt(dqk), **tkw)
+
+
+def hstu_block_append(p: HSTUBlock, cfg: ArchConfig, x_new: torch.Tensor,
+                      timestamps: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, rows: torch.Tensor,
+                      prefix_len: torch.Tensor, total_len: torch.Tensor,
+                      ninv: torch.Tensor, *,
+                      time_mode: str = "bucket") -> torch.Tensor:
+    """The warm-path HSTU block: encode only the appended window x_new
+    (R, Q, d) of each slot row against the row's cached K/V. The window's
+    K/V projections go into the layer's caches (N+1, cap, H, ·) at
+    [p_r, p_r + Q) of slot ``rows[r]`` first (the caller keeps p_r + Q
+    within the row). Causality leaves the prefix's hidden states as they
+    were, so the window's outputs (R, Q, d) are the rows a full encode
+    gives."""
+    u, v_new, q_new, k_new = _hstu_uvqk(p, cfg, x_new)
+    Q = x_new.shape[-2]
+    r = rows.long()[:, None]
+    at = prefix_len.long()[:, None] + torch.arange(Q, device=x_new.device)
+    k_cache[r, at] = k_new
+    v_cache[r, at] = v_new
+    y = pointwise_attention_append(q_new, k_cache, v_cache, rows,
+                                   timestamps, prefix_len, total_len, ninv,
+                                   dict(p.rab.items()), cfg.rab,
+                                   time_mode=time_mode)
+    return _hstu_output(p, cfg, x_new, y, u)

@@ -67,6 +67,19 @@ def topk_blocked(emb: torch.Tensor, table: torch.Tensor, *, k: int,
     return vals, idx
 
 
+def topk_from_slots(emb_buffer: torch.Tensor, rows: torch.Tensor,
+                    table: torch.Tensor, *, k: int, block_v: int = 4096
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Rank straight from the slot-resident embedding buffer: gather the
+    requested slot rows on the device and run the blocked scan; user
+    embeddings never stage through the host (the continuous engine's
+    retrieval entry). Pad lanes index the scratch row; callers slice them
+    off. Returns (scores, item ids, the gathered query rows)."""
+    q = emb_buffer[rows.long()]
+    vals, idx = topk_blocked(q, table, k=k, block_v=block_v)
+    return vals, idx, q
+
+
 # --------------------------------------------------------------------------
 # byte accounting
 # --------------------------------------------------------------------------

@@ -22,15 +22,19 @@ deterministic.
 
 Every request gets a monotone ``rid`` and a latency record
 (enqueue/dispatch/done, cache-hit flag); :meth:`latency_stats` reduces
-them to p50/p99/mean. This module is numpy only: a copy of the JAX
-package's request scheduler (the continuous scheduler comes later).
+them to p50/p99/mean.
+
+:class:`ContinuousScheduler` is the continuous-batching engine's admission
+layer: open-loop admission with typed outcomes (:class:`Admission`) and
+FIFO tick formation under row and token budgets (:class:`TickPlan`). This
+module is numpy only: a copy of the JAX package's schedulers.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -282,3 +286,226 @@ def _inflight_stats(records: Dict[int, Dict[str, float]],
             if not np.isfinite(r["t_done"])]
     return {"queue_depth": len(ages),
             "oldest_inflight_age_s": max(ages) if ages else 0.0}
+
+
+# --------------------------------------------------------------------------
+# continuous scheduler — open-loop admission for the slot-buffer engine
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Admission:
+    """Typed outcome of ``StreamingRecallEngine.submit``.
+
+    ``accepted``   — admitted; the result arrives from a later ``tick``.
+    ``shed_queue`` — admission control: in-flight work at ``queue_limit``.
+    ``shed_slots`` — no slot free and nothing evictable (or eviction off).
+    ``resend_full``— the user was evicted since last seen; this delta was
+                     dropped and the client must resend the full history
+                     (reported exactly once per eviction, like the PR-4
+                     engine's KeyError handshake, but as data not control
+                     flow).
+    """
+    rid: Optional[int]
+    outcome: str
+    user: int
+    hit: bool = False
+
+    @property
+    def accepted(self) -> bool:
+        return self.rid is not None
+
+
+@dataclass
+class TickPlan:
+    """One engine tick's worth of pending work, budget-bounded."""
+    warm: List[Tuple[int, List[int]]]       # (slot, waiting rids)
+    cold: List[Tuple[int, List[int]]]
+    rank_only: List[Tuple[int, List[int]]]  # fresh emb, stale top-k
+    rows: int = 0
+    tokens: int = 0
+
+    @property
+    def empty(self) -> bool:
+        return not (self.warm or self.cold or self.rank_only)
+
+
+class ContinuousScheduler:
+    """Open-loop admission + tick formation for the continuous engine.
+
+    Requests are admitted one at a time into slot-attached work queues and
+    each ``form_tick`` drains pending *slots* FIFO under two budgets: at
+    most ``max_rows_per_tick`` encode rows and ``max_tokens_per_tick``
+    encode tokens per tick (a cold slot costs its full live length, a warm
+    slot only its appended events). Admission control is a hard bound on
+    in-flight work (``queue_limit``) — beyond it ``has_capacity`` turns
+    False and the engine sheds instead of queueing, trading throughput for
+    a bounded tail.
+
+    The FIFO stops at the first slot that does not fit the remaining
+    budget (no skip-ahead), so a long cold row cannot be starved by a
+    stream of cheap warm appends.
+    """
+
+    def __init__(self, *, max_rows_per_tick: int = 32,
+                 max_tokens_per_tick: Optional[int] = None,
+                 queue_limit: int = 1024, max_records: int = 100_000):
+        if max_rows_per_tick < 1 or queue_limit < 1:
+            raise ValueError((max_rows_per_tick, queue_limit))
+        self.max_rows = max_rows_per_tick
+        self.max_tokens = max_tokens_per_tick
+        self.queue_limit = queue_limit
+        self.max_records = max_records
+        self._next_rid = 0
+        self.records: Dict[int, Dict[str, float]] = {}
+        self.inflight = 0
+        self._queue: deque = deque()            # slots FIFO, deduped
+        self._queued: set = set()
+        self._waiting: Dict[int, List[int]] = {}
+        self._rank_only: Dict[int, List[int]] = {}
+        self.outcomes: Dict[str, int] = {
+            "accepted": 0, "shed_queue": 0, "shed_slots": 0,
+            "resend_full": 0}
+        # occupancy accounting over non-empty ticks
+        self.ticks = 0
+        self._row_used = 0
+        self._token_used = 0
+
+    # -- admission ---------------------------------------------------------
+
+    def has_capacity(self) -> bool:
+        return self.inflight < self.queue_limit
+
+    def shed(self, outcome: str) -> None:
+        self.outcomes[outcome] += 1
+
+    def admit(self, user: int, now: float, *, hit: bool = False) -> int:
+        rid = self._next_rid
+        self._next_rid += 1
+        self.records[rid] = {"user": user, "t_enqueue": now,
+                             "t_dispatch": np.nan, "t_done": np.nan,
+                             "hit": hit}
+        if len(self.records) > self.max_records:
+            excess = len(self.records) - (self.max_records * 9) // 10
+            drop = [r for r, rec in self.records.items()
+                    if np.isfinite(rec["t_done"])][:excess]
+            for r in drop:
+                del self.records[r]
+        self.inflight += 1
+        self.outcomes["accepted"] += 1
+        return rid
+
+    def enqueue(self, slot: int, rid: int) -> None:
+        """Attach a request to its slot's encode work."""
+        self._waiting.setdefault(slot, []).append(rid)
+        if slot not in self._queued:
+            self._queued.add(slot)
+            self._queue.append(slot)
+
+    def enqueue_rank(self, slot: int, rid: int) -> None:
+        """Fresh embedding, stale top-k: retrieval-only work."""
+        self._rank_only.setdefault(slot, []).append(rid)
+
+    def drop_slot(self, slot: int) -> List[int]:
+        """Remove a slot's pending work (its user was evicted mid-queue);
+        returns the orphaned rids for the engine to fail/complete."""
+        if slot in self._queued:
+            self._queued.discard(slot)
+            self._queue.remove(slot)
+        rids = self._waiting.pop(slot, []) + self._rank_only.pop(slot, [])
+        return rids
+
+    @property
+    def queued_slots(self) -> int:
+        return len(self._queue)
+
+    def busy_slots(self) -> set:
+        """Slots with attached pending work — the engine must not LRU-evict
+        these (their waiting rids would be orphaned mid-flight)."""
+        return set(self._waiting) | set(self._rank_only)
+
+    # -- tick formation ----------------------------------------------------
+
+    def form_tick(self, now: float, cost_of) -> TickPlan:
+        """Drain pending slots FIFO under the row/token budgets.
+
+        ``cost_of(slot) -> (kind, tokens)`` with kind "warm" | "cold" is
+        evaluated at tick time (appends between admission and tick change a
+        slot's cost — the latest state wins, and coalesced same-user
+        requests are all answered by the one encode)."""
+        plan = TickPlan(warm=[], cold=[], rank_only=[])
+        budget = (self.max_tokens if self.max_tokens is not None
+                  else self.max_rows * (1 << 62))
+        while self._queue:
+            slot = self._queue[0]
+            kind, cost = cost_of(slot)
+            if plan.rows + 1 > self.max_rows:
+                break
+            # the token budget never blocks the first slot of a tick — a
+            # single over-budget row must still be servable, else the
+            # queue would deadlock
+            if plan.rows > 0 and plan.tokens + cost > budget:
+                break
+            self._queue.popleft()
+            self._queued.discard(slot)
+            rids = self._waiting.pop(slot, [])
+            for rid in rids:
+                self.records[rid]["t_dispatch"] = now
+            (plan.warm if kind == "warm" else plan.cold).append((slot, rids))
+            plan.rows += 1
+            plan.tokens += cost
+        for slot, rids in self._rank_only.items():
+            for rid in rids:
+                self.records[rid]["t_dispatch"] = now
+            plan.rank_only.append((slot, rids))
+        self._rank_only.clear()
+        if not plan.empty:
+            self.ticks += 1
+            self._row_used += plan.rows
+            self._token_used += plan.tokens
+        return plan
+
+    # -- accounting --------------------------------------------------------
+
+    def mark_done(self, rids: Sequence[int],
+                  now: Optional[float] = None) -> None:
+        now = _now() if now is None else now
+        for rid in rids:
+            rec = self.records.get(rid)
+            if rec is not None and not np.isfinite(rec["t_done"]):
+                rec["t_done"] = now
+                self.inflight -= 1
+
+    def occupancy(self) -> Dict[str, float]:
+        t = max(self.ticks, 1)
+        out = {"ticks": self.ticks,
+               "mean_rows_per_tick": self._row_used / t,
+               "row_utilization": self._row_used / (t * self.max_rows)}
+        if self.max_tokens:
+            out["token_utilization"] = self._token_used / (t * self.max_tokens)
+        return out
+
+    def latency_stats(self, now: Optional[float] = None) -> Dict[str, float]:
+        """Same honest shape as :meth:`RequestScheduler.latency_stats`."""
+        now = _now() if now is None else now
+        done = [r for r in self.records.values()
+                if np.isfinite(r["t_done"])]
+        if not done:
+            nan = float("nan")
+            out = {"count": 0, "p50_s": nan, "p99_s": nan, "mean_s": nan,
+                   "queue_p50_s": nan, "cache_hits": 0,
+                   "cache_hit_rate": 0.0}
+        else:
+            lat = np.array([r["t_done"] - r["t_enqueue"] for r in done])
+            queue = np.array([r["t_dispatch"] - r["t_enqueue"] for r in done])
+            hits = sum(1 for r in done if r["hit"])
+            out = {
+                "count": len(done),
+                "p50_s": float(np.percentile(lat, 50)),
+                "p99_s": float(np.percentile(lat, 99)),
+                "mean_s": float(lat.mean()),
+                "queue_p50_s": float(np.percentile(queue, 50)),
+                "cache_hits": hits,
+                "cache_hit_rate": hits / len(done),
+            }
+        out.update(_inflight_stats(self.records, now))
+        return out

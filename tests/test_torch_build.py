@@ -102,11 +102,29 @@ def test_attention_forward_bf16_products_on_tensor_cores():
     for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
                    "ldmatrix.sync.aligned", ".trans", "cp.async.cg"):
         assert needle in full, needle
-    for needle in ("attn_fwd_tc_kernel<D, FUNC>", "attn_fwd_kernel<T, D, FUNC>",
+    for needle in ("attn_fwd_tc_kernel<D, FUNC, APPEND>",
+                   "attn_fwd_kernel<T, D, FUNC, APPEND>",
                    "std::is_same<T, __nv_bfloat16>", "mma16816(", "ldsm_x4(",
                    "ldsm_x4_t(", "cp_async16(", "fmaf("):
         assert needle in src, needle
     assert "a_s[" not in src.split("attn_fwd_tc_kernel", 1)[1]
+
+
+def test_append_launch_is_the_cold_kernels_with_the_pack_meta_in_place():
+    """K1-fwd's append launch is the same two kernels instantiated with
+    APPEND: one epilogue (the live test, the bias, SiLU, the weight's
+    rounding) serves both launches, and only the meta, the q tile, the
+    walk and the output rows are taken another way."""
+    src = (_build.CSRC / _build.SOURCES["jagged_attn_fwd"]).read_text()
+    assert 'extern "C" int jagged_attn_fwd_append(' in src
+    assert "launch_dtype<float, true>" in src
+    assert "launch_dtype<__nv_bfloat16, true>" in src
+    for kernel in ("attn_fwd_kernel(", "attn_fwd_tc_kernel("):
+        body = src.split(kernel, 1)[1].split("\n}\n", 1)[0]
+        assert body.count("if constexpr (APPEND)") >= 4, kernel
+        assert body.count("qseg") >= 2 and "window_seg(" in body, kernel
+        # one live test for both launches
+        assert body.count("const bool live = ") == 1, kernel
 
 
 def test_neg_logits_forward_keeps_one_warp_sum_per_logit():

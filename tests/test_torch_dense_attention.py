@@ -100,4 +100,6 @@ def test_dense_schedule_entry_points():
     assert set(ops.KERNEL_LAUNCHES) == {
         ops.launch_counter(kind, dense=d, functional=f)
         for kind in ("fwd", "bwd") for d in (False, True)
+        for f in (False, True)} | {
+        ops.launch_counter("fwd_append", dense=False, functional=f)
         for f in (False, True)}

@@ -928,3 +928,257 @@ def test_neg_logits_bwd_split_at_segment_and_baseline_shapes(cuda, T, R, D,
     assert NL.bwd_row_split(T, R) == {(128, 128): 4, (8192, 128): 1,
                                       (64, 99): 4, (128, 33): 2,
                                       (300, 24): 1}[(T, R)]
+
+
+# --------------------------------------------------------------------------
+# K1-fwd's append launch and the streaming engine
+# --------------------------------------------------------------------------
+
+def _append_case(dev, dtype, H, D, seed=3, mode="bucket"):
+    """Two slots of a cache of cap 512 (one the scratch lane), three window
+    rows: a window inside a q-block, one crossing into the next, and a
+    1-wide one; the RAB inputs of ``mode``."""
+    rng = np.random.default_rng(seed)
+    N1, cap, Q = 5, 512, 6
+    kc, vc = (torch.from_numpy(rng.standard_normal((N1, cap, H, D))
+                               .astype(np.float32)).to(dev, dtype)
+              for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((3, Q, H, D)).astype(
+        np.float32)).to(dev, dtype)
+    rows = torch.tensor([2, 0, 3], dtype=torch.int32, device=dev)
+    pref = torch.tensor([40, 125, 300], dtype=torch.int32, device=dev)
+    total = pref + torch.tensor([6, 5, 1], dtype=torch.int32, device=dev)
+    ts = torch.from_numpy(np.cumsum(rng.integers(0, 4000, (3, cap)), axis=1)
+                          .astype(np.int32)).to(dev)
+    if mode == "bucket":
+        pt = torch.randn(256, H, device=dev) * 0.5
+        tt = torch.randn(32, H, device=dev) * 0.5
+    else:
+        pt, tt = torch.randn(256, H, device=dev) * 0.5, _functional_time(
+            dev, H)
+    kw = dict(scale=D ** -0.5, tb_denom=ops.time_bucket_denom(0.301),
+              use_pos=True, use_time=True,
+              time_functional=mode == "functional")
+    return (q, kc, vc, rows, ts, pref, total, pt, tt,
+            ops.position_ninv(cap, dev)), kw
+
+
+@pytest.mark.parametrize("mode", ["bucket", "functional"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_append_launch_matches_plain_version(cuda, dtype, mode):
+    from repro_torch.kernels.jagged_attention import attention_append_plain
+    args, kw = _append_case(cuda, dtype, 8, 128, mode=mode)
+    counter = ops.launch_counter("fwd_append", dense=False,
+                                 functional=mode == "functional")
+    before = ops.KERNEL_LAUNCHES[counter]
+    out = ops.attention_append(*args, **kw)
+    again = ops.attention_append(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.KERNEL_LAUNCHES[counter] == before + 2
+    assert torch.equal(out, again)                      # run to run
+    plain = attention_append_plain(*args, block=128, **kw)
+    if dtype == torch.float32:
+        assert (out - plain).abs().max().item() <= 1e-4
+    else:
+        assert max_row_rel_err(out, plain) <= 1e-2
+    total, pref = args[6], args[5]
+    for r in range(3):                         # window rows past T are 0
+        n = int(total[r] - pref[r])
+        assert torch.count_nonzero(out[r, n:]) == 0
+
+
+@pytest.mark.parametrize("mode", ["bucket", "functional"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_append_launch_gives_the_cold_launch_bits(cuda, dtype, mode):
+    """Each row of the window: the bits the cold work-list launch gives the
+    same queries on a pack holding the row alone."""
+    args, kw = _append_case(cuda, dtype, 8, 128, mode=mode)
+    q, kc, vc, rows, ts, pref, total, pt, tt, _ = args
+    out = ops.attention_append(*args, **kw)
+    for r in range(3):
+        p, T, slot = int(pref[r]), int(total[r]), int(rows[r])
+        qr = torch.zeros_like(kc[slot])
+        qr[p:T] = q[r, :T - p]
+        offs = torch.tensor([0, T], dtype=torch.int32, device=cuda)
+        plan = ops._as_batched(build_attn_plan(offs, ts[r], 512, block=128))
+        cold = ops._launch_fwd(qr[None], kc[slot][None].contiguous(),
+                               vc[slot][None].contiguous(), pt, tt, plan,
+                               **kw)[0]
+        assert torch.equal(out[r, :T - p], cold[p:T]), r
+
+
+def _stream_models(dev, seq=300):
+    cfg = reduced(get_arch("hstu-tiny")).replace(vocab_size=2000,
+                                                 max_seq_len=seq)
+    g = torch.Generator().manual_seed(0)
+    model = GRModel(cfg, device="cpu", generator=g).to(dev)
+    master = (torch.randn(cfg.vocab_size, cfg.d_model, generator=g)
+              * 0.02).to(dev)
+    return cfg, model, master
+
+
+def test_warm_append_equals_cold_encode_bitwise(cuda):
+    """Chained warm appends (a 1-wide one padded to the 2-wide window, and
+    one crossing position 128) give the cold encode's emb and live K/V of
+    every layer bit for bit, on the card."""
+    from repro_torch.models import gr as GR
+    from repro_torch.serving import BucketLadder
+    cfg, model, master = _stream_models(cuda)
+    S, dt = cfg.max_seq_len, GR.torch_dtype(cfg.dtype)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, 2000, S).astype(np.int64))
+    ts = np.cumsum(rng.integers(1, 3600, S)).astype(np.int32)
+
+    def cold(n):
+        row_ids = torch.zeros(S, dtype=torch.int64)
+        row_ids[:n] = ids[:n]
+        row_ts = np.zeros(S, np.int32)
+        row_ts[:n] = ts[:n]
+        return GR.gr_serve_row_kv(model, cfg, master[row_ids.to(cuda)].to(dt),
+                                  torch.from_numpy(row_ts).to(cuda), n)
+
+    n0 = 120
+    emb, k, v = cold(n0)
+    row_ts = np.zeros(S, np.int32)
+    row_ts[:n0] = ts[:n0]
+    pos = n0
+    counter = ops.launch_counter("fwd_append", dense=False, functional=False)
+    for q in (3, 1, 5, 9, 2):
+        row_ts[pos:pos + q] = ts[pos:pos + q]
+        qc = BucketLadder(S, min_size=2).bucket(q)
+        xw = torch.zeros(qc, cfg.d_model, dtype=dt, device=cuda)
+        xw[:q] = master[ids[pos:pos + q].to(cuda)].to(dt)
+        before = ops.KERNEL_LAUNCHES[counter]
+        emb, k, v = GR.gr_serve_row_append(
+            model, cfg, xw, torch.from_numpy(row_ts).to(cuda), k, v, pos, q)
+        assert ops.KERNEL_LAUNCHES[counter] == before + cfg.num_layers
+        pos += q
+        fe, fk, fv = cold(pos)
+        assert torch.equal(emb, fe), pos
+        assert torch.equal(k[:, :pos], fk[:, :pos]), pos
+        assert torch.equal(v[:, :pos], fv[:, :pos]), pos
+
+
+def test_rank_graph_replay_equals_eager(cuda):
+    from repro_torch.serving import StreamingRecallEngine, topk_from_slots
+    cfg, model, master = _stream_models(cuda)
+    eng = StreamingRecallEngine(cfg, model, master, max_users=16, k=20,
+                                retrieval_block=256, max_rows_per_tick=8)
+    rng = np.random.default_rng(2)
+    reqs = [(u, rng.integers(0, 2000, n), np.cumsum(rng.integers(1, 99, n)))
+            for u, n in enumerate((5, 130, 299, 40, 7))]
+    res = eng.serve(reqs)
+    assert eng.stats()["compile"]["graph_captures"] > 0
+    rows = torch.tensor([eng.buffer.slot_of(u) for u, _, _ in reqs]
+                        + [eng.buffer.pad_row] * 3, dtype=torch.int32,
+                        device=cuda)
+    graph = eng._rank_fn(8)(rows)
+    graph = [t.clone() for t in graph]
+    eager = topk_from_slots(eng.buffer.emb, rows, eng._scan, k=20,
+                            block_v=256)
+    for a, b in zip(graph, eager):
+        assert torch.equal(a, b)
+    for r, g_ids in zip(res, graph[1][:5].cpu().numpy()):
+        np.testing.assert_array_equal(r.item_ids, g_ids)
+
+
+@pytest.fixture(scope="module")
+def hstu_large_dense():
+    """One hstu-large HSTU block's row-local dense ops (``ops(x, y)`` →
+    u, v, q, k, the block output and the final norm) and their outputs
+    on a cold encode's (32, 2048) tensor, the largest the streaming engine
+    builds at 32 rows a tick."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel; no interpret mode)")
+    from types import SimpleNamespace
+    from repro_torch.models.gr import _final_norm
+    from repro_torch.models.hstu import HSTUBlock, _hstu_output, _hstu_uvqk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_arch("hstu-large")
+    g = torch.Generator(device=dev).manual_seed(0)
+    blk = HSTUBlock(cfg, dtype=torch.bfloat16, device=dev, generator=g)
+    fin = SimpleNamespace(
+        out_ln_w=torch.randn(cfg.d_model, device=dev, generator=g).bfloat16(),
+        out_ln_b=torch.randn(cfg.d_model, device=dev, generator=g).bfloat16())
+    H, D = cfg.num_heads, cfg.qkv_dim
+    X = torch.randn((32, 2048, cfg.d_model), device=dev,
+                    generator=g).bfloat16()
+    Y = torch.randn((32, 2048, H, D), device=dev, generator=g).bfloat16()
+
+    def ops(x, y):
+        u, v, q, k = _hstu_uvqk(blk, cfg, x)
+        o = _hstu_output(blk, cfg, x, y, u)
+        return u, v, q, k, o, _final_norm(fin, cfg, o)
+    return ops, X, Y, ops(X, Y), g
+
+
+def _stream_rungs():
+    """Every (row rung, window rung) the streaming engine builds at
+    hstu-large with 32 rows a tick: rows 1..32, windows 2..2048."""
+    from repro_torch.serving import BucketLadder
+    S = get_arch("hstu-large").max_seq_len
+    return [(R, Q) for R in BucketLadder(32).rungs
+            for Q in BucketLadder(S, min_size=2).rungs]
+
+
+@pytest.mark.parametrize("R,Q", _stream_rungs())
+def test_hstu_dense_ops_are_row_invariant(hstu_large_dense, R, Q):
+    """The warm path's premise on the card: the HSTU block's row-local
+    dense ops (the norms, both GEMMs, SiLU, the final norm) give a token
+    the same bits in an (R, Q) append window as in the cold encode's
+    (32, 2048) tensor, at hstu-large's widths, for every row and window
+    rung of the streaming engine (windows are ≥ 2 wide). A cold encode of
+    R rows is the case Q = 2048. A row-count-dependent reduction moves a
+    norm's output bits in about one row in a hundred, so each rung is
+    held on up to 256 windows (at least 4096 rows where the rung is
+    smaller)."""
+    ops, X, Y, full, g = hstu_large_dense
+    dev = X.device
+    for _ in range(min(256, max(1, 4096 // (R * Q)))):
+        rows = torch.randperm(32, device=dev, generator=g)[:R]
+        start = torch.randint(0, 2048 - Q + 1, (R,), device=dev,
+                              generator=g)
+        pos = start[:, None] + torch.arange(Q, device=dev)
+        window = ops(X[rows[:, None], pos], Y[rows[:, None], pos])
+        for name, a, b in zip("uvqko", window, full):
+            assert torch.equal(a, b[rows[:, None], pos]), name
+        assert torch.equal(window[5], full[5][rows[:, None], pos]), \
+            "final norm"
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 6, 8, 16, 64, 512])
+def test_row_stats_do_not_depend_on_the_row_count(cuda, M):
+    """Every norm's statistics (hstu._row_stats) give a row of
+    hstu-large's width the same fp32 mean and variance in a tensor of M
+    rows as in one of 32768: below 16 rows PyTorch's own reduction sums
+    the row in another order, so on 2-8 rows about one variance in six
+    took another last bit before the statistics were padded."""
+    from repro_torch.models.hstu import _row_stats
+    g = torch.Generator(device=cuda).manual_seed(M)
+    X = (torch.randn(32768, 1024, device=cuda, generator=g) * 3 + 0.5
+         ).bfloat16().float()
+    mu, var = _row_stats(X)
+    for _ in range(max(1, 4096 // M)):
+        idx = torch.randint(0, X.shape[0], (M,), device=cuda, generator=g)
+        m, v = _row_stats(X[idx])
+        assert torch.equal(m, mu[idx]) and torch.equal(v, var[idx])
+
+
+def test_engine_random_traffic_warm_equals_cold(cuda):
+    """Random open-loop traffic (new users of lognormal(5.5, 1.3) events,
+    hits, 1-3-event appends, bursts of three, evictions and full resends)
+    through the streaming engine on hstu-large (vocab 2^16, 16 slots, 8
+    rows a tick): after every tick each user it encoded holds the emb and
+    live K/V of every layer of a from-scratch cold encode, bit for bit."""
+    from repro_torch.serving import StreamingRecallEngine
+    from torch_stream_traffic import drive
+    cfg = get_arch("hstu-large").replace(vocab_size=1 << 16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = GRModel(cfg, device=cuda, generator=g)
+    master = torch.randn(cfg.vocab_size, cfg.d_model, device=cuda,
+                         generator=g) * 0.02
+    eng = StreamingRecallEngine(cfg, model, master, max_users=16, k=20,
+                                max_rows_per_tick=8)
+    out = drive(eng, np.random.default_rng(0), 150, new_len=(5.5, 1.3))
+    assert out["warm_rows"] >= 100 and out["evictions"] > 0, out

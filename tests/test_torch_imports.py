@@ -1,7 +1,8 @@
 """The port stands alone: it imports no jax and nothing of the JAX package
-(every module, serving and training alike, HSTU and FuXi, the fused,
-baseline and segmented negative paths, the kernel lookup and the dense
-attention schedule, runs with both blocked), and
+(every module, serving and training alike, HSTU, FuXi and SASRec, the
+streaming engine, the fused, baseline and segmented negative paths, the
+kernel lookup and the dense attention schedule, runs with both blocked),
+and
 its entry points run on the card unless the caller asks for the CPU."""
 import re
 import subprocess
@@ -19,7 +20,7 @@ from repro_torch.data import synth_jagged_batch
 from repro_torch.launch import train as train_cli
 from repro_torch.models.gr import GRModel
 from repro_torch.models.model_zoo import GRBundle
-from repro_torch.serving import RecallEngine
+from repro_torch.serving import RecallEngine, StreamingRecallEngine
 from repro_torch.training import GREngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -122,6 +123,20 @@ feng = RecallEngine(fcfg, fst.dense, fst.table.master, num_shards=2,
 assert len(feng.serve(reqs)) == 5
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
+from repro_torch.serving import StreamingRecallEngine
+import repro_torch.configs.sasrec, repro_torch.models.sasrec
+for arch in ("hstu-tiny", "sasrec-tiny"):
+    scfg = reduced(get_arch(arch)).replace(vocab_size=300, max_seq_len=40)
+    smodel = GRModel(scfg, device="cpu", generator=g)
+    seng = StreamingRecallEngine(scfg, smodel, master, max_users=4, k=5,
+                                 retrieval_block=128, max_rows_per_tick=2,
+                                 device="cpu")
+    sres = seng.serve(reqs[:3]) + seng.serve([(0, [1, 2], [400, 401])])
+    assert len(sres) == 4 and all(np.isfinite(r.user_emb).all()
+                                  for r in sres)
+    assert seng.prefix_reuse == (arch == "hstu-tiny")
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.encoded_batches)
 """
 
@@ -163,6 +178,8 @@ ENTRY_POINTS = {
         np.zeros(3, np.int32), np.zeros((3, 2), np.float32)),
     "RecallEngine": lambda: RecallEngine(_cfg(), _cpu_model(),
                                          torch.zeros(64, 128)),
+    "StreamingRecallEngine": lambda: StreamingRecallEngine(
+        _cfg(), _cpu_model(), torch.zeros(64, 128)),
     "gr_params_from_numpy": lambda: gr_params_from_numpy({}, _cfg()),
     "table_from_numpy": lambda: table_from_numpy(np.zeros((4, 2),
                                                           np.float32)),
