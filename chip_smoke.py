@@ -147,8 +147,11 @@ STREAM_TOL = dict(fp32_rel=0.15, pair_rel=3e-2, fp32_overlap=0.7,
 # fp32 results summed in another order (K2's table grads, K4's dout, K6's
 # totals): max abs error over the largest value
 GRAD_TOL_FP32 = 1e-4
-PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,
-              "float32": 67e12}                      # H100 SXM, dense
+# Dense peak rates by dtype: the port's cited figures for the card
+# (repro_torch.obs.PEAK_FLOPS, by the name the card reports), set by
+# phase_device, so the kernels' bounds and the engine's measured MFU use
+# one peak.
+PEAK_FLOPS = {}
 PEAK_BYTES = 3.35e12
 # special-function (MUFU) instructions: 16 per clock per SM (Hopper's
 # SFUs), 132 SMs; the clock is the card's maximum SM clock (nvidia-smi)
@@ -239,6 +242,12 @@ def phase_device():
     CARD["sm_clock_hz"] = float(clk.stdout.strip().splitlines()[0]) * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.obs import peak_flops_of
+    for dt in ("bfloat16", "float16", "float32"):
+        PEAK_FLOPS[dt] = peak_flops_of(name, dt)
+    CARD["smi_line"] = smi_line
+    say(f"[device] peak FLOP/s {PEAK_FLOPS} (the port's cited figures for "
+        f"{name!r})")
     say(f"[device] {name} x{count}; nvidia-smi: {smi_line}; max SM clock "
         f"{CARD['sm_clock_hz'] / 1e6:.0f} MHz; torch "
         f"{torch.__version__} cuda {torch.version.cuda}; matmul tf32 "
@@ -1481,6 +1490,8 @@ def phase_serve(arch="hstu-large", tag="serve"):
     say(f"[{tag}] checks: embeddings finite, ids in [0, {V}), hits "
         f"bit-identical to cold, launches = layers x micro-batches; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if tag == "serve":
+        _serve_obs_round(cfg, model, eng, kw, rounds[0][1], tag)
 
     # the cold round's first micro-batch again (the same 16 requests pack
     # the same way): with the plain version beside the kernel in every
@@ -1529,6 +1540,41 @@ def phase_serve(arch="hstu-large", tag="serve"):
           f"relative {rel} > {EMB_TOL_BF16}")
     return launches, per_round, _profile_encode(model, cfg, x, args, attn,
                                                 tag)
+
+
+def _serve_obs_round(cfg, model, eng, kw, reqs, tag):
+    """The cold round on two fresh engines over the same weights and table,
+    one with ``obs=Obs()``: the same results bit for bit and the same stats
+    (the latency clock given); the obs engine's spans and its stats mirrored
+    into the registry."""
+    import numpy as np
+    from repro_torch.obs import Obs
+    from repro_torch.serving import RecallEngine
+    obs = Obs()
+    runs = []
+    for o in (None, obs):
+        e = RecallEngine(cfg, model, eng.table, device=eng.device, obs=o,
+                         **kw)
+        res = e.serve(reqs, now=1.0)
+        runs.append((res, e.stats()))
+        del e
+    (r0, s0), (r1, s1) = runs
+    check(s0 == s1, f"{tag}: stats with obs {s1} differ from {s0}")
+    for a, b in zip(r0, r1):
+        check(np.array_equal(a.item_ids, b.item_ids)
+              and np.array_equal(a.scores, b.scores)
+              and np.array_equal(a.user_emb, b.user_emb),
+              f"{tag}: user {a.user}'s result differs with obs")
+    spans = obs.tracer.spans()
+    names = sorted({(s.name, s.track) for s in spans})
+    snap = obs.snapshot()
+    check(names == [("encode", "serve_encode"), ("retrieval", "serve_rank")]
+          and snap["serve_encoded_batches"]["values"][""]
+          == s1["encoded_batches"], f"{tag}: obs recorded {names}")
+    say(f"[{tag}] cold round with obs=Obs() on a fresh engine: {len(r1)} "
+        f"results and the stats equal the engine's without obs bit for bit; "
+        f"spans {[(s.name, round(s.dur * 1e3, 1)) for s in spans]} ms "
+        f"(host clock); {len(snap)} serve_ gauges")
 
 
 def _profile_encode(model, cfg, x, args, attn, tag):
@@ -2424,13 +2470,14 @@ ENGINE_STEPS = {"hstu-large": 8, "fuxi-large": 6}
 
 
 def _engine_run(arch, schedule, V, base_note, tag, loss_kwargs=None,
-                n_steps=None, before_run=None):
+                n_steps=None, before_run=None, obs=None):
     """GREngine on full-width ``arch``, tau=1, ``loss_kwargs`` (default:
     the fused path with its default scatter), ``n_steps`` steps (default
     ENGINE_STEPS[arch]); per step the loss, the host wall between the ends
     of consecutive steps (each step's loss is realised on the host, so the
     host waits on the card once a step) and the peak above the tables.
-    ``before_run(engine)`` runs first, before the counts are zeroed."""
+    ``before_run(engine)`` runs first, before the counts are zeroed;
+    ``obs`` is handed to the engine."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.model_zoo import GRBundle
@@ -2443,7 +2490,7 @@ def _engine_run(arch, schedule, V, base_note, tag, loss_kwargs=None,
     t0 = time.perf_counter()
     eng = GREngine(GRBundle(cfg), _train_loader(V), seed=SEED,
                    schedule=schedule, semi_async=True, device=dev,
-                   loss_kwargs=loss_kwargs)
+                   loss_kwargs=loss_kwargs, obs=obs)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     if before_run is not None:
@@ -2466,7 +2513,8 @@ def _engine_run(arch, schedule, V, base_note, tag, loss_kwargs=None,
     counts = _read_counts()
     walls = [m - p for m, p in zip(marks, [t0] + marks[:-1])]
     steps = [dict(step=r["step"], loss=r["loss"], tokens=r["tokens"],
-                  wall_s=wl, peak_above_tables_gb=pk / 1e9)
+                  wall_s=wl, peak_above_tables_gb=pk / 1e9,
+                  **{k: r[k] for k in ("mfu", "step_wall_s") if k in r})
              for r, wl, pk in zip(recs, walls, peaks)]
     name = schedule
     for r in steps:
@@ -2590,8 +2638,250 @@ def phase_engine(arch="hstu-large", tag="engine"):
           f"algorithm1's {losses}")
     say(f"[{tag}] flat schedule from the same init: losses equal to "
         f"algorithm1's bit for bit")
-
+    if arch == "hstu-large":
+        prof_out["obs"] = _engine_obs_run(arch, V, tag, losses,
+                                          alg["timeline"])
     return alg, flat, prof_out
+
+
+def _engine_obs_run(arch, V, tag, losses, plain_timeline):
+    """The phase's Algorithm-1 run once more with ``obs=Obs()`` from the
+    same init: the losses bit for bit the plain run's; the exported trace
+    parsed back, its stage tracks' busy time ``timeline_report``'s; the
+    steady steps' measured MFU against the card's peak, and the pipeline's
+    goodput."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.obs import Obs, gr_dense_params, trace_busy_by_track
+    gc.collect()
+    torch.cuda.empty_cache()
+    obs = Obs()
+    eng, run = _engine_run(arch, "algorithm1", V, "the same seed, obs on",
+                           f"{tag}_obs", obs=obs)
+    got = [r["loss"] for r in run["steps"]]
+    check(got == losses, f"{tag}: losses with obs {got} differ from the "
+          f"plain run's {losses}")
+    tl = eng.timeline_report()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        obs.export_trace(path)
+        with open(path) as f:
+            busy = trace_busy_by_track(json.load(f))
+    worst = max(abs(busy[k] - v) / max(v, 1e-12)
+                for k, v in tl["stage_s"].items())
+    check(set(busy) == set(tl["stage_s"]) and worst <= 1e-6,
+          f"{tag}: trace busy {busy} vs timeline_report {tl['stage_s']}")
+    snap = obs.snapshot()
+    val = lambda k: snap[k]["values"][""]                # noqa: E731
+    mfus = [r["mfu"] for r in run["steps"][3:]]
+    walls = [r["step_wall_s"] for r in run["steps"][3:]]
+    cfg = get_arch(arch)
+    out = dict(mfu_steady_mean=sum(mfus) / len(mfus), mfu_steady=mfus,
+               step_wall_steady_s=walls, peak_flops=eng.peak_flops,
+               flops_per_token=6.0 * gr_dense_params(cfg),
+               goodput=val("train_pipeline_goodput"),
+               bubble_ratio=val("train_pipeline_bubble_ratio"),
+               last_mfu_gauge=val("train_mfu_measured"),
+               trace_busy_s=busy, worst_busy_rel=worst,
+               tokens_per_step=[r["tokens"] for r in run["steps"]],
+               card=CARD.get("smi_line"))
+    say(f"[{tag}_obs] losses bit for bit the plain run's; trace tracks' "
+        f"busy time = timeline_report's (worst relative {worst:.2e}); "
+        f"steady steps 3.. measured MFU mean {out['mfu_steady_mean']:.4f} "
+        f"(per step {[round(m, 4) for m in mfus]}) against the peak "
+        f"{eng.peak_flops:.4g} FLOP/s (6 x {gr_dense_params(cfg)} dense "
+        f"params x tokens), pipeline goodput {out['goodput']:.4f}, bubble "
+        f"{out['bubble_ratio']:.4f}; card {CARD.get('smi_line')}")
+    del eng
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 6c: supervised recovery (GREngine.run_resilient) at full width
+# --------------------------------------------------------------------------
+
+RESILIENT_VOCAB = 1 << 18         # ~4.5 GB a checkpoint instead of ~37 GB
+RESILIENT_STEPS = 12
+
+
+def _state_bits(st):
+    """Every tensor of a training state on the host (the shadow included),
+    for bitwise comparisons across engines."""
+    from repro_torch.training import state_tensors
+    return [t.detach().cpu() for t in state_tensors(st)]
+
+
+def phase_resilient():
+    """GREngine.run_resilient on full-width, full-depth hstu-large (d 1024,
+    16 layers, bf16; the engine's loader mix, fused with K5, tau=1,
+    Algorithm 1) at vocab 2^18: 12 uninterrupted steps, then 12 under
+    supervision (async checkpoints every 4, keep 2) with an escalated stage
+    exception, a NaN-poisoned batch and a torn save (a flipped byte that
+    only the CRC sees), each followed by a restore of step 4; every loss
+    and the whole final state bit for bit the uninterrupted run's, and the
+    replayed steps' launches counted. Then the final checkpoint restored
+    into a fresh engine trains 2 more steps bit for bit as the
+    uninterrupted run continued. Checkpoints go to a temporary directory,
+    removed at the end."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.obs import Obs
+    from repro_torch.training import GREngine
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import resilience as R
+    tag = "resilient"
+    dev = torch.device("cuda")
+    cfg = get_arch("hstu-large").replace(vocab_size=RESILIENT_VOCAB)
+    bundle = GRBundle(cfg)
+    N = RESILIENT_STEPS
+    t0 = time.perf_counter()
+    batches = list(_train_loader(cfg.vocab_size).batches(N + 2))
+    say(f"[{tag}] {cfg.name} d={cfg.d_model} layers={cfg.num_layers} "
+        f"{cfg.dtype}, vocab {cfg.vocab_size} (cut from 2^22 so that a "
+        f"checkpoint is ~4.5 GB), loader 1 x 4 x 2048, R 128; {N + 2} "
+        f"batches in {time.perf_counter() - t0:.1f} s")
+
+    ref = GREngine(bundle, lambda i: batches[i], seed=SEED, device=dev)
+    losses = [r["loss"] for r in ref.run(N)]
+    want = _state_bits(ref.state)
+    more = GREngine(bundle, lambda i: batches[N + i], state=ref.state)
+    more_losses = [r["loss"] for r in more.run(2)]
+    want_more = _state_bits(more.state)
+    del ref, more
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses + more_losses),
+          f"{tag}: uninterrupted losses {losses + more_losses}")
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        obs = Obs()
+        eng = GREngine(bundle, lambda i: batches[i], seed=SEED, device=dev,
+                       obs=obs)
+        # the torn save flips a byte of the largest leaf (the master, 1.07
+        # GB): the leaf loads, and only its CRC can refuse the step
+        faults = [R.FaultSpec("dense_fwd", 5, "exception"),
+                  R.FaultSpec("dense_fwd", 7, "nan"),
+                  R.FaultSpec(R.SAVE_SITE, 8, "torn_save", tear="bitflip")]
+        inj = R.FaultInjector(faults)
+        refused = []
+        load = CKPT._load_step_arrays
+
+        def spy(ckpt_dir, step, *a, **kw):
+            try:
+                return load(ckpt_dir, step, *a, **kw)
+            except CKPT.CheckpointCorrupt as e:
+                refused.append((step, str(e)))
+                raise
+        CKPT._load_step_arrays = spy
+        _zero_counts()
+        t = time.perf_counter()
+        try:
+            recs = eng.run_resilient(N, ckpt_dir=d, ckpt_every=4,
+                                     keep_last_n=2, async_save=True,
+                                     policy=R.FaultPolicy(retries={}),
+                                     injector=inj)
+        finally:
+            CKPT._load_step_arrays = load
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = _read_counts()
+        got = [r["loss"] for r in recs]
+        check(inj.exhausted and len(eng.recoveries) == 3,
+              f"{tag}: {len(eng.recoveries)} recoveries, faults left "
+              f"{inj._pending}")
+        check([ev.restored_step for ev in eng.recoveries] == [4, 4, 4]
+              and [s for s, _ in refused] == [8]
+              and "CRC mismatch" in refused[0][1],
+              f"{tag}: restored steps "
+              f"{[ev.restored_step for ev in eng.recoveries]}, refused "
+              f"{refused} (want step 8 refused by its CRC, then step 4)")
+        check(got == losses, f"{tag}: resilient losses {got} differ from "
+              f"the uninterrupted run's {losses}")
+        bits = _state_bits(eng.state)
+        check(len(bits) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(bits, want)),
+            f"{tag}: the final state differs from the uninterrupted run's")
+        del bits
+        replayed = sum(ev.steps_lost for ev in eng.recoveries)
+        per_step = _step_launches(cfg, "wscatter")
+        need = {k: v * (N + replayed) for k, v in per_step.items() if v}
+        check(replayed > 0 and all(counts[k] >= v for k, v in need.items()),
+              f"{tag}: launches {counts} for {N} steps + {replayed} "
+              f"replayed, need at least {need}")
+        snapv = obs.snapshot()
+        save = snapv["ckpt_save_s"]["values"][""]
+        rest = snapv["ckpt_restore_s"]["values"][""]
+        nbytes = eng.snapshots[-1][2]
+        d2h = [s for _, s, _ in eng.snapshots]
+        out = dict(
+            wall_s=wall, losses=got, recoveries=[
+                dict(failed=ev.failed_step, restored=ev.restored_step,
+                     steps_lost=ev.steps_lost, wall_s=ev.wall_s,
+                     error=ev.error[:80]) for ev in eng.recoveries],
+            steps_replayed=replayed, launches=counts,
+            ckpt_bytes=nbytes, saves=save["count"],
+            save_mean_s=save["sum"] / save["count"],
+            restores=rest["count"],
+            restore_mean_s=rest["sum"] / max(rest["count"], 1),
+            d2h_s=d2h, card=CARD.get("smi_line"))
+        say(f"[{tag}] run_resilient to step {N}: {wall:.1f} s; recoveries "
+            f"{out['recoveries']}; {replayed} steps replayed; losses and "
+            f"every state tensor bit for bit the uninterrupted run's; "
+            f"launches {counts} (at least {need})")
+        say(f"[{tag}] checkpoints of {nbytes / 1e9:.3f} GB: {save['count']} "
+            f"saves (async thread) mean {out['save_mean_s']:.2f} s "
+            f"({nbytes / out['save_mean_s'] / 1e9:.2f} GB/s, CRC32 + write "
+            f"+ fsync); {rest['count']} restores mean "
+            f"{out['restore_mean_s']:.2f} s "
+            f"({nbytes / max(out['restore_mean_s'], 1e-9) / 1e9:.2f} GB/s, "
+            f"read + CRC32 + copy to the card); host copies (D2H, on the "
+            f"caller's thread) {[round(x, 3) for x in d2h]} s; card "
+            f"{CARD.get('smi_line')}")
+        check(CKPT.intact_steps(d) == [N, N - 4], f"{tag}: intact steps "
+              f"{CKPT.intact_steps(d)} (keep_last_n=2)")
+        # the steps' walls with and without a save on the saver thread:
+        # after the last restore (step 4) steps 5-7 ran with none in
+        # flight, steps 9-11 beside the step-8 save (step 4 and 8 walls
+        # hold the run's start and the save's host copy)
+        wall = {r["step"]: r["step_wall_s"] for r in recs}
+        quiet = [wall[s] for s in (5, 6, 7)]
+        busy = [wall[s] for s in (9, 10, 11)]
+        out["step_wall_no_save_s"], out["step_wall_beside_save_s"] = \
+            quiet, busy
+        say(f"[{tag}] step walls with no save in flight (steps 5-7) "
+            f"{[round(x * 1e3, 1) for x in quiet]} ms, beside the step-8 "
+            f"save (9-11) {[round(x * 1e3, 1) for x in busy]} ms")
+        del eng, obs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        fresh = GREngine(bundle, lambda i: batches[N + i], seed=SEED + 1,
+                         device=dev)
+        t = time.perf_counter()
+        fresh.state, used = CKPT.restore_with_step(d, fresh.state)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t
+        cont = [r["loss"] for r in fresh.run(2)]
+        check(used == N and cont == more_losses, f"{tag}: restored step "
+              f"{used}, then losses {cont} vs {more_losses}")
+        bits = _state_bits(fresh.state)
+        check(all(torch.equal(a, b) for a, b in zip(bits, want_more)),
+              f"{tag}: the resumed engine's state differs")
+        out.update(resume_restore_s=t_restore, resume_losses=cont)
+        say(f"[{tag}] step {used} restored into a fresh engine in "
+            f"{t_restore:.2f} s; 2 more steps bit for bit the uninterrupted "
+            f"run continued ({cont})")
+        del fresh, bits
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2910,15 +3200,26 @@ CLI_ARGS = ["--synthetic-users", "400", "--num-items", "200000",
             "--max-seq-len", "512", "--users-per-device", "2",
             "--num-negatives", "32", "--log-every", "4"]
 CLI_RUNS = (("hstu-large", 8, "fused"), ("fuxi-large", 4, "fused"),
-            ("hstu-large", 4, "segmented"), ("hstu-large", 4, "baseline"))
+            ("hstu-large", 4, "segmented"), ("hstu-large", 4, "baseline"),
+            ("hstu-large", 4, "resilient"))
+# the resilient run's flags; it is then resumed to CLI_RESUME_STEPS
+CLI_RESILIENT = ["--ckpt-every", "2", "--keep-last-n", "2",
+                 "--metrics-every", "2"]
+CLI_RESUME_STEPS = 6
 
 
 def phase_cli():
     """``python -m repro_torch.launch.train`` on the card, as a user runs
     it: hstu-large and fuxi-large on the fused path, and hstu-large with
-    ``--neg-mode segmented`` and ``--neg-mode baseline``, the processes
-    side by side (each holds a few GB): each must exit 0 and end with
-    ``[done]`` and a finite final loss."""
+    ``--neg-mode segmented`` and ``--neg-mode baseline``, and hstu-large
+    with checkpoints and telemetry (``--ckpt-dir``, ``--ckpt-every``,
+    ``--trace-out``, ``--metrics-out``), the processes side by side (each
+    holds a few GB): each must exit 0 and end with ``[done]`` and a finite
+    final loss. Then the resilient run is resumed (``--resume``) to more
+    steps: it must print ``[resume] restored intact checkpoint step N``,
+    and both output files must parse."""
+    import shutil
+    import tempfile
     import torch
     torch.cuda.empty_cache()
     env = dict(os.environ)
@@ -2926,14 +3227,23 @@ def phase_cli():
         [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
                                else []))
     t = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    files = {"--ckpt-dir": os.path.join(tmp, "ckpt"),
+             "--trace-out": os.path.join(tmp, "trace.json"),
+             "--metrics-out": os.path.join(tmp, "metrics.json")}
+    resilient = [x for k, v in files.items() for x in (k, v)] + CLI_RESILIENT
     procs = {}
-    for arch, steps, mode in CLI_RUNS:
-        args = ["--arch", arch, "--steps", str(steps), "--neg-mode", mode,
-                *CLI_ARGS]
+
+    def start(args):
         cmd = [sys.executable, "-m", "repro_torch.launch.train", *args]
-        procs[f"{arch} {mode}"] = (args, subprocess.Popen(
-            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
+        return subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    for arch, steps, mode in CLI_RUNS:
+        args = ["--arch", arch, "--steps", str(steps), *CLI_ARGS]
+        args += (resilient if mode == "resilient" else ["--neg-mode", mode])
+        procs[f"{arch} {mode}"] = (args, start(args))
     out = {}
     try:
         for arch, (args, p) in procs.items():
@@ -2953,11 +3263,40 @@ def phase_cli():
             say(f"[cli] {' '.join(args)}: exit 0, {wall:.1f} s after the "
                 f"start of all {len(procs)}, final loss {final:.4f}")
             out[arch] = dict(wall_s=wall, final_loss=final)
+        first = out["hstu-large resilient"]
+        args = (["--arch", "hstu-large", "--steps", str(CLI_RESUME_STEPS),
+                 *CLI_ARGS, "--resume"] + resilient)
+        procs["resume"] = (args, start(args))
+        stdout, stderr = procs["resume"][1].communicate(timeout=600)
+        for ln in stdout.strip().splitlines():
+            say(f"[cli] resume: {ln}")
+        check(procs["resume"][1].returncode == 0, f"the resumed CLI exited "
+              f"{procs['resume'][1].returncode}: {stderr[-3000:]}")
+        want = f"[resume] restored intact checkpoint step {CLI_RUNS[-1][1]}"
+        check(want in stdout, f"the resumed CLI did not print {want!r}")
+        check(any(ln.startswith(f"[done] {CLI_RESUME_STEPS} steps")
+                  for ln in stdout.splitlines()), "the resumed CLI printed "
+              "no [done] line")
+        with open(files["--trace-out"]) as f:
+            trace = json.load(f)
+        with open(files["--metrics-out"]) as f:
+            metrics = json.load(f)
+        n_x = sum(ev["ph"] == "X" for ev in trace["traceEvents"])
+        steps_total = metrics["train_steps_total"]["values"][""]
+        check(n_x > 0 and steps_total == CLI_RESUME_STEPS - CLI_RUNS[-1][1],
+              f"the resumed CLI's trace has {n_x} spans and its metrics "
+              f"{steps_total} steps")
+        say(f"[cli] resumed to {CLI_RESUME_STEPS} steps: printed {want!r}; "
+            f"its trace ({n_x} spans) and metrics snapshot "
+            f"({len(metrics)} families, train_steps_total {steps_total}) "
+            f"parse; {time.perf_counter() - t:.1f} s after the start")
+        first["resumed"] = dict(trace_spans=n_x, metric_families=len(metrics))
     finally:
         for _, p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -3005,6 +3344,7 @@ def main():
         ablation, first_losses = run(
             "ablation", phase_ablation,
             max(r["peak_above_tables_gb"] for r in alg["steps"]))
+        resilient = run("resilient", phase_resilient)
         parity, parity_launches = run("parity", phase_parity)
         run("cli", phase_cli)
     except Failed as e:
@@ -3026,6 +3366,7 @@ def main():
     say(f"[result] engine {json.dumps([alg, flat, engine_prof])}")
     say(f"[result] engine_fuxi {json.dumps([f_alg, f_flat, f_prof])}")
     say(f"[result] ablation {json.dumps([ablation, first_losses])}")
+    say(f"[result] resilient {json.dumps(resilient)}")
     main_attn = lambda k: attn[(k, "long_tail", "bfloat16")]  # noqa: E731
     attn_src = "src/repro/kernels/jagged_attention/kernel.py"
     rows = [("attn_fwd", "jagged_attn_fwd.cu", f"{attn_src}:384",
@@ -3083,6 +3424,7 @@ def main():
                    + f_flat["launches"][kname],
                    "ablation": sum(r["launches"][kname]
                                    for r in ablation.values()),
+                   "resilient": resilient["launches"][kname],
                    "parity": parity_launches.get(kname, 0)}
         if sum(by_path.values()) == 0:
             say(f"FAIL: {kname} was launched on no path")

@@ -2,8 +2,9 @@
 
 The parts the serving scheduler and the training loader use: Global Token
 Reallocation (an LPT greedy that spreads sequences over devices without
-splitting any), fixed and token-aware batches, and the sample-count
-gradient weights of dynamic batch sizes.
+splitting any), fixed and token-aware batches, the sample-count
+gradient weights of dynamic batch sizes, and the load-imbalance ratio that
+the telemetry's ``token_imbalance`` reports.
 """
 from __future__ import annotations
 
@@ -89,3 +90,30 @@ def sample_count_weights(assignments: Sequence[Sequence[int]]) -> np.ndarray:
     """
     counts = np.array([len(a) for a in assignments], np.float64)
     return counts / max(counts.sum(), 1.0)
+
+
+def assignment_token_loads(assignments: Sequence[Sequence[int]],
+                           lengths: Sequence[int]) -> np.ndarray:
+    """Per-device token loads ``tokens_w = Σ_{i∈a_w} lengths[i]``."""
+    lens = np.asarray(lengths, np.int64)
+    return np.array([lens[np.asarray(a, np.int64)].sum() if len(a) else 0
+                     for a in assignments], np.int64)
+
+
+def imbalance_ratio(assignments: Sequence[Sequence[int]],
+                    lengths: Sequence[int],
+                    step_cost_per_token: float = 1.0,
+                    fixed_overhead: float = 0.0,
+                    loads: np.ndarray = None) -> float:
+    """Load-imbalance delay ratio (Table 3 column 4): idle time of the
+    average worker relative to the makespan, under a linear cost model
+    cost_w = overhead + tokens_w · c. ``loads`` (per-device token loads)
+    short-circuits the per-device summation."""
+    if loads is None:
+        loads = assignment_token_loads(assignments, lengths)
+    costs = fixed_overhead + step_cost_per_token * np.asarray(loads,
+                                                             np.float64)
+    makespan = costs.max()
+    if makespan <= 0:
+        return 0.0
+    return float((makespan - costs.mean()) / makespan)

@@ -26,6 +26,13 @@ device embedding buffer.
 
 ``user_emb`` in a result is an fp32 numpy array holding the model dtype's
 values (numpy has no bfloat16).
+
+Both engines take ``obs`` (a :class:`repro_torch.obs.Obs`): spans named as
+the reference's (``encode``/``retrieval`` for :class:`RecallEngine`;
+``tick``, ``encode_cold``, ``encode_warm`` and ``rank`` for the streaming
+engine), and ``stats()`` mirrored into the registry under ``serve_``. A
+disabled or absent ``obs`` changes no result and no stat; a span is the
+host's time and adds no synchronisation.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.embedding import tables as ET
 from repro_torch.models import gr as GR
+from repro_torch.obs import NULL_SPAN, Obs
 from repro_torch.serving import retrieval as RT
 from repro_torch.serving.retrieval import ShardedTopK
 from repro_torch.serving.scheduler import (Admission, ContinuousScheduler,
@@ -57,6 +65,18 @@ class ServeResult:
     scores: np.ndarray        # (k,) fp32
     user_emb: np.ndarray      # (d,) the representation that was ranked
     cache_hit: bool
+
+
+def _null_span(*args: Any, **kwargs: Any):
+    return NULL_SPAN
+
+
+def _obs_hooks(obs: Optional[Obs]):
+    """(span_fn, registry) for an engine: both no-ops when obs is absent
+    or disabled."""
+    if obs is not None and obs.enabled:
+        return obs.tracer.span, obs.metrics
+    return _null_span, None
 
 
 def _bucket(n: int) -> int:
@@ -98,10 +118,12 @@ class RecallEngine:
                  use_shadow: bool = True, max_delay_ms: float = 10.0,
                  attn_fn: Optional[Callable] = None,
                  cache_users: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, obs: Optional[Obs] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model
+        self.obs = obs
+        self._span, self._mx = _obs_hooks(obs)
         self.table = _serving_table(model, table, use_shadow, self.device)
         self.k = k
         self.num_shards = num_shards
@@ -181,14 +203,15 @@ class RecallEngine:
         if run_flush:
             t0 = time.perf_counter()
             mbs = self.scheduler.flush(now)
-            for mb in mbs:
-                out = self._encode(mb)
-                self.encoded_batches += 1
-                for s in mb.slots:
-                    e = out[s.shard, s.row].copy()
-                    ver = self._snap_version.pop(s.rid, None)
-                    self.cache.store(s.user, e, ver)
-                    pending.append((s.rid, s.user, False, e, ver))
+            with self._span("encode", "serve_encode", batches=len(mbs)):
+                for mb in mbs:
+                    out = self._encode(mb)
+                    self.encoded_batches += 1
+                    for s in mb.slots:
+                        e = out[s.shard, s.row].copy()
+                        ver = self._snap_version.pop(s.rid, None)
+                        self.cache.store(s.user, e, ver)
+                        pending.append((s.rid, s.user, False, e, ver))
             self.last_step_s["encode"] = time.perf_counter() - t0
         for rid, user, emb, topk, ver in self._hits:
             if topk is not None:
@@ -206,14 +229,15 @@ class RecallEngine:
         if pending:
             t0 = time.perf_counter()
             B = len(pending)
-            d = pending[0][3].shape[-1]
-            E = np.zeros((_bucket(B), d), np.float32)
-            E[:B] = np.stack([p[3] for p in pending]).astype(np.float32)
-            vals, idx = self.retriever(self.table,
-                                       torch.from_numpy(E).to(self.device))
-            self.retrieval_batches += 1
-            vals = vals[:B].cpu().numpy()
-            idx = idx[:B].cpu().numpy()
+            with self._span("retrieval", "serve_rank", batch=B):
+                d = pending[0][3].shape[-1]
+                E = np.zeros((_bucket(B), d), np.float32)
+                E[:B] = np.stack([p[3] for p in pending]).astype(np.float32)
+                vals, idx = self.retriever(
+                    self.table, torch.from_numpy(E).to(self.device))
+                self.retrieval_batches += 1
+                vals = vals[:B].cpu().numpy()
+                idx = idx[:B].cpu().numpy()
             self.last_step_s["retrieval"] = time.perf_counter() - t0
             for i, (rid, user, hit, emb, ver) in enumerate(pending):
                 self.cache.store_topk(user, idx[i], vals[i], ver)
@@ -262,11 +286,15 @@ class RecallEngine:
 
     # -- accounting --------------------------------------------------------
     def stats(self) -> Dict[str, Any]:
-        return {"latency": self.scheduler.latency_stats(),
-                "cache": self.cache.stats(),
-                "encoded_batches": self.encoded_batches,
-                "retrieval_table_dtype":
-                    str(self.retriever.scan_table(self.table).dtype)}
+        out = {"latency": self.scheduler.latency_stats(),
+               "cache": self.cache.stats(),
+               "encoded_batches": self.encoded_batches,
+               "retrieval_table_dtype":
+                   str(self.retriever.scan_table(self.table).dtype)}
+        if self._mx is not None:
+            # mirrored into the registry; the dict is returned unchanged
+            self._mx.publish("serve", out)
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -346,12 +374,14 @@ class StreamingRecallEngine:
                  admission: str = "evict",
                  prefix_reuse: bool = True,
                  attn_fn: Optional[Callable] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, obs: Optional[Obs] = None):
         if admission not in ("evict", "shed"):
             raise ValueError(f"admission policy {admission!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model
+        self.obs = obs
+        self._span, self._mx = _obs_hooks(obs)
         self.table = _serving_table(model, table, use_shadow, self.device)
         self.k = k
         self.admission = admission
@@ -558,6 +588,10 @@ class StreamingRecallEngine:
         ``now`` the requests are dispatched at the tick's start and done
         at its end, on the host's monotonic clock (after the results
         reached the host)."""
+        with self._span("tick", "serve"):
+            return self._tick(now=now)
+
+    def _tick(self, *, now: Optional[float] = None) -> List[ServeResult]:
         given = now
         now = time.monotonic() if now is None else now
         results: List[ServeResult] = []
@@ -606,6 +640,10 @@ class StreamingRecallEngine:
         return R, rows
 
     def _run_cold(self, items: List[Tuple[int, List[int]]]) -> None:
+        with self._span("encode_cold", "serve_encode", rows=len(items)):
+            self._run_cold_impl(items)
+
+    def _run_cold_impl(self, items: List[Tuple[int, List[int]]]) -> None:
         b = self.buffer
         slots = [s for s, _ in items]
         R, rows = self._rows(slots)
@@ -627,6 +665,12 @@ class StreamingRecallEngine:
 
     def _run_warm(self, items: List[Tuple[int, List[int]]],
                   q_cap: int) -> None:
+        with self._span("encode_warm", "serve_encode",
+                        rows=len(items), q_cap=q_cap):
+            self._run_warm_impl(items, q_cap)
+
+    def _run_warm_impl(self, items: List[Tuple[int, List[int]]],
+                       q_cap: int) -> None:
         b = self.buffer
         slots = [s for s, _ in items]
         R, rows = self._rows(slots)
@@ -653,6 +697,11 @@ class StreamingRecallEngine:
               ) -> List[ServeResult]:
         """Rank finished slots straight from the device embedding buffer,
         in row-ladder-bounded bucketed chunks."""
+        with self._span("rank", "serve_rank", slots=len(items)):
+            return self._rank_impl(items)
+
+    def _rank_impl(self, items: List[Tuple[int, List[int], bool]]
+                   ) -> List[ServeResult]:
         results: List[ServeResult] = []
         cap = self.row_ladder.max_size
         for lo in range(0, len(items), cap):
@@ -703,7 +752,7 @@ class StreamingRecallEngine:
         return out
 
     def stats(self) -> Dict[str, Any]:
-        return {
+        out = {
             "latency": self.sched.latency_stats(),
             "admission": dict(self.sched.outcomes),
             "occupancy": {**self.sched.occupancy(), **self.buffer.stats()},
@@ -717,3 +766,7 @@ class StreamingRecallEngine:
                        "prefix_reuse": self.prefix_reuse},
             "retrieval_table_dtype": str(self._scan.dtype),
         }
+        if self._mx is not None:
+            # mirrored into the registry; the dict is returned unchanged
+            self._mx.publish("serve", out)
+        return out

@@ -53,10 +53,33 @@ land. The gather is a copy, so later landings do not reach it. With
 schedules are bit-identical to :func:`make_gr_train_step`, sync and τ=1:
 losses, the final state and the carry.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item when given): the host-offloaded embedding cache (``cache``,
-item 10), fault tolerance (``fault_policy``, ``fault_injector`` and
-:meth:`GREngine.run_resilient`, item 9) and telemetry (``obs``, item 8).
+Fault tolerance (``fault_policy``, ``fault_injector``,
+:meth:`GREngine.run_resilient`) and telemetry (``obs``) follow the
+reference; where the in-place state changes what they must do:
+
+* A checkpoint's host copy is complete before ``step_callback`` returns
+  (the steps that follow overwrite the carry-convention state's tensors);
+  only the file writes run on the saver's thread. The replay-from-scratch
+  anchor of a resilient run is a host copy made by the same code, and no
+  file: the state object it came from is trained in place.
+* Retries. :data:`RETRY_SAFE_STAGES` (dataload, a2a, unique, dense_bwd)
+  change no training state and are retried whenever the policy allows;
+  emb_fwd, dense_fwd and emb_bwd write it in place (AdamW and AdaGrad in
+  emb_bwd, a leftover τ=1 landing in the other two), so they are retried
+  only after a failure raised before their body ran (an injected fault),
+  and a failure inside their body escalates to a restore.
+* A CUDA error is not masked: a recovery's restore writes into the state's
+  tensors on the card, so a sticky error (an illegal address, a
+  device-side assert) fails that restore and is raised; any error is
+  raised once ``max_recoveries`` restores are used up.
+* Telemetry adds no synchronisation: a step's wall is the host's time
+  between the realisations of consecutive losses in dense_bwd (which waits
+  for the card), and the stage spans are the host's time in each hook, so
+  on the card the spans of the stages that only enqueue kernels show their
+  launch time, not their device time.
+
+The host-offloaded embedding cache (``cache``) is not ported yet: given a
+value it raises ``NotImplementedError`` naming ROADMAP queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -71,13 +94,19 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.pipeline import (PipelineHooks, STAGES, SixStagePipeline,
                                        StageEvent,
                                        timeline_report as _timeline_report)
+from repro_torch.obs import (Obs, gr_dense_params, measured_mfu,
+                             peak_flops_of, pipeline_goodput, token_imbalance)
+from repro_torch.training import checkpoint as CKPT
+from repro_torch.training import resilience as R
 from repro_torch.training.trainer import (GRTrainState, gr_train_state,
                                           make_gr_stages, make_gr_train_step,
                                           to_device)
 
 SCHEDULES = ("algorithm1", "flat")
 
-_NOT_PORTED = {"cache": 10, "fault_policy": 9, "fault_injector": 9, "obs": 8}
+#: Stages that change no training state: a retry after any failure is
+#: clean. The others write it in place (see the module docstring).
+RETRY_SAFE_STAGES = ("dataload", "a2a", "unique", "dense_bwd")
 
 
 def _step_fns(bundle, loss_kwargs: Optional[Dict[str, Any]]):
@@ -127,8 +156,18 @@ class GREngine:
         pairs pending, table not yet landed), what the flat step holds
         after step ``i``; its tensors are updated in place by the steps
         that follow, so a callback that keeps it copies it.
-    cache, fault_policy, fault_injector, obs: not ported yet; given a
-        value, they raise ``NotImplementedError``.
+    fault_policy, fault_injector: per-stage retry / watchdog / non-finite
+        handling and deterministic fault injection
+        (:mod:`repro_torch.training.resilience`); :meth:`run_resilient`
+        sets them for its run.
+    obs: an :class:`repro_torch.obs.Obs`; when enabled, each record gains
+        ``step_wall_s``, ``mfu`` and ``imbalance``, the registry the
+        reference's ``train_*`` metrics, and the tracer one span per stage
+        event at the end of a run. ``peak_flops``: the peak the measured MFU
+        is taken against (default: the cited peak of the card, by name and
+        the model's dtype; the CPU has none, so obs on the CPU needs it).
+    cache: not ported yet; given a value, it raises
+        ``NotImplementedError``.
 
     ``run(steps)`` returns a list of per-step records ``{"step", "loss",
     "tokens"}``; ``events`` holds the run's :class:`StageEvent` trace and
@@ -141,15 +180,15 @@ class GREngine:
                  semi_async: bool = True, schedule: str = "algorithm1",
                  qdtype=torch.float16, workers: int = 3,
                  step_callback: Optional[Callable] = None,
-                 device: DeviceLike = None, cache=None, fault_policy=None,
-                 fault_injector=None, obs=None):
-        given = dict(cache=cache, fault_policy=fault_policy,
-                     fault_injector=fault_injector, obs=obs)
-        for name, value in given.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"GREngine({name}=...) is not ported yet: ROADMAP "
-                    f"queue 1, item {_NOT_PORTED[name]}")
+                 device: DeviceLike = None, cache=None,
+                 fault_policy: Optional[R.FaultPolicy] = None,
+                 fault_injector: Optional[R.FaultInjector] = None,
+                 obs: Optional[Obs] = None,
+                 peak_flops: Optional[float] = None):
+        if cache is not None:
+            raise NotImplementedError(
+                "GREngine(cache=...) is not ported yet: ROADMAP queue 1, "
+                "item 10 (the host-offloaded embedding cache)")
         if schedule not in SCHEDULES:
             raise ValueError(f"schedule must be one of {SCHEDULES}")
         if state is not None and device is not None:
@@ -178,6 +217,31 @@ class GREngine:
         self._h2d = (torch.cuda.Stream(self.device)
                      if self.device.type == "cuda" else None)
         self._dlock = threading.Lock()
+        # -- fault tolerance (training/resilience.py) ----------------------
+        self._policy = fault_policy
+        self._injector = fault_injector
+        self._resume_base = 0            # global step of this run's batch 0
+        self._skips_used = 0
+        self.fault_events: List[tuple] = []   # typed (kind, stage, step)
+        self.recoveries: List[R.RecoveryEvent] = []
+        #: (global step, D2H seconds, bytes) of each checkpoint's host copy
+        self.snapshots: List[tuple] = []
+        # -- observability (obs/) ------------------------------------------
+        # _mx/_tr are None unless obs is live, so every instrumentation
+        # site is a single attribute test on the hot path
+        self.obs = obs
+        live = obs is not None and obs.enabled
+        self._mx = obs.metrics if live else None
+        self._tr = obs.tracer if live else None
+        # measured MFU: model FLOPs for GR = 6 * dense params * tokens
+        self._obs_flops_per_token = (
+            6.0 * gr_dense_params(bundle.cfg) if live else 0.0)
+        self.peak_flops = (peak_flops_of(
+            torch.cuda.get_device_name(self.device)
+            if self.device.type == "cuda" else self.device.type,
+            bundle.cfg.dtype, peak_flops) if live else peak_flops)
+        self._last_step_end: Optional[float] = None
+        self._run_t0 = 0.0
 
     # -- data --------------------------------------------------------------
     def _batch(self, i: int):
@@ -225,6 +289,23 @@ class GREngine:
         # the flat step orders it — and before emb_fwd(1) / dense_fwd(0).
         self._leftover = (self.semi_async
                           and self.state.pending_ids.numel() > 0)
+        self._last_step_end = None
+        self._run_t0 = time.perf_counter()
+        # stage hooks, wrapped with fault injection / retry / watchdog
+        # when a policy or injector is attached (run_resilient sets them);
+        # the unwrapped path is the plain engine's
+        base_fns = {s: getattr(self, f"_hk_{s}") for s in STAGES}
+        if self._policy is not None or self._injector is not None:
+            self._stage_fns = {
+                s: R.wrap_stage_fn(
+                    s, fn, policy=self._policy, injector=self._injector,
+                    global_step=lambda i: self._resume_base + i,
+                    fault_events=self.fault_events,
+                    poison=self._poison_dout if s == "dense_fwd" else None,
+                    retry_body=s in RETRY_SAFE_STAGES)
+                for s, fn in base_fns.items()}
+        else:
+            self._stage_fns = base_fns
 
     def _land_pending(self):
         st = self.state
@@ -274,15 +355,55 @@ class GREngine:
         self._arts[i] = {**art, "dout": dout}
         return {"i": i}
 
+    def _poison_dout(self, i: int):
+        """FaultInjector 'nan' mutator: NaN the dense_fwd artifact's loss
+        (the GR batch is integer ids, so a poisoned batch shows exactly
+        here: a non-finite loss out of the dense stage)."""
+        full = self._arts[i]
+        full["dout"] = full["dout"]._replace(
+            loss=torch.full_like(full["dout"].loss, float("nan")))
+
     def _hk_dense_bwd(self, i: int, art):
         full = self._arts[i]
         loss = float(full["dout"].loss)   # realise the enqueued fwd+bwd
         tokens = int(np.asarray(full["np"]["offsets"])[:, -1].sum())
-        return {"step": i, "loss": loss, "tokens": tokens}
+        rec = {"step": i, "loss": loss, "tokens": tokens}
+        if self._mx is not None:
+            # dense_bwd realises the loss on the main thread in both
+            # schedules, so step-boundary timestamps need no lock
+            self._obs_step(i, rec, full)
+        pol = self._policy
+        if pol is not None and pol.guard_nonfinite:
+            bad = not np.isfinite(loss)
+            if not bad and pol.guard_grads:
+                bad = not R.all_finite(full["dout"].grads_dense)
+            if bad:
+                g = self._resume_base + i
+                if (pol.nonfinite_action == "skip"
+                        and self._skips_used < pol.max_skips):
+                    self._skips_used += 1
+                    self.fault_events.append(
+                        ("skip_nonfinite", "dense_bwd", g))
+                    rec["skipped"] = True
+                else:
+                    raise R.NonFiniteLossError(
+                        f"non-finite loss at step {g} "
+                        f"(skip budget {pol.max_skips} exhausted)"
+                        if pol.nonfinite_action == "skip" else
+                        f"non-finite loss at step {g}")
+        return rec
 
     def _hk_emb_bwd(self, i: int, rec, *, defer_sparse: bool = False):
         full = self._arts.pop(i)
         st = self.state
+        if rec.get("skipped"):
+            # the non-finite guard dropped this batch: no optimizer step,
+            # no pairs; the state is untouched and is its own
+            # carry-convention state
+            self._bcache[i] = None
+            if self.step_callback:
+                self.step_callback(i, rec, st)
+            return rec
         dense, opt, table, p_ids, p_rows = self.stages.emb_bwd(
             st.dense, st.dense_opt, st.table, full["dout"], full["dev"],
             apply_sparse=not self.semi_async)
@@ -301,8 +422,56 @@ class GREngine:
         return rec
 
     def _make_hooks(self) -> PipelineHooks:
-        return PipelineHooks(**{s: getattr(self, f"_hk_{s}")
-                                for s in STAGES})
+        return PipelineHooks(**self._stage_fns)
+
+    # -- observability -----------------------------------------------------
+    def _obs_step(self, i: int, rec: Dict[str, Any],
+                  full: Dict[str, Any]) -> None:
+        """Per-step derived gauges: the step's wall (the host's time since
+        the last step's loss was realised, or since the run began), the
+        measured MFU against ``peak_flops`` and the per-device token-load
+        imbalance; the values also ride the record."""
+        now = time.perf_counter()
+        prev = (self._last_step_end if self._last_step_end is not None
+                else self._run_t0)
+        self._last_step_end = now
+        wall = now - prev
+        loads = np.asarray(full["np"]["offsets"])[:, -1]
+        rec["step_wall_s"] = wall
+        rec["mfu"] = measured_mfu(self._obs_flops_per_token * rec["tokens"],
+                                  wall, self.peak_flops)
+        rec["imbalance"] = token_imbalance(loads)
+        mx = self._mx
+        mx.counter("train_steps_total", "training steps completed").inc()
+        mx.counter("train_tokens_total", "tokens trained").inc(rec["tokens"])
+        mx.gauge("train_step", "last completed global step").set(
+            self._resume_base + i)
+        mx.gauge("train_loss", "last step loss").set(rec["loss"])
+        mx.gauge("train_step_wall_s", "last step wall time").set(wall)
+        mx.gauge("train_mfu_measured",
+                 "measured model-FLOPs utilization").set(rec["mfu"])
+        mx.gauge("train_token_imbalance",
+                 "per-device token-load imbalance").set(rec["imbalance"])
+        if wall > 0.0:
+            mx.gauge("train_tokens_per_s", "training throughput").set(
+                rec["tokens"] / wall)
+        mx.histogram("train_step_s", "step wall time").observe(wall)
+
+    def _obs_finalize(self, results: List[Dict[str, Any]]) -> None:
+        """End of a run: the stage events as spans (one track per merged
+        stage), the Table-6 breakdown and the pipeline's goodput/bubble."""
+        if self._mx is None:
+            return
+        recs = {r["step"]: r for r in results}
+        self._tr.ingest_stage_events(self.events, records=recs)
+        tl = self.timeline_report()
+        if tl:
+            self._mx.publish("train_timeline", tl)
+        gp = pipeline_goodput(self.events)
+        self._mx.gauge("train_pipeline_goodput",
+                       "busy/wall of the stage stream").set(gp["goodput"])
+        self._mx.gauge("train_pipeline_bubble_ratio",
+                       "1 - goodput").set(gp["bubble_ratio"])
 
     # -- run ---------------------------------------------------------------
     def run(self, steps: int) -> List[Dict[str, Any]]:
@@ -316,6 +485,7 @@ class GREngine:
             self.events = list(pipe.events)
         else:
             results = self._run_flat(steps)
+        self._obs_finalize(results)
         return results
 
     def _run_flat(self, steps: int) -> List[Dict[str, Any]]:
@@ -326,7 +496,7 @@ class GREngine:
 
         def stage(name, i, *a, **kw):
             t0 = time.perf_counter()
-            out = getattr(self, f"_hk_{name}")(i, *a, **kw)
+            out = self._stage_fns[name](i, *a, **kw)
             self.events.append(StageEvent(name, i, t0, time.perf_counter()))
             return out
 
@@ -350,12 +520,209 @@ class GREngine:
             results.append(rec)
         return results
 
-    def run_resilient(self, *args, **kwargs):
-        """Supervised training with checkpoints and recovery: not ported
-        yet."""
-        raise NotImplementedError(
-            "GREngine.run_resilient is not ported yet: ROADMAP queue 1, "
-            "item 9 (checkpointing and fault tolerance)")
+    # -- supervised recovery -----------------------------------------------
+    def _global_fetch(self) -> Callable[[int], Any]:
+        """Deterministic global-step → batch mapping that survives recovery
+        replays. ``data_fn`` engines fetch on demand; loader engines pull
+        from one iterator into a cache, because ``GRLoader.batches`` is
+        RNG-stateful and restarting it would change the replayed batches
+        (the cache holds the run's batches on the host)."""
+        cache: Dict[int, Any] = {}
+        if self._data_fn is not None:
+            src = self._data_fn
+
+            def fetch(g: int):
+                if g not in cache:
+                    cache[g] = src(g)
+                return cache[g]
+            return fetch
+        loader, it = self.loader, None
+
+        def fetch_loader(g: int):
+            nonlocal it
+            if it is None:
+                it = loader.batches(self._resilient_steps)
+            while len(cache) <= g:
+                cache[len(cache)] = next(it)
+            return cache[g]
+        return fetch_loader
+
+    def _write_ckpt(self, saver, ckpt_dir: str, step_num: int, snapshot,
+                    keep_last_n) -> None:
+        """One checkpoint inside a resilient run, of the carry-convention
+        state (τ=1 pairs pending, table not landed); its host copy is
+        complete when this returns. A torn-save injection site for this
+        step crashes the write as a real mid-save failure would (wreckage
+        on disk, then the run fails): recovery must fall back to the
+        previous intact step."""
+        spec = (self._injector.take(R.SAVE_SITE, step_num)
+                if self._injector else None)
+        if spec is not None and spec.kind == "torn_save":
+            if saver is not None:
+                try:
+                    saver.wait()          # serialize with in-flight save
+                except Exception:
+                    pass
+            self.fault_events.append(("torn_save", R.SAVE_SITE, step_num))
+            R.simulate_torn_save(ckpt_dir, step_num, snapshot,
+                                 tear=spec.tear)
+            raise R.InjectedFault(
+                f"crash mid-save of step {step_num} ({spec.tear})")
+        if saver is not None:
+            saver.save_async(step_num, snapshot)
+            self.snapshots.append(saver.snapshots[-1])
+        else:
+            snap = CKPT.snapshot(snapshot)
+            self.snapshots.append((step_num, snap.seconds, snap.nbytes))
+            CKPT.save(ckpt_dir, step_num, snap, keep_last_n=keep_last_n,
+                      registry=self._mx)
+
+    def run_resilient(self, steps: int, *, ckpt_dir: str,
+                      ckpt_every: int = 10,
+                      policy: Optional[R.FaultPolicy] = None,
+                      injector: Optional[R.FaultInjector] = None,
+                      keep_last_n: Optional[int] = None,
+                      async_save: bool = True, final_save: bool = True,
+                      start_step: Optional[int] = None
+                      ) -> List[Dict[str, Any]]:
+        """Train to global step ``steps`` under supervision: a
+        crash-consistent checkpoint every ``ckpt_every`` steps (and after
+        the last, ``final_save``), per-stage retry/watchdog/non-finite
+        handling per ``policy``, and on any escalated stage failure a full
+        recovery cycle — the pipeline drains (every in-flight hook joins),
+        the newest *intact* checkpoint is restored into the state's tensors
+        (falling back past torn saves; the run's initial state, kept as a
+        host copy, if none exists yet) and the remaining steps replay.
+        Checkpoints hold the carry-convention state, so a failed-and-
+        recovered run is bit-identical to an uninterrupted one in both
+        schedules, sync and τ=1.
+
+        Returns the per-step records for global steps ``[start, steps)`` in
+        order (``start`` defaults to ``state.step``; a record replayed
+        after a recovery overwrites its first, identical, incarnation).
+        ``fault_events`` collects typed ``(kind, stage, step)`` events,
+        ``recoveries`` one :class:`RecoveryEvent` per restore cycle and
+        ``snapshots`` each checkpoint's host copy (step, seconds, bytes).
+        """
+        pol = policy if policy is not None else R.FaultPolicy()
+        prev_pol, prev_inj = self._policy, self._injector
+        prev_cb, prev_data = self.step_callback, self._data_fn
+        self._policy, self._injector = pol, injector
+        self.fault_events = []
+        self.recoveries = []
+        self.snapshots = []
+        self._skips_used = 0
+        self._resilient_steps = steps
+        base0 = start_step if start_step is not None else int(self.state.step)
+        if base0 >= steps:
+            return []
+        fetch = self._global_fetch()
+        records: Dict[int, Dict[str, Any]] = {}
+        # replay-from-scratch anchor: a host copy (the state object itself
+        # is trained in place); nothing is written to disk for it. A
+        # directory that already holds an intact step at or after the
+        # start (a resumed run) is restored from instead, and always will
+        # hold one: a save removes old steps only after a newer one is
+        # complete.
+        keep_anchor = not any(s >= base0 for s in CKPT.intact_steps(ckpt_dir))
+        # host copies of the whole state alive at once: the saver's (on
+        # the card its pinned buffers, kept for the run: the copy stalls
+        # the training thread, and pageable memory is many times slower),
+        # a restore's read of the leaves, and the anchor
+        need = CKPT.host_nbytes(self.state) * (2 + keep_anchor)
+        avail = CKPT.host_available_bytes()
+        if avail is not None and need > avail:
+            raise MemoryError(
+                f"run_resilient needs {need / 1e9:.2f} GB of host memory "
+                f"for {2 + keep_anchor} copies of the state (the saver's, "
+                f"a restore's" + (", the replay anchor" if keep_anchor
+                                  else "") + f"), {avail / 1e9:.2f} GB "
+                f"available")
+        saver = (CKPT.AsyncCheckpointer(ckpt_dir, keep_last_n=keep_last_n,
+                                        registry=self._mx)
+                 if async_save else None)
+        initial = CKPT.snapshot(self.state) if keep_anchor else None
+
+        def on_step(i: int, rec: Dict[str, Any], snapshot) -> None:
+            g = self._resume_base + i
+            grec = dict(rec, step=g)
+            records[g] = grec
+            if prev_cb:
+                prev_cb(g, grec, snapshot)
+            done = g + 1
+            if (ckpt_every and done % ckpt_every == 0) or \
+                    (final_save and done == steps):
+                self._write_ckpt(saver, ckpt_dir, done, snapshot,
+                                 keep_last_n)
+
+        self.step_callback = on_step
+        prev_loader, self.loader = self.loader, None
+        self._data_fn = lambda i: fetch(self._resume_base + i)
+        base = base0
+        try:
+            while True:
+                self._resume_base = base
+                try:
+                    self.run(steps - base)
+                    break
+                except Exception as err:
+                    t0 = time.perf_counter()
+                    if saver is not None:
+                        try:
+                            saver.wait()   # surface/serialize async saves
+                        except Exception:
+                            pass           # a torn async save is recovered
+                    if len(self.recoveries) >= pol.max_recoveries:
+                        raise
+                    failed = max(records, default=base - 1) + 1
+                    try:
+                        self.state, used = CKPT.restore_with_step(
+                            ckpt_dir, self.state, registry=self._mx)
+                    except (FileNotFoundError, CKPT.CheckpointCorrupt):
+                        if initial is None:
+                            raise     # the start's intact steps are gone
+                        # no intact checkpoint yet: replay from the anchor
+                        self.state = CKPT.load_snapshot(self.state, initial)
+                        used = base0
+                    for g in [g for g in records if g >= used]:
+                        del records[g]
+                    base = used
+                    ev = R.RecoveryEvent(
+                        failed_step=failed, restored_step=used,
+                        error=repr(err),
+                        wall_s=time.perf_counter() - t0)
+                    self.recoveries.append(ev)
+                    self.fault_events.append(("recovered", "engine", used))
+                    if self._mx is not None:
+                        self._mx.counter(
+                            "train_recoveries_total",
+                            "recovery cycles completed").inc()
+                        self._mx.counter(
+                            "train_steps_replayed_total",
+                            "steps lost to recoveries").inc(ev.steps_lost)
+                        self._mx.gauge(
+                            "train_last_recovery_wall_s",
+                            "wall time of the last recovery").set(ev.wall_s)
+                        self._mx.histogram(
+                            "train_recovery_s",
+                            "recovery wall time").observe(ev.wall_s)
+                    if self._tr is not None:
+                        # (t0, t0 + wall_s) is the restore window on the
+                        # run's timeline
+                        self._tr.record(
+                            "recovery", "recovery", t0, t0 + ev.wall_s,
+                            {"failed_step": failed, "restored_step": used,
+                             "steps_lost": ev.steps_lost,
+                             "error": repr(err)})
+        finally:
+            self.step_callback = prev_cb
+            self._policy, self._injector = prev_pol, prev_inj
+            self._data_fn, self.loader = prev_data, prev_loader
+            self._resume_base = 0
+            if saver is not None:
+                saver.wait()
+        return [records[g] for g in sorted(records)]
+
 
     # -- reporting ---------------------------------------------------------
     def timeline_report(self) -> Dict[str, Any]:

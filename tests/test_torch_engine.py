@@ -290,18 +290,14 @@ def test_preprocess_log_matches_reference():
     assert JK.leave_one_out(ga)[1] == PK.leave_one_out(gb)[1]
 
 
-@pytest.mark.parametrize("arg", ["cache", "fault_policy", "fault_injector",
-                                 "obs"])
+@pytest.mark.parametrize("arg", ["cache"])
 def test_engine_rejects_what_is_not_ported(arg):
-    """The cache, resilience and telemetry arguments raise, naming their
-    ROADMAP item, rather than being ignored; so does run_resilient."""
+    """The embedding cache argument raises, naming its ROADMAP item, rather
+    than being ignored."""
     b, batch, mk_state = _setup()
-    item = {"cache": 10, "fault_policy": 9, "fault_injector": 9, "obs": 8}
+    item = {"cache": 10}
     with pytest.raises(NotImplementedError, match=f"item {item[arg]}"):
         GREngine(b, batch, state=mk_state(), **{arg: object()})
-    eng = GREngine(b, batch, state=mk_state())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.run_resilient(4, ckpt_dir="unused")
     with pytest.raises(ValueError, match="schedule"):
         GREngine(b, batch, state=mk_state(), schedule="dense")
     with pytest.raises(ValueError, match="not both"):

@@ -1182,3 +1182,104 @@ def test_engine_random_traffic_warm_equals_cold(cuda):
                                 max_rows_per_tick=8)
     out = drive(eng, np.random.default_rng(0), 150, new_len=(5.5, 1.3))
     assert out["warm_rows"] >= 100 and out["evictions"] > 0, out
+
+
+def _card_engine_setup(cuda, steps):
+    from repro_torch.data import GRLoader, SyntheticKuaiRand
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.training import gr_train_state
+    cfg = reduced(get_arch("hstu-tiny")).replace(
+        d_model=256, vocab_size=3000, max_seq_len=256, dtype="float32",
+        num_negatives=16)
+    gen = SyntheticKuaiRand(num_users=40, num_items=cfg.vocab_size,
+                            mean_len=150, max_len=400, seed=2)
+    seqs = {u: (d["item"], d["ts"]) for u, d in
+            ((u, gen.interactions(u)) for u in range(40))}
+    batches = list(GRLoader(seqs, 2, 3, cfg.max_seq_len, 16,
+                            cfg.vocab_size).batches(steps))
+    b = GRBundle(cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    init = gr_train_state(b.init_dense(g, device=cuda),
+                          b.init_table(g, device=cuda))
+    return b, batches, init
+
+
+@pytest.mark.parametrize("schedule", ["algorithm1", "flat"])
+def test_resilient_run_on_card_equals_uninterrupted(cuda, schedule):
+    """GREngine.run_resilient on the card (fp32 hstu-tiny at d 256, τ=1, 8
+    steps, async checkpoints every 2, keep 2) with an escalated stage
+    exception, a NaN-poisoned batch and a torn save, each followed by a
+    restore: every step's loss and every state tensor equal an
+    uninterrupted run's bit for bit, and the replayed steps launched the
+    attention, the fused negative kernels and K5."""
+    import tempfile
+    from repro_torch.kernels import jagged_lookup as JL
+    from repro_torch.kernels import neg_logits as NL
+    from repro_torch.training import GREngine, clone_state, state_tensors
+    from repro_torch.training import resilience as R
+    b, batches, init = _card_engine_setup(cuda, 8)
+    ref = GREngine(b, lambda i: batches[i], state=clone_state(init),
+                   schedule=schedule)
+    losses = [r["loss"] for r in ref.run(8)]
+    faults = [R.FaultSpec("emb_bwd", 2, "exception"),
+              R.FaultSpec("dense_fwd", 5, "nan"),
+              R.FaultSpec(R.SAVE_SITE, 6, "torn_save", tear="truncated")]
+    eng = GREngine(b, lambda i: batches[i], state=clone_state(init),
+                   schedule=schedule)
+    for c in (ops.KERNEL_LAUNCHES, NL.KERNEL_LAUNCHES, JL.KERNEL_LAUNCHES):
+        for k in c:
+            c[k] = 0
+    with tempfile.TemporaryDirectory() as d:
+        recs = eng.run_resilient(8, ckpt_dir=d, ckpt_every=2, keep_last_n=2,
+                                 policy=R.FaultPolicy(retries={}),
+                                 injector=R.FaultInjector(faults))
+    assert len(eng.recoveries) == 3, eng.recoveries
+    replayed = sum(ev.steps_lost for ev in eng.recoveries)
+    assert replayed > 0
+    assert [r["loss"] for r in recs] == losses
+    assert all(torch.equal(x, y) for x, y in
+               zip(state_tensors(eng.state), state_tensors(ref.state)))
+    L = b.cfg.num_layers
+    assert ops.KERNEL_LAUNCHES["attn_fwd"] >= 2 * L * (8 + replayed)
+    assert NL.KERNEL_LAUNCHES["neg_fwd"] >= 8 + replayed
+    assert JL.KERNEL_LAUNCHES["wscatter"] >= 8 + replayed
+
+
+def test_checkpoint_snapshot_pinned_equals_pageable_and_restores(cuda):
+    """A card state's host copy through reused pinned buffers equals the
+    pageable one leaf for leaf (twice: the buffers are reused), and a save
+    restores into a fresh card state in place, bit for bit."""
+    import tempfile
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import gr_train_state, state_tensors
+    b, batches, init = _card_engine_setup(cuda, 1)
+    bufs = {}
+    plain = CKPT.snapshot(init)
+    for _ in range(2):
+        pinned = CKPT.snapshot(init, buffers=bufs)
+        assert pinned.paths == plain.paths and pinned.nbytes == plain.nbytes
+        for x, y in zip(pinned.arrays, plain.arrays):
+            np.testing.assert_array_equal(x, y)
+    assert bufs and all(t.is_pinned() for t in bufs.values() if t.numel())
+    with tempfile.TemporaryDirectory() as d:
+        CKPT.save(d, 1, init)
+        g = torch.Generator(device=cuda).manual_seed(7)
+        fresh = gr_train_state(b.init_dense(g, device=cuda),
+                               b.init_table(g, device=cuda))
+        master = fresh.table.master
+        got = CKPT.restore(d, fresh)
+    assert got.table.master is master          # in place
+    assert all(torch.equal(x, y) for x, y in
+               zip(state_tensors(got), state_tensors(init)))
+
+
+def test_all_finite_on_card_tensors(cuda):
+    from repro_torch.training.resilience import all_finite
+    x = torch.randn(1000, 64, device=cuda, dtype=torch.bfloat16)
+    assert all_finite({"a": x, "b": [torch.ones(3, device=cuda),
+                                     torch.arange(5, device=cuda)]})
+    x[17, 3] = float("nan")
+    assert not all_finite({"a": x})
+    y = torch.zeros(8, device=cuda)
+    y[-1] = float("-inf")
+    assert not all_finite([torch.ones(2, device=cuda), y])

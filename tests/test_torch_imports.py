@@ -1,9 +1,10 @@
-"""The port stands alone: it imports no jax and nothing of the JAX package
-(every module, serving and training alike, HSTU, FuXi and SASRec, the
-streaming engine, the fused, baseline and segmented negative paths, the
-kernel lookup and the dense attention schedule, runs with both blocked),
-and
+"""The port stands alone: it imports no jax, nothing of the JAX package and
+no msgpack (every module, serving and training alike, HSTU, FuXi and
+SASRec, the streaming engine, the fused, baseline and segmented negative
+paths, the kernel lookup and the dense attention schedule, telemetry,
+checkpoints and the resilient engine, runs with all three blocked), and
 its entry points run on the card unless the caller asks for the CPU."""
+import os
 import re
 import subprocess
 import sys
@@ -24,14 +25,17 @@ from repro_torch.serving import RecallEngine, StreamingRecallEngine
 from repro_torch.training import GREngine
 
 ROOT = Path(__file__).resolve().parents[1]
-IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+IMPORT_RE = re.compile(
+    r"^\s*(import|from)\s+(jax|repro|msgpack)(\.|\s|$)")
 
 _GUARDED = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
+sys.modules["msgpack"] = None
 sys.path.insert(0, sys.argv[1])
 import numpy as np, torch
+torch.set_num_threads(1)
 import repro_torch
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models.gr import GRModel
@@ -137,13 +141,41 @@ for arch in ("hstu-tiny", "sasrec-tiny"):
     assert seng.prefix_reuse == (arch == "hstu-tiny")
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
+import tempfile
+import repro_torch.obs, repro_torch.obs.derived, repro_torch.obs.metrics
+import repro_torch.obs.trace
+from repro_torch.obs import Obs
+from repro_torch.training import checkpoint as CKPT, clone_state, state_tensors
+from repro_torch.training import resilience as R
+with tempfile.TemporaryDirectory() as d:
+    CKPT.save(d, 3, st)
+    fresh = gr_train_state(b.init_dense(torch.Generator().manual_seed(9),
+                                        device="cpu"),
+                           b.init_table(torch.Generator().manual_seed(9),
+                                        device="cpu"))
+    got, used = CKPT.restore_with_step(d, fresh)
+    assert used == 3 and got.step == st.step
+    assert all(torch.equal(x, y) for x, y in
+               zip(state_tensors(got), state_tensors(st)))
+    obs = Obs()
+    ge = GREngine(b, loader, state=clone_state(st),
+                  loss_kwargs=dict(neg_segment=32), obs=obs, peak_flops=1e12)
+    recs = ge.run_resilient(
+        st.step + 3, ckpt_dir=d + "/run", ckpt_every=2,
+        injector=R.FaultInjector([R.FaultSpec("emb_bwd", st.step + 1)]),
+        policy=R.FaultPolicy(retries={}))
+    assert len(recs) == 3 and len(ge.recoveries) == 1
+    assert obs.snapshot()["ckpt_saves_total"]["values"][""] >= 1
+assert not any(m == "jax" or m.startswith(("jax.", "repro.", "msgpack"))
+               for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.encoded_batches)
 """
 
 
 def test_port_runs_with_jax_and_reference_blocked():
     out = subprocess.run([sys.executable, "-c", _GUARDED, str(ROOT / "src")],
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("OK")
 

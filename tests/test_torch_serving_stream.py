@@ -33,7 +33,6 @@ from repro_torch.serving import (BucketLadder, CompileCache,
                                  ContinuousScheduler, RecallEngine,
                                  SequenceBuffer, StreamingRecallEngine)
 from torch_parity import CPU, tree_numpy
-from torch_stream_traffic import drive
 
 EMB_TOL = 1e-4
 SCORE_TOL = 1e-4
@@ -389,21 +388,6 @@ def test_engine_warm_rows_equal_cold_encodes_across_wraparound():
         prev = cut
     st = eng.stats()["encode"]
     assert st["warm_rows"] > 0 and st["cold_rows"] > 0
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_engine_random_traffic_warm_equals_cold(dtype):
-    """Random open-loop traffic (new users, hits, 1-3-event appends, bursts
-    of three, evictions and full resends; rows crossing positions 128 and
-    256) through the engine: after every tick each user it encoded holds a
-    cold encode's embedding and live K/V of every layer bit for bit."""
-    cfg, model, table = _tiny(dtype, seq=300)
-    eng = StreamingRecallEngine(cfg, model, table, max_users=12, k=10,
-                                retrieval_block=128, max_rows_per_tick=4,
-                                device="cpu")
-    out = drive(eng, np.random.default_rng(1), 60)
-    assert out["warm_rows"] >= 20 and out["cold_rows"] >= 20, out
-    assert out["evictions"] > 0 and out["checked"] > 0, out
 
 
 # --------------------------------------------------------------------------

@@ -15,6 +15,14 @@ from repro_torch.convert import gr_params_from_numpy, table_from_numpy
 
 CPU = torch.device("cpu")
 
+# One intra-op thread per test process. The suite runs several pytest
+# workers side by side on one machine; with PyTorch's default (a thread per
+# core in every worker) the CPU tests' many small ops spend their time in
+# OpenMP barriers (on an 8-core host, six processes running 20 ticks of
+# the random-traffic serving test took 367 s each with the default and 2 s
+# each with one thread).
+torch.set_num_threads(1)
+
 
 def configs(dtype="float32", n_items=600, max_seq_len=64, arch="hstu-tiny"):
     """(JAX config, port config): reduced ``arch``, field for field."""

@@ -60,11 +60,12 @@ def drive(eng, rng, ticks, *, mix=(0.1, 0.3, 0.5, 0.1), submits=(1, 12),
     in the proportions ``mix`` of :data:`KINDS`, each round ending in one
     tick, after which every slot the tick encoded is held to a cold
     encode. Returns the counts {rows checked, warm rows, cold rows,
-    evictions}; raises AssertionError on the first mismatch."""
+    evictions, full resends, checked rows longer than 128 and than 256};
+    raises AssertionError on the first mismatch."""
     b = eng.buffer
     S, V = b.max_seq_len, eng.cfg.vocab_size
     hist, gone = {}, set()
-    checked = 0
+    checked = resends = over_128 = over_256 = 0
 
     def events(u, m):
         ids = rng.integers(0, V, m).astype(np.int32)
@@ -73,11 +74,13 @@ def drive(eng, rng, ticks, *, mix=(0.1, 0.3, 0.5, 0.1), submits=(1, 12),
             np.int32)
 
     def submit(u, ids, ts):
+        nonlocal resends
         a = eng.submit(u, ids, ts)
         if a.accepted or a.outcome == "resend_full":
             hist[u] = (np.concatenate([hist[u][0], ids])[-S:],
                        np.concatenate([hist[u][1], ts])[-S:])
         if a.outcome == "resend_full":
+            resends += 1
             a = eng.submit(u, *hist[u])
         if not a.accepted and b.slot_of(u) is None:
             gone.add(u)
@@ -110,5 +113,9 @@ def drive(eng, rng, ticks, *, mix=(0.1, 0.3, 0.5, 0.1), submits=(1, 12),
             bad = mismatches(eng, slots)
             assert not bad, f"warm != cold for (user, length) {bad}"
             checked += len(slots)
+            lens = b.length[slots]
+            over_128 += int((lens > 128).sum())
+            over_256 += int((lens > 256).sum())
     return dict(checked=checked, warm_rows=eng.warm_rows,
-                cold_rows=eng.cold_rows, evictions=b.evictions)
+                cold_rows=eng.cold_rows, evictions=b.evictions,
+                resends=resends, over_128=over_128, over_256=over_256)
