@@ -114,6 +114,7 @@ import subprocess
 import sys
 import time
 import traceback
+import weakref
 from pathlib import Path
 
 # fp32 comparisons hold fp32 arithmetic against fp32 arithmetic: keep
@@ -2470,14 +2471,16 @@ ENGINE_STEPS = {"hstu-large": 8, "fuxi-large": 6}
 
 
 def _engine_run(arch, schedule, V, base_note, tag, loss_kwargs=None,
-                n_steps=None, before_run=None, obs=None):
+                n_steps=None, before_run=None, obs=None, data=None,
+                cache=None):
     """GREngine on full-width ``arch``, tau=1, ``loss_kwargs`` (default:
     the fused path with its default scatter), ``n_steps`` steps (default
     ENGINE_STEPS[arch]); per step the loss, the host wall between the ends
     of consecutive steps (each step's loss is realised on the host, so the
     host waits on the card once a step) and the peak above the tables.
     ``before_run(engine)`` runs first, before the counts are zeroed;
-    ``obs`` is handed to the engine."""
+    ``obs`` and ``cache`` are handed to the engine; ``data`` (default the
+    engine cell's loader) feeds it."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.model_zoo import GRBundle
@@ -2488,9 +2491,9 @@ def _engine_run(arch, schedule, V, base_note, tag, loss_kwargs=None,
     cfg = get_arch(arch)
     n_steps = n_steps or ENGINE_STEPS[arch]
     t0 = time.perf_counter()
-    eng = GREngine(GRBundle(cfg), _train_loader(V), seed=SEED,
+    eng = GREngine(GRBundle(cfg), data or _train_loader(V), seed=SEED,
                    schedule=schedule, semi_async=True, device=dev,
-                   loss_kwargs=loss_kwargs, obs=obs)
+                   loss_kwargs=loss_kwargs, obs=obs, cache=cache)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     if before_run is not None:
@@ -2514,7 +2517,8 @@ def _engine_run(arch, schedule, V, base_note, tag, loss_kwargs=None,
     walls = [m - p for m, p in zip(marks, [t0] + marks[:-1])]
     steps = [dict(step=r["step"], loss=r["loss"], tokens=r["tokens"],
                   wall_s=wl, peak_above_tables_gb=pk / 1e9,
-                  **{k: r[k] for k in ("mfu", "step_wall_s") if k in r})
+                  **{k: r[k] for k in ("mfu", "step_wall_s", "cache")
+                     if k in r})
              for r, wl, pk in zip(recs, walls, peaks)]
     name = schedule
     for r in steps:
@@ -2877,6 +2881,382 @@ def phase_resilient():
             f"{t_restore:.2f} s; 2 more steps bit for bit the uninterrupted "
             f"run continued ({cont})")
         del fresh, bits
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 6d: the host-offloaded embedding cache (CachedShadowedTable)
+# --------------------------------------------------------------------------
+
+# Zipf(1.8), id = popularity rank, rejected into the vocab: the access law of
+# the reference's cache benchmark (benchmarks/bench_cache_embedding.py:36-51)
+CACHE_ZIPF_A = 1.8
+CACHE_CHUNK_ROWS = 1024
+CACHE_CAPACITY = 512              # of 4096 chunks at vocab 2^22: 5.4 GB
+# At capacity 512 the first evictions take chunks the warm-up admitted on a
+# tie and no batch touched (clean); the first dirty victim comes with the
+# prefetch of step 11 (a host-only run of the chunk manager on these
+# batches), so 12 steps make the run write back.
+CACHE_STEPS = 12
+CACHE_RT_CAPACITY = 224           # of 256 chunks at RESILIENT_VOCAB
+CACHE_RT_STEPS = 8
+
+
+def _zipf_ids(rng, shape, vocab):
+    import numpy as np
+    out = rng.zipf(CACHE_ZIPF_A, size=shape) - 1
+    while True:
+        bad = out >= vocab
+        if not bad.any():
+            return out.astype(np.int32)
+        out[bad] = rng.zipf(CACHE_ZIPF_A, size=int(bad.sum())) - 1
+
+
+def _zipf_batches(V, steps):
+    """The engine cell's loader batches (1 x 4 x 2048, R 128) with ids,
+    labels and neg_ids redrawn, in the same shapes, from the Zipf law."""
+    import numpy as np
+    out = []
+    for i, b in enumerate(_train_loader(V).batches(steps)):
+        rng = np.random.default_rng(10_000 + i)
+        out.append({**b, **{k: _zipf_ids(rng, b[k].shape, V)
+                            for k in ("ids", "labels", "neg_ids")}})
+    return out
+
+
+def _host_rss_gb():
+    """(resident set now, its peak so far) of this process in GB."""
+    import resource
+    rss = float("nan")
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                rss = int(line.split()[1]) * 1024 / 1e9
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    return rss, peak
+
+
+def _seeded_master(bundle):
+    """The master GREngine draws from SEED on the card (after the dense
+    params), copied to a host array a slice at a time."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bundle.init_dense(gen, device=dev)
+    init = bundle.init_table(gen, device=dev)
+    host = np.empty(tuple(init.shape), np.float32)
+    for lo in range(0, init.shape[0], 1 << 16):
+        torch.from_numpy(host[lo:lo + (1 << 16)]).copy_(
+            init[lo:lo + (1 << 16)])
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return host
+
+
+def _seeded_cache(bundle, batches, capacity, master=None):
+    """A CachedShadowedTable over the master the engine draws from SEED
+    (``master``: that master on the host, already drawn), warmed up with
+    the id histogram of the first two batches; (cache, seconds)."""
+    import torch
+    from repro_torch.data import stream_id_histogram
+    from repro_torch.embedding import CachedShadowedTable
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    if master is None:
+        master = _seeded_master(bundle)
+    cache = CachedShadowedTable(master, capacity_chunks=capacity,
+                                chunk_rows=CACHE_CHUNK_ROWS, device=dev)
+    cache.warm_up(stream_id_histogram(batches[:2], bundle.cfg.vocab_size))
+    cache.init_window()
+    torch.cuda.synchronize()
+    return cache, time.perf_counter() - t
+
+
+def _host_equals_card(host, card, rows_per=1 << 16):
+    """Elements where a host array and a card tensor of the same shape
+    differ, compared a slice of rows at a time (no full host copy)."""
+    import torch
+    bad = 0
+    for lo in range(0, card.shape[0], rows_per):
+        h = torch.from_numpy(host[lo:lo + rows_per]).to(card.device)
+        bad += int((h != card[lo:lo + rows_per]).sum())
+    return bad
+
+
+def _window_shadow_bad(win, rows_per=1 << 17):
+    return sum(int((win.shadow[lo:lo + rows_per]
+                    != win.master[lo:lo + rows_per].half()).sum())
+               for lo in range(0, win.master.shape[0], rows_per))
+
+
+def phase_cache():
+    """GREngine with the host-offloaded embedding cache on full-width,
+    full-depth hstu-large (d 1024, 16 layers, bf16, vocab 2^22; the
+    engine's mix with Zipf ids, fused, tau=1): (a) the uncached engine,
+    Algorithm 1; (b) the cached engine (the table in host RAM, a window of
+    512 of 4096 chunks of 1024 rows on the card), Algorithm 1; (c) the
+    cached engine, flat; CACHE_STEPS steps each from one init. Losses of
+    the three and the final state (flushed host master and accumulator
+    chunk by chunk, the globalized carry, the dense params and moments)
+    bit for bit; the window's shadow == master.half(); misses, evictions
+    and writebacks. Then at RESILIENT_VOCAB: a cached run's checkpoint
+    round trip (full_snapshot, save, restore into a fresh cached engine,
+    adopt_full_state) and run_resilient with the cache through one
+    injected exception, each bit for bit the uncached run."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.training import GREngine
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import resilience as R
+    tag = "cache"
+    dev = torch.device("cuda")
+    cfg = get_arch("hstu-large")
+    V, d = cfg.vocab_size, cfg.d_model
+    bundle = GRBundle(cfg)
+    N = CACHE_STEPS
+    t0 = time.perf_counter()
+    batches = _zipf_batches(V, N)
+    data = lambda i: batches[i]                         # noqa: E731
+    t1 = time.perf_counter()
+    # the initial master on the host once (the card cannot draw a second
+    # 17.2 GB table beside the uncached run's state), for both caches
+    init = _seeded_master(bundle)
+    say(f"[{tag}] {cfg.name} d={d} layers={cfg.num_layers} {cfg.dtype} "
+        f"vocab {V}; {N} loader batches with Zipf({CACHE_ZIPF_A}) ids, "
+        f"labels and negatives in {t1 - t0:.1f} s; the initial master "
+        f"drawn on the card and copied to the host in "
+        f"{time.perf_counter() - t1:.1f} s; window {CACHE_CAPACITY} of "
+        f"{-(-V // CACHE_CHUNK_ROWS)} chunks of {CACHE_CHUNK_ROWS} rows")
+
+    a_eng, a = _engine_run("hstu-large", "algorithm1", V,
+                           "tables drawn on the card", f"{tag} a", data=data,
+                           n_steps=N)
+    losses = [r["loss"] for r in a["steps"]]
+    st = a_eng.state
+    a_master, a_accum = st.table.master, st.table.accum
+    a_ids = st.pending_ids.cpu().numpy()
+    a_rows = st.pending_rows.cpu().numpy()
+    a_dense = ([p.detach() for p in st.dense.parameters()]
+               + list(st.dense_opt.mu.values())
+               + list(st.dense_opt.nu.values()))
+    shadow_ref = weakref.ref(st.table.shadow)
+    del a_eng, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept = sum(t.numel() * t.element_size()
+               for t in [a_master, a_accum] + a_dense)
+    say(f"[{tag} a] kept for the comparisons: master, accumulator, dense "
+        f"params and moments, {kept / 1e9:.2f} GB; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; the shadow freed: "
+        f"{shadow_ref() is None}")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+
+    def cached_run(schedule, name):
+        cache, setup = _seeded_cache(bundle, batches, CACHE_CAPACITY, init)
+        win = cache.window
+        say(f"[{tag} {name}] host store {cache.host_nbytes / 1e9:.2f} GB, "
+            f"window {sum(t.numel() * t.element_size() for t in win) / 1e9:.2f}"
+            f" GB (master, accumulator, shadow), built and warmed up in "
+            f"{setup:.1f} s")
+        eng, run = _engine_run("hstu-large", schedule, V,
+                               "the same seed, the table in host RAM",
+                               f"{tag} {name}", data=data, n_steps=N,
+                               cache=cache)
+        got = [r["loss"] for r in run["steps"]]
+        check(got == losses, f"{tag} {name}: losses {got} differ from the "
+              f"uncached run's {losses}")
+        rss = _host_rss_gb()
+        t = time.perf_counter()
+        cache.flush()
+        flush_s = time.perf_counter() - t
+        bad = (_host_equals_card(cache.host_master[:V], a_master),
+               _host_equals_card(cache.host_accum[:V], a_accum))
+        check(bad == (0, 0), f"{tag} {name}: the flushed host master and "
+              f"accumulator differ from the uncached run's at {bad} "
+              f"elements")
+        est = eng.state
+        ids, rows = cache.globalize_pending_pairs(est.pending_ids,
+                                                  est.pending_rows)
+        check(np.array_equal(ids, a_ids) and np.array_equal(rows, a_rows),
+              f"{tag} {name}: the globalized carry ({ids.size} pairs) "
+              f"differs from the uncached run's ({a_ids.size})")
+        mine = ([p.detach() for p in est.dense.parameters()]
+                + list(est.dense_opt.mu.values())
+                + list(est.dense_opt.nu.values()))
+        check(all(torch.equal(x, y) for x, y in zip(mine, a_dense))
+              and est.dense_opt.count == N,
+              f"{tag} {name}: the dense params or moments differ")
+        shadow_bad = _window_shadow_bad(cache.window)
+        check(shadow_bad == 0, f"{tag} {name}: window shadow != "
+              f"master.half() at {shadow_bad} elements")
+        out = dict(run, counters=cache.counters(), flush_s=flush_s,
+                   setup_s=setup, host_rss_gb=rss[0], host_hwm_gb=rss[1],
+                   window_gb=sum(t.numel() * t.element_size() for t in win)
+                   / 1e9, host_store_gb=cache.host_nbytes / 1e9)
+        say(f"[{tag} {name}] losses bit for bit the uncached run's; "
+            f"flushed in {flush_s:.2f} s, host master and accumulator = "
+            f"the uncached run's chunk by chunk; carry of {ids.size} pairs "
+            f"= the uncached run's; dense params and moments equal; window "
+            f"shadow == master.half(); host RSS {rss[0]:.1f} GB (peak "
+            f"{rss[1]:.1f}); counters {cache.counters()}")
+        del eng, est, mine, cache, win
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    b = cached_run("algorithm1", "b")
+    c = cached_run("flat", "c")
+    del a_master, a_accum, a_dense, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {k: N * v for k, v in _step_launches(cfg, "wscatter").items()}
+    for name, run in (("b", b), ("c", c)):
+        check(run["launches"] == want, f"{tag} {name}: launched "
+              f"{run['launches']}, expected {want}")
+    k = b["counters"]
+    check(k["misses"] > 0 and k["evictions"] > 0 and k["writebacks"] > 0,
+          f"{tag} b: misses {k['misses']}, evictions {k['evictions']}, "
+          f"writebacks {k['writebacks']} (each must be > 0)")
+    steady = lambda r: [s["wall_s"] for s in r["steps"][3:]]  # noqa: E731
+    mean = lambda x: sum(x) / len(x)                           # noqa: E731
+    per = [s["cache"] for s in b["steps"]]
+    wb_share = k["writeback_rows_dirty"] / max(k["writeback_rows_total"], 1)
+    out = dict(steps=N, losses=losses, a=a, b=b, c=c,
+               hit_rate=k["hit_rate"],
+               swap_in_bytes_per_step=k["swap_in_bytes"] / N,
+               swap_out_bytes_per_step=k["swap_out_bytes"] / N,
+               writeback_row_share=wb_share,
+               steady_wall_ms={n: 1e3 * mean(steady(r))
+                               for n, r in (("a", a), ("b", b), ("c", c))},
+               unique_busy_ms={n: 1e3 * r["timeline"]["stage_s"]["unique"]
+                               for n, r in (("a", a), ("b", b), ("c", c))},
+               launches=b["launches"], launches_flat=c["launches"],
+               card=CARD.get("smi_line"))
+    say(f"[{tag}] (a) = (b) = (c) bit for bit: {N} losses ({losses[0]:.5f} "
+        f"-> {losses[-1]:.5f}) and the final state; (b) hit rate "
+        f"{k['hit_rate']:.6f}, {k['misses']} missed occurrences, "
+        f"{k['evictions']} evictions, {k['writebacks']} writebacks "
+        f"({wb_share:.4f} of the victims' rows copied back), swap-in "
+        f"{out['swap_in_bytes_per_step'] / 1e6:.1f} MB and swap-out "
+        f"{out['swap_out_bytes_per_step'] / 1e6:.3f} MB a step; per step "
+        f"(misses, loaded, evicted) "
+        f"{[(p['misses'], p['loaded_chunks'], p['evicted_chunks']) for p in per]}")
+    say(f"[{tag}] steady step wall, steps 3..: (a) uncached "
+        f"{out['steady_wall_ms']['a']:.1f} ms, (b) cached "
+        f"{out['steady_wall_ms']['b']:.1f} ms, (c) cached flat "
+        f"{out['steady_wall_ms']['c']:.1f} ms; unique stage busy "
+        f"{ {n: round(v, 1) for n, v in out['unique_busy_ms'].items()} } ms "
+        f"over the run; (b) computing {b['timeline']['computing_ratio']:.4f}"
+        f", comm not overlapped "
+        f"{b['timeline']['comm_not_overlapped_ratio']:.4f}, free "
+        f"{b['timeline']['free_ratio']:.4f}; peak above the state (a) "
+        f"{max(s['peak_above_tables_gb'] for s in a['steps']):.2f} GB, (b) "
+        f"{max(s['peak_above_tables_gb'] for s in b['steps']):.2f} GB; "
+        f"host RSS (b) {b['host_rss_gb']:.1f} GB; card "
+        f"{CARD.get('smi_line')}")
+
+    # -- checkpoints at RESILIENT_VOCAB ------------------------------------
+    cfg2 = cfg.replace(vocab_size=RESILIENT_VOCAB)
+    bundle2 = GRBundle(cfg2)
+    M = CACHE_RT_STEPS
+    bs2 = _zipf_batches(RESILIENT_VOCAB, M)
+    ref = GREngine(bundle2, lambda i: bs2[i], seed=SEED, device=dev)
+    ref_losses = [r["loss"] for r in ref.run(M)]
+    ref_full = ref.full_snapshot()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def same_full(snap):
+        return snap.paths == ref_full.paths and all(
+            x.shape == y.shape and np.array_equal(x, y)
+            for x, y in zip(snap.arrays, ref_full.arrays))
+
+    def cached_engine(data_fn, seed=SEED):
+        cache, _ = _seeded_cache(bundle2, bs2, CACHE_RT_CAPACITY)
+        return GREngine(bundle2, data_fn, seed=seed, cache=cache)
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    try:
+        e1 = cached_engine(lambda i: bs2[i])
+        first = [r["loss"] for r in e1.run(M // 2)]
+        t = time.perf_counter()
+        full = e1.full_snapshot()
+        snap_s = time.perf_counter() - t
+        t = time.perf_counter()
+        CKPT.save(d, M // 2, full)
+        save_s = time.perf_counter() - t
+        nbytes = full.nbytes
+        c1 = e1.cache.counters()
+        del e1, full
+        gc.collect()
+        e2 = cached_engine(lambda i: bs2[M // 2 + i], seed=SEED + 1)
+        t = time.perf_counter()
+        got, used = CKPT.restore_with_step(d, e2.full_template())
+        e2.adopt_full_state(got)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        del got
+        second = [r["loss"] for r in e2.run(M - M // 2)]
+        check(used == M // 2 and first + second == ref_losses,
+              f"{tag}: round trip restored step {used}, losses "
+              f"{first + second} vs {ref_losses}")
+        check(same_full(e2.full_snapshot()), f"{tag}: the round trip's "
+              f"final full state differs from the uncached run's")
+        check(c1["evictions"] > 0, f"{tag}: the round trip's first run "
+              f"evicted nothing ({c1})")
+        say(f"[{tag}] round trip at vocab {RESILIENT_VOCAB}, window "
+            f"{CACHE_RT_CAPACITY} of {RESILIENT_VOCAB // CACHE_CHUNK_ROWS} "
+            f"chunks: {M // 2} cached steps, full_snapshot "
+            f"{nbytes / 1e9:.3f} GB in {snap_s:.2f} s, save {save_s:.2f} s, "
+            f"restore into a fresh cached engine + adopt_full_state "
+            f"{restore_s:.2f} s, {M - M // 2} more steps: losses and the "
+            f"full state bit for bit the uncached run's (first run's "
+            f"counters {c1})")
+        del e2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        e3 = cached_engine(lambda i: bs2[i])
+        inj = R.FaultInjector([R.FaultSpec("dense_fwd", 5, "exception")])
+        t = time.perf_counter()
+        recs = e3.run_resilient(M, ckpt_dir=os.path.join(d, "run"),
+                                ckpt_every=4, keep_last_n=2,
+                                policy=R.FaultPolicy(retries={}),
+                                injector=inj)
+        torch.cuda.synchronize()
+        res_s = time.perf_counter() - t
+        got = [r["loss"] for r in recs]
+        check(inj.exhausted and [ev.restored_step for ev in e3.recoveries]
+              == [4] and got == ref_losses,
+              f"{tag}: run_resilient recoveries "
+              f"{[ev.restored_step for ev in e3.recoveries]}, losses {got} "
+              f"vs {ref_losses}")
+        check(same_full(e3.full_snapshot()), f"{tag}: the resilient run's "
+              f"final full state differs from the uncached run's")
+        out.update(rt=dict(vocab=RESILIENT_VOCAB, capacity=CACHE_RT_CAPACITY,
+                           full_gb=nbytes / 1e9, snapshot_s=snap_s,
+                           save_s=save_s, restore_adopt_s=restore_s,
+                           resilient_s=res_s,
+                           recovery_s=[ev.wall_s for ev in e3.recoveries],
+                           snapshots=e3.snapshots,
+                           counters=e3.cache.counters()))
+        say(f"[{tag}] run_resilient with the cache to step {M}: {res_s:.1f} "
+            f"s, one recovery ({e3.recoveries[0].wall_s:.2f} s, restored "
+            f"step 4), losses and the full state bit for bit the uncached "
+            f"run's; checkpoint host copies (step, s, bytes) "
+            f"{[(s, round(x, 3), n) for s, x, n in e3.snapshots]}")
+        del e3
     finally:
         shutil.rmtree(d, ignore_errors=True)
     gc.collect()
@@ -3345,6 +3725,7 @@ def main():
             "ablation", phase_ablation,
             max(r["peak_above_tables_gb"] for r in alg["steps"]))
         resilient = run("resilient", phase_resilient)
+        cache = run("cache", phase_cache)
         parity, parity_launches = run("parity", phase_parity)
         run("cli", phase_cli)
     except Failed as e:
@@ -3367,6 +3748,7 @@ def main():
     say(f"[result] engine_fuxi {json.dumps([f_alg, f_flat, f_prof])}")
     say(f"[result] ablation {json.dumps([ablation, first_losses])}")
     say(f"[result] resilient {json.dumps(resilient)}")
+    say(f"[result] cache {json.dumps(cache)}")
     main_attn = lambda k: attn[(k, "long_tail", "bfloat16")]  # noqa: E731
     attn_src = "src/repro/kernels/jagged_attention/kernel.py"
     rows = [("attn_fwd", "jagged_attn_fwd.cu", f"{attn_src}:384",
@@ -3425,6 +3807,8 @@ def main():
                    "ablation": sum(r["launches"][kname]
                                    for r in ablation.values()),
                    "resilient": resilient["launches"][kname],
+                   "cache": cache["launches"][kname]
+                   + cache["launches_flat"][kname],
                    "parity": parity_launches.get(kname, 0)}
         if sum(by_path.values()) == 0:
             say(f"FAIL: {kname} was launched on no path")

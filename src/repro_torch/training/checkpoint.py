@@ -294,14 +294,21 @@ def _state_leaves(st: GRTrainState) -> List[_Leaf]:
         if t is None:
             continue
         if name == "shadow":       # the 0-row placeholder; dtype kept
-            t = t.new_zeros((0, t.shape[-1]))
-        out.append(_Leaf(f"table.{name}", (t.detach(),), tuple(t.shape),
+            t = (t.new_zeros((0, t.shape[-1])) if isinstance(t, torch.Tensor)
+                 else np.zeros((0, t.shape[-1]), t.dtype))
+        out.append(_Leaf(f"table.{name}", (_part(t),), tuple(t.shape),
                          _dtype_name(t)))
     for name in ("pending_ids", "pending_rows"):
-        t = getattr(st, name).detach()
-        out.append(_Leaf(name, (t,), tuple(t.shape), _dtype_name(t)))
+        t = getattr(st, name)
+        out.append(_Leaf(name, (_part(t),), tuple(t.shape), _dtype_name(t)))
     out.append(_scalar_leaf("step", st.step))
     return out
+
+
+def _part(t: Any) -> Any:
+    """A table or carry leaf's part: a tensor detached, or a numpy array
+    (a host copy the caller hands over: saved without another copy)."""
+    return t.detach() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
 def _is_namedtuple(x: Any) -> bool:
@@ -363,7 +370,8 @@ def snapshot(tree: Any, *, buffers: Optional[Dict[int, torch.Tensor]] = None
     dict this function fills with pinned host tensors on the first call and
     reuses on later calls with the same leaf shapes (the caller must not
     hold an earlier snapshot made with them); None copies to pageable
-    memory."""
+    memory. Numpy leaves (a cached engine's full table, already a host
+    copy) are taken as they are, without a second copy."""
     if isinstance(tree, HostSnapshot):
         return tree
     t0 = time.perf_counter()
@@ -412,6 +420,8 @@ def snapshot(tree: Any, *, buffers: Optional[Dict[int, torch.Tensor]] = None
 def host_nbytes(tree: Any) -> int:
     """Bytes of ``tree``'s host copy (a :func:`snapshot`'s ``nbytes``),
     from its leaves' shapes and saved dtypes; copies nothing."""
+    if isinstance(tree, HostSnapshot):
+        return tree.nbytes
     total = 0
     for leaf in _leaves(tree):
         first = leaf.parts[0]
@@ -423,6 +433,17 @@ def host_nbytes(tree: Any) -> int:
                 np.asarray(first).itemsize
         total += int(np.prod(leaf.shape, dtype=np.int64)) * item
     return total
+
+
+def host_template(tree: Any) -> HostSnapshot:
+    """The leaf paths, shapes and saved dtypes of ``snapshot(tree)``, with
+    no arrays: a template :func:`restore` fills on the host. Copies
+    nothing (a table leaf may be a zero-strided ``np.broadcast_to`` array
+    of the full table's shape)."""
+    leaves = _leaves(tree)
+    return HostSnapshot([], [lf.dtype for lf in leaves],
+                        [lf.shape for lf in leaves],
+                        [lf.path for lf in leaves], 0.0, host_nbytes(tree))
 
 
 def host_available_bytes() -> Optional[int]:
@@ -722,21 +743,38 @@ def _scalar(a: np.ndarray) -> int:
     return int(np.asarray(a).reshape(-1)[0])
 
 
+def compact_carry(ids: np.ndarray, rows: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """A saved τ=1 carry (the port's compact pairs, or the reference's N
+    slots with −1 sentinels) → (unique ids ≥ 0 ascending int32, their rows
+    fp32)."""
+    ids = np.asarray(ids).reshape(-1).astype(np.int64)
+    rows = np.asarray(rows, np.float32)
+    keep = ids >= 0
+    order = np.argsort(ids[keep], kind="stable")
+    return (ids[keep][order].astype(np.int32),
+            np.ascontiguousarray(rows[keep][order]))
+
+
+_CARRY = ("pending_ids", "pending_rows")
+
+
 @torch.no_grad()
-def _load_state(st: GRTrainState, arrays: List[np.ndarray]) -> GRTrainState:
+def _load_state(st: GRTrainState, arrays: List[np.ndarray], *,
+                table: bool = True) -> GRTrainState:
     """Write checkpoint leaves into ``st``'s tensors in place (every shape
     is checked first); returns the state with the restored carry, count
-    and step."""
+    and step. ``table=False`` leaves the table's tensors as they are (a
+    cached engine loads the full table into its cache)."""
     leaves = _state_leaves(st)
     if len(arrays) != len(leaves):
         raise CheckpointCorrupt(f"leaf count mismatch: {len(arrays)} vs "
                                 f"{len(leaves)}")
     pairs = list(zip(leaves, arrays))
     by_path = {lf.path: a for lf, a in pairs}
-    in_place = [(lf, a) for lf, a in pairs
-                if lf.path.startswith(("dense.", "dense_opt.mu.",
-                                       "dense_opt.nu.", "table.master",
-                                       "table.accum"))]
+    loaded = ("dense.", "dense_opt.mu.", "dense_opt.nu.") + (
+        ("table.master", "table.accum") if table else ())
+    in_place = [(lf, a) for lf, a in pairs if lf.path.startswith(loaded)]
     for lf, a in in_place:
         _check_shape(lf.path, a, lf.shape)
     for lf, a in in_place:
@@ -747,19 +785,15 @@ def _load_state(st: GRTrainState, arrays: List[np.ndarray]) -> GRTrainState:
                 _copy_in(p, a[j])
     tbl = st.table
     shadow = tbl.shadow
-    if shadow is not None:
+    if shadow is not None and table:
         if shadow.shape == tbl.master.shape:
             shadow.copy_(tbl.master.to(shadow.dtype))
         else:
             shadow = tbl.master.to(shadow.dtype)
-    ids = np.asarray(by_path["pending_ids"]).reshape(-1).astype(np.int64)
-    rows = np.asarray(by_path["pending_rows"], np.float32)
-    keep = ids >= 0
-    order = np.argsort(ids[keep], kind="stable")
+    ids, rows = compact_carry(*(by_path[k] for k in _CARRY))
     dev = tbl.master.device
-    p_ids = torch.from_numpy(ids[keep][order].astype(np.int32)).to(dev)
-    p_rows = torch.from_numpy(np.ascontiguousarray(
-        rows[keep][order])).to(dev)
+    p_ids = torch.from_numpy(ids).to(dev)
+    p_rows = torch.from_numpy(rows).to(dev)
     return GRTrainState(
         dense=st.dense,
         dense_opt=AdamWState(st.dense_opt.mu, st.dense_opt.nu,
@@ -791,13 +825,39 @@ def _rebuild_generic(template: Any, arrays: List[np.ndarray]) -> Any:
     return build(template)
 
 
-def load_snapshot(template: Any, snap: HostSnapshot) -> Any:
+def _load_host(template: HostSnapshot, arrays: List[np.ndarray]
+               ) -> HostSnapshot:
+    """Checkpoint leaves checked against a :func:`host_template` and kept
+    on the host, the carry made compact."""
+    if len(arrays) != len(template.paths):
+        raise CheckpointCorrupt(f"leaf count mismatch: {len(arrays)} vs "
+                                f"{len(template.paths)}")
+    arrays = list(arrays)
+    for path, a, shape in zip(template.paths, arrays, template.shapes):
+        if path not in _CARRY:
+            _check_shape(path, a, shape)
+    if all(k in template.paths for k in _CARRY):
+        i, j = (template.paths.index(k) for k in _CARRY)
+        arrays[i], arrays[j] = compact_carry(arrays[i], arrays[j])
+    return HostSnapshot(arrays, list(template.dtypes),
+                        [tuple(a.shape) for a in arrays],
+                        list(template.paths), 0.0,
+                        sum(a.nbytes for a in arrays))
+
+
+def load_snapshot(template: Any, snap: HostSnapshot, *,
+                  table: bool = True) -> Any:
     """Restore from a host snapshot (no files): what ``restore`` does after
-    reading a step's leaves."""
+    reading a step's leaves. ``table=False``: a GRTrainState template's
+    table tensors are left as they are."""
+    if isinstance(template, GRTrainState):
+        return _load_state(template, snap.arrays, table=table)
     return _load_arrays(template, snap.arrays)
 
 
 def _load_arrays(template: Any, arrays: List[np.ndarray]) -> Any:
+    if isinstance(template, HostSnapshot):
+        return _load_host(template, arrays)
     if isinstance(template, GRTrainState):
         return _load_state(template, arrays)
     return _rebuild_generic(template, arrays)
@@ -826,10 +886,13 @@ def restore_with_step(ckpt_dir: str, template: Any,
     next-newest intact ``step_*`` directory (``fallback=False`` raises
     instead); an explicit ``step`` is restored exactly or raises. A
     :class:`GRTrainState` template receives the values in place (see the
-    module docstring); the shadow is rebuilt from the restored master.
+    module docstring); the shadow is rebuilt from the restored master. A
+    :func:`host_template` gives a :class:`HostSnapshot` of the checked
+    leaves, the carry compact, on the host (a cached engine's full table).
     ``registry`` records the restore's seconds as ``ckpt_restore_s``."""
     _t0 = time.perf_counter()
-    num_leaves = len(_leaves(template))
+    num_leaves = (len(template.paths) if isinstance(template, HostSnapshot)
+                  else len(_leaves(template)))
     if step is not None:
         candidates = [step]
     else:

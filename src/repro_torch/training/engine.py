@@ -14,9 +14,9 @@ Stage mapping (hook names are Algorithm 1's):
     dataload   GRLoader / data_fn → numpy jagged batch         (host pool)
     a2a        host→device copy of the batch: pinned memory, a
                side stream, an event the main stream waits on    (host pool)
-    unique     no work: emb_bwd sorts the batch's table-grad
-               slots on the card (the embedding cache, not
-               ported, is what gives this stage work)           (host pool)
+    unique     no work without a cache (emb_bwd sorts the table-grad
+               slots on the card); with one, the cache prefetch:
+               pin, swap in, translate ids to window rows      (host pool)
     emb_fwd    input-side gather — the τ=1-stale read (§4.2.2)  (main thread)
     dense_fwd  HSTU/FuXi stack + fused loss + backward,
                enqueued                                         (main thread)
@@ -78,8 +78,22 @@ reference; where the in-place state changes what they must do:
   on the card the spans of the stages that only enqueue kernels show their
   launch time, not their device time.
 
-The host-offloaded embedding cache (``cache``) is not ported yet: given a
-value it raises ``NotImplementedError`` naming ROADMAP queue 1 item 10.
+The host-offloaded embedding cache (``cache``, a
+:class:`~repro_torch.embedding.cache.CachedShadowedTable`): the state's
+table is the cache's window on the card and the full table lives in host
+RAM. The a2a stage leaves the id features on the host; the unique stage
+(a worker thread) pins the batch's chunks, writes dirty victims back,
+copies the missing chunks to the card on the cache's stream, translates the
+id features to window rows and uploads them; ``emb_fwd`` splices the
+chunks in (the main stream waits on their copy) before its gather. A batch
+is released after its landing is enqueued: ``emb_bwd`` after the callback
+and the in-place landing, the deferred τ=1 landing through
+``release_pending``, a skipped batch clean. The window's rows live in other
+places than the full table's, and nothing in the step depends on where, so
+a cached engine equals the uncached one bit for bit, capacity limited or
+not. :meth:`GREngine.full_snapshot` (the vocab-sized state on the host)
+and :meth:`GREngine.adopt_full_state` carry a cached run through
+checkpoints in the uncached layout.
 """
 from __future__ import annotations
 
@@ -94,6 +108,9 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.pipeline import (PipelineHooks, STAGES, SixStagePipeline,
                                        StageEvent,
                                        timeline_report as _timeline_report)
+from repro_torch.data.freq import ID_FEATURES
+from repro_torch.embedding.cache import CachedShadowedTable, CacheThrash
+from repro_torch.embedding.tables import ShadowedTable
 from repro_torch.obs import (Obs, gr_dense_params, measured_mfu,
                              peak_flops_of, pipeline_goodput, token_imbalance)
 from repro_torch.training import checkpoint as CKPT
@@ -166,8 +183,12 @@ class GREngine:
         event at the end of a run. ``peak_flops``: the peak the measured MFU
         is taken against (default: the cited peak of the card, by name and
         the model's dtype; the CPU has none, so obs on the CPU needs it).
-    cache: not ported yet; given a value, it raises
-        ``NotImplementedError``.
+    cache: a :class:`~repro_torch.embedding.cache.CachedShadowedTable`
+        (warmed up): the engine trains its window, on the cache's device (a
+        given state's table must be the window). Records gain ``"cache"``
+        (the step's hits, misses, chunks loaded and evicted, swap bytes),
+        obs ``cache_step`` and ``cache``; checkpoints hold
+        :meth:`full_snapshot`. A ``lookup_fn`` cannot be combined with it.
 
     ``run(steps)`` returns a list of per-step records ``{"step", "loss",
     "tokens"}``; ``events`` holds the run's :class:`StageEvent` trace and
@@ -180,26 +201,41 @@ class GREngine:
                  semi_async: bool = True, schedule: str = "algorithm1",
                  qdtype=torch.float16, workers: int = 3,
                  step_callback: Optional[Callable] = None,
-                 device: DeviceLike = None, cache=None,
+                 device: DeviceLike = None,
+                 cache: Optional[CachedShadowedTable] = None,
                  fault_policy: Optional[R.FaultPolicy] = None,
                  fault_injector: Optional[R.FaultInjector] = None,
                  obs: Optional[Obs] = None,
                  peak_flops: Optional[float] = None):
-        if cache is not None:
-            raise NotImplementedError(
-                "GREngine(cache=...) is not ported yet: ROADMAP queue 1, "
-                "item 10 (the host-offloaded embedding cache)")
         if schedule not in SCHEDULES:
             raise ValueError(f"schedule must be one of {SCHEDULES}")
+        if cache is not None and \
+                dict(loss_kwargs or {}).get("lookup_fn") is not None:
+            raise ValueError("the embedding cache translates ids to window "
+                             "rows on the host; a custom lookup_fn expects "
+                             "global ids — the two cannot be combined")
         if state is not None and device is not None:
             raise ValueError("pass a state or a device, not both: a given "
                              "state trains where it lies")
+        if cache is not None:
+            if device is not None and \
+                    resolve_device(device) != cache.device:
+                raise ValueError(f"device {device} is not the cache's "
+                                 f"({cache.device})")
+            window = cache.window or cache.init_window()
+            if state is not None and state.table.master is not window.master:
+                raise ValueError("a cached engine trains the cache's window: "
+                                 "the given state's table is another one")
+            device = cache.device
         if state is None:
             dev = resolve_device(device)
             gen = torch.Generator(device=dev).manual_seed(seed)
-            state = gr_train_state(bundle.init_dense(gen, device=dev),
-                                   bundle.init_table(gen, device=dev),
-                                   qdtype=qdtype)
+            dense = bundle.init_dense(gen, device=dev)
+            state = gr_train_state(
+                dense, (window if cache is not None
+                        else bundle.init_table(gen, device=dev)),
+                qdtype=qdtype)
+        self.cache = cache
         self.bundle = bundle
         self.loader = None if callable(data) else data
         self._data_fn = data if callable(data) else None
@@ -316,6 +352,8 @@ class GREngine:
             table=table, pending_ids=st.pending_ids.new_zeros((0,)),
             pending_rows=st.pending_rows.new_zeros(
                 (0, st.pending_rows.shape[1])))
+        if self.cache is not None:
+            self.cache.release_pending()
 
     def _maybe_land_leftover(self, i: int, stage: str):
         if not self._leftover:
@@ -330,17 +368,39 @@ class GREngine:
         return self._batch(i)
 
     def _hk_a2a(self, i: int, nb):
-        dev, ev = self._upload(nb)
+        # under the cache the id features stay on the host: the unique
+        # stage uploads them once translated to window rows
+        dev, ev = self._upload(nb if self.cache is None else
+                               {k: v for k, v in nb.items()
+                                if k not in ID_FEATURES})
         return {"np": nb, "dev": dev, "events": [ev]}
 
     def _hk_unique(self, i: int, art):
-        # emb_bwd sorts the step's slots on the card; this stage has no
-        # work until the embedding cache (ROADMAP item 10) needs the
-        # candidate counts
-        return art
+        # without a cache: emb_bwd sorts the step's slots on the card
+        if self.cache is None:
+            return art
+        return self._cache_prefetch(i, art)
+
+    def _cache_prefetch(self, i: int, art):
+        """The cache path of the unique stage (a worker thread): pin the
+        batch's chunks, write dirty victims back and copy the missing
+        chunks to the card (complete on return: the copies overlap the
+        previous batches' device stages), then translate the id features
+        to window rows and upload them with an event."""
+        C, nb = self.cache, art["np"]
+        keys = [k for k in ID_FEATURES if k in nb]
+        plan, cstats = C.prepare_batch(i, [nb[k] for k in keys])
+        dev, ev = self._upload({k: C.translate(nb[k]) for k in keys})
+        return {**art, "dev": {**art["dev"], **dev},
+                "events": art["events"] + [ev], "plan": plan,
+                "cache": cstats}
 
     def _hk_emb_fwd(self, i: int, art):
         self._await_uploads(art)
+        if self.cache is not None:
+            # before the gather: every chunk this batch reads that a
+            # prefetch (its own or a concurrent one) admitted lands here
+            self.cache.splice(self.state.table, art.get("plan"))
         self._maybe_land_leftover(i, "emb_fwd")
         if self.semi_async:
             return {**art, "x": self.stages.emb_fwd(self.state.table.master,
@@ -368,6 +428,8 @@ class GREngine:
         loss = float(full["dout"].loss)   # realise the enqueued fwd+bwd
         tokens = int(np.asarray(full["np"]["offsets"])[:, -1].sum())
         rec = {"step": i, "loss": loss, "tokens": tokens}
+        if self.cache is not None:
+            rec["cache"] = full.get("cache")
         if self._mx is not None:
             # dense_bwd realises the loss on the main thread in both
             # schedules, so step-boundary timestamps need no lock
@@ -400,6 +462,8 @@ class GREngine:
             # the non-finite guard dropped this batch: no optimizer step,
             # no pairs; the state is untouched and is its own
             # carry-convention state
+            if self.cache is not None:
+                self.cache.release(i, dirty=False)
             self._bcache[i] = None
             if self.step_callback:
                 self.step_callback(i, rec, st)
@@ -413,12 +477,22 @@ class GREngine:
         self.state = GRTrainState(dense, opt, table, p_ids, p_rows,
                                   st.step + 1)
         self._bcache[i] = None            # free the consumed numpy batch
+        deferred = self.semi_async and (defer_sparse or i == self._run_last)
+        if self.cache is not None and deferred:
+            # the pairs stay pending: the chunks stay pinned until the
+            # deferred landing (release_pending)
+            self.cache.defer_release(i)
         if self.step_callback:
             self.step_callback(i, rec, self.state)
-        if self.semi_async and not (defer_sparse or i == self._run_last):
+        if self.semi_async and not deferred:
             # pipelined steady state: land now, in place, after the
             # callback saw the carry — dense_fwd(i+1) is the next stage
             self._land_pending()
+        if self.cache is not None and not deferred:
+            # unpin only now: the landing is enqueued (the release records
+            # the event a victim's writeback waits on), and the callback
+            # may have saved the pre-landing state
+            self.cache.release(i, dirty=True)
         return rec
 
     def _make_hooks(self) -> PipelineHooks:
@@ -456,6 +530,8 @@ class GREngine:
             mx.gauge("train_tokens_per_s", "training throughput").set(
                 rec["tokens"] / wall)
         mx.histogram("train_step_s", "step wall time").observe(wall)
+        if rec.get("cache"):
+            mx.publish("cache_step", rec["cache"])
 
     def _obs_finalize(self, results: List[Dict[str, Any]]) -> None:
         """End of a run: the stage events as spans (one track per merged
@@ -472,6 +548,72 @@ class GREngine:
                        "busy/wall of the stage stream").set(gp["goodput"])
         self._mx.gauge("train_pipeline_bubble_ratio",
                        "1 - goodput").set(gp["bubble_ratio"])
+        if self.cache is not None:
+            self._mx.publish("cache", self.cache.counters())
+
+    # -- cache <-> full-table state -----------------------------------------
+    def full_snapshot(self, state: Optional[GRTrainState] = None
+                      ) -> CKPT.HostSnapshot:
+        """The vocab-sized carry-convention state on the host (default: the
+        engine's), as a :class:`~repro_torch.training.checkpoint.
+        HostSnapshot`: with a cache, the host store overlaid with the
+        window's dirty chunks and the τ=1 carry globalized (bit for bit the
+        uncached engine's); without one, the state's host copy. It is the
+        one form checkpoints store, so cached and uncached runs save
+        interchangeably, and a save of it makes no second host copy of the
+        table."""
+        st = state if state is not None else self.state
+        if self.cache is None:
+            return CKPT.snapshot(st)
+        table = self.cache.materialize()
+        ids, rows = self.cache.globalize_pending_pairs(st.pending_ids,
+                                                       st.pending_rows)
+        return CKPT.snapshot(st._replace(table=table, pending_ids=ids,
+                                         pending_rows=rows))
+
+    def _full_layout(self) -> GRTrainState:
+        """The engine's state with a vocab-sized table of zero-strided
+        arrays: the full state's structure, copying nothing."""
+        st = self.state
+        if self.cache is None:
+            return st
+        z = np.broadcast_to(np.float32(0), (self.cache.vocab,
+                                            self.cache.dim))
+        return st._replace(table=ShadowedTable(z, st.table.shadow, z))
+
+    def full_template(self) -> CKPT.HostSnapshot:
+        """The leaf structure of :meth:`full_snapshot`, no arrays: the
+        template a restore fills on the host before
+        :meth:`adopt_full_state`."""
+        return CKPT.host_template(self._full_layout())
+
+    def adopt_full_state(self, full) -> GRTrainState:
+        """Load a vocab-sized state (a :class:`HostSnapshot`, e.g. a
+        restore into :meth:`full_template`, or a GRTrainState) into the
+        engine: the dense params, moments, count and step into the state's
+        tensors; with a cache the table into the host store (residency
+        rebuilt from the LFU counters, the carry's chunks admitted and
+        pinned, the window refilled in place) and the carry translated to
+        window rows, ascending; without one, the table in place."""
+        if not isinstance(full, CKPT.HostSnapshot):
+            full = CKPT.snapshot(full)
+        if self.cache is None:
+            self.state = CKPT.load_snapshot(self.state, full)
+            return self.state
+        st = CKPT.load_snapshot(self.state, full, table=False)
+        arr = dict(zip(full.paths, full.arrays))
+        ids, rows = CKPT.compact_carry(arr["pending_ids"],
+                                       arr["pending_rows"])
+        window, slots = self.cache.adopt(
+            ShadowedTable(arr["table.master"], None, arr["table.accum"]),
+            ids)
+        order = np.argsort(slots, kind="stable")
+        self.state = st._replace(
+            table=window,
+            pending_ids=torch.from_numpy(slots[order]).to(self.device),
+            pending_rows=torch.from_numpy(
+                np.ascontiguousarray(rows[order])).to(self.device))
+        return self.state
 
     # -- run ---------------------------------------------------------------
     def run(self, steps: int) -> List[Dict[str, Any]]:
@@ -550,19 +692,26 @@ class GREngine:
     def _write_ckpt(self, saver, ckpt_dir: str, step_num: int, snapshot,
                     keep_last_n) -> None:
         """One checkpoint inside a resilient run, of the carry-convention
-        state (τ=1 pairs pending, table not landed); its host copy is
-        complete when this returns. A torn-save injection site for this
-        step crashes the write as a real mid-save failure would (wreckage
-        on disk, then the run fails): recovery must fall back to the
-        previous intact step."""
+        state (τ=1 pairs pending, table not landed; with a cache its
+        :meth:`full_snapshot`, made once the save in flight has finished,
+        so two are never alive at once); its host copy is complete when
+        this returns. A torn-save injection site for this step crashes the
+        write as a real mid-save failure would (wreckage on disk, then the
+        run fails): recovery must fall back to the previous intact step."""
         spec = (self._injector.take(R.SAVE_SITE, step_num)
                 if self._injector else None)
-        if spec is not None and spec.kind == "torn_save":
-            if saver is not None:
-                try:
-                    saver.wait()          # serialize with in-flight save
-                except Exception:
-                    pass
+        torn = spec is not None and spec.kind == "torn_save"
+        if saver is not None and (torn or self.cache is not None):
+            try:
+                saver.wait()              # serialize with in-flight save
+            except Exception:
+                if not torn:
+                    raise
+        if self.cache is not None:
+            t0 = time.perf_counter()
+            snapshot = self.full_snapshot(snapshot)
+            snapshot = snapshot._replace(seconds=time.perf_counter() - t0)
+        if torn:
             self.fault_events.append(("torn_save", R.SAVE_SITE, step_num))
             R.simulate_torn_save(ckpt_dir, step_num, snapshot,
                                  tear=spec.tear)
@@ -603,6 +752,11 @@ class GREngine:
         ``fault_events`` collects typed ``(kind, stage, step)`` events,
         ``recoveries`` one :class:`RecoveryEvent` per restore cycle and
         ``snapshots`` each checkpoint's host copy (step, seconds, bytes).
+
+        With a cache, checkpoints and the anchor hold :meth:`full_snapshot`
+        and a restore reads into :meth:`full_template` on the host, then
+        :meth:`adopt_full_state`; a :class:`CacheThrash` is raised at once
+        (a replay would thrash again).
         """
         pol = policy if policy is not None else R.FaultPolicy()
         prev_pol, prev_inj = self._policy, self._injector
@@ -625,23 +779,28 @@ class GREngine:
         # hold one: a save removes old steps only after a newer one is
         # complete.
         keep_anchor = not any(s >= base0 for s in CKPT.intact_steps(ckpt_dir))
-        # host copies of the whole state alive at once: the saver's (on
-        # the card its pinned buffers, kept for the run: the copy stalls
-        # the training thread, and pageable memory is many times slower),
-        # a restore's read of the leaves, and the anchor
-        need = CKPT.host_nbytes(self.state) * (2 + keep_anchor)
+        # host copies of the whole (vocab-sized) state alive at once: the
+        # saver's (on the card its pinned buffers, kept for the run: the
+        # copy stalls the training thread, and pageable memory is many
+        # times slower; with a cache the full snapshot it writes), a
+        # restore's read of the leaves, and the anchor; with a cache, its
+        # host store besides
+        store = 0 if self.cache is None else self.cache.host_nbytes
+        need = (CKPT.host_nbytes(self._full_layout()) * (2 + keep_anchor)
+                + store)
         avail = CKPT.host_available_bytes()
         if avail is not None and need > avail:
             raise MemoryError(
                 f"run_resilient needs {need / 1e9:.2f} GB of host memory "
                 f"for {2 + keep_anchor} copies of the state (the saver's, "
                 f"a restore's" + (", the replay anchor" if keep_anchor
-                                  else "") + f"), {avail / 1e9:.2f} GB "
-                f"available")
+                                  else "") + ")" + (
+                    f" and the cache's host store ({store / 1e9:.2f} GB)"
+                    if store else "") + f", {avail / 1e9:.2f} GB available")
         saver = (CKPT.AsyncCheckpointer(ckpt_dir, keep_last_n=keep_last_n,
                                         registry=self._mx)
                  if async_save else None)
-        initial = CKPT.snapshot(self.state) if keep_anchor else None
+        initial = self.full_snapshot() if keep_anchor else None
 
         def on_step(i: int, rec: Dict[str, Any], snapshot) -> None:
             g = self._resume_base + i
@@ -666,6 +825,8 @@ class GREngine:
                     self.run(steps - base)
                     break
                 except Exception as err:
+                    if isinstance(err, CacheThrash):
+                        raise
                     t0 = time.perf_counter()
                     if saver is not None:
                         try:
@@ -675,14 +836,23 @@ class GREngine:
                     if len(self.recoveries) >= pol.max_recoveries:
                         raise
                     failed = max(records, default=base - 1) + 1
+                    if self.cache is not None:
+                        self.cache.reset_pins()   # the failed run's pins
                     try:
-                        self.state, used = CKPT.restore_with_step(
-                            ckpt_dir, self.state, registry=self._mx)
+                        if self.cache is None:
+                            self.state, used = CKPT.restore_with_step(
+                                ckpt_dir, self.state, registry=self._mx)
+                        else:
+                            full, used = CKPT.restore_with_step(
+                                ckpt_dir, self.full_template(),
+                                registry=self._mx)
+                            self.adopt_full_state(full)
+                            del full
                     except (FileNotFoundError, CKPT.CheckpointCorrupt):
                         if initial is None:
                             raise     # the start's intact steps are gone
                         # no intact checkpoint yet: replay from the anchor
-                        self.state = CKPT.load_snapshot(self.state, initial)
+                        self.adopt_full_state(initial)
                         used = base0
                     for g in [g for g in records if g >= used]:
                         del records[g]

@@ -292,12 +292,20 @@ def test_preprocess_log_matches_reference():
 
 @pytest.mark.parametrize("arg", ["cache"])
 def test_engine_rejects_what_is_not_ported(arg):
-    """The embedding cache argument raises, naming its ROADMAP item, rather
-    than being ignored."""
+    """An embedding cache together with a custom ``lookup_fn`` raises (the
+    cache hands the loss window rows, a lookup_fn expects global ids), as
+    the reference's engine does; so do a bad schedule and a state with a
+    device."""
+    from functools import partial
+    from repro_torch.embedding import CachedShadowedTable
+    from repro_torch.kernels.jagged_lookup import jagged_lookup
     b, batch, mk_state = _setup()
-    item = {"cache": 10}
-    with pytest.raises(NotImplementedError, match=f"item {item[arg]}"):
-        GREngine(b, batch, state=mk_state(), **{arg: object()})
+    kw = {"cache": CachedShadowedTable(
+        mk_state().table.master, capacity_chunks=4, chunk_rows=128,
+        device="cpu")}
+    with pytest.raises(ValueError, match="lookup_fn"):
+        GREngine(b, batch, loss_kwargs=dict(lookup_fn=partial(
+            jagged_lookup, compute_dtype=torch.bfloat16)), **{arg: kw[arg]})
     with pytest.raises(ValueError, match="schedule"):
         GREngine(b, batch, state=mk_state(), schedule="dense")
     with pytest.raises(ValueError, match="not both"):

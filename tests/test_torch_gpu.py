@@ -1283,3 +1283,70 @@ def test_all_finite_on_card_tensors(cuda):
     y = torch.zeros(8, device=cuda)
     y[-1] = float("-inf")
     assert not all_finite([torch.ones(2, device=cuda), y])
+
+
+def _banded_card_batch(i, vocab=512, chunk=32, bands=8, cap=64, negs=8):
+    """Every id feature of batch i from one rotating band of 2 chunks: with
+    a window of 10 chunks under Algorithm 1 (4 batches pinned) each new
+    band evicts 2 dirty chunks."""
+    rng = np.random.default_rng(1000 + i)
+    lo = (i % bands) * 2 * chunk
+    hi = lo + 2 * chunk
+    return {"ids": rng.integers(lo, hi, (2, cap)).astype(np.int32),
+            "labels": rng.integers(lo, hi, (2, cap)).astype(np.int32),
+            "timestamps": np.cumsum(rng.integers(1, 60, (2, cap)), 1
+                                    ).astype(np.int32),
+            "offsets": np.tile(np.asarray([0, cap // 2, cap], np.int32),
+                               (2, 1)),
+            "neg_ids": rng.integers(lo, hi, (2, cap, negs)).astype(np.int32),
+            "rng": np.zeros((2,), np.uint32)}
+
+
+@pytest.mark.parametrize("schedule", ["algorithm1", "flat"])
+def test_cached_engine_on_card_equals_uncached_with_queued_landings(
+        cuda, schedule):
+    """The embedding cache's two streams on the card: 56 τ=1 steps with a
+    window of 10 of 16 chunks (evictions of dirty chunks every band
+    rotation), and before each landing a ~5 ms sleep kernel enqueued on the
+    main stream, so a victim's landing is still queued when a worker's
+    prefetch writes the victim back (the writeback must wait on the
+    release's event) and the splice into its slot follows. Every loss and
+    the full state (master, accumulator, carry, dense params, moments) bit
+    for bit the uncached engine's; the window's shadow is its master
+    rounded."""
+    from repro_torch.embedding import CachedShadowedTable
+    from repro_torch.embedding.tables import shadow_consistent
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.training import GREngine
+    cfg = reduced(get_arch("hstu-tiny")).replace(
+        d_model=256, vocab_size=512, max_seq_len=64, dtype="float32",
+        num_negatives=8)
+    b = GRBundle(cfg)
+    N = 56
+    lk = dict(neg_segment=32)
+
+    def sleep(i, rec, state):
+        torch.cuda._sleep(10_000_000)
+
+    ref = GREngine(b, _banded_card_batch, seed=0, device=cuda,
+                   loss_kwargs=lk, schedule=schedule)
+    losses = [r["loss"] for r in ref.run(N)]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b.init_dense(g, device=cuda)
+    cache = CachedShadowedTable(b.init_table(g, device=cuda),
+                                capacity_chunks=10, chunk_rows=32,
+                                device=cuda)
+    cache.warm_up(None)
+    eng = GREngine(b, _banded_card_batch, seed=0, loss_kwargs=lk,
+                   schedule=schedule, cache=cache, step_callback=sleep)
+    got = [r["loss"] for r in eng.run(N)]
+    assert got == losses
+    k = cache.counters()
+    assert k["evictions"] >= N and k["writebacks"] >= N // 2, k
+    assert shadow_consistent(cache.window)
+    full, want = eng.full_snapshot(), ref.full_snapshot()
+    assert full.paths == want.paths
+    for p, shape, x, y in zip(full.paths, full.shapes, full.arrays,
+                              want.arrays):
+        np.testing.assert_array_equal(x.reshape(shape), y.reshape(shape),
+                                      err_msg=p)

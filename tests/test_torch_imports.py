@@ -2,7 +2,8 @@
 no msgpack (every module, serving and training alike, HSTU, FuXi and
 SASRec, the streaming engine, the fused, baseline and segmented negative
 paths, the kernel lookup and the dense attention schedule, telemetry,
-checkpoints and the resilient engine, runs with all three blocked), and
+checkpoints and the resilient engine, the embedding cache and its
+histograms, runs with all three blocked), and
 its entry points run on the card unless the caller asks for the CPU."""
 import os
 import re
@@ -18,6 +19,7 @@ import repro_torch.configs as PC
 from repro_torch.convert import (gr_params_from_numpy, pending_from_numpy,
                                  shadowed_table_from_numpy, table_from_numpy)
 from repro_torch.data import synth_jagged_batch
+from repro_torch.embedding import CachedShadowedTable
 from repro_torch.launch import train as train_cli
 from repro_torch.models.gr import GRModel
 from repro_torch.models.model_zoo import GRBundle
@@ -166,6 +168,18 @@ with tempfile.TemporaryDirectory() as d:
         policy=R.FaultPolicy(retries={}))
     assert len(recs) == 3 and len(ge.recoveries) == 1
     assert obs.snapshot()["ckpt_saves_total"]["values"][""] >= 1
+import repro_torch.data.freq, repro_torch.embedding.cache
+from repro_torch.data import stream_id_histogram
+from repro_torch.embedding import CachedShadowedTable
+first = list(loader.batches(2))
+cache = CachedShadowedTable(b.init_table(g, device="cpu"),
+                            capacity_chunks=3, chunk_rows=100, device="cpu")
+cache.warm_up(stream_id_histogram(first, cfg.vocab_size))
+ce = GREngine(b, lambda i: first[i % 2], cache=cache,
+              loss_kwargs=dict(neg_segment=32))
+assert all(np.isfinite(r["loss"]) and "cache" in r for r in ce.run(3))
+assert ce.full_snapshot().shapes[ce.full_snapshot().paths.index(
+    "table.master")] == (cfg.vocab_size, cfg.d_model)
 assert not any(m == "jax" or m.startswith(("jax.", "repro.", "msgpack"))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.encoded_batches)
@@ -216,6 +230,8 @@ ENTRY_POINTS = {
     "table_from_numpy": lambda: table_from_numpy(np.zeros((4, 2),
                                                           np.float32)),
     "GREngine": lambda: GREngine(GRBundle(_cfg()), lambda i: None),
+    "CachedShadowedTable": lambda: CachedShadowedTable(
+        np.zeros((64, 2), np.float32), capacity_chunks=2, chunk_rows=16),
     "synth_jagged_batch": lambda: synth_jagged_batch(None, 1, 8, 10, 2),
     "launch.train.main": lambda: train_cli.main(["--arch", "hstu-tiny"]),
 }
