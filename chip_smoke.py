@@ -81,7 +81,9 @@ one card, so each phase frees its own.
                profiler (a steady-state window), then 8 steps of the flat
                schedule from the same init, which must give the same
                losses bit for bit. engine_fuxi: the same on full-width
-               fuxi-large, 6 steps a schedule.
+               fuxi-large, 6 steps a schedule. engine_sasrec: full-width
+               sasrec-large, 6 Algorithm-1 and 6 flat steps (K3/K4/K5;
+               its softmax attention is plain PyTorch), bit for bit.
   6b. ablation — the §4.3 / Table-7 ablation on hstu-large, the engine's
                loader mix: the first step's loss from one init and batch in
                the fused, segmented and baseline modes; GREngine
@@ -90,6 +92,16 @@ one card, so each phase frees its own.
                and 6 steps with the segmented path and sharing (K9 per
                segment), each with launch counts, step walls and the peak
                above the state.
+  6c. resilient — run_resilient on full-width hstu-large at vocab 2^22,
+               uncached, in a process of its own: a torn first save (the
+               anchor), a fault after the first intact save; losses and the
+               final save's CRC32s the uninterrupted run's, peak host RSS
+               within the run's count, save and restore GB/s.
+               (check_cached_resilient, the same with the embedding cache
+               and a round trip, is run by a card test.)
+  6d. cache  — GREngine with the embedding cache at vocab 2^22 (window 512
+               of 4096 chunks, Zipf ids): uncached, cached Algorithm 1,
+               cached flat, bit for bit.
   7. parity  — at full width, 2 layers, vocab 2^18: one training step's
                dense pass and table-grad pairs with the kernels against the
                plain versions on the card (hstu-large two-pass and fused,
@@ -97,11 +109,12 @@ one card, so each phase frees its own.
                work-list and with the dense-grid attention); GREngine
                (algorithm1 and flat) against make_gr_train_step on
                hstu-large, 4 steps, sync and tau=1, bit for bit.
-  8. cli     — python -m repro_torch.launch.train as four subprocesses
-               side by side, on hstu-large (8 steps) and fuxi-large (4
-               steps), and on hstu-large with --neg-mode segmented and
-               --neg-mode baseline (4 steps each), on preprocessed
-               synthetic KuaiRand.
+  8. cli     — python -m repro_torch.launch.train as six subprocesses
+               side by side, on hstu-large (8 steps), fuxi-large and
+               sasrec-large (4 steps), on hstu-large with --neg-mode
+               segmented and --neg-mode baseline (4 steps each), and on
+               hstu-large with checkpoints and telemetry, then resumed; on
+               preprocessed synthetic KuaiRand.
   9. result  — one JSON line of kernel numbers, the nvidia-smi line, and
                the final status line.
 """
@@ -2467,7 +2480,7 @@ def _device_rows(prof):
 # phase 6: the engine (the training entry point's main path)
 # --------------------------------------------------------------------------
 
-ENGINE_STEPS = {"hstu-large": 8, "fuxi-large": 6}
+ENGINE_STEPS = {"hstu-large": 8, "fuxi-large": 6, "sasrec-large": 6}
 
 
 def _engine_run(arch, schedule, V, base_note, tag, loss_kwargs=None,
@@ -2551,8 +2564,9 @@ def _step_launches(cfg, scatter="wscatter", *, neg_mode="fused",
     gathers, the inputs' and the labels'."""
     L = cfg.num_layers
     want = {k: 0 for k in _read_counts()}
-    want[_attn_counter(cfg, "fwd", schedule)] = 2 * L
-    want[_attn_counter(cfg, "bwd", schedule)] = L
+    if cfg.gr_block != "sasrec":          # SASRec's attention: no kernel
+        want[_attn_counter(cfg, "fwd", schedule)] = 2 * L
+        want[_attn_counter(cfg, "bwd", schedule)] = L
     if neg_mode == "fused":
         want.update({"neg_fwd": 1, "neg_bwd": 1, scatter: 1})
     else:
@@ -2648,6 +2662,52 @@ def phase_engine(arch="hstu-large", tag="engine"):
     return alg, flat, prof_out
 
 
+def phase_engine_sasrec():
+    """GREngine on full-width sasrec-large (d 1024, 16 layers, 8 heads,
+    qkv 128, vocab 2^22, bf16) over the engine cell's loader (1 x 4 x 2048,
+    R 128), fused (K3/K4/K5), tau=1: Algorithm 1, then the flat schedule
+    from the same init, ENGINE_STEPS steps each. Losses finite and bit for
+    bit equal across the schedules; K3, K4 and K5 once a step and no
+    attention kernel (SASRec's softmax attention is plain PyTorch, as the
+    reference computes it inline); the steady step wall and the peak above
+    the state."""
+    import torch
+    from repro_torch.configs import get_arch
+    arch, tag = "sasrec-large", "engine_sasrec"
+    cfg = get_arch(arch)
+    V, n = cfg.vocab_size, ENGINE_STEPS[arch]
+    eng, alg = _engine_run(arch, "algorithm1", V, "tables drawn on the card",
+                           tag)
+    del eng
+    flat_eng, flat = _engine_run(arch, "flat", V, "the same seed", tag)
+    del flat_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in alg["steps"]]
+    flat_losses = [r["loss"] for r in flat["steps"]]
+    want = {k: n * v for k, v in _step_launches(cfg, "wscatter").items()}
+    for name, run in (("algorithm1", alg), ("flat", flat)):
+        check(run["launches"] == want, f"{tag} {name} launched "
+              f"{run['launches']}, expected {want}")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    check(flat_losses == losses, f"{tag}: flat losses {flat_losses} differ "
+          f"from algorithm1's {losses}")
+    steady = {name: sum(r["wall_s"] for r in run["steps"][3:])
+              / len(run["steps"][3:]) for name, run in
+              (("algorithm1", alg), ("flat", flat))}
+    peak = {name: max(r["peak_above_tables_gb"] for r in run["steps"])
+            for name, run in (("algorithm1", alg), ("flat", flat))}
+    say(f"[{tag}] losses {losses[0]:.5f} -> {losses[-1]:.5f}, bit for bit "
+        f"equal in both schedules; K3, K4, K5 once a step ({n} steps), no "
+        f"attention kernel; steady steps 3.. mean "
+        f"{ {k: round(v * 1e3, 1) for k, v in steady.items()} } ms; peak "
+        f"above the state {peak} GB; card {CARD.get('smi_line')}")
+    return alg, flat, dict(steady_wall_ms={k: v * 1e3
+                                           for k, v in steady.items()},
+                           peak_above_state_gb=peak,
+                           card=CARD.get("smi_line"))
+
+
 def _engine_obs_run(arch, V, tag, losses, plain_timeline):
     """The phase's Algorithm-1 run once more with ``obs=Obs()`` from the
     same init: the losses bit for bit the plain run's; the exported trace
@@ -2702,32 +2762,141 @@ def _engine_obs_run(arch, V, tag, losses, plain_timeline):
 
 
 # --------------------------------------------------------------------------
-# phase 6c: supervised recovery (GREngine.run_resilient) at full width
+# phase 6c: supervised recovery (GREngine.run_resilient) at full width and
+# the full vocab
 # --------------------------------------------------------------------------
 
-RESILIENT_VOCAB = 1 << 18         # ~4.5 GB a checkpoint instead of ~37 GB
-RESILIENT_STEPS = 12
+RESILIENT_STEPS = 6
+RESILIENT_EVERY = 4
+# One 2^22 checkpoint is written (~35.6 GB): a call on the card machine may
+# write 45 GiB to its disk in all, deleted files included. So the run saves
+# step 4 only (no final save): its first save is torn (the leaves half
+# written, no manifest: the anchor), then step 4 is saved, and a fault after
+# it restores it. The CRC's refusal at this size is shown on that step
+# afterwards, a byte flipped in its largest leaf.
+RESILIENT_FAULTS = (("save", 4, "torn_save", "partial_dir"),
+                    ("dense_fwd", 5, "exception", None))
+RESILIENT_RESTORED = [0, 4]
+RESILIENT_SAVED = 4
 
 
-def _state_bits(st):
-    """Every tensor of a training state on the host (the shadow included),
-    for bitwise comparisons across engines."""
-    from repro_torch.training import state_tensors
-    return [t.detach().cpu() for t in state_tensors(st)]
+def _manifest_of(snap):
+    """What a save of a host snapshot records of its leaves: CRC32s,
+    shapes, dtypes (the leaves are checksummed, no file is written)."""
+    from repro_torch.training import checkpoint as CKPT
+    return dict(crc32s=CKPT.crc32s(snap),
+                shapes=[[int(n) for n in sh] for sh in snap.shapes],
+                dtypes=list(snap.dtypes))
 
 
-def phase_resilient():
-    """GREngine.run_resilient on full-width, full-depth hstu-large (d 1024,
-    16 layers, bf16; the engine's loader mix, fused with K5, tau=1,
-    Algorithm 1) at vocab 2^18: 12 uninterrupted steps, then 12 under
-    supervision (async checkpoints every 4, keep 2) with an escalated stage
-    exception, a NaN-poisoned batch and a torn save (a flipped byte that
-    only the CRC sees), each followed by a restore of step 4; every loss
-    and the whole final state bit for bit the uninterrupted run's, and the
-    replayed steps' launches counted. Then the final checkpoint restored
-    into a fresh engine trains 2 more steps bit for bit as the
-    uninterrupted run continued. Checkpoints go to a temporary directory,
-    removed at the end."""
+def _resilient_reference():
+    """The uninterrupted run the resilient children are held to (a child
+    of its own: the host copy it checksums is gone with it): GREngine from
+    SEED on full-width hstu-large (vocab 2^22) over the Zipf batches of
+    cell *cache*, RESILIENT_STEPS steps; its losses and what a save of its
+    final carry-convention state would record."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.training import GREngine
+    dev = torch.device("cuda")
+    cfg = get_arch("hstu-large")
+    N = RESILIENT_STEPS
+    batches = _zipf_batches(cfg.vocab_size, N)
+    t = time.perf_counter()
+    ref = GREngine(GRBundle(cfg), lambda i: batches[i], seed=SEED, device=dev)
+    out = dict(losses=[r["loss"] for r in ref.run(N)])
+    t1 = time.perf_counter()
+    out["manifest"] = _manifest_of(ref.full_snapshot())
+    out["crc_s"] = time.perf_counter() - t1
+    out["wall_s"] = time.perf_counter() - t
+    return out
+
+
+def _run_child(fn, tag, timeout=1000):
+    """``chip_smoke.<fn>()`` in a process of its own (its peak resident
+    set is the run's alone); its lines relayed, its ``[child-result]`` JSON
+    returned. Fails if it does not exit 0."""
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
+            f"{str(ROOT / 'src')!r}]; import chip_smoke as c; "
+            f"sys.exit(c.{fn}())")
+    p = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    result = None
+    for ln in out.splitlines():
+        if ln.startswith("[child-result] "):
+            result = json.loads(ln[len("[child-result] "):])
+        else:
+            say(ln)
+    check(p.returncode == 0 and result is not None,
+          f"{tag}: the child process exited {p.returncode}")
+    return result
+
+
+def resilient_reference_child():
+    return _child_main(_resilient_reference)
+
+
+def resilient_child_uncached():
+    return _child_main(_resilient_child, False)
+
+
+def resilient_child_cached():
+    return _child_main(_resilient_child, True)
+
+
+def _child_main(fn, *args):
+    try:
+        out = fn(*args)
+    except Failed as e:
+        say(f"FAIL: {e}")
+        return 1
+    say("[child-result] " + json.dumps(out))
+    return 0
+
+
+def _flip_a_byte(step_dir):
+    """Flip one byte in the middle of a step's largest leaf (in place: a
+    torn page the file's size does not show); returns (path, offset, the
+    byte) to undo it."""
+    path = max((os.path.join(step_dir, n) for n in os.listdir(step_dir)
+                if n.endswith(".npy")), key=os.path.getsize)
+    pos = os.path.getsize(path) // 2
+    with open(path, "r+b") as f:
+        f.seek(pos)
+        byte = f.read(1)
+        f.seek(pos)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    return path, pos, byte
+
+
+def _undo_flip(path, pos, byte):
+    with open(path, "r+b") as f:
+        f.seek(pos)
+        f.write(byte)
+
+
+def _resilient_child(cached):
+    """A fresh run_resilient on full-width hstu-large at vocab 2^22 over
+    the Zipf batches (uncached, or with the embedding cache of cell
+    *cache*): RESILIENT_STEPS steps, async checkpoints every
+    RESILIENT_EVERY and no final save, the faults of RESILIENT_FAULTS.
+    Checked here: the recoveries (the torn first save: the anchor; then
+    step 4), the shadow, the peak resident set against what the run
+    counted; then, a byte of step 4's largest leaf flipped, an explicit
+    restore of it refused by its CRC before it writes anything (the state's
+    CRC32s, taken next, are the parent's check of that). Returned for the
+    parent: the losses, the final state's CRC32s (no file), launches,
+    timings. With the cache, the byte is put back and a fresh cached
+    engine restores step 4 and trains to RESILIENT_STEPS; its state's
+    CRC32s (streamed from the store) come back too."""
     import shutil
     import tempfile
     import torch
@@ -2737,154 +2906,290 @@ def phase_resilient():
     from repro_torch.training import GREngine
     from repro_torch.training import checkpoint as CKPT
     from repro_torch.training import resilience as R
-    tag = "resilient"
+    tag = "cache resilient" if cached else "resilient"
     dev = torch.device("cuda")
-    cfg = get_arch("hstu-large").replace(vocab_size=RESILIENT_VOCAB)
+    cfg = get_arch("hstu-large")
+    V, d = cfg.vocab_size, cfg.d_model
     bundle = GRBundle(cfg)
     N = RESILIENT_STEPS
+    avail0 = CKPT.host_available_bytes() / 1e9
     t0 = time.perf_counter()
-    batches = list(_train_loader(cfg.vocab_size).batches(N + 2))
-    say(f"[{tag}] {cfg.name} d={cfg.d_model} layers={cfg.num_layers} "
-        f"{cfg.dtype}, vocab {cfg.vocab_size} (cut from 2^22 so that a "
-        f"checkpoint is ~4.5 GB), loader 1 x 4 x 2048, R 128; {N + 2} "
-        f"batches in {time.perf_counter() - t0:.1f} s")
-
-    ref = GREngine(bundle, lambda i: batches[i], seed=SEED, device=dev)
-    losses = [r["loss"] for r in ref.run(N)]
-    want = _state_bits(ref.state)
-    more = GREngine(bundle, lambda i: batches[N + i], state=ref.state)
-    more_losses = [r["loss"] for r in more.run(2)]
-    want_more = _state_bits(more.state)
-    del ref, more
-    gc.collect()
-    torch.cuda.empty_cache()
-    check(all(math.isfinite(x) for x in losses + more_losses),
-          f"{tag}: uninterrupted losses {losses + more_losses}")
-
-    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    try:
-        obs = Obs()
+    batches = _zipf_batches(V, N)
+    obs = Obs()
+    if cached:
+        cache, _ = _seeded_cache(bundle, batches, CACHE_CAPACITY)
+        eng = GREngine(bundle, lambda i: batches[i], seed=SEED, cache=cache,
+                       obs=obs)
+    else:
         eng = GREngine(bundle, lambda i: batches[i], seed=SEED, device=dev,
                        obs=obs)
-        # the torn save flips a byte of the largest leaf (the master, 1.07
-        # GB): the leaf loads, and only its CRC can refuse the step
-        faults = [R.FaultSpec("dense_fwd", 5, "exception"),
-                  R.FaultSpec("dense_fwd", 7, "nan"),
-                  R.FaultSpec(R.SAVE_SITE, 8, "torn_save", tear="bitflip")]
-        inj = R.FaultInjector(faults)
-        refused = []
-        load = CKPT._load_step_arrays
+    torch.cuda.synchronize()
+    gc.collect()
+    setup = time.perf_counter() - t0
+    counted = eng.resilient_host_bytes(batches[0])
+    anchor = []
+    full_snapshot = eng.full_snapshot
 
-        def spy(ckpt_dir, step, *a, **kw):
-            try:
-                return load(ckpt_dir, step, *a, **kw)
-            except CKPT.CheckpointCorrupt as e:
-                refused.append((step, str(e)))
-                raise
-        CKPT._load_step_arrays = spy
+    def timed_anchor(*a):
+        t = time.perf_counter()
+        snap = full_snapshot(*a)
+        anchor.append(time.perf_counter() - t)
+        return snap
+    eng.full_snapshot = timed_anchor
+    checks = []
+    load = CKPT._load_step_arrays
+
+    def spy(ckpt_dir, step, *a, **kw):
+        t = time.perf_counter()
+        try:
+            got = load(ckpt_dir, step, *a, **kw)
+        except CKPT.CheckpointCorrupt as e:
+            checks.append((step, time.perf_counter() - t, str(e)[:120]))
+            raise
+        checks.append((step, time.perf_counter() - t, None))
+        return got
+    CKPT._load_step_arrays = spy
+    d_dir = tempfile.mkdtemp(prefix="chip_smoke_resilient_")
+    st = os.statvfs(d_dir)
+    free_gb = st.f_bavail * st.f_frsize / 1e9
+    rss0, hwm0 = _host_rss_gb()
+    say(f"[{tag}] {cfg.name} d={d} layers={cfg.num_layers} {cfg.dtype} "
+        f"vocab {V} (not cut); Zipf({CACHE_ZIPF_A}) batches 1 x 4 x 2048, "
+        f"R 128; set-up {setup:.1f} s; host at the child's start "
+        f"{avail0:.2f} GB available, before the run: RSS {rss0:.2f} GB "
+        f"(peak {hwm0:.2f}), {CKPT.host_available_bytes() / 1e9:.2f} GB "
+        f"available; the run "
+        f"counts {sum(counted.values()) / 1e9:.2f} GB "
+        f"({ {k: round(v / 1e9, 2) for k, v in counted.items()} }); "
+        f"{free_gb:.1f} GB free on the checkpoint disk")
+    inj = R.FaultInjector([R.FaultSpec(R.SAVE_SITE if site == "save"
+                                       else site, step, kind, tear=tear)
+                           for site, step, kind, tear in RESILIENT_FAULTS])
+    try:
         _zero_counts()
         t = time.perf_counter()
         try:
-            recs = eng.run_resilient(N, ckpt_dir=d, ckpt_every=4,
-                                     keep_last_n=2, async_save=True,
+            recs = eng.run_resilient(N, ckpt_dir=d_dir,
+                                     ckpt_every=RESILIENT_EVERY,
+                                     final_save=False,
                                      policy=R.FaultPolicy(retries={}),
                                      injector=inj)
         finally:
             CKPT._load_step_arrays = load
+            eng.full_snapshot = full_snapshot
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         counts = _read_counts()
-        got = [r["loss"] for r in recs]
-        check(inj.exhausted and len(eng.recoveries) == 3,
-              f"{tag}: {len(eng.recoveries)} recoveries, faults left "
+        hwm = _host_rss_gb()[1]
+        # the store is resident before the run (in rss0)
+        held = cache.host_nbytes if cached else 0
+        limit = (sum(counted.values()) - held) / 1e9 + rss0
+        restored = [ev.restored_step for ev in eng.recoveries]
+        check(inj.exhausted and restored == RESILIENT_RESTORED,
+              f"{tag}: restored steps {restored}, faults left "
               f"{inj._pending}")
-        check([ev.restored_step for ev in eng.recoveries] == [4, 4, 4]
-              and [s for s, _ in refused] == [8]
-              and "CRC mismatch" in refused[0][1],
-              f"{tag}: restored steps "
-              f"{[ev.restored_step for ev in eng.recoveries]}, refused "
-              f"{refused} (want step 8 refused by its CRC, then step 4)")
-        check(got == losses, f"{tag}: resilient losses {got} differ from "
-              f"the uninterrupted run's {losses}")
-        bits = _state_bits(eng.state)
-        check(len(bits) == len(want) and all(
-            torch.equal(a, b) for a, b in zip(bits, want)),
-            f"{tag}: the final state differs from the uninterrupted run's")
-        del bits
-        replayed = sum(ev.steps_lost for ev in eng.recoveries)
-        per_step = _step_launches(cfg, "wscatter")
-        need = {k: v * (N + replayed) for k, v in per_step.items() if v}
-        check(replayed > 0 and all(counts[k] >= v for k, v in need.items()),
-              f"{tag}: launches {counts} for {N} steps + {replayed} "
-              f"replayed, need at least {need}")
+        check(CKPT.intact_steps(d_dir) == [RESILIENT_SAVED],
+              f"{tag}: intact steps {CKPT.intact_steps(d_dir)}")
+        check(hwm <= limit, f"{tag}: peak host RSS {hwm:.2f} GB above the "
+              f"run's count plus the RSS before it ({limit:.2f} GB)")
+        win = cache.window if cached else eng.state.table
+        shadow_bad = _window_shadow_bad(win)
+        check(shadow_bad == 0, f"{tag}: shadow != master.half() at "
+              f"{shadow_bad} elements")
         snapv = obs.snapshot()
         save = snapv["ckpt_save_s"]["values"][""]
         rest = snapv["ckpt_restore_s"]["values"][""]
         nbytes = eng.snapshots[-1][2]
-        d2h = [s for _, s, _ in eng.snapshots]
-        out = dict(
-            wall_s=wall, losses=got, recoveries=[
-                dict(failed=ev.failed_step, restored=ev.restored_step,
-                     steps_lost=ev.steps_lost, wall_s=ev.wall_s,
-                     error=ev.error[:80]) for ev in eng.recoveries],
-            steps_replayed=replayed, launches=counts,
-            ckpt_bytes=nbytes, saves=save["count"],
-            save_mean_s=save["sum"] / save["count"],
-            restores=rest["count"],
-            restore_mean_s=rest["sum"] / max(rest["count"], 1),
-            d2h_s=d2h, card=CARD.get("smi_line"))
         say(f"[{tag}] run_resilient to step {N}: {wall:.1f} s; recoveries "
-            f"{out['recoveries']}; {replayed} steps replayed; losses and "
-            f"every state tensor bit for bit the uninterrupted run's; "
-            f"launches {counts} (at least {need})")
-        say(f"[{tag}] checkpoints of {nbytes / 1e9:.3f} GB: {save['count']} "
-            f"saves (async thread) mean {out['save_mean_s']:.2f} s "
-            f"({nbytes / out['save_mean_s'] / 1e9:.2f} GB/s, CRC32 + write "
-            f"+ fsync); {rest['count']} restores mean "
-            f"{out['restore_mean_s']:.2f} s "
-            f"({nbytes / max(out['restore_mean_s'], 1e-9) / 1e9:.2f} GB/s, "
-            f"read + CRC32 + copy to the card); host copies (D2H, on the "
-            f"caller's thread) {[round(x, 3) for x in d2h]} s; card "
-            f"{CARD.get('smi_line')}")
-        check(CKPT.intact_steps(d) == [N, N - 4], f"{tag}: intact steps "
-              f"{CKPT.intact_steps(d)} (keep_last_n=2)")
-        # the steps' walls with and without a save on the saver thread:
-        # after the last restore (step 4) steps 5-7 ran with none in
-        # flight, steps 9-11 beside the step-8 save (step 4 and 8 walls
-        # hold the run's start and the save's host copy)
-        wall = {r["step"]: r["step_wall_s"] for r in recs}
-        quiet = [wall[s] for s in (5, 6, 7)]
-        busy = [wall[s] for s in (9, 10, 11)]
-        out["step_wall_no_save_s"], out["step_wall_beside_save_s"] = \
-            quiet, busy
-        say(f"[{tag}] step walls with no save in flight (steps 5-7) "
-            f"{[round(x * 1e3, 1) for x in quiet]} ms, beside the step-8 "
-            f"save (9-11) {[round(x * 1e3, 1) for x in busy]} ms")
-        del eng, obs
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        fresh = GREngine(bundle, lambda i: batches[N + i], seed=SEED + 1,
-                         device=dev)
+            f"{[(ev.failed_step, ev.restored_step, round(ev.wall_s, 2)) for ev in eng.recoveries]}"
+            f" (failed, restored, s); launches {counts}")
+        # a byte of the saved step flipped: the CRC refuses it, nothing is
+        # written (the parent holds the state's CRC32s taken next)
+        step_dir = os.path.join(d_dir, f"step_{RESILIENT_SAVED}")
+        flip = _flip_a_byte(step_dir)
         t = time.perf_counter()
-        fresh.state, used = CKPT.restore_with_step(d, fresh.state)
-        torch.cuda.synchronize()
-        t_restore = time.perf_counter() - t
-        cont = [r["loss"] for r in fresh.run(2)]
-        check(used == N and cont == more_losses, f"{tag}: restored step "
-              f"{used}, then losses {cont} vs {more_losses}")
-        bits = _state_bits(fresh.state)
-        check(all(torch.equal(a, b) for a, b in zip(bits, want_more)),
-              f"{tag}: the resumed engine's state differs")
-        out.update(resume_restore_s=t_restore, resume_losses=cont)
-        say(f"[{tag}] step {used} restored into a fresh engine in "
-            f"{t_restore:.2f} s; 2 more steps bit for bit the uninterrupted "
-            f"run continued ({cont})")
-        del fresh, bits
+        try:
+            CKPT.restore_with_step(d_dir, eng.full_template() if cached
+                                   else eng.state, step=RESILIENT_SAVED)
+            refused = None
+        except CKPT.CheckpointCorrupt as e:
+            refused = str(e)
+        refuse_s = time.perf_counter() - t
+        check(refused is not None and "CRC mismatch" in refused,
+              f"{tag}: the flipped step restored ({refused})")
+        t = time.perf_counter()
+        manifest = _manifest_of(eng.checkpoint_tree() if cached
+                                else eng.full_snapshot())
+        crc_s = time.perf_counter() - t
+        verify = [x for _, x, e in checks if e is None]
+        out = dict(
+            cached=cached, losses=[r["loss"] for r in recs], wall_s=wall,
+            manifest=manifest, crc_s=crc_s,
+            recoveries=[dict(failed=ev.failed_step,
+                             restored=ev.restored_step,
+                             steps_lost=ev.steps_lost, wall_s=ev.wall_s,
+                             error=ev.error[:80])
+                        for ev in eng.recoveries],
+            steps_replayed=sum(ev.steps_lost for ev in eng.recoveries),
+            launches=counts, ckpt_bytes=nbytes, saves=save["count"],
+            save_s=save["sum"] / save["count"], restores=rest["count"],
+            restore_s=rest["sum"] / max(rest["count"], 1),
+            verify_s=verify, refused=refused[:120], refuse_s=refuse_s,
+            host_copies=[(s, x, n) for s, x, n in eng.snapshots],
+            anchor_s=anchor, counted_gb={k: v / 1e9
+                                         for k, v in counted.items()},
+            rss_before_gb=rss0, hwm_before_gb=hwm0, hwm_gb=hwm,
+            limit_gb=limit, disk_free_gb=free_gb, setup_s=setup)
+        if cached:
+            out["counters"] = cache.counters()
+            out["cow_chunks"] = cache.stats.cow_chunks
+        say(f"[{tag}] one checkpoint of {nbytes / 1e9:.3f} GB: "
+            f"{save['count']} save (saver thread) {out['save_s']:.2f} s "
+            f"({nbytes / out['save_s'] / 1e9:.3f} GB/s, CRC32 + write + "
+            f"fsync); {rest['count']} restore {out['restore_s']:.2f} s "
+            f"({nbytes / max(out['restore_s'], 1e-9) / 1e9:.3f} GB/s), its "
+            f"CRC pass {[round(x, 2) for x in verify]} s; host copies "
+            f"(step, s, bytes) {out['host_copies']} (the first allocates "
+            f"the pinned buffers); anchor {[round(x, 2) for x in anchor]} "
+            f"s; a flipped byte refused by the CRC in {refuse_s:.2f} s; "
+            f"the state's CRC32s in {crc_s:.2f} s")
+        say(f"[{tag}] peak host RSS {hwm:.2f} GB <= the run's count "
+            f"{sum(counted.values()) / 1e9:.2f} GB, less "
+            f"{held / 1e9:.2f} GB held already, + the RSS before it "
+            f"{rss0:.2f} GB = {limit:.2f} GB (getrusage's peak, which a "
+            f"process starts with its parent's: {hwm0:.2f} GB before the "
+            f"run); shadow == master.half() on the card")
+        if cached:
+            _undo_flip(*flip)
+            del eng, win, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["round_trip"] = _cached_round_trip(bundle, batches, d_dir,
+                                                   tag)
     finally:
-        shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(d_dir, ignore_errors=True)
+    return out
+
+
+def _cached_round_trip(bundle, batches, ckpt_dir, tag):
+    """Step RESILIENT_SAVED restored into a fresh cached engine (another
+    seed, a zero host store, the same warm-up): restore into its
+    full_template, adopt_full_state (the table streamed into the store),
+    then train to RESILIENT_STEPS; the losses and the CRC32s of the state
+    (its table streamed from the store, no file)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import stream_id_histogram
+    from repro_torch.embedding import CachedShadowedTable
+    from repro_torch.training import GREngine
+    from repro_torch.training import checkpoint as CKPT
+    cfg = bundle.cfg
+    V, S = cfg.vocab_size, RESILIENT_SAVED
+    t = time.perf_counter()
+    cache = CachedShadowedTable(
+        np.broadcast_to(np.float32(0), (V, cfg.d_model)),
+        capacity_chunks=CACHE_CAPACITY, chunk_rows=CACHE_CHUNK_ROWS,
+        device=torch.device("cuda"))
+    cache.warm_up(stream_id_histogram(batches[:2], V))
+    cache.init_window()
+    eng = GREngine(bundle, lambda i: batches[S + i], seed=SEED + 1,
+                   cache=cache)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t
+    t = time.perf_counter()
+    full, used = CKPT.restore_with_step(ckpt_dir, eng.full_template())
+    eng.adopt_full_state(full)
+    del full
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    check(used == S, f"{tag}: the round trip restored step {used}")
+    losses = [r["loss"] for r in eng.run(RESILIENT_STEPS - S)]
+    manifest = _manifest_of(eng.checkpoint_tree())
+    say(f"[{tag}] round trip: step {used} restored into a fresh cached "
+        f"engine (set-up {setup:.1f} s) in {restore_s:.2f} s (CRC pass, "
+        f"then the table streamed into the host store); "
+        f"{RESILIENT_STEPS - S} more steps {losses}")
+    out = dict(losses=losses, manifest=manifest, restore_s=restore_s,
+               setup_s=setup, counters=cache.counters())
+    del eng, cache
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def _same_manifest(got, want, tag, what):
+    bad = [i for i, (a, b) in enumerate(zip(got["crc32s"], want["crc32s"]))
+           if a != b]
+    check(got["shapes"] == want["shapes"] and got["dtypes"] == want["dtypes"]
+          and len(got["crc32s"]) == len(want["crc32s"]) and not bad,
+          f"{tag}: {what}: leaves {bad} differ from the uninterrupted "
+          f"run's (CRC32s, shapes, dtypes)")
+
+
+def phase_resilient():
+    """GREngine.run_resilient on full-width, full-depth hstu-large (d 1024,
+    16 layers, bf16) at the full vocab 2^22, uncached: the uninterrupted
+    run (RESILIENT_STEPS steps over the Zipf batches of cell *cache*,
+    fused with K5, tau=1, Algorithm 1; its final state's CRC32s from a
+    host copy, no file), then in a process of its own a fresh supervised
+    run from the same seed (async checkpoints every RESILIENT_EVERY)
+    through a torn first save (the anchor) and a fault after the first
+    intact save (restored), and a flipped byte in the saved step that only
+    its CRC refuses; its losses bit for bit the uninterrupted run's, its
+    final state's CRC32s, shapes and dtypes the uninterrupted state's, its
+    peak host RSS within what run_resilient counted; save and restore
+    GB/s, host copies. Checkpoints go to a temporary directory, removed at
+    the end."""
+    from repro_torch.configs import get_arch
+    tag = "resilient"
+    ref = _run_child("resilient_reference_child", tag)
+    check(all(math.isfinite(x) for x in ref["losses"]),
+          f"{tag}: uninterrupted losses {ref['losses']}")
+    say(f"[{tag}] uninterrupted: {RESILIENT_STEPS} steps, losses "
+        f"{ref['losses']}; its state's CRC32s from a host copy in "
+        f"{ref['crc_s']:.1f} s; {ref['wall_s']:.1f} s")
+    out = _run_child("resilient_child_uncached", tag)
+    check(out["losses"] == ref["losses"], f"{tag}: resilient losses "
+          f"{out['losses']} differ from the uninterrupted run's "
+          f"{ref['losses']}")
+    _same_manifest(out["manifest"], ref["manifest"], tag, "the final state")
+    N = RESILIENT_STEPS
+    need = {k: v * (N + out["steps_replayed"]) for k, v in
+            _step_launches(get_arch("hstu-large"), "wscatter").items() if v}
+    check(all(out["launches"][k] >= v for k, v in need.items()),
+          f"{tag}: launches {out['launches']} for {N} steps + "
+          f"{out['steps_replayed']} replayed, need at least {need}")
+    say(f"[{tag}] losses bit for bit the uninterrupted run's; the final "
+        f"state's {len(ref['manifest']['crc32s'])} leaves' CRC32s, shapes "
+        f"and dtypes its state's (so the refused restore wrote nothing)")
+    out["card"] = CARD.get("smi_line")
+    return out
+
+
+def check_cached_resilient():
+    """The cached counterpart of phase *resilient* (a card test runs it:
+    ``tests/test_torch_gpu.py -k full_vocab``, in a call of its own: it
+    writes a 2^22 checkpoint too): the uninterrupted uncached run, then in
+    a process of its own a fresh cached run_resilient (window 512 of 4096
+    chunks) through the same faults, its checkpoint streamed from the host
+    store, held to it (losses, the final state's CRC32s, shapes, dtypes;
+    peak host RSS within the count), and step 4 restored into a fresh
+    cached engine that trains on to the uninterrupted run's losses and
+    CRC32s."""
+    tag = "cache resilient"
+    ref = _run_child("resilient_reference_child", tag)
+    out = _run_child("resilient_child_cached", tag)
+    check(out["losses"] == ref["losses"], f"{tag}: losses {out['losses']} "
+          f"vs the uninterrupted run's {ref['losses']}")
+    _same_manifest(out["manifest"], ref["manifest"], tag, "the final state")
+    rt = out["round_trip"]
+    check(rt["losses"] == ref["losses"][RESILIENT_SAVED:],
+          f"{tag}: round trip losses {rt['losses']} vs "
+          f"{ref['losses'][RESILIENT_SAVED:]}")
+    _same_manifest(rt["manifest"], ref["manifest"], tag,
+                   "the round trip's state")
+    say(f"[{tag}] losses and the final state bit for bit the uninterrupted "
+        f"uncached run's; the round trip's steps and state too")
     return out
 
 
@@ -2902,8 +3207,6 @@ CACHE_CAPACITY = 512              # of 4096 chunks at vocab 2^22: 5.4 GB
 # prefetch of step 11 (a host-only run of the chunk manager on these
 # batches), so 12 steps make the run write back.
 CACHE_STEPS = 12
-CACHE_RT_CAPACITY = 224           # of 256 chunks at RESILIENT_VOCAB
-CACHE_RT_STEPS = 8
 
 
 def _zipf_ids(rng, shape, vocab):
@@ -2929,7 +3232,9 @@ def _zipf_batches(V, steps):
 
 
 def _host_rss_gb():
-    """(resident set now, its peak so far) of this process in GB."""
+    """(resident set now, its peak so far) of this process in GB (the peak
+    from ``getrusage``: the card machine's ``/proc/self/status`` has no
+    VmHWM)."""
     import resource
     rss = float("nan")
     with open("/proc/self/status") as f:
@@ -3005,21 +3310,13 @@ def phase_cache():
     the three and the final state (flushed host master and accumulator
     chunk by chunk, the globalized carry, the dense params and moments)
     bit for bit; the window's shadow == master.half(); misses, evictions
-    and writebacks. Then at RESILIENT_VOCAB: a cached run's checkpoint
-    round trip (full_snapshot, save, restore into a fresh cached engine,
-    adopt_full_state) and run_resilient with the cache through one
-    injected exception, each bit for bit the uncached run."""
-    import shutil
-    import tempfile
+    and writebacks. (The cached checkpoints and run_resilient at this vocab
+    are ``check_cached_resilient``, run by a card test.)"""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.model_zoo import GRBundle
-    from repro_torch.training import GREngine
-    from repro_torch.training import checkpoint as CKPT
-    from repro_torch.training import resilience as R
     tag = "cache"
-    dev = torch.device("cuda")
     cfg = get_arch("hstu-large")
     V, d = cfg.vocab_size, cfg.d_model
     bundle = GRBundle(cfg)
@@ -3165,100 +3462,6 @@ def phase_cache():
         f"host RSS (b) {b['host_rss_gb']:.1f} GB; card "
         f"{CARD.get('smi_line')}")
 
-    # -- checkpoints at RESILIENT_VOCAB ------------------------------------
-    cfg2 = cfg.replace(vocab_size=RESILIENT_VOCAB)
-    bundle2 = GRBundle(cfg2)
-    M = CACHE_RT_STEPS
-    bs2 = _zipf_batches(RESILIENT_VOCAB, M)
-    ref = GREngine(bundle2, lambda i: bs2[i], seed=SEED, device=dev)
-    ref_losses = [r["loss"] for r in ref.run(M)]
-    ref_full = ref.full_snapshot()
-    del ref
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    def same_full(snap):
-        return snap.paths == ref_full.paths and all(
-            x.shape == y.shape and np.array_equal(x, y)
-            for x, y in zip(snap.arrays, ref_full.arrays))
-
-    def cached_engine(data_fn, seed=SEED):
-        cache, _ = _seeded_cache(bundle2, bs2, CACHE_RT_CAPACITY)
-        return GREngine(bundle2, data_fn, seed=seed, cache=cache)
-
-    d = tempfile.mkdtemp(prefix="chip_smoke_cache_")
-    try:
-        e1 = cached_engine(lambda i: bs2[i])
-        first = [r["loss"] for r in e1.run(M // 2)]
-        t = time.perf_counter()
-        full = e1.full_snapshot()
-        snap_s = time.perf_counter() - t
-        t = time.perf_counter()
-        CKPT.save(d, M // 2, full)
-        save_s = time.perf_counter() - t
-        nbytes = full.nbytes
-        c1 = e1.cache.counters()
-        del e1, full
-        gc.collect()
-        e2 = cached_engine(lambda i: bs2[M // 2 + i], seed=SEED + 1)
-        t = time.perf_counter()
-        got, used = CKPT.restore_with_step(d, e2.full_template())
-        e2.adopt_full_state(got)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t
-        del got
-        second = [r["loss"] for r in e2.run(M - M // 2)]
-        check(used == M // 2 and first + second == ref_losses,
-              f"{tag}: round trip restored step {used}, losses "
-              f"{first + second} vs {ref_losses}")
-        check(same_full(e2.full_snapshot()), f"{tag}: the round trip's "
-              f"final full state differs from the uncached run's")
-        check(c1["evictions"] > 0, f"{tag}: the round trip's first run "
-              f"evicted nothing ({c1})")
-        say(f"[{tag}] round trip at vocab {RESILIENT_VOCAB}, window "
-            f"{CACHE_RT_CAPACITY} of {RESILIENT_VOCAB // CACHE_CHUNK_ROWS} "
-            f"chunks: {M // 2} cached steps, full_snapshot "
-            f"{nbytes / 1e9:.3f} GB in {snap_s:.2f} s, save {save_s:.2f} s, "
-            f"restore into a fresh cached engine + adopt_full_state "
-            f"{restore_s:.2f} s, {M - M // 2} more steps: losses and the "
-            f"full state bit for bit the uncached run's (first run's "
-            f"counters {c1})")
-        del e2
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        e3 = cached_engine(lambda i: bs2[i])
-        inj = R.FaultInjector([R.FaultSpec("dense_fwd", 5, "exception")])
-        t = time.perf_counter()
-        recs = e3.run_resilient(M, ckpt_dir=os.path.join(d, "run"),
-                                ckpt_every=4, keep_last_n=2,
-                                policy=R.FaultPolicy(retries={}),
-                                injector=inj)
-        torch.cuda.synchronize()
-        res_s = time.perf_counter() - t
-        got = [r["loss"] for r in recs]
-        check(inj.exhausted and [ev.restored_step for ev in e3.recoveries]
-              == [4] and got == ref_losses,
-              f"{tag}: run_resilient recoveries "
-              f"{[ev.restored_step for ev in e3.recoveries]}, losses {got} "
-              f"vs {ref_losses}")
-        check(same_full(e3.full_snapshot()), f"{tag}: the resilient run's "
-              f"final full state differs from the uncached run's")
-        out.update(rt=dict(vocab=RESILIENT_VOCAB, capacity=CACHE_RT_CAPACITY,
-                           full_gb=nbytes / 1e9, snapshot_s=snap_s,
-                           save_s=save_s, restore_adopt_s=restore_s,
-                           resilient_s=res_s,
-                           recovery_s=[ev.wall_s for ev in e3.recoveries],
-                           snapshots=e3.snapshots,
-                           counters=e3.cache.counters()))
-        say(f"[{tag}] run_resilient with the cache to step {M}: {res_s:.1f} "
-            f"s, one recovery ({e3.recoveries[0].wall_s:.2f} s, restored "
-            f"step 4), losses and the full state bit for bit the uncached "
-            f"run's; checkpoint host copies (step, s, bytes) "
-            f"{[(s, round(x, 3), n) for s, x, n in e3.snapshots]}")
-        del e3
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3580,6 +3783,7 @@ CLI_ARGS = ["--synthetic-users", "400", "--num-items", "200000",
             "--max-seq-len", "512", "--users-per-device", "2",
             "--num-negatives", "32", "--log-every", "4"]
 CLI_RUNS = (("hstu-large", 8, "fused"), ("fuxi-large", 4, "fused"),
+            ("sasrec-large", 4, "fused"),
             ("hstu-large", 4, "segmented"), ("hstu-large", 4, "baseline"),
             ("hstu-large", 4, "resilient"))
 # the resilient run's flags; it is then resumed to CLI_RESUME_STEPS
@@ -3590,9 +3794,9 @@ CLI_RESUME_STEPS = 6
 
 def phase_cli():
     """``python -m repro_torch.launch.train`` on the card, as a user runs
-    it: hstu-large and fuxi-large on the fused path, and hstu-large with
-    ``--neg-mode segmented`` and ``--neg-mode baseline``, and hstu-large
-    with checkpoints and telemetry (``--ckpt-dir``, ``--ckpt-every``,
+    it: hstu-large, fuxi-large and sasrec-large on the fused path,
+    hstu-large with ``--neg-mode segmented`` and ``--neg-mode baseline``,
+    and hstu-large with checkpoints and telemetry (``--ckpt-dir``, ``--ckpt-every``,
     ``--trace-out``, ``--metrics-out``), the processes side by side (each
     holds a few GB): each must exit 0 and end with ``[done]`` and a finite
     final loss. Then the resilient run is resumed (``--resume``) to more
@@ -3721,6 +3925,7 @@ def main():
                                      "engine")
         f_alg, f_flat, f_prof = run("engine_fuxi", phase_engine,
                                     "fuxi-large", "engine_fuxi")
+        s_alg, s_flat, s_out = run("engine_sasrec", phase_engine_sasrec)
         ablation, first_losses = run(
             "ablation", phase_ablation,
             max(r["peak_above_tables_gb"] for r in alg["steps"]))
@@ -3746,6 +3951,7 @@ def main():
     say(f"[result] train steps {json.dumps(per_step)}")
     say(f"[result] engine {json.dumps([alg, flat, engine_prof])}")
     say(f"[result] engine_fuxi {json.dumps([f_alg, f_flat, f_prof])}")
+    say(f"[result] engine_sasrec {json.dumps([s_alg, s_flat, s_out])}")
     say(f"[result] ablation {json.dumps([ablation, first_losses])}")
     say(f"[result] resilient {json.dumps(resilient)}")
     say(f"[result] cache {json.dumps(cache)}")
@@ -3804,6 +4010,8 @@ def main():
                    + flat["launches"][kname],
                    "engine_fuxi": f_alg["launches"][kname]
                    + f_flat["launches"][kname],
+                   "engine_sasrec": s_alg["launches"][kname]
+                   + s_flat["launches"][kname],
                    "ablation": sum(r["launches"][kname]
                                    for r in ablation.values()),
                    "resilient": resilient["launches"][kname],

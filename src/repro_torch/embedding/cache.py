@@ -71,6 +71,14 @@ What the port does differently, and why:
     order, bit for bit the uncached engine's carry.
   * :meth:`materialize` returns the full table as host numpy arrays (no
     second copy when a checkpoint saves them).
+  * A checkpoint does not materialize the table: :meth:`table_snapshot`
+    gives the master and accumulator as two leaves the save streams from
+    the host store, overlaid with the window's dirty chunks (copied to the
+    host when it is taken). The save runs on the saver's thread while
+    training goes on, so a writeback (or :meth:`flush`) that would
+    overwrite store rows the save has not read yet copies that chunk's old
+    rows aside first (copy-on-write by chunk); :meth:`adopt` waits for
+    every save in flight.
 
 Bit identity: translation only permutes where rows live. The gathers, the
 sorted run-sums (each run summed in stable-sort order from zero, wherever
@@ -94,6 +102,9 @@ from repro_torch.embedding.tables import ShadowedTable
 #: host temporaries: 64 chunks of 1024 × 1024 fp32 rows are 256 MB).
 CHUNKS_PER_COPY = 64
 
+#: Bytes of the host store a streamed save reads at a time (whole chunks).
+SAVE_PIECE_BYTES = 64 << 20
+
 
 @dataclass
 class CacheStats:
@@ -109,6 +120,8 @@ class CacheStats:
     # chunk-granular writeback would have copied
     writeback_rows_dirty: int = 0
     writeback_rows_total: int = 0
+    # chunks a writeback or flush copied aside for a save in flight
+    cow_chunks: int = 0
 
     @property
     def hit_rate(self) -> float:
@@ -144,13 +157,104 @@ class _Writeback:
     once the host store holds them (or ``error`` is there)."""
 
     def __init__(self, chunks: np.ndarray, host_rows: np.ndarray,
-                 win_rows: np.ndarray, events):
+                 win_rows: np.ndarray, events, saves):
         self.chunks = chunks
         self.host_rows = host_rows
         self.win_rows = win_rows
         self.events = events
+        self.saves = saves            # the saves in flight at the claim
         self.done = threading.Event()
         self.error: Optional[BaseException] = None
+
+
+class _TableSave:
+    """One save's view of the full table as :meth:`CachedShadowedTable.
+    table_snapshot` took it: the host store, the window's dirty chunks at
+    that moment (``overlay``, copied to the host) and the chunks whose store
+    rows were overwritten since (their old rows copied aside first). Each
+    of the two leaves (0 master, 1 accumulator) reads the store once, a
+    piece of whole chunks at a time, and ``passed`` records how far: a
+    chunk is copied aside only while a leaf still has it ahead."""
+
+    def __init__(self, cache: "CachedShadowedTable",
+                 overlay: Dict[int, Tuple[np.ndarray, np.ndarray]]):
+        self.cache = cache
+        self.overlay = overlay
+        self.passed = [0, 0]
+        self.open = [True, True]
+        self.started = [False, False]
+        self.copied_aside = 0
+        self.lock = threading.Lock()
+
+    def preserve(self, chunks: np.ndarray) -> None:
+        """Before the store rows of ``chunks`` are overwritten: copy aside
+        the old rows of those an open leaf has not read yet."""
+        C, R = self.cache, self.cache.chunk_rows
+        with self.lock:
+            ahead = [p for p, o in zip(self.passed, self.open) if o]
+            if not ahead:
+                return
+            for c in np.asarray(chunks).tolist():
+                if c >= min(ahead) and c not in self.overlay:
+                    rows = slice(c * R, (c + 1) * R)
+                    self.overlay[c] = (C.host_master[rows].copy(),
+                                       C.host_accum[rows].copy())
+                    self.copied_aside += 1
+
+    def pieces(self, which: int):
+        """Leaf ``which``'s rows [0, vocab) in pieces of whole chunks (the
+        last cut at the vocab), each valid until the next is taken."""
+        C, R = self.cache, self.cache.chunk_rows
+        with self.lock:
+            if self.started[which] or not self.open[which]:
+                raise RuntimeError("a streamed table leaf is read once")
+            self.started[which] = True
+        store = C.host_master if which == 0 else C.host_accum
+        k = max(1, SAVE_PIECE_BYTES // (R * C.dim * 4))
+        buf = np.empty((k * R, C.dim), np.float32)
+        for c0 in range(0, C.num_chunks, k):
+            c1 = min(c0 + k, C.num_chunks)
+            n = min(c1 * R, C.vocab) - c0 * R
+            out = buf[:n]
+            with self.lock:
+                np.copyto(out, store[c0 * R:c0 * R + n])
+                for c in range(c0, c1):
+                    old = self.overlay.get(c)
+                    if old is not None:
+                        lo = (c - c0) * R
+                        hi = min(lo + R, n)
+                        out[lo:hi] = old[which][:hi - lo]
+                self.passed[which] = c1
+            yield out
+
+    def close(self, which: int) -> None:
+        with self.lock:
+            if not self.open[which]:
+                return
+            self.open[which] = False
+            done = not any(self.open)
+            if done:
+                self.overlay = {}
+        if done:
+            self.cache._end_save(self)
+
+
+class _StoreLeaf:
+    """The master (``which`` 0) or accumulator (1) leaf of a
+    :class:`_TableSave`: ``(vocab, dim)`` float32, streamed once."""
+
+    def __init__(self, save: _TableSave, which: int):
+        self._save, self._which = save, which
+        C = save.cache
+        self.shape = (C.vocab, C.dim)
+        self.dtype = np.dtype(np.float32)
+        self.nbytes = C.vocab * C.dim * 4
+
+    def pieces(self):
+        return self._save.pieces(self._which)
+
+    def close(self) -> None:
+        self._save.close(self._which)
 
 
 class PrefetchPlan(NamedTuple):
@@ -169,8 +273,18 @@ class CacheThrash(RuntimeError):
 
 
 def _copy_rows_to_host(dst: np.ndarray, src) -> None:
-    """``dst[:len(src)] = src`` as fp32, for a numpy array or a tensor on
-    any device, in pieces of ~64 MB (no full-size host temporary)."""
+    """``dst[:len(src)] = src`` as fp32, for a numpy array, a tensor on any
+    device, or a checkpoint's leaf file (read straight into ``dst``), in
+    pieces of ~64 MB (no full-size host temporary)."""
+    if hasattr(src, "read_into"):
+        if src.dtype == dst.dtype:
+            src.read_into(dst[:src.shape[0]])
+            return
+        lo = 0
+        for piece in src.pieces():
+            dst[lo:lo + len(piece)] = piece
+            lo += len(piece)
+        return
     if not isinstance(src, torch.Tensor):
         dst[:len(src)] = np.asarray(src, np.float32)
         return
@@ -209,11 +323,17 @@ class CachedShadowedTable:
         self.num_chunks = -(-self.vocab // self.chunk_rows)   # ceil
         self.qdtype = qdtype
         vpad = self.num_chunks * self.chunk_rows
+        # every page written once (np.zeros maps a page on its first
+        # write), so the host's available memory shows the whole store
         self.host_master = np.zeros((vpad, self.dim), np.float32)
         _copy_rows_to_host(self.host_master, master)
+        self.host_master[self.vocab:] = 0.0
         self.host_accum = np.zeros((vpad, self.dim), np.float32)
         if accum is not None:
             _copy_rows_to_host(self.host_accum, accum)
+            self.host_accum[self.vocab:] = 0.0
+        else:
+            self.host_accum.fill(0.0)
         self.chunk_slot = np.full(self.num_chunks, -1, np.int64)
         self.slot_chunk = np.full(self.capacity_chunks, -1, np.int64)
         self.freq = np.zeros(self.num_chunks, np.int64)
@@ -243,6 +363,8 @@ class CachedShadowedTable:
         # chunks whose writeback failed (their rows are lost until adopt)
         self._draining: Dict[int, _Writeback] = {}
         self._lost: set = set()
+        # saves in flight (table_snapshot to the close of both leaves)
+        self._saves: set = set()
         self._lock = threading.Lock()
         self._drained = threading.Condition(self._lock)
 
@@ -262,6 +384,12 @@ class CachedShadowedTable:
     def host_nbytes(self) -> int:
         """Bytes of the host store (master and accumulator)."""
         return int(self.host_master.nbytes + self.host_accum.nbytes)
+
+    @property
+    def window_nbytes(self) -> int:
+        """Bytes of the window's master and accumulator (the most a
+        :meth:`table_snapshot` copies to the host)."""
+        return 2 * self.rows * self.dim * 4
 
     # -- warm-up / window ---------------------------------------------------
     def warm_up(self, hist=None) -> np.ndarray:
@@ -557,7 +685,8 @@ class CachedShadowedTable:
             self.stats.writebacks += 1
         g = np.concatenate(host_rows)
         self.stats.swap_out_bytes += int(g.size * self.dim * 4 * 2)
-        wb = _Writeback(chunks, g, np.concatenate(win_rows), events)
+        wb = _Writeback(chunks, g, np.concatenate(win_rows), events,
+                        list(self._saves))
         for c in chunks.tolist():
             self._draining[c] = wb
         return wb
@@ -568,6 +697,8 @@ class CachedShadowedTable:
         try:
             if wb.host_rows.size:
                 m, a = self._read_rows(wb.win_rows, wb.events)
+                for save in wb.saves:
+                    save.preserve(wb.chunks)
                 self.host_master[wb.host_rows] = m
                 self.host_accum[wb.host_rows] = a
         except BaseException as e:
@@ -770,16 +901,21 @@ class CachedShadowedTable:
         clear the dirty flags (end-of-run extraction of the master)."""
         with self._lock:
             self._await_drains_locked()
+            for save in self._saves:
+                save.preserve(np.flatnonzero(self.dirty))
             self._flush_into_locked(self.host_master, self.host_accum)
             self.dirty[:] = False
             self.dirty_rows.clear()
             self._landed.clear()
 
-    def _flush_into_locked(self, m: np.ndarray, a: np.ndarray):
+    def _check_lost_locked(self) -> None:
         if self._lost:
             raise RuntimeError(f"the writeback of chunks "
                                f"{sorted(self._lost)} failed: their rows "
                                f"are lost until adopt()")
+
+    def _flush_into_locked(self, m: np.ndarray, a: np.ndarray):
+        self._check_lost_locked()
         win = self._window
         d = np.flatnonzero(self.dirty)
         if d.size and win is None:
@@ -791,6 +927,36 @@ class CachedShadowedTable:
             m3[c] = self._read_chunks(win.master, self.chunk_slot[c])
             a3[c] = self._read_chunks(win.accum, self.chunk_slot[c])
         return m, a
+
+    def table_snapshot(self):
+        """The full ``(V, D)`` master and accumulator as they are now, as
+        two leaves a checkpoint streams from the host store (``pieces()``,
+        ``shape``, ``dtype``, ``nbytes``, ``close()``), without a copy of
+        the table: the window's dirty chunks are copied to the host here
+        (on the caller's stream, after its enqueued work), and until both
+        leaves are closed a writeback copies the old store rows of a chunk
+        a leaf has not read yet aside first. Each leaf is read once; a save
+        closes them."""
+        with self._lock:
+            self._await_drains_locked()
+            self._check_lost_locked()
+            d = np.flatnonzero(self.dirty)
+            overlay = {}
+            for lo in range(0, d.size, CHUNKS_PER_COPY):
+                c = d[lo:lo + CHUNKS_PER_COPY]
+                m = self._read_chunks(self._window.master, self.chunk_slot[c])
+                a = self._read_chunks(self._window.accum, self.chunk_slot[c])
+                for j, chunk in enumerate(c.tolist()):
+                    overlay[chunk] = (m[j], a[j])
+            save = _TableSave(self, overlay)
+            self._saves.add(save)
+        return _StoreLeaf(save, 0), _StoreLeaf(save, 1)
+
+    def _end_save(self, save: _TableSave) -> None:
+        with self._lock:
+            self._saves.discard(save)
+            self.stats.cow_chunks += save.copied_aside
+            self._drained.notify_all()
 
     def adopt(self, table, pending_ids=None
               ) -> Tuple[ShadowedTable, np.ndarray]:
@@ -809,6 +975,8 @@ class CachedShadowedTable:
                               f"capacity {self.capacity_chunks}")
         with self._lock:
             self._await_drains_locked()
+            while self._saves:              # a save still reads the store
+                self._drained.wait()
             self._lost.clear()
             for dst, src in ((self.host_master, table.master),
                              (self.host_accum, table.accum)):

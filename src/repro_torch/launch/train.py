@@ -54,8 +54,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
     per-step records."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="hstu-large",
-                    help="a GR config: hstu-{tiny,small,medium,large,long} "
-                         "or fuxi-{tiny,small,medium,large,long}")
+                    help="a GR config: hstu-{tiny,small,medium,large,long}, "
+                         "fuxi-{tiny,small,medium,large,long} or "
+                         "sasrec-{tiny,small,medium,large}")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--synthetic-users", type=int, default=2000)
     ap.add_argument("--num-items", type=int, default=200_000)

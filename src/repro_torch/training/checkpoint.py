@@ -40,11 +40,20 @@ a MessagePack encoder and decoder of the subset a manifest uses (map, str,
 int, float, list, bool, nil; bin is read too): the ``msgpack`` package is
 not needed, and its ``unpackb`` reads what :func:`packb` writes.
 
-A restore into a :class:`GRTrainState` writes the values into the
-template's tensors in place (a second full-vocab table does not fit beside
-the first on an 80 GB card); every leaf is read and verified on the host
-before the first tensor is touched, so a corrupt step leaves the template
-as it was.
+Host memory. A leaf is written and read a piece (:data:`PIECE_BYTES`) at
+a time, its CRC32 a running ``zlib.crc32`` over the pieces, so neither a
+save nor a restore makes a host copy of its own beyond the snapshot it
+writes. A restore reads every leaf of a step twice: first it checks each
+leaf's CRC (the bytes pass through a piece buffer and the page cache),
+then, once every leaf has passed, it hands the consumer
+:class:`LeafFile` s that read the leaves on demand: into a
+:class:`GRTrainState` template's tensors in place, a piece at a time (a
+second full-vocab table does not fit beside the first on an 80 GB card),
+or into a cached engine's host store. So a corrupt step leaves the
+template as it was. A snapshot leaf may also be *streamed* (an object with
+``pieces()``, ``shape``, ``dtype``, ``nbytes`` and ``close()``: a cached
+engine's table read from its host store), written without ever being whole
+in memory; a save closes it once written.
 """
 from __future__ import annotations
 
@@ -248,9 +257,17 @@ class _Leaf(NamedTuple):
     dtype: str
 
 
+def _is_streamed(x: Any) -> bool:
+    """A leaf read a piece at a time (a :class:`LeafFile`, or a cached
+    engine's table leaf streamed from its host store), never whole."""
+    return hasattr(x, "pieces") and not isinstance(x, np.ndarray)
+
+
 def _dtype_name(x: Any) -> str:
     if isinstance(x, torch.Tensor):
         return str(x.dtype).replace("torch.", "")
+    if _is_streamed(x):
+        return np.dtype(x.dtype).name
     return np.asarray(x).dtype.name
 
 
@@ -306,9 +323,12 @@ def _state_leaves(st: GRTrainState) -> List[_Leaf]:
 
 
 def _part(t: Any) -> Any:
-    """A table or carry leaf's part: a tensor detached, or a numpy array
-    (a host copy the caller hands over: saved without another copy)."""
-    return t.detach() if isinstance(t, torch.Tensor) else np.asarray(t)
+    """A table or carry leaf's part: a tensor detached, a streamed leaf, or
+    a numpy array (a host copy the caller hands over: saved without
+    another copy)."""
+    if isinstance(t, torch.Tensor):
+        return t.detach()
+    return t if _is_streamed(t) else np.asarray(t)
 
 
 def _is_namedtuple(x: Any) -> bool:
@@ -347,9 +367,10 @@ _SAVED = {"bfloat16": torch.float32}     # numpy has no bf16: upcast (exact)
 
 class HostSnapshot(NamedTuple):
     """A state's leaves on the host, in the form they are saved: ``arrays``
-    (C-contiguous numpy, bfloat16 upcast to float32), ``dtypes`` (the true
-    dtype names), ``shapes``, ``paths``, the device-to-host copy's wall
-    ``seconds`` and the saved ``nbytes``."""
+    (C-contiguous numpy, bfloat16 upcast to float32; or streamed leaves,
+    see the module docstring), ``dtypes`` (the true dtype names),
+    ``shapes``, ``paths``, the device-to-host copy's wall ``seconds`` and
+    the saved ``nbytes``."""
     arrays: List[np.ndarray]
     dtypes: List[str]
     shapes: List[Tuple[int, ...]]
@@ -363,24 +384,44 @@ def _saved_torch_dtype(leaf: _Leaf, t: torch.Tensor) -> torch.dtype:
 
 
 @torch.no_grad()
+def _pinned(buffers: Dict[int, torch.Tensor], i: int,
+            shape: Tuple[int, ...], dt: torch.dtype) -> torch.Tensor:
+    """Leaf ``i``'s pinned host buffer, allocated on first use and kept: a
+    leaf whose leading dimension varies from save to save (the τ=1 carry)
+    takes the first rows of a buffer as tall or taller."""
+    buf = buffers.get(i)
+    if (buf is None or buf.dtype != dt or buf.dim() != len(shape)
+            or tuple(buf.shape[1:]) != shape[1:]
+            or (shape and buf.shape[0] < shape[0])
+            or (not shape and buf.shape != shape)):
+        buffers.pop(i, None)
+        buf = torch.empty(shape, dtype=dt, pin_memory=True)
+        buffers[i] = buf
+    return buf[:shape[0]] if shape else buf
+
+
+@torch.no_grad()
 def snapshot(tree: Any, *, buffers: Optional[Dict[int, torch.Tensor]] = None
              ) -> HostSnapshot:
     """Copy every leaf of ``tree`` to host memory, complete when this
     returns (later in-place steps cannot reach the copy). ``buffers``: a
     dict this function fills with pinned host tensors on the first call and
-    reuses on later calls with the same leaf shapes (the caller must not
-    hold an earlier snapshot made with them); None copies to pageable
-    memory. Numpy leaves (a cached engine's full table, already a host
-    copy) are taken as they are, without a second copy."""
+    reuses on later calls (the caller must not hold an earlier snapshot
+    made with them); None copies to pageable memory. Numpy leaves (a host
+    copy already) and streamed leaves are taken as they are, without a
+    second copy."""
     if isinstance(tree, HostSnapshot):
         return tree
     t0 = time.perf_counter()
     leaves = _leaves(tree)
-    arrays: List[Optional[np.ndarray]] = []
+    arrays: List[Any] = []
     pinned_used = False
     for i, leaf in enumerate(leaves):
         first = leaf.parts[0]
         if not isinstance(first, torch.Tensor):
+            if _is_streamed(first):
+                arrays.append(first)
+                continue
             a = np.asarray(first)
             if leaf.dtype == "bfloat16":
                 a = a.astype(np.float32)
@@ -389,11 +430,7 @@ def snapshot(tree: Any, *, buffers: Optional[Dict[int, torch.Tensor]] = None
         dt = _saved_torch_dtype(leaf, first)
         stacked = len(leaf.parts) > 1 or leaf.shape != tuple(first.shape)
         if buffers is not None and first.is_cuda:
-            buf = buffers.get(i)
-            if (buf is None or tuple(buf.shape) != leaf.shape
-                    or buf.dtype != dt):
-                buf = torch.empty(leaf.shape, dtype=dt, pin_memory=True)
-                buffers[i] = buf
+            buf = _pinned(buffers, i, leaf.shape, dt)
             pinned_used = True
         else:
             buf = torch.empty(leaf.shape, dtype=dt)
@@ -409,7 +446,7 @@ def snapshot(tree: Any, *, buffers: Optional[Dict[int, torch.Tensor]] = None
     for a in arrays:
         if isinstance(a, torch.Tensor):
             a = a.numpy()
-        out.append(np.ascontiguousarray(a))
+        out.append(a if _is_streamed(a) else np.ascontiguousarray(a))
     return HostSnapshot(out, [lf.dtype for lf in leaves],
                         [lf.shape for lf in leaves],
                         [lf.path for lf in leaves],
@@ -417,9 +454,11 @@ def snapshot(tree: Any, *, buffers: Optional[Dict[int, torch.Tensor]] = None
                         sum(a.nbytes for a in out))
 
 
-def host_nbytes(tree: Any) -> int:
+def host_nbytes(tree: Any, *, pinned: bool = False) -> int:
     """Bytes of ``tree``'s host copy (a :func:`snapshot`'s ``nbytes``),
-    from its leaves' shapes and saved dtypes; copies nothing."""
+    from its leaves' shapes and saved dtypes; copies nothing. ``pinned``:
+    as PyTorch's pinned host allocator holds a copy into pinned buffers
+    (each leaf's buffer rounded up to a power of two)."""
     if isinstance(tree, HostSnapshot):
         return tree.nbytes
     total = 0
@@ -428,10 +467,12 @@ def host_nbytes(tree: Any) -> int:
         if isinstance(first, torch.Tensor):
             item = torch.empty(0, dtype=_saved_torch_dtype(leaf, first)
                                ).element_size()
+        elif leaf.dtype == "bfloat16":
+            item = 4
         else:
-            item = 4 if leaf.dtype == "bfloat16" else \
-                np.asarray(first).itemsize
-        total += int(np.prod(leaf.shape, dtype=np.int64)) * item
+            item = np.dtype(leaf.dtype).itemsize
+        n = int(np.prod(leaf.shape, dtype=np.int64)) * item
+        total += 1 << (n - 1).bit_length() if pinned and n > 1 else n
     return total
 
 
@@ -473,22 +514,75 @@ def _fsync_path(path: str) -> None:
 
 
 #: Leaf files checksummed and written, or read and checked, at a time
-#: (``zlib.crc32``, ``np.save``, ``np.load`` and fsync release the GIL).
+#: (``zlib.crc32``, file reads and writes and fsync release the GIL).
 _IO_THREADS = 4
 
+#: Bytes of a leaf checksummed and written, or read, at a time.
+PIECE_BYTES = 64 << 20
 
-def _crc32(a: np.ndarray) -> int:
-    """zlib's CRC32 of an array's C-order bytes."""
-    return zlib.crc32(np.ascontiguousarray(a))
+#: Host memory a save's or a restore's piece buffers hold at most (a
+#: restore checks up to ``_IO_THREADS`` leaves at once, then reads one
+#: piece at a time; a leaf of at most a piece is read whole).
+IO_BUFFER_BYTES = _IO_THREADS * PIECE_BYTES
 
 
-def _write_leaf(d: str, i: int, a: np.ndarray, fsync: bool) -> int:
-    crc = _crc32(a)
-    path = os.path.join(d, f"arr_{i}.npy")
-    np.save(path, a)
-    if fsync:
-        _fsync_path(path)
+def _byte_pieces(a: Any):
+    """A leaf's C-order bytes in pieces (uint8 arrays) of at most
+    :data:`PIECE_BYTES`: views of a numpy array, or a streamed leaf's
+    pieces (each valid until the next is taken)."""
+    if _is_streamed(a):
+        for p in a.pieces():
+            yield np.ascontiguousarray(p).reshape(-1).view(np.uint8)
+        return
+    b = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    for lo in range(0, max(b.size, 1), PIECE_BYTES):
+        yield b[lo:lo + PIECE_BYTES]
+
+
+def _crc32(a: Any) -> int:
+    """zlib's CRC32 of a leaf's C-order bytes (a streamed leaf is read)."""
+    crc = 0
+    for piece in _byte_pieces(a):
+        crc = zlib.crc32(piece, crc)
     return crc
+
+
+def crc32s(snap: HostSnapshot) -> List[int]:
+    """The CRC32 of each leaf of a host snapshot, as a save of it records
+    them in its manifest; like a save, it reads and closes the streamed
+    leaves."""
+    try:
+        with ThreadPoolExecutor(_IO_THREADS) as ex:
+            return list(ex.map(_crc32, snap.arrays))
+    finally:
+        release(snap)
+
+
+def _write_leaf(d: str, i: int, a: Any, fsync: bool) -> int:
+    """``arr_<i>.npy`` with ``np.save``'s bytes (format 1.0, C order),
+    written a piece at a time with a running CRC32; returns the CRC."""
+    path = os.path.join(d, f"arr_{i}.npy")
+    shape = tuple(int(n) for n in a.shape)
+    crc = 0
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, {
+            "descr": np.lib.format.dtype_to_descr(np.dtype(a.dtype)),
+            "fortran_order": False, "shape": shape})
+        for piece in _byte_pieces(a):
+            crc = zlib.crc32(piece, crc)
+            f.write(piece)
+        if fsync:
+            f.flush()
+            os.fsync(f.fileno())
+    return crc
+
+
+def release(snap: Any) -> None:
+    """Close a snapshot's streamed leaves (idempotent); a save calls it
+    once its leaves are written, or have failed to be."""
+    for a in getattr(snap, "arrays", ()):
+        if _is_streamed(a):
+            a.close()
 
 
 def _write_leaves(d: str, snap: HostSnapshot, upto: Optional[int] = None,
@@ -515,10 +609,32 @@ def save(ckpt_dir: str, step: int, tree: Any,
     parent directory is fsync'd after the rename and again after the
     LATEST flip. ``keep_last_n`` (≥1) removes older ``step_*`` directories
     after the new step is published. ``registry`` (a duck-typed obs
-    ``MetricsRegistry``) records the save's seconds as ``ckpt_save_s``."""
+    ``MetricsRegistry``) records the save's seconds as ``ckpt_save_s``.
+    The snapshot's streamed leaves are closed when this returns."""
     _t0 = time.perf_counter()
-    os.makedirs(ckpt_dir, exist_ok=True)
     snap = snapshot(tree)
+    try:
+        final = _publish(ckpt_dir, step, snap, meta)
+    finally:
+        release(snap)
+    ptr_tmp = os.path.join(ckpt_dir, ".LATEST.tmp")
+    with open(ptr_tmp, "w") as f:
+        f.write(f"step_{step}")
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(ptr_tmp, os.path.join(ckpt_dir, "LATEST"))
+    _fsync_path(ckpt_dir)
+    if keep_last_n is not None:
+        gc_steps(ckpt_dir, keep_last_n)
+    _record_duration(registry, "ckpt_save", time.perf_counter() - _t0)
+    return final
+
+
+def _publish(ckpt_dir: str, step: int, snap: HostSnapshot,
+             meta: Optional[Dict]) -> str:
+    """Write the step's leaves and manifest into a tmp directory, fsync
+    them, and rename it to ``step_<n>``; the step directory."""
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=f".tmp_step_{step}_")
     try:
         crcs = _write_leaves(tmp, snap)
@@ -545,16 +661,6 @@ def save(ckpt_dir: str, step: int, tree: Any,
     except Exception:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    ptr_tmp = os.path.join(ckpt_dir, ".LATEST.tmp")
-    with open(ptr_tmp, "w") as f:
-        f.write(f"step_{step}")
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(ptr_tmp, os.path.join(ckpt_dir, "LATEST"))
-    _fsync_path(ckpt_dir)
-    if keep_last_n is not None:
-        gc_steps(ckpt_dir, keep_last_n)
-    _record_duration(registry, "ckpt_save", time.perf_counter() - _t0)
     return final
 
 
@@ -582,7 +688,8 @@ class AsyncCheckpointer:
     the files on a background thread. A card state is copied through
     pinned host buffers kept from save to save (safe: a save starts only
     after the last one finished writing from them). ``snapshots`` records
-    each copy's (step, seconds, bytes)."""
+    each copy's (step, seconds, bytes), ``completed`` the steps whose save
+    finished without error."""
 
     def __init__(self, ckpt_dir: str, keep_last_n: Optional[int] = None,
                  registry: Any = None):
@@ -593,17 +700,25 @@ class AsyncCheckpointer:
         self._thread: Optional[threading.Thread] = None
         self.last_error: Optional[BaseException] = None
         self.snapshots: List[Tuple[int, float, int]] = []
+        self.completed: List[int] = []
+
+    def copy(self, tree: Any) -> HostSnapshot:
+        """``tree``'s host copy in this saver's buffers, as ``save_async``
+        takes it (call after :meth:`wait`: the save in flight writes from
+        them)."""
+        return snapshot(tree, buffers=self._buffers)
 
     def save_async(self, step: int, tree: Any,
                    meta: Optional[Dict] = None) -> None:
         self.wait()
-        snap = snapshot(tree, buffers=self._buffers)
+        snap = self.copy(tree)
         self.snapshots.append((step, snap.seconds, snap.nbytes))
 
         def work():
             try:
                 save(self.ckpt_dir, step, snap, meta,
                      keep_last_n=self.keep_last_n, registry=self.registry)
+                self.completed.append(step)
             except BaseException as e:      # surfaced on next wait()
                 self.last_error = e
 
@@ -685,10 +800,168 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return good[0] if good else None
 
 
+class _OpenFile:
+    """A file descriptor open for reading, closed when the last
+    :class:`LeafFile` holding it goes (its data stays readable if the step
+    directory is removed meanwhile)."""
+
+    def __init__(self, path: str):
+        self.fd = os.open(path, os.O_RDONLY)
+
+    def __del__(self):
+        if getattr(self, "fd", None) is not None:
+            os.close(self.fd)
+
+
+class LeafFile:
+    """A leaf of a step directory, read from its open file on demand (no
+    host copy of its own): ``np.asarray(leaf)`` reads it whole,
+    :meth:`read_into` reads rows of it into a given array, :meth:`pieces`
+    streams it, and ``leaf[j]`` is its j-th slice along the leading axis (a
+    stacked leaf's layer). ``shape`` is the manifest's (a 0-d leaf may be
+    stored as (1,)); ``dtype`` the stored one. Reads are positioned
+    (``preadv``), so threads may share a leaf."""
+
+    def __init__(self, file: _OpenFile, path: str, offset: int,
+                 shape: Tuple[int, ...], dtype: Any):
+        self.file = file
+        self.path = path
+        self.offset = int(offset)
+        self.shape = tuple(int(n) for n in shape)
+        self.dtype = np.dtype(dtype)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.dtype.itemsize
+
+    def _row_bytes(self) -> int:
+        return self.nbytes // self.shape[0] if self.shape and \
+            self.shape[0] else 0
+
+    def __getitem__(self, j: int) -> "LeafFile":
+        if not self.shape or not 0 <= int(j) < self.shape[0]:
+            raise IndexError(f"{j} out of range for {self.shape}")
+        return LeafFile(self.file, self.path,
+                        self.offset + int(j) * self._row_bytes(),
+                        self.shape[1:], self.dtype)
+
+    def read_into(self, out: np.ndarray, row0: int = 0) -> None:
+        """Fill ``out`` (C-contiguous, the leaf's dtype) with the leaf's
+        bytes from row ``row0`` on."""
+        if out.dtype != self.dtype or not out.flags.c_contiguous:
+            raise ValueError(f"read_into needs a C-contiguous {self.dtype} "
+                             f"array, got {out.dtype}")
+        start = row0 * self._row_bytes()
+        if out.nbytes > self.nbytes - start:
+            raise ValueError(f"{out.nbytes} bytes from row {row0} overrun "
+                             f"the leaf's {self.nbytes}")
+        _pread(self, memoryview(out.reshape(-1).view(np.uint8)),
+               self.offset + start)
+
+    def pieces(self):
+        """The leaf in pieces of whole rows of at most
+        :data:`PIECE_BYTES` (one piece when a row is larger), each valid
+        until the next is taken."""
+        rb = self._row_bytes()
+        if not rb or self.nbytes <= PIECE_BYTES:
+            yield np.asarray(self)
+            return
+        rows = max(1, PIECE_BYTES // rb)
+        buf = np.empty((rows,) + self.shape[1:], self.dtype)
+        for lo in range(0, self.shape[0], rows):
+            piece = buf[:min(rows, self.shape[0] - lo)]
+            self.read_into(piece, lo)
+            yield piece
+
+    def close(self) -> None:
+        """Nothing to release early: the file closes with its last leaf."""
+
+    def reshape(self, *shape) -> np.ndarray:
+        return np.asarray(self).reshape(*shape)
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        out = np.empty(self.shape, self.dtype)
+        if out.size:
+            self.read_into(out)
+        return out if dtype is None else out.astype(dtype, copy=False)
+
+
+def _pread(leaf: LeafFile, mv: memoryview, offset: int) -> None:
+    """Fill ``mv`` from the leaf's file at ``offset``, a piece at a time."""
+    pos = 0
+    while pos < len(mv):
+        n = os.preadv(leaf.file.fd, [mv[pos:pos + PIECE_BYTES]],
+                      offset + pos)
+        if not n:
+            raise CheckpointCorrupt(f"short read of {leaf.path}")
+        pos += n
+
+
+def _open_leaf(path: str, shape: Optional[List[int]]) -> LeafFile:
+    """A leaf file opened, its header checked (format, C order, a file
+    long enough for its data) and its shape matched to the manifest's
+    ``shape``; CheckpointCorrupt otherwise."""
+    try:
+        file = _OpenFile(path)
+        with os.fdopen(os.dup(file.fd), "rb") as f:
+            version = np.lib.format.read_magic(f)
+            read = {(1, 0): np.lib.format.read_array_header_1_0,
+                    (2, 0): np.lib.format.read_array_header_2_0}.get(version)
+            if read is None:
+                raise ValueError(f"npy format {version}")
+            got, fortran, dtype = read(f)
+            offset = f.tell()
+            size = os.fstat(f.fileno()).st_size
+    except Exception as e:
+        raise CheckpointCorrupt(f"unreadable leaf {path}: {e}")
+    if (fortran and len(got) > 1) or dtype.hasobject:
+        raise CheckpointCorrupt(f"unreadable leaf {path}: not a C-order "
+                                f"array of numbers")
+    leaf = LeafFile(file, path, offset, got, dtype)
+    if size < offset + leaf.nbytes:
+        raise CheckpointCorrupt(f"truncated leaf {path}: {size} bytes, "
+                                f"{offset + leaf.nbytes} needed")
+    if shape is not None:
+        # 0-d leaves are saved as (1,) arrays; the manifest holds the true
+        # shape
+        want = LeafFile(file, path, offset, shape, dtype)
+        if want.size != leaf.size:
+            raise CheckpointCorrupt(f"shape mismatch on {path}: {got} vs "
+                                    f"{tuple(shape)}")
+        leaf = want
+    return leaf
+
+
+def _check_crc(leaf: LeafFile, want: int, abort: threading.Event) -> None:
+    """Stream the leaf's data through a piece buffer and compare its CRC32
+    with the manifest's (stops early once ``abort`` is set)."""
+    crc = 0
+    mv = memoryview(bytearray(min(PIECE_BYTES, max(leaf.nbytes, 1))))
+    for lo in range(0, leaf.nbytes, len(mv)):
+        if abort.is_set():
+            return
+        piece = mv[:min(len(mv), leaf.nbytes - lo)]
+        _pread(leaf, piece, leaf.offset + lo)
+        crc = zlib.crc32(piece, crc)
+    if crc != want:
+        raise CheckpointCorrupt(f"CRC mismatch on {leaf.path}: {crc} != "
+                                f"{want}")
+
+
 def _load_step_arrays(ckpt_dir: str, step: int, num_leaves: int,
-                      verify: bool = True) -> Tuple[List[np.ndarray], Dict]:
-    """Load + CRC-verify one step directory; CheckpointCorrupt on any
-    missing/truncated/mismatching leaf."""
+                      verify: bool = True) -> Tuple[List[LeafFile], Dict]:
+    """Check one step directory and return its leaves as
+    :class:`LeafFile` s: every header, and (``verify``) every leaf's CRC32
+    streamed from the file, before anything is read for use;
+    CheckpointCorrupt on any missing, truncated or mismatching leaf."""
     d = os.path.join(ckpt_dir, f"step_{step}")
     manifest = read_manifest(d)
     if manifest["num_leaves"] != num_leaves:
@@ -697,39 +970,56 @@ def _load_step_arrays(ckpt_dir: str, step: int, num_leaves: int,
             f"{num_leaves}")
     crcs = manifest.get("crc32s")
     shapes = manifest.get("shapes")
+    leaves = [_open_leaf(os.path.join(d, f"arr_{i}.npy"),
+                         None if shapes is None else shapes[i])
+              for i in range(num_leaves)]
+    if verify and crcs is not None:
+        abort = threading.Event()
 
-    def load(i: int) -> np.ndarray:
-        path = os.path.join(d, f"arr_{i}.npy")
-        try:
-            a = np.load(path)
-        except Exception as e:
-            raise CheckpointCorrupt(f"unreadable leaf {path}: {e}")
-        if verify and crcs is not None:
-            got = _crc32(a)
-            if got != crcs[i]:
-                raise CheckpointCorrupt(
-                    f"CRC mismatch on {path}: {got} != {crcs[i]}")
-        if shapes is not None:
-            # 0-d leaves are saved as (1,) arrays; the manifest holds the
-            # true shape
+        def check(i: int) -> None:
             try:
-                a = a.reshape(shapes[i])
-            except ValueError as e:
-                raise CheckpointCorrupt(
-                    f"shape mismatch on {path}: {a.shape} vs {shapes[i]}: "
-                    f"{e}")
-        return a
+                _check_crc(leaves[i], crcs[i], abort)
+            except OSError as e:
+                abort.set()                  # the other leaves stop early
+                raise CheckpointCorrupt(f"unreadable leaf "
+                                        f"{leaves[i].path}: {e}") from e
+            except BaseException:
+                abort.set()
+                raise
 
-    with ThreadPoolExecutor(_IO_THREADS) as ex:
-        return list(ex.map(load, range(num_leaves))), manifest
+        with ThreadPoolExecutor(_IO_THREADS) as ex:
+            futs = [ex.submit(check, i) for i in range(num_leaves)]
+        for fut in futs:
+            fut.result()
+    return leaves, manifest
 
 
 # -- restore -----------------------------------------------------------------
 
-def _copy_in(dst: torch.Tensor, a: np.ndarray) -> None:
-    """Host array → ``dst`` in place, cast to its dtype (no device-sized
-    temporary: the copy reads the host array directly)."""
-    dst.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+def _copy_in(dst: torch.Tensor, a: Any) -> None:
+    """Host array or :class:`LeafFile` → ``dst`` in place, cast to its
+    dtype (no device-sized temporary; a leaf file is read a piece at a
+    time)."""
+    if not isinstance(a, LeafFile):
+        dst.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        return
+    if a.ndim == 0 or dst.dim() == 0:
+        dst.copy_(torch.from_numpy(np.asarray(a)).reshape(dst.shape))
+        return
+    lo = 0
+    for piece in a.pieces():
+        dst[lo:lo + len(piece)].copy_(torch.from_numpy(piece))
+        lo += len(piece)
+
+
+def to_tensor(a: Any, device: torch.device,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A host array or :class:`LeafFile` as a new tensor on ``device``,
+    read a piece at a time."""
+    t = torch.empty(tuple(a.shape), dtype=dtype, device=device)
+    if t.numel():
+        _copy_in(t, a)
+    return t
 
 
 def _check_shape(path: str, a: np.ndarray, shape: Tuple[int, ...]) -> None:
@@ -743,12 +1033,14 @@ def _scalar(a: np.ndarray) -> int:
     return int(np.asarray(a).reshape(-1)[0])
 
 
-def compact_carry(ids: np.ndarray, rows: np.ndarray
-                  ) -> Tuple[np.ndarray, np.ndarray]:
+def compact_carry(ids: Any, rows: Any) -> Tuple[np.ndarray, Any]:
     """A saved τ=1 carry (the port's compact pairs, or the reference's N
     slots with −1 sentinels) → (unique ids ≥ 0 ascending int32, their rows
-    fp32)."""
+    fp32). Compact pairs keep their rows as given (a :class:`LeafFile`
+    stays on disk)."""
     ids = np.asarray(ids).reshape(-1).astype(np.int64)
+    if ids.size == 0 or (ids[0] >= 0 and np.all(ids[1:] > ids[:-1])):
+        return ids.astype(np.int32), rows
     rows = np.asarray(rows, np.float32)
     keep = ids >= 0
     order = np.argsort(ids[keep], kind="stable")
@@ -793,7 +1085,7 @@ def _load_state(st: GRTrainState, arrays: List[np.ndarray], *,
     ids, rows = compact_carry(*(by_path[k] for k in _CARRY))
     dev = tbl.master.device
     p_ids = torch.from_numpy(ids).to(dev)
-    p_rows = torch.from_numpy(rows).to(dev)
+    p_rows = to_tensor(rows, dev)
     return GRTrainState(
         dense=st.dense,
         dense_opt=AdamWState(st.dense_opt.mu, st.dense_opt.nu,
@@ -825,10 +1117,10 @@ def _rebuild_generic(template: Any, arrays: List[np.ndarray]) -> Any:
     return build(template)
 
 
-def _load_host(template: HostSnapshot, arrays: List[np.ndarray]
-               ) -> HostSnapshot:
-    """Checkpoint leaves checked against a :func:`host_template` and kept
-    on the host, the carry made compact."""
+def _load_host(template: HostSnapshot, arrays: List[Any]) -> HostSnapshot:
+    """Checkpoint leaves checked against a :func:`host_template`, kept as
+    they are (a restore's :class:`LeafFile` s, read on demand), the carry
+    made compact."""
     if len(arrays) != len(template.paths):
         raise CheckpointCorrupt(f"leaf count mismatch: {len(arrays)} vs "
                                 f"{len(template.paths)}")
@@ -888,7 +1180,8 @@ def restore_with_step(ckpt_dir: str, template: Any,
     :class:`GRTrainState` template receives the values in place (see the
     module docstring); the shadow is rebuilt from the restored master. A
     :func:`host_template` gives a :class:`HostSnapshot` of the checked
-    leaves, the carry compact, on the host (a cached engine's full table).
+    leaves as :class:`LeafFile` s, the carry compact (a cached engine
+    streams the full table into its host store).
     ``registry`` records the restore's seconds as ``ckpt_restore_s``."""
     _t0 = time.perf_counter()
     num_leaves = (len(template.paths) if isinstance(template, HostSnapshot)

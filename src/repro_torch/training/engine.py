@@ -59,9 +59,13 @@ reference; where the in-place state changes what they must do:
 
 * A checkpoint's host copy is complete before ``step_callback`` returns
   (the steps that follow overwrite the carry-convention state's tensors);
-  only the file writes run on the saver's thread. The replay-from-scratch
-  anchor of a resilient run is a host copy made by the same code, and no
-  file: the state object it came from is trained in place.
+  only the file writes run on the saver's thread. With a cache the copy
+  holds no table: its leaves stream from the host store on the saver's
+  thread (:meth:`GREngine.checkpoint_tree`). The replay-from-scratch
+  anchor of a resilient run is a host copy of the full state, and no file:
+  the state object it came from is trained in place. It is kept only until
+  the run's first save has been written (from then on the directory holds
+  an intact step to restore).
 * Retries. :data:`RETRY_SAFE_STAGES` (dataload, a2a, unique, dense_bwd)
   change no training state and are retried whenever the policy allows;
   emb_fwd, dense_fwd and emb_bwd write it in place (AdamW and AdaGrad in
@@ -571,10 +575,45 @@ class GREngine:
         return CKPT.snapshot(st._replace(table=table, pending_ids=ids,
                                          pending_rows=rows))
 
-    def _full_layout(self) -> GRTrainState:
+    def checkpoint_tree(self, state: Optional[GRTrainState] = None):
+        """What a checkpoint of the carry-convention ``state`` (default:
+        the engine's) saves: without a cache the state itself (a save
+        copies it to the host); with one a :class:`~repro_torch.training.
+        checkpoint.HostSnapshot` of the vocab-sized state, the τ=1 carry
+        globalized, whose master and accumulator leaves stream from the
+        cache's host store overlaid with the window's dirty chunks (no copy
+        of the table; ``CachedShadowedTable.table_snapshot``). Its host copy
+        is complete when this returns; a save consumes it (each table leaf
+        is read once, and the save closes it)."""
+        st = state if state is not None else self.state
+        if self.cache is None:
+            return st
+        t0 = time.perf_counter()
+        master, accum = self.cache.table_snapshot()
+        try:
+            ids, rows = self.cache.globalize_pending_pairs(st.pending_ids,
+                                                           st.pending_rows)
+            snap = CKPT.snapshot(st._replace(
+                table=ShadowedTable(master, st.table.shadow, accum),
+                pending_ids=ids, pending_rows=rows))
+        except BaseException:
+            master.close()
+            accum.close()
+            raise
+        return snap._replace(seconds=time.perf_counter() - t0)
+
+    def _full_layout(self, carry_rows: Optional[int] = None
+                     ) -> GRTrainState:
         """The engine's state with a vocab-sized table of zero-strided
-        arrays: the full state's structure, copying nothing."""
+        arrays (and, with ``carry_rows``, a τ=1 carry of that many
+        zero-strided rows): the full state's structure, copying nothing."""
         st = self.state
+        if carry_rows is not None:
+            d = st.pending_rows.shape[-1]
+            st = st._replace(
+                pending_ids=np.broadcast_to(np.int32(0), (carry_rows,)),
+                pending_rows=np.broadcast_to(np.float32(0),
+                                             (carry_rows, d)))
         if self.cache is None:
             return st
         z = np.broadcast_to(np.float32(0), (self.cache.vocab,
@@ -607,12 +646,12 @@ class GREngine:
         window, slots = self.cache.adopt(
             ShadowedTable(arr["table.master"], None, arr["table.accum"]),
             ids)
-        order = np.argsort(slots, kind="stable")
+        order = torch.from_numpy(np.argsort(slots, kind="stable"))
         self.state = st._replace(
             table=window,
-            pending_ids=torch.from_numpy(slots[order]).to(self.device),
-            pending_rows=torch.from_numpy(
-                np.ascontiguousarray(rows[order])).to(self.device))
+            pending_ids=torch.from_numpy(slots)[order].to(self.device),
+            pending_rows=CKPT.to_tensor(rows, self.device)[
+                order.to(self.device)])
         return self.state
 
     # -- run ---------------------------------------------------------------
@@ -663,6 +702,53 @@ class GREngine:
         return results
 
     # -- supervised recovery -----------------------------------------------
+    def resilient_host_bytes(self, batch, keep_anchor: bool = True
+                             ) -> Dict[str, int]:
+        """The host memory a resilient run counts before its first step
+        (see :meth:`run_resilient`), by what holds it: the saver's copy,
+        with the τ=1 carry at its largest (a row per id feature entry of
+        ``batch``, the run's first batch: every batch has its shape) and,
+        for a card state, as the pinned-memory allocator holds it (each
+        buffer rounded up to a power of two); the I/O buffers (a restore
+        holds no leaf whole: its CRC pass and its reads go through them);
+        the anchor as the state is now; a cache's host store."""
+        ids = sum(int(np.asarray(batch[k]).size) for k in ID_FEATURES
+                  if k in batch)
+        vocab = (self.cache.vocab if self.cache is not None
+                 else int(self.state.table.master.shape[0]))
+        layout = self._full_layout(carry_rows=min(ids, vocab))
+        if self.cache is not None:
+            saver = CKPT.host_nbytes(layout._replace(table=ShadowedTable(
+                *(None if t is None else t[:0] for t in layout.table)))
+            ) + self.cache.window_nbytes
+        else:
+            saver = CKPT.host_nbytes(layout,
+                                     pinned=self.device.type == "cuda")
+        parts = [("the saver's copy", saver),
+                 ("the checkpoint I/O buffers", CKPT.IO_BUFFER_BYTES)]
+        if keep_anchor:
+            parts.append(("the replay anchor until the first save is "
+                          "written", CKPT.host_nbytes(self._full_layout())))
+        if self.cache is not None:
+            parts.append(("the cache's host store", self.cache.host_nbytes))
+        return dict(parts)
+
+    def _check_host_memory(self, batch, keep_anchor: bool) -> None:
+        """Raise MemoryError unless the host's available memory holds the
+        run's count besides what is held already (a cache's host store,
+        resident since it was built)."""
+        parts = self.resilient_host_bytes(batch, keep_anchor)
+        need = sum(parts.values())
+        held = 0 if self.cache is None else self.cache.host_nbytes
+        avail = CKPT.host_available_bytes()
+        if avail is not None and need - held > avail:
+            raise MemoryError(
+                f"run_resilient needs {need / 1e9:.2f} GB of host memory: "
+                + ", ".join(f"{what} {n / 1e9:.2f} GB"
+                            for what, n in parts.items())
+                + f"; {avail / 1e9:.2f} GB available besides "
+                f"{held / 1e9:.2f} GB held already")
+
     def _global_fetch(self) -> Callable[[int], Any]:
         """Deterministic global-step → batch mapping that survives recovery
         replays. ``data_fn`` engines fetch on demand; loader engines pull
@@ -689,39 +775,43 @@ class GREngine:
             return cache[g]
         return fetch_loader
 
-    def _write_ckpt(self, saver, ckpt_dir: str, step_num: int, snapshot,
+    def _write_ckpt(self, saver, ckpt_dir: str, step_num: int, state,
                     keep_last_n) -> None:
         """One checkpoint inside a resilient run, of the carry-convention
-        state (τ=1 pairs pending, table not landed; with a cache its
-        :meth:`full_snapshot`, made once the save in flight has finished,
-        so two are never alive at once); its host copy is complete when
-        this returns. A torn-save injection site for this step crashes the
-        write as a real mid-save failure would (wreckage on disk, then the
-        run fails): recovery must fall back to the previous intact step."""
+        ``state`` (τ=1 pairs pending, table not landed), as
+        :meth:`checkpoint_tree` gives it, taken once the save in flight has
+        finished (one host copy at a time: the saver's buffers, or a
+        cache's streamed view); its host copy is complete when this
+        returns. A torn-save injection site for this step crashes the write
+        as a real mid-save failure would (wreckage on disk, then the run
+        fails): recovery must fall back to the previous intact step."""
         spec = (self._injector.take(R.SAVE_SITE, step_num)
                 if self._injector else None)
         torn = spec is not None and spec.kind == "torn_save"
-        if saver is not None and (torn or self.cache is not None):
+        if saver is not None:
             try:
                 saver.wait()              # serialize with in-flight save
             except Exception:
                 if not torn:
                     raise
-        if self.cache is not None:
-            t0 = time.perf_counter()
-            snapshot = self.full_snapshot(snapshot)
-            snapshot = snapshot._replace(seconds=time.perf_counter() - t0)
+        tree = self.checkpoint_tree(state)
         if torn:
+            snap = saver.copy(tree) if saver is not None else \
+                CKPT.snapshot(tree)
+            self.snapshots.append((step_num, snap.seconds, snap.nbytes))
             self.fault_events.append(("torn_save", R.SAVE_SITE, step_num))
-            R.simulate_torn_save(ckpt_dir, step_num, snapshot,
-                                 tear=spec.tear)
+            try:
+                R.simulate_torn_save(ckpt_dir, step_num, snap,
+                                     tear=spec.tear)
+            finally:
+                CKPT.release(snap)
             raise R.InjectedFault(
                 f"crash mid-save of step {step_num} ({spec.tear})")
         if saver is not None:
-            saver.save_async(step_num, snapshot)
+            saver.save_async(step_num, tree)
             self.snapshots.append(saver.snapshots[-1])
         else:
-            snap = CKPT.snapshot(snapshot)
+            snap = CKPT.snapshot(tree)
             self.snapshots.append((step_num, snap.seconds, snap.nbytes))
             CKPT.save(ckpt_dir, step_num, snap, keep_last_n=keep_last_n,
                       registry=self._mx)
@@ -741,7 +831,8 @@ class GREngine:
         recovery cycle — the pipeline drains (every in-flight hook joins),
         the newest *intact* checkpoint is restored into the state's tensors
         (falling back past torn saves; the run's initial state, kept as a
-        host copy, if none exists yet) and the remaining steps replay.
+        host copy until the run's first save has been written, if none
+        exists yet) and the remaining steps replay.
         Checkpoints hold the carry-convention state, so a failed-and-
         recovered run is bit-identical to an uninterrupted one in both
         schedules, sync and τ=1.
@@ -753,10 +844,20 @@ class GREngine:
         ``recoveries`` one :class:`RecoveryEvent` per restore cycle and
         ``snapshots`` each checkpoint's host copy (step, seconds, bytes).
 
-        With a cache, checkpoints and the anchor hold :meth:`full_snapshot`
-        and a restore reads into :meth:`full_template` on the host, then
-        :meth:`adopt_full_state`; a :class:`CacheThrash` is raised at once
-        (a replay would thrash again).
+        With a cache, checkpoints stream the table from the host store
+        (:meth:`checkpoint_tree`), the anchor is a :meth:`full_snapshot`,
+        and a restore reads into :meth:`full_template`, then
+        :meth:`adopt_full_state` streams the table into the host store; a
+        :class:`CacheThrash` is raised at once (a replay would thrash
+        again).
+
+        Before its first step the run checks that the host holds what it
+        will hold besides the state (:meth:`resilient_host_bytes`): the
+        saver's copy (the whole state; with a cache all but the table, plus
+        at most the window's rows), the checkpoint I/O buffers (a restore
+        streams every leaf), the anchor while it lives, and a cache's host
+        store (held already). It raises :class:`MemoryError` if the host
+        does not.
         """
         pol = policy if policy is not None else R.FaultPolicy()
         prev_pol, prev_inj = self._policy, self._injector
@@ -777,30 +878,20 @@ class GREngine:
         # directory that already holds an intact step at or after the
         # start (a resumed run) is restored from instead, and always will
         # hold one: a save removes old steps only after a newer one is
-        # complete.
+        # complete. For the same reason the anchor is dropped once this
+        # run's first save has been written.
         keep_anchor = not any(s >= base0 for s in CKPT.intact_steps(ckpt_dir))
-        # host copies of the whole (vocab-sized) state alive at once: the
-        # saver's (on the card its pinned buffers, kept for the run: the
-        # copy stalls the training thread, and pageable memory is many
-        # times slower; with a cache the full snapshot it writes), a
-        # restore's read of the leaves, and the anchor; with a cache, its
-        # host store besides
-        store = 0 if self.cache is None else self.cache.host_nbytes
-        need = (CKPT.host_nbytes(self._full_layout()) * (2 + keep_anchor)
-                + store)
-        avail = CKPT.host_available_bytes()
-        if avail is not None and need > avail:
-            raise MemoryError(
-                f"run_resilient needs {need / 1e9:.2f} GB of host memory "
-                f"for {2 + keep_anchor} copies of the state (the saver's, "
-                f"a restore's" + (", the replay anchor" if keep_anchor
-                                  else "") + ")" + (
-                    f" and the cache's host store ({store / 1e9:.2f} GB)"
-                    if store else "") + f", {avail / 1e9:.2f} GB available")
+        self._check_host_memory(fetch(base0), keep_anchor)
         saver = (CKPT.AsyncCheckpointer(ckpt_dir, keep_last_n=keep_last_n,
                                         registry=self._mx)
                  if async_save else None)
         initial = self.full_snapshot() if keep_anchor else None
+        saved_sync = []                   # steps a synchronous save wrote
+
+        def drop_anchor_once_saved() -> None:
+            nonlocal initial
+            if saved_sync or (saver is not None and saver.completed):
+                initial = None
 
         def on_step(i: int, rec: Dict[str, Any], snapshot) -> None:
             g = self._resume_base + i
@@ -809,10 +900,13 @@ class GREngine:
             if prev_cb:
                 prev_cb(g, grec, snapshot)
             done = g + 1
+            drop_anchor_once_saved()
             if (ckpt_every and done % ckpt_every == 0) or \
                     (final_save and done == steps):
                 self._write_ckpt(saver, ckpt_dir, done, snapshot,
                                  keep_last_n)
+                if saver is None:
+                    saved_sync.append(done)
 
         self.step_callback = on_step
         prev_loader, self.loader = self.loader, None
@@ -833,6 +927,7 @@ class GREngine:
                             saver.wait()   # surface/serialize async saves
                         except Exception:
                             pass           # a torn async save is recovered
+                    drop_anchor_once_saved()
                     if len(self.recoveries) >= pol.max_recoveries:
                         raise
                     failed = max(records, default=base - 1) + 1

@@ -35,6 +35,7 @@ from repro_torch.data import GRLoader as PLoader
 from repro_torch.data import SyntheticKuaiRand as PSynth
 from repro_torch.data import freq as PF
 from repro_torch.embedding import CachedShadowedTable, CacheThrash
+from repro_torch.embedding import cache as PC
 from repro_torch.embedding.tables import shadow_consistent
 from repro_torch.models.model_zoo import GRBundle
 from repro_torch.obs import Obs
@@ -353,6 +354,56 @@ def test_writeback_runs_outside_the_lock():
     assert c._draining == {} and c.stats.evictions == 2
 
 
+def test_streamed_save_copies_a_chunk_aside_before_its_writeback(
+        monkeypatch):
+    """``table_snapshot``'s leaves read the table as it was when it was
+    taken, one chunk a piece: a chunk clean then, dirtied and evicted
+    (written back) while the save is in flight and before the save reached
+    it, is read from its old rows, copied aside by the writeback; a chunk
+    dirty then is read from the window's rows copied at the snapshot and
+    needs no copy; ``adopt`` waits until both leaves are closed."""
+    import threading
+    monkeypatch.setattr(PC, "SAVE_PIECE_BYTES", 8 * 3 * 4)  # one chunk
+    _, c, master = _caches(capacity=2)   # 12 chunks of 8 rows, dim 3
+    c.warm_up(None)                      # chunks 0, 1 resident
+    win = c.init_window()
+
+    def land(batch, ids, delta):
+        plan, _ = _prepare(c, batch, ids)
+        c.splice(win, plan)
+        rows = torch.from_numpy(c.translate(ids)).long()
+        win.master[rows] += delta
+        win.accum[rows] += 2 * delta
+        c.release(batch)
+
+    land(0, np.arange(0, 4), 1.0)        # chunk 0 dirty
+    want = c.materialize()
+    m_leaf, a_leaf = c.table_snapshot()
+    land(1, np.arange(8, 12), 5.0)       # chunk 1 dirty after the snapshot
+    pieces = m_leaf.pieces()
+    first = next(pieces).copy()          # the master leaf has read chunk 0
+    _prepare(c, 2, np.arange(16, 32))    # chunks 2, 3 evict 0 and 1
+    c.release(2, dirty=False)
+    assert c.stats.writebacks == 2
+    assert not np.array_equal(c.host_master[8:16], want.master[8:16])
+    got_m = np.concatenate([first] + [p.copy() for p in pieces])
+    got_a = np.concatenate([p.copy() for p in a_leaf.pieces()])
+    np.testing.assert_array_equal(got_m, want.master)
+    np.testing.assert_array_equal(got_a, want.accum)
+    m_leaf.close()
+    out = []
+    t = threading.Thread(target=lambda: out.append(c.adopt(want)))
+    t.start()
+    t.join(timeout=0.3)
+    assert t.is_alive()                  # the accumulator leaf is open
+    a_leaf.close()
+    t.join(timeout=60)
+    assert not t.is_alive() and out
+    assert c.stats.cow_chunks == 1       # chunk 1 only
+    with pytest.raises(RuntimeError, match="read once"):
+        next(m_leaf.pieces())
+
+
 def test_bincount_weights_and_masks_match_host_unique_candidates():
     """The engine's path (:meth:`prepare_batch`: one bincount, a boolean
     mask) gives the chunks, weights and touched rows the reference takes
@@ -657,18 +708,133 @@ def test_cached_recovery_before_any_checkpoint_replays_from_the_anchor(tiny):
     _assert_same_full(eng.full_snapshot(), ref.full_snapshot())
 
 
+def _cached_host_need(eng):
+    """What a fresh cached ``run_resilient`` counts before its first step:
+    the cache's host store, the saver's copy (all but the table, the carry
+    at a row per id feature entry of the first batch, plus the window's
+    rows), the checkpoint I/O buffers and the anchor (the full state as it
+    is)."""
+    b0 = _banded(0)
+    ids = sum(b0[k].size for k in ("ids", "labels", "neg_ids"))
+    full = CKPT.host_nbytes(eng._full_layout(carry_rows=min(ids, VOCAB)))
+    rest = full - 2 * VOCAB * eng.cache.dim * 4
+    return (eng.cache.host_nbytes + rest + eng.cache.window_nbytes
+            + CKPT.IO_BUFFER_BYTES + CKPT.host_nbytes(eng._full_layout()))
+
+
 def test_cached_run_resilient_counts_the_host_store(tiny, monkeypatch):
+    """The memory check counts the host store (held already) and the
+    cached run's copies; with exactly the copies available, a fresh run
+    with faults before its first save (the anchor) and after it recovers
+    bit for bit."""
+    N = 8
+    ref, losses = _uncached(tiny, N)
     eng = GREngine(tiny, _banded, seed=0, loss_kwargs=LK,
                    cache=_cache(tiny, 10))
-    full = CKPT.host_nbytes(eng._full_layout())
-    need = 3 * full + eng.cache.host_nbytes
+    # the store is resident since the cache was built: the host's
+    # available memory must hold the rest
+    need = _cached_host_need(eng) - eng.cache.host_nbytes
     monkeypatch.setattr(CKPT, "host_available_bytes", lambda: need - 1)
     with tempfile.TemporaryDirectory() as d:
-        with pytest.raises(MemoryError, match="host store"):
+        with pytest.raises(MemoryError, match="host store .* held already"):
             eng.run_resilient(2, ckpt_dir=d)
     monkeypatch.setattr(CKPT, "host_available_bytes", lambda: need)
+    inj = R.FaultInjector([R.FaultSpec("dense_fwd", 1, "exception"),
+                           R.FaultSpec("dense_fwd", 6, "exception")])
     with tempfile.TemporaryDirectory() as d:
-        assert len(eng.run_resilient(2, ckpt_dir=d)) == 2
+        recs = eng.run_resilient(N, ckpt_dir=d, ckpt_every=4,
+                                 keep_last_n=1, injector=inj,
+                                 policy=R.FaultPolicy(retries={}))
+    assert [ev.restored_step for ev in eng.recoveries] == [0, 4]
+    assert [r["loss"] for r in recs] == losses
+    _assert_same_full(eng.full_snapshot(), ref.full_snapshot())
+
+
+def test_cached_restore_of_a_corrupt_step_leaves_the_store_untouched(tiny):
+    """A step whose last leaf has a flipped byte is refused before the
+    cache's host store is written: an explicit restore of it raises with
+    the store bitwise as it was; the newest-step restore falls back to the
+    previous step, which ``adopt_full_state`` loads."""
+    eng = GREngine(tiny, _banded, seed=0, loss_kwargs=LK,
+                   cache=_cache(tiny, 10))
+    with tempfile.TemporaryDirectory() as d:
+        eng.run_resilient(4, ckpt_dir=d, ckpt_every=2, keep_last_n=2)
+        step2 = CKPT.restore(d, eng.full_template(), step=2)
+        n = len(step2.paths)
+        victim = os.path.join(d, "step_4", f"arr_{n - 1}.npy")
+        data = bytearray(open(victim, "rb").read())
+        data[-1] ^= 0xFF
+        open(victim, "wb").write(bytes(data))
+        fresh = GREngine(tiny, _banded, seed=3, loss_kwargs=LK,
+                         cache=_cache(tiny, 10))
+        store = (fresh.cache.host_master.copy(),
+                 fresh.cache.host_accum.copy())
+        with pytest.raises(CKPT.CheckpointCorrupt, match="CRC mismatch"):
+            CKPT.restore(d, fresh.full_template(), step=4)
+        np.testing.assert_array_equal(fresh.cache.host_master, store[0])
+        np.testing.assert_array_equal(fresh.cache.host_accum, store[1])
+        full, used = CKPT.restore_with_step(d, fresh.full_template())
+        assert used == 2
+        fresh.adopt_full_state(full)
+        _assert_same_full(fresh.full_snapshot(), step2)
+
+
+def test_cached_streamed_save_is_a_save_of_full_snapshot(tiny, monkeypatch):
+    """The save ``run_resilient`` makes of a capacity-limited cached engine
+    (``checkpoint_tree``: the table streamed from the host store, one
+    chunk a piece here) writes the bytes and manifest CRC32s of a save of
+    ``full_snapshot()`` taken at the same step, while the engine trains 2
+    more steps (evicting and writing back) and a flush writes every dirty
+    chunk back with the save in flight; the reference restores it to
+    those values."""
+    monkeypatch.setattr(PC, "SAVE_PIECE_BYTES",
+                        CHUNK * tiny.cfg.d_model * 4)
+    shift = [0]
+    eng = GREngine(tiny, lambda i: _banded(i + shift[0]), seed=0,
+                   loss_kwargs=LK, cache=_cache(tiny, 10))
+    eng.run(4)
+    full = eng.full_snapshot()
+    tree = eng.checkpoint_tree()
+    shift[0] = 4
+    eng.run(2)                           # bands 4, 5: chunks 8-11
+    i = tree.paths.index("table.master")
+    leaf = tree.arrays[i]
+
+    class FlushAfterTheFirstPiece:
+        shape, dtype, nbytes = leaf.shape, leaf.dtype, leaf.nbytes
+        close = leaf.close
+
+        def pieces(self):
+            for k, p in enumerate(leaf.pieces()):
+                yield p
+                if k == 0:
+                    eng.cache.flush()
+
+    tree.arrays[i] = FlushAfterTheFirstPiece()
+    with tempfile.TemporaryDirectory() as d:
+        CKPT.save(os.path.join(d, "full"), 4, full)
+        CKPT.save(os.path.join(d, "streamed"), 4, tree)
+        assert eng.cache.stats.cow_chunks > 0
+        a, b = (os.path.join(d, k, "step_4") for k in ("full", "streamed"))
+        assert CKPT.read_manifest(a) == CKPT.read_manifest(b)
+        for k in range(len(full.paths)):
+            with open(os.path.join(a, f"arr_{k}.npy"), "rb") as fa, \
+                    open(os.path.join(b, f"arr_{k}.npy"), "rb") as fb:
+                assert fa.read() == fb.read(), full.paths[k]
+        cj, _ = configs("bfloat16", n_items=VOCAB, max_seq_len=CAP)
+        jb = j_bundle(cj.replace(num_negatives=N_NEG))
+        key = jax.random.PRNGKey(3)
+        jtmpl = JT.gr_train_state(
+            jb.init_dense(key), jb.init_table(key),
+            pending_slots=JT.gr_pending_slots(_banded(0)))
+        j4, used = JCKPT.restore_with_step(os.path.join(d, "streamed"),
+                                           jtmpl)
+    assert used == 4 and int(j4.step) == 4
+    arr = dict(zip(full.paths, full.arrays))
+    np.testing.assert_array_equal(np.asarray(j4.table.master),
+                                  arr["table.master"])
+    np.testing.assert_array_equal(np.asarray(j4.table.accum),
+                                  arr["table.accum"])
 
 
 # --------------------------------------------------------------------------

@@ -1350,3 +1350,21 @@ def test_cached_engine_on_card_equals_uncached_with_queued_landings(
                               want.arrays):
         np.testing.assert_array_equal(x.reshape(shape), y.reshape(shape),
                                       err_msg=p)
+
+
+def test_cached_run_resilient_at_full_vocab(cuda):
+    """The embedding cache's checkpoints and recovery at full-width
+    hstu-large and the full vocab 2^22 (``chip_smoke.
+    check_cached_resilient``): a fresh cached ``run_resilient`` (window 512
+    of 4096 chunks, Zipf ids, checkpoints streamed from the host store)
+    through a torn first save and a fault after the first intact save,
+    bit for bit the uninterrupted uncached run (losses, the final save's
+    CRC32s), its peak host RSS within what it counted, and its final step
+    restored into a fresh cached engine that trains on bit for bit. About
+    6 minutes and ~90 GB of host memory."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    out = chip_smoke.check_cached_resilient()
+    assert out["hwm_gb"] <= out["limit_gb"]

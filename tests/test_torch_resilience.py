@@ -14,6 +14,7 @@ of either package restores into the other, which then trains within the
 training slice's tolerances (``test_torch_training.TOLS``) of the package
 that wrote it trained on."""
 import os
+import shutil
 import tempfile
 
 import jax
@@ -494,20 +495,136 @@ def test_resumed_run_keeps_no_anchor_and_recovers_from_its_step(
         _assert_states_equal(st, eng.state)
 
 
+def _host_need(eng, batch, keep_anchor=True):
+    """What ``run_resilient`` counts before its first step: the saver's
+    copy (the whole state, the carry at a row per id feature entry of the
+    first batch), the checkpoint I/O buffers and the anchor (the state as
+    it is)."""
+    V = eng.state.table.master.shape[0]
+    ids = sum(batch[k].size for k in ("ids", "labels", "neg_ids"))
+    return (CKPT.host_nbytes(eng._full_layout(carry_rows=min(ids, V)))
+            + CKPT.IO_BUFFER_BYTES
+            + CKPT.host_nbytes(eng.state) * keep_anchor)
+
+
 def test_run_resilient_refuses_a_host_too_small_for_its_copies(
         gr, monkeypatch):
-    """Before its first step the run checks that the host holds its copies
-    of the state (the saver's, a restore's read, the replay anchor) and
-    raises a clear error if it does not, rather than failing mid-run."""
+    """Before its first step the run checks that the host holds what it
+    will hold besides the state (the saver's copy, the checkpoint I/O
+    buffers, the replay anchor until the first save is written) and raises
+    a clear error naming them if it does not, rather than failing
+    mid-run."""
+    b, batch, _ = gr
     eng = _engine(gr, semi_async=True)
     nbytes = CKPT.host_nbytes(eng.state)
     assert nbytes == CKPT.snapshot(eng.state).nbytes
-    monkeypatch.setattr(CKPT, "host_available_bytes",
-                        lambda: 3 * nbytes - 1)
+    need = _host_need(eng, batch(0))
+    monkeypatch.setattr(CKPT, "host_available_bytes", lambda: need - 1)
     with tempfile.TemporaryDirectory() as d:
-        with pytest.raises(MemoryError, match="3 copies"):
+        with pytest.raises(MemoryError, match="the saver's copy .* the "
+                           "checkpoint I/O buffers .* the replay anchor "
+                           "until the first save is written"):
             eng.run_resilient(N_STEPS, ckpt_dir=d)
         assert os.listdir(d) == [] and int(eng.state.step) == 0
+
+
+@pytest.mark.parametrize("async_save", [True, False])
+def test_fresh_run_recovers_within_the_counted_host_memory(
+        gr, baselines, monkeypatch, async_save):
+    """With the host's available memory exactly the run's count, a fresh
+    run starts, and faults before its first save (the anchor) and after it
+    (the step-4 checkpoint) recover bit for bit."""
+    b, batch, _ = gr
+    eng = _engine(gr, semi_async=True)
+    monkeypatch.setattr(CKPT, "host_available_bytes",
+                        lambda: _host_need(eng, batch(0)))
+    inj = R.FaultInjector([R.FaultSpec("dense_fwd", 1, "exception"),
+                           R.FaultSpec("dense_fwd", 6, "exception")])
+    with tempfile.TemporaryDirectory() as d:
+        recs = eng.run_resilient(N_STEPS, ckpt_dir=d, ckpt_every=4,
+                                 keep_last_n=1, async_save=async_save,
+                                 policy=R.FaultPolicy(retries={}),
+                                 injector=inj)
+    assert [ev.restored_step for ev in eng.recoveries] == [0, 4]
+    _assert_run(eng, recs, baselines[True], f"async_save={async_save}")
+
+
+def test_anchor_is_dropped_once_the_first_save_is_written(gr):
+    """Once a save has been written the run keeps no copy of its start: a
+    fault after every step directory is gone raises instead of replaying
+    from scratch."""
+    b, batch, _ = gr
+    eng = _engine(gr, semi_async=True)
+    with tempfile.TemporaryDirectory() as d:
+        def lose_the_checkpoints(g, rec, state):
+            if g == 5:
+                for name in os.listdir(d):
+                    shutil.rmtree(os.path.join(d, name), ignore_errors=True)
+        eng.step_callback = lose_the_checkpoints
+        inj = R.FaultInjector([R.FaultSpec("dense_fwd", 6, "exception")])
+        with pytest.raises(FileNotFoundError):
+            eng.run_resilient(N_STEPS, ckpt_dir=d, ckpt_every=4,
+                              async_save=False,
+                              policy=R.FaultPolicy(retries={}),
+                              injector=inj)
+    assert eng.recoveries == []
+
+
+@pytest.mark.parametrize("tear", ["partial_dir", "bitflip"])
+def test_torn_first_save_recovers_from_the_anchor(gr, baselines, tear):
+    """A crash during the run's first save, whose wreckage either never
+    becomes a step or is a step only its CRC refuses, leaves no intact
+    step: the run replays from its anchor, bit for bit."""
+    with tempfile.TemporaryDirectory() as d:
+        inj = R.FaultInjector(
+            [R.FaultSpec(R.SAVE_SITE, 4, "torn_save", tear=tear)])
+        eng = _engine(gr, semi_async=True, schedule="algorithm1")
+        recs = eng.run_resilient(N_STEPS, ckpt_dir=d, ckpt_every=4,
+                                 keep_last_n=1,
+                                 policy=R.FaultPolicy(retries={}),
+                                 injector=inj)
+        assert CKPT.intact_steps(d) == [N_STEPS]
+    assert [ev.restored_step for ev in eng.recoveries] == [0]
+    _assert_run(eng, recs, baselines[True], tear)
+
+
+def test_corrupt_last_leaf_writes_nothing_and_falls_back(gr, monkeypatch):
+    """A step whose last leaf has a flipped byte is refused before any
+    leaf is copied into the state: an explicit restore of it raises and
+    leaves every tensor of the template bitwise as it was; a restore of
+    the newest step falls back to the previous one."""
+    b, batch, mk_state = gr
+    with tempfile.TemporaryDirectory() as d:
+        eng = _engine(gr, semi_async=True)
+        eng.run_resilient(4, ckpt_dir=d, ckpt_every=2, keep_last_n=2)
+        n = CKPT.read_manifest(os.path.join(d, "step_4"))["num_leaves"]
+        victim = os.path.join(d, "step_4", f"arr_{n - 1}.npy")
+        data = bytearray(open(victim, "rb").read())
+        data[-1] ^= 0xFF
+        open(victim, "wb").write(bytes(data))
+        template = mk_state()
+        before = clone_state(template)
+        copies = []
+        copy_in = CKPT._copy_in
+        monkeypatch.setattr(CKPT, "_copy_in",
+                            lambda *a: copies.append(1) or copy_in(*a))
+        with pytest.raises(CKPT.CheckpointCorrupt, match="CRC mismatch"):
+            CKPT.restore(d, template, step=4)
+        assert copies == []
+        _assert_states_equal(before, template)
+        got, used = CKPT.restore_with_step(d, template)
+        assert used == 2 and got.step == 2 and copies
+        _assert_states_equal(CKPT.restore(d, mk_state(), step=2), got)
+
+
+def test_host_nbytes_counts_pinned_buffers_as_the_allocator_rounds_them():
+    """A card state's pinned host copy is counted leaf by leaf as the
+    pinned-memory allocator holds it: each buffer rounded up to a power of
+    two."""
+    tree = {"a": np.zeros((3, 5), np.float32), "b": np.zeros(16, np.int32),
+            "c": torch.zeros(7, dtype=torch.bfloat16)}
+    assert CKPT.host_nbytes(tree) == 60 + 64 + 28
+    assert CKPT.host_nbytes(tree, pinned=True) == 64 + 64 + 32
 
 
 def test_all_finite_over_tensors():

@@ -1,7 +1,8 @@
 """SASRec in the port against the JAX package, on the CPU: the configs
 field for field, the block's forward and its gradients against
 ``jax.grad``, the GR stack (keyless padding rows included), the serving
-engine and the training step, on weights carried by ``convert``.
+engine, the training step and the training engine (``GREngine``, both
+schedules, and the CLI), on weights carried by ``convert``.
 
 SASRec's softmax attention is plain PyTorch in the port, as it is inline
 XLA in the reference (no TPU kernel computes it), so the two compute the
@@ -29,9 +30,16 @@ from repro_torch.kernels.jagged_attention.ref import max_row_rel_err
 from repro_torch.models import gr as PG
 from repro_torch.models.sasrec import (SASRecBlock, causal_softmax_attention,
                                        sasrec_block)
+from repro_torch.data import GRLoader as PLoader
+from repro_torch.data import SyntheticKuaiRand as PSynth
+from repro_torch.launch import train as cli
+from repro_torch.models.model_zoo import GRBundle
+from repro_torch.training import GREngine, gr_train_state
+from test_torch_engine import (LK, R, _assert_states_equal, _loader,
+                               engine_vs_reference)
 from test_torch_serving import recall_engine_vs_reference
 from test_torch_training import train_vs_reference
-from torch_parity import CPU, models, to_f32, tree_numpy
+from torch_parity import CPU, configs, models, to_f32, tree_numpy
 
 ARCH = "sasrec-tiny"
 SASREC_NAMES = ["sasrec-tiny", "sasrec-small", "sasrec-medium",
@@ -173,3 +181,44 @@ def test_sasrec_train_steps_match_reference():
     against the reference trainer, the training slice's fp32 tolerances
     (losses within 1e-5)."""
     train_vs_reference("fp32", arch=ARCH)
+
+
+def test_sasrec_engine_matches_reference_engine():
+    """The port's ``GREngine`` against the reference's on reduced SASRec
+    (2 layers, d 128; fused, τ=1, Algorithm 1, 4 steps, equal loader
+    batches): losses and every leaf a checkpoint saves (dense params,
+    moments, master, accumulator, the carry) within the training slice's
+    fp32 tolerances, as :func:`test_sasrec_train_steps_match_reference`."""
+    engine_vs_reference("fp32", arch=ARCH)
+
+
+def test_sasrec_engine_schedules_are_bitwise_equal():
+    """Algorithm 1 and the flat schedule of the port's ``GREngine`` on
+    reduced SASRec (bf16, fused, τ=1, 4 steps from one init): the same
+    losses and the same bits in every state tensor."""
+    _, cp = configs("bfloat16", n_items=500, max_seq_len=32, arch=ARCH)
+    b = GRBundle(cp.replace(num_negatives=R))
+    batches = list(_loader(PLoader, PSynth, 500).batches(4))
+    runs = {}
+    for schedule in ("algorithm1", "flat"):
+        g = torch.Generator().manual_seed(0)
+        st = gr_train_state(b.init_dense(g, device=CPU),
+                            b.init_table(g, device=CPU))
+        eng = GREngine(b, lambda i: batches[i], state=st, loss_kwargs=LK,
+                       schedule=schedule)
+        runs[schedule] = ([r["loss"] for r in eng.run(4)], eng.state)
+    (la, sa), (lf, sf) = runs["algorithm1"], runs["flat"]
+    assert la == lf and all(np.isfinite(la))
+    _assert_states_equal(sa, sf)
+
+
+def test_sasrec_cli_trains_on_cpu(capsys):
+    """``python -m repro_torch.launch.train --arch sasrec-tiny --device
+    cpu``: 2 steps, finite losses, the ``[done]`` line."""
+    recs = cli.main(["--device", "cpu", "--arch", "sasrec-tiny", "--steps",
+                     "2", "--synthetic-users", "300", "--num-items",
+                     "3000", "--max-seq-len", "64", "--num-negatives", "8",
+                     "--log-every", "1"])
+    assert len(recs) == 2 and all(np.isfinite(r["loss"]) for r in recs)
+    out = capsys.readouterr().out
+    assert "[model] sasrec-tiny" in out and "[done] 2 steps" in out
