@@ -102,6 +102,21 @@ one card, so each phase frees its own.
   6d. cache  — GREngine with the embedding cache at vocab 2^22 (window 512
                of 4096 chunks, Zipf ids): uncached, cached Algorithm 1,
                cached flat, bit for bit.
+  6e. hsp    — ranks as processes time-sharing the card (gloo between
+               them): hstu-large at full width over a 2^22-row table
+               split between 2 ranks, 6 Algorithm-1 + 6 flat steps on the
+               engine cell's 8192 tokens, held to the single-process engine
+               on the same batch (a child first: losses, table rows at the
+               last step's ids), algorithm1 = flat, dense replicas and
+               shadow bitwise, per-rank launches, exchange bytes equal to
+               the counts the batches give, peaks, walls; Appendix C's
+               alpha of the engine cell's id stream. hsp_mesh: 2 layers,
+               vocab 2^20, 4 ranks: HSP (2 x 2) against global sharding
+               (bytes by kind, data replicas bitwise each step), and a
+               world of one bitwise the single process. elastic: the
+               hsp_mesh configuration under ElasticRunner, 2 of 4 ranks
+               lost at step 5, restarted on 1 x 2 from step 3, bitwise the
+               fault-free shrink at step 3 (losses, step-8 CRC32s).
   7. parity  — at full width, 2 layers, vocab 2^18: one training step's
                dense pass and table-grad pairs with the kernels against the
                plain versions on the card (hstu-large two-pass and fused,
@@ -2813,13 +2828,13 @@ def _resilient_reference():
     return out
 
 
-def _run_child(fn, tag, timeout=1000):
-    """``chip_smoke.<fn>()`` in a process of its own (its peak resident
-    set is the run's alone); its lines relayed, its ``[child-result]`` JSON
-    returned. Fails if it does not exit 0."""
+def _run_child(fn, tag, timeout=1000, args=()):
+    """``chip_smoke.<fn>(*args)`` in a process of its own (its peak
+    resident set is the run's alone); its lines relayed, its
+    ``[child-result]`` JSON returned. Fails if it does not exit 0."""
     code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
             f"{str(ROOT / 'src')!r}]; import chip_smoke as c; "
-            f"sys.exit(c.{fn}())")
+            f"sys.exit(c.{fn}(*{tuple(args)!r}))")
     p = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True)
@@ -3468,6 +3483,639 @@ def phase_cache():
 
 
 # --------------------------------------------------------------------------
+# phase 6e: hierarchical sparse parallelism, semi-async, elastic restart
+# --------------------------------------------------------------------------
+
+HSP_STEPS = 6
+HSP_UPD = 2                       # 2 packs x 2 users x 2048: the 8192 tokens
+MESH_V = 2 ** 20
+MESH_LAYERS = 2
+MESH_STEPS = 4
+#: the elastic phase's vocab: its runs write 6 checkpoints, which at
+#: MESH_V (8.6 GB each) would pass the 45 GiB a call may write to disk
+#: beside the resilient phase's 35.4 GB; at 2^17 they are ~1.1 GB each
+ELASTIC_V = 2 ** 17
+ELASTIC_STEPS = 8
+ELASTIC_EVERY = 3
+ELASTIC_FAIL = {5: 2}
+#: the collectives' timeout of the ranks' meshes (a lost peer fails a
+#: collective at once on a closed connection; a hung one after this)
+HSP_TIMEOUT_S = 180
+#: rows compared between the 2-rank run and the single-process run
+HSP_SAMPLE = 16384
+ARMS = {"hsp": (("model",), ("data",)), "global": (("data", "model"), ())}
+# The 2-rank run against the single-process engine on the same global
+# batch. The model is bf16: one process takes the dense grads of the whole
+# batch in bf16, the ranks take each pack's in bf16 and sum the two in
+# fp32, so grads differ at bf16's rounding (2^-8), which AdamW's first
+# steps (lr·m/√v ≈ lr·sign(g) on small grads) carry into the params and
+# the losses: on the H100 they lay 6.2e-4 apart over 6 steps from a table
+# drawn whole and 1.59e-3 from the same seed's table drawn by row block
+# (the same bits run to run); the limit was set at about three times the
+# first. The table rows agree but where an element's first grad is near
+# zero: AdaGrad's first step moves it by up to lr (4e-3) either way, so an
+# element may differ by 2·lr (measured 2.4e-3 and 1.7e-3, at 1.7% and 2.2%
+# of the elements past 1e-5), while the median stays at fp32 rounding
+# (measured 4.7e-9 and 1.3e-8: limit 1e-6); the accumulators, sums of g²,
+# differ by at most 2.6e-6 and 5.5e-6 (limit 1e-4).
+HSP_LOSS_TOL = 2e-3
+HSP_MASTER_TOL = 2 * 4e-3
+HSP_MASTER_MEDIAN_TOL = 1e-6
+HSP_ACCUM_TOL = 1e-4
+
+
+def _hsp_loader(V, world, upd):
+    """The engine cell's users and negatives split into ``world`` packs
+    of ``upd`` users x 2048 events: GRLoader(num_devices=world)."""
+    from repro_torch.data import GRLoader, SyntheticKuaiRand
+    gen = SyntheticKuaiRand(num_users=64, num_items=V, mean_len=1800,
+                            sigma_len=0.6, max_len=4096, seed=SEED)
+    seqs = {u: (d["item"], d["ts"]) for u, d in
+            ((u, gen.interactions(u)) for u in range(64))}
+    return GRLoader(seqs, num_devices=world, users_per_device=upd,
+                    max_seq_len=2048, num_negatives=128, num_items=V,
+                    seed=SEED)
+
+
+def _hsp_cfg(V, layers=None):
+    from repro_torch.configs import get_arch
+    cfg = get_arch("hstu-large").replace(vocab_size=V)
+    return cfg.replace(num_layers=layers) if layers else cfg
+
+
+def _shadow_bad(tbl, rows_per=1 << 17):
+    bad = 0
+    for lo in range(0, tbl.master.shape[0], rows_per):
+        bad += int((tbl.shadow[lo:lo + rows_per]
+                    != tbl.master[lo:lo + rows_per].half()).sum())
+    return bad
+
+
+def _run_hsp_engine(mesh, hsp, cfg, batches, steps, sched, tag):
+    """GREngine over ``mesh`` (this rank's shard, ``hsp``), tau=1,
+    ``steps`` steps of ``sched`` with launch counts and exchange counters
+    zeroed just before and read just after; the rank's walls, peaks and
+    the final state's checksums."""
+    import torch
+    from repro_torch.core.hsp import bit_checksum
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.training import GREngine, state_tensors
+    gc.collect()
+    torch.cuda.empty_cache()
+    # no rank builds its engine before all have freed the last run's state
+    mesh.barrier()
+    t0 = time.perf_counter()
+    eng = GREngine(GRBundle(cfg), lambda i: batches[i], seed=SEED, hsp=hsp,
+                   schedule=sched, semi_async=True)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    marks, peaks, clocks = [], [], []
+
+    def on_step(i, rec, state):
+        marks.append(time.perf_counter())
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        torch.cuda.reset_peak_memory_stats()
+        clocks.append({k: (v["seconds"], v["wait_s"])
+                       for k, v in mesh.stats.items()})
+
+    eng.step_callback = on_step
+    checks0 = dict(hsp.checks)
+    _zero_counts()
+    mesh.stats.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    recs = eng.run(steps)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    walls = [m - p for m, p in zip(marks, [t0] + marks[:-1])]
+    st = eng.state
+    out = dict(sched=sched, losses=[r["loss"] for r in recs],
+               tokens=[r["tokens"] for r in recs], walls_s=walls,
+               split=_exchange_split(walls, clocks),
+               peaks_gb=[p / 1e9 for p in peaks], setup_s=setup,
+               state_gb=base / 1e9, launches=counts,
+               stats={k: dict(v) for k, v in mesh.stats.items()},
+               checks={k: hsp.checks[k] - checks0[k] for k in checks0},
+               shadow_bad=_shadow_bad(st.table),
+               checksums=[int(c) for t in state_tensors(st)
+                          for c in bit_checksum(t).tolist()],
+               carry=int(st.pending_ids.numel()))
+    say(f"[{tag} rank {mesh.rank}] {sched}: losses "
+        f"{[round(x, 5) for x in out['losses']]}; walls (time-shared) "
+        f"{[round(w * 1e3, 1) for w in walls]} ms; peak above the state "
+        f"{max(out['peaks_gb']):.2f} GB (state {base / 1e9:.2f} GB); "
+        f"launches {counts}; exchange bytes "
+        f"{ {k: v['bytes'] for k, v in out['stats'].items()} }; checks "
+        f"{out['checks']}; shadow != master.half() at {out['shadow_bad']}")
+    return eng, out
+
+
+def _exchange_split(walls, clocks):
+    """Each step's wall split by the mesh's clocks (``Mesh.stats``, read
+    at each step's end): ``exchange_s`` in the collectives (staging, gloo,
+    peers' lateness), ``wait_s`` waiting for the card's queue before them,
+    ``rest_s`` the remainder (host work outside the collectives); and the
+    exchange seconds by kind."""
+    out, prev = [], {}
+    for w, c in zip(walls, clocks):
+        kinds = {k: c[k][0] - prev.get(k, (0.0, 0.0))[0] for k in c}
+        wait = sum(c[k][1] - prev.get(k, (0.0, 0.0))[1] for k in c)
+        ex = sum(kinds.values())
+        out.append(dict(wall_s=w, exchange_s=ex, wait_s=wait,
+                        rest_s=w - ex - wait, by_kind=kinds))
+        prev = c
+    return out
+
+
+def _split_line(split, first=2):
+    """The steady steps' (from ``first``) mean split, as text."""
+    import numpy as np
+    st = split[first:] or split
+    m = {k: float(np.mean([x[k] for x in st]))
+         for k in ("wall_s", "exchange_s", "wait_s", "rest_s")}
+    kinds = {k: round(1e3 * float(np.mean([x["by_kind"].get(k, 0.0)
+                                           for x in st])), 1)
+             for k in st[0]["by_kind"]}
+    return (f"steady step (steps {first}..) {m['wall_s'] * 1e3:.1f} ms = "
+            f"exchange {m['exchange_s'] * 1e3:.1f} ms + wait for the card "
+            f"before a collective {m['wait_s'] * 1e3:.1f} ms + rest "
+            f"{m['rest_s'] * 1e3:.1f} ms; exchange ms by kind {kinds}")
+
+
+def hsp_rank(mesh, *, V, upd, steps, layers=None, arms=("hsp",),
+             schedules=("algorithm1", "flat"), sample=None, out=None,
+             tag="hsp"):
+    """A rank of phase hsp / hsp_mesh: for each arm (``hsp``: the table
+    over ``model``; ``global``: over the whole world) and schedule, the
+    engine over the global batches of the phase's loader; with ``sample``
+    (a .npy of global ids), the first run's final master and accumulator
+    rows at those ids in this rank's shard, to ``out``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hsp import make_hsp_lookup
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _hsp_cfg(V, layers)
+    batches = list(_hsp_loader(V, mesh.world, upd).batches(steps))
+    res = {"rank": mesh.rank, "coords": mesh.coords}
+    for arm in arms:
+        ga, da = ARMS[arm]
+        hsp = make_hsp_lookup(mesh, group_axes=ga, dp_axes=da,
+                              compute_dtype=torch.bfloat16)
+        lo, hi = hsp.shard_range(V)
+        res[arm] = {"lo": lo, "hi": hi}
+        for k, sched in enumerate(schedules):
+            eng, r = _run_hsp_engine(mesh, hsp, cfg, batches, steps, sched,
+                                     tag)
+            res[arm][sched] = r
+            if sample is not None and k == 0:
+                ids = np.load(sample)
+                mine = ids[(ids >= lo) & (ids < hi)]
+                idx = torch.from_numpy(mine - lo).long().to(mesh.device)
+                tbl = eng.state.table
+                np.savez(out.format(rank=mesh.rank), ids=mine,
+                         master=tbl.master[idx].cpu().numpy(),
+                         accum=tbl.accum[idx].cpu().numpy())
+                del tbl, idx
+            del eng                     # the next run draws its own table
+    return res
+
+
+def hsp_reference_child(V, steps, sample, out):
+    return _child_main(_hsp_reference, V, steps, sample, out)
+
+
+def _hsp_reference(V, steps, sample, out):
+    """The single-process engine on the 2-rank run's global batches (G = 2
+    packs on one card), algorithm1, tau=1: its losses, peak, and the final
+    master and accumulator rows at the sampled ids."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.training import GREngine
+    dev = torch.device("cuda")
+    batches = list(_hsp_loader(V, 2, HSP_UPD).batches(steps))
+    t0 = time.perf_counter()
+    eng = GREngine(GRBundle(_hsp_cfg(V)), lambda i: batches[i], seed=SEED,
+                   device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    eng.step_callback = lambda i, rec, st: marks.append(time.perf_counter())
+    t0 = time.perf_counter()
+    losses = [r["loss"] for r in eng.run(steps)]
+    torch.cuda.synchronize()
+    walls = [m - p for m, p in zip(marks, [t0] + marks[:-1])]
+    ids = np.load(sample)
+    idx = torch.from_numpy(ids).long().to(dev)
+    np.savez(out, ids=ids, master=eng.state.table.master[idx].cpu().numpy(),
+             accum=eng.state.table.accum[idx].cpu().numpy())
+    say(f"[hsp] single-process reference (G = 2 packs, one process): losses "
+        f"{[round(x, 5) for x in losses]}; walls "
+        f"{[round(w * 1e3, 1) for w in walls]} ms; peak above the state "
+        f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB")
+    return dict(losses=losses, walls_s=walls, setup_s=setup,
+                peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+
+
+def _spawn_world(entry, kwargs, shape, tag, deadline_s=900):
+    """``chip_smoke.<entry>(mesh, **kwargs)`` in a world of rank processes
+    of a ``shape`` mesh, every rank on this card (gloo between them); their
+    lines relayed; their results. The world's directory (store, logs,
+    results) is removed."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import mesh as M
+    run_dir = tempfile.mkdtemp(prefix=f"{tag}_")
+    try:
+        t0 = time.perf_counter()
+        procs = M.spawn_ranks(f"chip_smoke:{entry}", kwargs, shape=shape,
+                              run_dir=run_dir, device="cuda",
+                              timeout_s=HSP_TIMEOUT_S, sys_path=[str(ROOT)])
+        rcs = M.wait_ranks(procs, deadline_s)
+        wall = time.perf_counter() - t0
+        for r, lg in enumerate(M.rank_logs(run_dir, len(procs))):
+            for ln in lg.splitlines():
+                say(ln if ln.startswith("[") else f"[{tag} rank {r}] {ln}")
+        check(rcs == [0] * len(procs), f"{tag}: rank exit codes {rcs}")
+        say(f"[{tag}] world {shape} ran {wall:.1f} s (processes started to "
+            f"all ended)")
+        return M.rank_results(run_dir, len(procs))
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def _pack_reads(batch, V):
+    """One pack's unique reads by kind, as the exchanges see them."""
+    import numpy as np
+    ids = np.asarray(batch["ids"]).reshape(-1)
+    lab = np.asarray(batch["labels"]).reshape(-1)
+    neg = np.clip(np.asarray(batch["neg_ids"]).reshape(-1), 0, V - 1)
+    return dict(ids=np.unique(ids), labels=np.unique(lab),
+                neg=np.unique(neg),
+                cand=np.unique(np.concatenate([neg, ids, lab])))
+
+
+def _expected_bytes(batches, V, shape, arm, d):
+    """Per rank, the exchange bytes a run over ``batches`` must count,
+    from the batches alone: the ids and rows of the lookups (bf16 rows) and
+    the negatives (fp16 rows), and the grad pairs (id + fp32 row) within
+    the group and across replicas."""
+    import numpy as np
+    world = int(np.prod(shape))
+    M_ = shape[1]
+    group = (lambda r: [r // M_ * M_ + j for j in range(M_)]) \
+        if arm == "hsp" else (lambda r: list(range(world)))
+    I = M_ if arm == "hsp" else world
+    Vs = V // I
+    sidx = (lambda r: r % M_) if arm == "hsp" else (lambda r: r)
+    D = shape[0] if arm == "hsp" else 1
+    out = [dict(lookup_ids=0, lookup_rows=0, neg_ids=0, neg_rows=0,
+                grad_group=0, grad_replicas=0) for _ in range(world)]
+    for b in batches:
+        reads = [_pack_reads({k: v[r:r + 1] for k, v in b.items()}, V)
+                 for r in range(world)]
+        for r in range(world):
+            lo, hi = sidx(r) * Vs, (sidx(r) + 1) * Vs
+            own = lambda u: (u >= lo) & (u < hi)          # noqa: E731
+            e = out[r]
+            for k in ("ids", "labels"):
+                e["lookup_ids"] += 4 * int((~own(reads[r][k])).sum())
+                e["lookup_rows"] += 2 * d * sum(
+                    int(own(reads[p][k]).sum()) for p in group(r) if p != r)
+            e["neg_ids"] += 4 * int((~own(reads[r]["neg"])).sum())
+            e["neg_rows"] += 2 * d * sum(
+                int(own(reads[p]["neg"]).sum()) for p in group(r) if p != r)
+            e["grad_group"] += (4 + 4 * d) * int(
+                (~own(reads[r]["cand"])).sum())
+            if D > 1:
+                mine = np.unique(np.concatenate(
+                    [reads[p]["cand"] for p in group(r)]))
+                e["grad_replicas"] += (4 + 4 * d) * int(
+                    own(mine).sum()) * (D - 1)
+    return out
+
+
+def _rank_launch_want(cfg, steps, runsum):
+    want = {k: steps * v for k, v in _step_launches(cfg, "wscatter").items()}
+    want["gather"] = 3 * steps          # inputs, labels, negatives (owner)
+    want["runsum"] = runsum * steps
+    return want
+
+
+def _id_stream_alpha(tag):
+    """Appendix C's alpha of the engine cell's id stream (every table read
+    of a step: inputs, labels, negatives) beside the delay-penalty bound
+    at alpha and at alpha = 1."""
+    import numpy as np
+    from repro_torch.core.semi_async import collision_alpha, \
+        delay_penalty_bound
+    from repro_torch.training import host_unique_candidates
+    V = _hsp_cfg(2 ** 22).vocab_size
+    n = ENGINE_STEPS["hstu-large"]
+    stream = []
+    for b in _train_loader(V).batches(n):
+        s, first, _ = host_unique_candidates(b, V)
+        stream.append(s[first])
+    alpha = collision_alpha(stream)
+    b_at = delay_penalty_bound(alpha, 1.0, 1, n)
+    b_one = delay_penalty_bound(1.0, 1.0, 1, n)
+    b_sync = delay_penalty_bound(0.0, 1.0, 0, n)
+    say(f"[{tag}] Appendix C: alpha of the engine cell's id stream (every "
+        f"table read, {n} steps, {np.mean([len(x) for x in stream]):.0f} "
+        f"distinct ids a step) {alpha:.5f}; delay_penalty_bound(alpha, L=1, "
+        f"tau=1, T={n}) {b_at:.5f} against {b_one:.5f} at alpha = 1 and "
+        f"{b_sync:.5f} synchronous")
+    return dict(alpha=alpha, bound=b_at, bound_alpha1=b_one,
+                bound_sync=b_sync)
+
+
+def phase_hsp():
+    """hstu-large at full width and depth over a table of 2^22 rows split
+    between 2 ranks (mesh data 1 x model 2) on the one card, tau=1, R 128:
+    6 Algorithm-1 and 6 flat steps on the engine cell's 8192 tokens (2
+    packs), held to the single-process engine on the same global batch."""
+    import numpy as np
+    from repro_torch.obs import token_imbalance
+    from repro_torch.training import host_unique_candidates
+    import shutil
+    tag = "hsp"
+    alpha = _id_stream_alpha(tag)
+    V = 2 ** 22
+    cfg = _hsp_cfg(V)
+    batches = list(_hsp_loader(V, 2, HSP_UPD).batches(HSP_STEPS))
+    loads = np.asarray(batches[0]["offsets"])[:, -1]
+    imb = [token_imbalance(np.asarray(b["offsets"])[:, -1]) for b in batches]
+    say(f"[{tag}] packs: tokens {[np.asarray(b['offsets'])[:, -1].tolist() for b in batches]}; "
+        f"token imbalance {[round(x, 4) for x in imb]}")
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="hsp_rows_")
+    try:
+        last = batches[-1]
+        s, first, _ = host_unique_candidates(last, V)
+        touched = s[first]
+        rng = np.random.default_rng(SEED)
+        sample = np.sort(rng.choice(touched, min(HSP_SAMPLE, touched.size),
+                                    replace=False)).astype(np.int64)
+        sample_path = os.path.join(tmp, "sample.npy")
+        np.save(sample_path, sample)
+        ref = _run_child("hsp_reference_child", tag,
+                         args=(V, HSP_STEPS, sample_path,
+                               os.path.join(tmp, "ref.npz")))
+        res = _spawn_world("hsp_rank", dict(
+            V=V, upd=HSP_UPD, steps=HSP_STEPS, sample=sample_path,
+            out=os.path.join(tmp, "rank{rank}.npz")), (1, 2), tag)
+        want = _rank_launch_want(cfg, HSP_STEPS, runsum=1)
+        exp = _expected_bytes(batches, V, (1, 2), "hsp", cfg.d_model)
+        for r in res:
+            a, f = r["hsp"]["algorithm1"], r["hsp"]["flat"]
+            check(a["losses"] == f["losses"] and a["checksums"] == f["checksums"],
+                  f"{tag} rank {r['rank']}: algorithm1 and flat differ")
+            check(a["losses"] == res[0]["hsp"]["algorithm1"]["losses"],
+                  f"{tag}: the ranks report different losses")
+            for run in (a, f):
+                check(run["launches"] == want, f"{tag} rank {r['rank']} "
+                      f"{run['sched']}: launches {run['launches']}, expected "
+                      f"{want}")
+                check(run["checks"]["dense"] == HSP_STEPS,
+                      f"{tag}: dense replicas checked {run['checks']}")
+                check(run["shadow_bad"] == 0, f"{tag}: shadow != master.half()")
+                got = {k: run["stats"].get(k, {}).get("bytes", 0)
+                       for k in exp[r["rank"]]}
+                check(got == exp[r["rank"]], f"{tag} rank {r['rank']}: "
+                      f"exchange bytes {got}, from the batches {exp[r['rank']]}")
+        losses = res[0]["hsp"]["algorithm1"]["losses"]
+        dl = float(np.max(np.abs(np.array(losses) - ref["losses"])))
+        z = np.load(os.path.join(tmp, "ref.npz"))
+        ids = np.concatenate([np.load(os.path.join(tmp, f"rank{r}.npz"))["ids"]
+                              for r in range(2)])
+        check(np.array_equal(ids, z["ids"]), f"{tag}: sampled rows missing")
+        dm = np.concatenate([np.load(os.path.join(tmp, f"rank{r}.npz"))["master"]
+                             for r in range(2)]) - z["master"]
+        da = np.concatenate([np.load(os.path.join(tmp, f"rank{r}.npz"))["accum"]
+                             for r in range(2)]) - z["accum"]
+        rows = dict(master_max=float(np.abs(dm).max()),
+                    master_median=float(np.median(np.abs(dm))),
+                    master_share_1e5=float((np.abs(dm) > 1e-5).mean()),
+                    accum_max=float(np.abs(da).max()),
+                    accum_median=float(np.median(np.abs(da))))
+        say(f"[{tag}] against the single-process engine on the same 8192 "
+            f"tokens: losses max |diff| {dl:.3g} ({losses} vs {ref['losses']}); "
+            f"master and accumulator rows at {ids.size} ids the last step "
+            f"touched: {rows}")
+        check(dl <= HSP_LOSS_TOL, f"{tag}: losses {dl:.3g} from the single "
+              f"process, limit {HSP_LOSS_TOL}")
+        check(rows["master_max"] <= HSP_MASTER_TOL and
+              rows["master_median"] <= HSP_MASTER_MEDIAN_TOL and
+              rows["accum_max"] <= HSP_ACCUM_TOL,
+              f"{tag}: table rows {rows} beyond {HSP_MASTER_TOL} (median "
+              f"{HSP_MASTER_MEDIAN_TOL}) / {HSP_ACCUM_TOL}")
+        for r in res:
+            a = r["hsp"]["algorithm1"]
+            say(f"[{tag}] rank {r['rank']} (shard rows [{r['hsp']['lo']}, "
+                f"{r['hsp']['hi']})): launches a run {a['launches']}; exchange "
+                f"bytes a run { {k: v['bytes'] for k, v in a['stats'].items()} } "
+                f"(peers { {k: v['peers'] for k, v in a['stats'].items()} }); "
+                f"peak above the state {max(a['peaks_gb']):.2f} GB, state "
+                f"{a['state_gb']:.2f} GB; steady step wall steps 2.. "
+                f"{1e3 * np.mean(a['walls_s'][2:]):.1f} ms algorithm1, "
+                f"{1e3 * np.mean(r['hsp']['flat']['walls_s'][2:]):.1f} ms flat "
+                f"(two ranks time-sharing one card: not a scaling result)")
+            for sched in ("algorithm1", "flat"):
+                say(f"[{tag}] rank {r['rank']} {sched}: "
+                    f"{_split_line(r['hsp'][sched]['split'])}")
+        say(f"[{tag}] checks: algorithm1 = flat bit for bit on both ranks "
+            f"(losses and exact checksums of every state tensor); dense "
+            f"replicas equal at each of {HSP_STEPS} steps; shadow == "
+            f"master.half() on both shards; launches {HSP_STEPS} x a step's "
+            f"on each rank; exchange bytes equal to the counts the batches "
+            f"give")
+        return dict(ranks=res, reference=ref, rows=rows, loss_diff=dl,
+                    alpha=alpha, imbalance=imb, expected_bytes=exp,
+                    loads=loads.tolist())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def hsp_world1(mesh, *, V, upd, steps):
+    """A world of one: the HSP engine against the single-process engine
+    on the same batches, bit for bit (losses and every state tensor)."""
+    import torch
+    from repro_torch.core.hsp import make_hsp_lookup
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.training import GREngine, state_tensors
+    cfg = _hsp_cfg(V, MESH_LAYERS)
+    batches = list(_hsp_loader(V, 1, upd).batches(steps))
+    hsp = make_hsp_lookup(mesh, compute_dtype=torch.bfloat16)
+    a = GREngine(GRBundle(cfg), lambda i: batches[i], seed=SEED, hsp=hsp)
+    la = [r["loss"] for r in a.run(steps)]
+    b = GREngine(GRBundle(cfg), lambda i: batches[i], seed=SEED,
+                 device=mesh.device)
+    lb = [r["loss"] for r in b.run(steps)]
+    same = la == lb and all(torch.equal(x, y) for x, y in zip(
+        state_tensors(a.state), state_tensors(b.state)))
+    say(f"[hsp_mesh] world of one: HSP losses {la}, single process {lb}; "
+        f"every state tensor equal: {same}")
+    return dict(losses=la, single=lb, bitwise=same)
+
+
+def phase_hsp_mesh():
+    """hstu-large widths at 2 layers over a 2^20-row table, 1 x 2048
+    events per rank, 4 ranks on the one card: HSP (data 2 x model 2) and
+    global sharding (a group of 4), 4 tau=1 steps each; and a world of one
+    against the single-process engine."""
+    import numpy as np
+    tag = "hsp_mesh"
+    V = MESH_V
+    cfg = _hsp_cfg(V, MESH_LAYERS)
+    w1 = _spawn_world("hsp_world1", dict(V=V, upd=1, steps=MESH_STEPS),
+                         (1, 1), tag)
+    check(w1[0]["bitwise"], f"{tag}: a world of one differs from the "
+          f"single-process engine")
+    res = _spawn_world("hsp_rank", dict(
+        V=V, upd=1, steps=MESH_STEPS, layers=MESH_LAYERS,
+        arms=["hsp", "global"], schedules=["algorithm1"], tag=tag),
+        (2, 2), tag)
+    batches = list(_hsp_loader(V, 4, 1).batches(MESH_STEPS))
+    totals = {}
+    for arm in ("hsp", "global"):
+        exp = _expected_bytes(batches, V, (2, 2), arm, cfg.d_model)
+        want = _rank_launch_want(cfg, MESH_STEPS,
+                                 runsum=2 if arm == "hsp" else 1)
+        for r in res:
+            run = r[arm]["algorithm1"]
+            check(run["launches"] == want, f"{tag} {arm} rank {r['rank']}: "
+                  f"launches {run['launches']}, expected {want}")
+            check(run["shadow_bad"] == 0, f"{tag}: shadow != master.half()")
+            got = {k: run["stats"].get(k, {}).get("bytes", 0)
+                   for k in exp[r["rank"]]}
+            check(got == exp[r["rank"]], f"{tag} {arm} rank {r['rank']}: "
+                  f"exchange bytes {got}, from the batches "
+                  f"{exp[r['rank']]}")
+            check(run["checks"]["dense"] == MESH_STEPS and
+                  run["checks"]["table"] == (MESH_STEPS if arm == "hsp"
+                                             else 0),
+                  f"{tag} {arm}: replica checks {run['checks']}")
+            say(f"[{tag}] {arm} rank {r['rank']} {r['coords']}: exchange "
+                f"bytes {got} (peers "
+                f"{ {k: v['peers'] for k, v in run['stats'].items()} }); "
+                f"{_split_line(run['split'], first=1)}")
+        losses = [r[arm]["algorithm1"]["losses"] for r in res]
+        check(all(x == losses[0] for x in losses),
+              f"{tag} {arm}: the ranks report different losses")
+        totals[arm] = {k: sum(r[arm]["algorithm1"]["stats"].get(k, {})
+                              .get("bytes", 0) for r in res)
+                       for k in ("lookup_ids", "lookup_rows", "neg_ids",
+                                 "neg_rows", "grad_group", "grad_replicas",
+                                 "dense")}
+    for r in res:
+        by_lo = [q for q in res if q["hsp"]["lo"] == r["hsp"]["lo"]]
+        check(len(by_lo) == 2 and by_lo[0]["hsp"]["algorithm1"]["checksums"]
+              == by_lo[1]["hsp"]["algorithm1"]["checksums"],
+              f"{tag}: the data replicas of shard {r['hsp']['lo']} differ")
+    look = {a: totals[a]["lookup_ids"] + totals[a]["lookup_rows"]
+            for a in totals}
+    check(look["hsp"] < look["global"], f"{tag}: HSP's lookup exchange "
+          f"sent {look['hsp']} bytes, global sharding {look['global']}")
+    say(f"[{tag}] bytes summed over the 4 ranks, {MESH_STEPS} steps: "
+        f"{totals}; lookup exchange HSP {look['hsp']} < global "
+        f"{look['global']} (ratio {look['hsp'] / look['global']:.3f}; "
+        f"uniform ids would give (I-1)/I / (N-1)/N = 0.667)")
+    say(f"[{tag}] checks: every rank's bytes equal the counts its batches "
+        f"give, both arms; the data replicas of each shard and their "
+        f"AdaGrad states equal at each of {MESH_STEPS} steps (row "
+        f"checksums) and at the end (checksums of every state tensor); "
+        f"a world of one bit for bit the single-process engine")
+    return dict(ranks=res, totals=totals, world1=w1[0])
+
+
+def phase_elastic():
+    """The hsp_mesh configuration (its vocab cut to ELASTIC_V, so the
+    checkpoints fit the disk) under the elastic supervisor: 4 ranks, 2 of
+    which exit when step 5 begins, restarted on 1 x 2 from the step-3
+    checkpoint to step 8; against the run that shrank from 4 ranks to 2 at
+    step 3 with no fault. The checkpoints go to the temp dir and are
+    removed."""
+    import shutil
+    import tempfile
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training.elastic import ElasticRunner
+    tag = "elastic"
+    root = tempfile.mkdtemp(prefix="elastic_")
+    build = dict(arch="hstu-large",
+                 overrides=dict(num_layers=MESH_LAYERS,
+                                vocab_size=ELASTIC_V),
+                 data=dict(users=64, mean_len=1800, sigma_len=0.6,
+                           max_len=4096, users_per_device=1,
+                           max_seq_len=2048, seed=SEED), seed=SEED)
+    runs = {}
+    try:
+        for name in ("crash", "clean"):
+            d = os.path.join(root, name)
+            r = ElasticRunner("repro_torch.training.elastic:build_gr_engine",
+                              d, build_kwargs=build, model_parallel=2,
+                              ckpt_every=ELASTIC_EVERY, keep_last_n=1,
+                              device="cuda", mesh_timeout_s=HSP_TIMEOUT_S,
+                              segment_deadline_s=600,
+                              run_dir=os.path.join(root, name + "_ranks"))
+            t0 = time.perf_counter()
+            if name == "crash":
+                r.run(ELASTIC_STEPS, world=4, fail_at=dict(ELASTIC_FAIL))
+            else:
+                r.run(ELASTIC_EVERY, world=4)
+                r.run(ELASTIC_STEPS, world=2)
+            wall = time.perf_counter() - t0
+            step_dir = os.path.join(d, f"step_{ELASTIC_STEPS}")
+            m = CKPT.read_manifest(step_dir)
+            ckpt_gb = sum(os.path.getsize(os.path.join(step_dir, f))
+                          for f in os.listdir(step_dir)) / 1e9
+            runs[name] = dict(events=r.events, segments=[
+                {k: v for k, v in s.items() if k != "results"}
+                for s in r.segments], losses=[x["loss"] for x in r.records],
+                worlds=[x["world"] for x in r.records], crc32s=m["crc32s"],
+                wall_s=wall, ckpt_gb=ckpt_gb)
+            for s in r.segments:
+                r0 = s["results"][0] or {}
+                say(f"[{tag}] {name}: segment from step {s['start']} on "
+                    f"{s['world']} ranks {s['shape']}, exit codes "
+                    f"{s['rcs']}, {s['wall_s']:.1f} s (rank 0: engine "
+                    f"built in {r0.get('build_s', float('nan')):.1f} s, "
+                    f"restore {r0.get('restore_s', float('nan')):.1f} s, "
+                    f"run {r0.get('run_s', float('nan')):.1f} s, saves "
+                    f"(step, s) {[x[:2] for x in r0.get('saves', [])]})")
+            say(f"[{tag}] {name}: losses {[round(x, 5) for x in runs[name]['losses']]}; "
+                f"worlds {runs[name]['worlds']}; events {r.events}; "
+                f"{wall:.1f} s")
+            if name == "crash":
+                seg1, seg2 = r.segments
+                first = min(x["t"] for x in r.records
+                            if x["world"] == 2)
+                runs[name]["restart_wall_s"] = first - seg1["ended"]
+                runs[name]["seg2"] = seg2["results"][0]
+            shutil.rmtree(d, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    c, k = runs["crash"], runs["clean"]
+    check(c["events"] == [("node_failure", 5), ("recovery", ELASTIC_EVERY)],
+          f"{tag}: events {c['events']}")
+    check(c["losses"] == k["losses"] and c["crc32s"] == k["crc32s"],
+          f"{tag}: the recovered run differs from the uninterrupted one")
+    say(f"[{tag}] restart wall (the failed segment's end to the first step "
+        f"of the new world) {c['restart_wall_s']:.1f} s, of which the new "
+        f"ranks' engine build {c['seg2']['build_s']:.1f} s and restore "
+        f"{c['seg2']['restore_s']:.1f} s; the recovered run "
+        f"equals the uninterrupted run with the same world sequence bit for "
+        f"bit: {len(c['losses'])} losses and the CRC32s of the step-"
+        f"{ELASTIC_STEPS} checkpoint's {len(c['crc32s'])} leaves; "
+        f"checkpoints of {c['ckpt_gb']:.2f} GB in the temp dir")
+    return runs
+
+
+# --------------------------------------------------------------------------
 # phase 6b: the §4.3 / Table-7 ablation (baseline and segmented negatives)
 # --------------------------------------------------------------------------
 
@@ -3931,6 +4579,9 @@ def main():
             max(r["peak_above_tables_gb"] for r in alg["steps"]))
         resilient = run("resilient", phase_resilient)
         cache = run("cache", phase_cache)
+        hsp = run("hsp", phase_hsp)
+        hsp_mesh = run("hsp_mesh", phase_hsp_mesh)
+        elastic = run("elastic", phase_elastic)
         parity, parity_launches = run("parity", phase_parity)
         run("cli", phase_cli)
     except Failed as e:
@@ -3955,6 +4606,14 @@ def main():
     say(f"[result] ablation {json.dumps([ablation, first_losses])}")
     say(f"[result] resilient {json.dumps(resilient)}")
     say(f"[result] cache {json.dumps(cache)}")
+    say(f"[result] hsp {json.dumps(hsp)}")
+    say(f"[result] hsp_mesh {json.dumps(hsp_mesh)}")
+    say(f"[result] elastic {json.dumps(elastic)}")
+
+    def rank_launches(ranks, arms, kname):
+        return sum(r[arm][sched]["launches"][kname] for r in ranks
+                   for arm in arms for sched in ("algorithm1", "flat")
+                   if sched in r[arm])
     main_attn = lambda k: attn[(k, "long_tail", "bfloat16")]  # noqa: E731
     attn_src = "src/repro/kernels/jagged_attention/kernel.py"
     rows = [("attn_fwd", "jagged_attn_fwd.cu", f"{attn_src}:384",
@@ -4017,6 +4676,9 @@ def main():
                    "resilient": resilient["launches"][kname],
                    "cache": cache["launches"][kname]
                    + cache["launches_flat"][kname],
+                   "hsp": rank_launches(hsp["ranks"], ("hsp",), kname),
+                   "hsp_mesh": rank_launches(hsp_mesh["ranks"],
+                                             ("hsp", "global"), kname),
                    "parity": parity_launches.get(kname, 0)}
         if sum(by_path.values()) == 0:
             say(f"FAIL: {kname} was launched on no path")

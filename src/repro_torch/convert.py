@@ -7,21 +7,27 @@ inverse. ``table_from_numpy`` builds a serving :class:`ShadowedTable`,
 ``shadowed_table_from_numpy``/``table_to_numpy`` a training one (master,
 shadow, accumulator); ``adamw_from_numpy``/``adamw_to_numpy`` carry the
 AdamW moments in the params' pytree layout; ``pending_to_numpy`` reads a
-τ=1 carry as its (id, row) pairs. bfloat16 numpy arrays (the ml_dtypes
+τ=1 carry as its (id, row) pairs. ``shard_table_state`` and
+``unshard_table_states`` split a full state (numpy) into rank r's part on a
+(data, model) mesh and join the parts back (hierarchical sparse
+parallelism, ``core/hsp.py``), so both packages run on the same weights.
+bfloat16 numpy arrays (the ml_dtypes
 type) cannot go through ``torch.from_numpy``: they cross as their uint16
 bits and are viewed back as bfloat16, bit for bit; the way out gives
 bfloat16 tensors as float32 arrays (exact).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.hsp import carry_span, shard_bounds
 from repro_torch.embedding.tables import ShadowedTable
+from repro_torch.launch.mesh import group_index
 from repro_torch.models.gr import GRModel
 from repro_torch.training.optim import AdamWState
 
@@ -207,3 +213,61 @@ def pending_from_numpy(ids: np.ndarray, rows: np.ndarray,
                             torch.from_numpy(np.asarray(rows, np.float32)))
     return (tensor_from_numpy(i.astype(np.int32), device),
             tensor_from_numpy(r, device))
+
+
+#: The table-sized entries of a numpy state: split by rows over the mesh.
+TABLE_KEYS = ("master", "shadow", "accum")
+
+
+def shard_table_state(full: Mapping[str, Any], rank: int,
+                      mesh_shape: Sequence[int],
+                      group_axes: Sequence[str] = ("model",)
+                      ) -> Dict[str, Any]:
+    """Rank ``rank``'s part of a full state held as numpy (``master``,
+    ``accum``, optionally ``shadow``, ``pending_ids``/``pending_rows``, and
+    any other entries, which every rank holds whole): the table's rows
+    [lo, hi), the carry's pairs of those rows with shard-relative ids
+    (ascending; the reference's −1 slots dropped), and ``lo``. The rows
+    and pairs are :mod:`repro_torch.core.hsp`'s (``shard_bounds``,
+    ``carry_span``)."""
+    idx, size = group_index(rank, mesh_shape, group_axes)
+    V = np.asarray(full["master"]).shape[0]
+    lo, hi = shard_bounds(V, idx, size)
+    out = dict(full, lo=lo)
+    for k in TABLE_KEYS:
+        if full.get(k) is not None and np.asarray(full[k]).shape[0] == V:
+            out[k] = np.asarray(full[k])[lo:hi]
+    if "pending_ids" in full:
+        ids = np.asarray(full["pending_ids"]).reshape(-1).astype(np.int64)
+        rows = np.asarray(full["pending_rows"])
+        keep = np.flatnonzero(ids >= 0)
+        keep = keep[np.argsort(ids[keep], kind="stable")]
+        a, b = carry_span(ids[keep], lo, hi)
+        out["pending_ids"] = (ids[keep[a:b]] - lo).astype(np.int32)
+        out["pending_rows"] = rows[keep[a:b]]
+    return out
+
+
+def unshard_table_states(parts: Sequence[Mapping[str, Any]],
+                         mesh_shape: Sequence[int],
+                         group_axes: Sequence[str] = ("model",)
+                         ) -> Dict[str, Any]:
+    """The full state from every rank's part (in rank order, as
+    :func:`shard_table_state` gives them): the first replica of each
+    shard, its rows and its carry (ids made global) in shard order; the
+    other entries from rank 0."""
+    first: Dict[int, Mapping[str, Any]] = {}
+    for r, p in enumerate(parts):
+        first.setdefault(group_index(r, mesh_shape, group_axes)[0], p)
+    shards = [first[i] for i in sorted(first)]
+    out = {k: v for k, v in parts[0].items() if k != "lo"}
+    for k in TABLE_KEYS:
+        if parts[0].get(k) is not None:
+            out[k] = np.concatenate([np.asarray(p[k]) for p in shards])
+    if "pending_ids" in parts[0]:
+        out["pending_ids"] = np.concatenate(
+            [np.asarray(p["pending_ids"]).astype(np.int64) + p["lo"]
+             for p in shards]).astype(np.int32)
+        out["pending_rows"] = np.concatenate(
+            [np.asarray(p["pending_rows"]) for p in shards])
+    return out

@@ -170,12 +170,15 @@ def share_logits(neg_logits: torch.Tensor, expansion: int,
     return torch.cat([neg_logits, pool[idx]], dim=-1)
 
 
-def _masked_mean(nll: torch.Tensor, valid: Optional[torch.Tensor]
-                 ) -> torch.Tensor:
+def _masked_mean(nll: torch.Tensor, valid: Optional[torch.Tensor],
+                 total: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mean over valid tokens; ``total``: the count to divide by in
+    place of this call's own (a sharded batch's global count)."""
     if valid is None:
         return nll.mean()
     v = valid.to(torch.float32)
-    return (nll * v).sum() / v.sum().clamp(min=1.0)
+    return (nll * v).sum() / (v.sum() if total is None else total).clamp(
+        min=1.0)
 
 
 def sampled_softmax_loss(pos_logit: torch.Tensor, neg_logits: torch.Tensor,
@@ -207,6 +210,9 @@ def fused_sampled_softmax_loss(out_emb: torch.Tensor, pos_emb: torch.Tensor,
                                segment: int = 128, expansion: int = 1,
                                fetch_dtype=torch.float16,
                                shadow: Optional[torch.Tensor] = None,
+                               shadow_index: Optional[torch.Tensor] = None,
+                               vocab: Optional[int] = None,
+                               valid_total: Optional[torch.Tensor] = None,
                                scatter_impl: str = "fused",
                                table_grad_pairs: Optional[TableGradSink] = None
                                ) -> torch.Tensor:
@@ -215,12 +221,16 @@ def fused_sampled_softmax_loss(out_emb: torch.Tensor, pos_emb: torch.Tensor,
     table the negatives are read from (else ``fetch_dtype`` rounds master
     rows). ``perms``/``generator``: the §4.3.3 sharing shuffle (see
     ``make_share_perms``). ``scatter_impl``: the form of the table
-    gradient, ``"fused"`` (K5) or ``"two_pass"``."""
+    gradient, ``"fused"`` (K5) or ``"two_pass"``. A sharded table
+    (``core/hsp.py``) passes the exchanged rows as ``shadow``, each
+    negative's position in them as ``shadow_index``, the global ``vocab``
+    and the global batch's ``valid_total``."""
     pos = (out_emb.float() * pos_emb.float()).sum(-1) / tau
     lse = fused_recall_lse(out_emb, pos, table, neg_ids, segment=segment,
                            tau=tau, expansion=expansion, perms=perms,
                            generator=generator, valid=valid,
                            fetch_dtype=fetch_dtype, gather_table=shadow,
+                           gather_index=shadow_index, vocab=vocab,
                            scatter_impl=scatter_impl,
                            table_grad_pairs=table_grad_pairs)
-    return _masked_mean(lse - pos, valid)
+    return _masked_mean(lse - pos, valid, valid_total)

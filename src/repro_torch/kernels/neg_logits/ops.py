@@ -294,10 +294,10 @@ class _FusedLse(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, o, pos, table, src, ids, valid, perms, T, kw, sink,
-                scatter_impl):
+                scatter_impl, grad_ids, vocab):
         lse = neg_fwd(o, pos, src, ids, valid, perms, **kw)
-        ctx.save_for_backward(o, pos, src, ids, valid, perms, lse)
-        ctx.vocab = table.shape[0]
+        ctx.save_for_backward(o, pos, src, ids, valid, perms, lse, grad_ids)
+        ctx.vocab = vocab
         ctx.table_dtype = table.dtype
         ctx.T, ctx.kw, ctx.sink = T, kw, sink
         ctx.scatter_impl = scatter_impl
@@ -305,7 +305,7 @@ class _FusedLse(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        o, pos, src, ids, valid, perms, lse = ctx.saved_tensors
+        o, pos, src, ids, valid, perms, lse, grad_ids = ctx.saved_tensors
         kw = ctx.kw
         w, dout, dpos = neg_bwd(o, pos, src, ids, valid, perms, lse,
                                 g.float().contiguous(), **kw)
@@ -324,13 +324,13 @@ class _FusedLse(torch.autograd.Function):
                           out=sink.rows[:n_ready].view(T, R, D))
             else:
                 sink.neg = (w, o, kw["inv_tau"])
-            sink.ids = ids[:T * R]
+            sink.ids = grad_ids[:T * R]
         elif ctx.needs_input_grad[2]:
             dtable = scatter_add_weighted_rows(
-                w, o, ids, ctx.vocab, scale=kw["inv_tau"],
+                w, o, grad_ids, ctx.vocab, scale=kw["inv_tau"],
                 impl=ctx.scatter_impl).to(ctx.table_dtype)
         return (dout.to(o.dtype), dpos, dtable, None, None, None, None, None,
-                None, None, None)
+                None, None, None, None, None)
 
 
 def fused_recall_lse(out_emb: torch.Tensor, pos_logit: torch.Tensor,
@@ -342,6 +342,8 @@ def fused_recall_lse(out_emb: torch.Tensor, pos_logit: torch.Tensor,
                      valid: Optional[torch.Tensor] = None,
                      fetch_dtype: Optional[torch.dtype] = None,
                      gather_table: Optional[torch.Tensor] = None,
+                     gather_index: Optional[torch.Tensor] = None,
+                     vocab: Optional[int] = None,
                      scatter_impl: str = "fused",
                      table_grad_pairs: Optional[TableGradSink] = None
                      ) -> torch.Tensor:
@@ -352,22 +354,32 @@ def fused_recall_lse(out_emb: torch.Tensor, pos_logit: torch.Tensor,
     ``gather_table`` is the half-precision shadow the rows are read from
     (the gradient still flows to ``table``, straight through); without it
     the rows come from ``table``, rounded to ``fetch_dtype``.
-    ``table_grad_pairs``, a :class:`TableGradSink`, receives the table
+    ``gather_index`` (T, R): where each negative's row lies in
+    ``gather_table`` when that is a compact buffer of the rows the ids name
+    (the sharded table's exchange, ``core/hsp.py``); the ids themselves,
+    clipped to ``vocab`` (default the table's rows), still name the table
+    gradient's rows. ``table_grad_pairs``, a :class:`TableGradSink`, receives the table
     gradient as sparse pairs in backward instead of a dense grad, in the
     form ``scatter_impl`` names: ``"fused"`` (the default: factored, for
     K5) or ``"two_pass"`` (the rows)."""
     check_scatter_impl(scatter_impl)
     T, R = neg_ids.shape
-    V = table.shape[0]
+    V = table.shape[0] if vocab is None else int(vocab)
     o_p, pos_p, ids_p, valid_p, perms, n_seg = prepare_fused_inputs(
         out_emb, pos_logit, V, neg_ids, segment=segment,
         expansion=expansion, perms=perms, generator=generator, valid=valid)
     src = table if gather_table is None else gather_table
+    read_ids = ids_p
+    if gather_index is not None:
+        if gather_table is None:
+            raise ValueError("gather_index names rows of a gather_table")
+        read_ids = _pad_rows(gather_index.reshape(T, R).to(torch.int32),
+                             o_p.shape[0] - T).reshape(-1).contiguous()
     kw = dict(segment=segment, R=R, expansion=expansion, inv_tau=1.0 / tau,
               fetch_dtype=fetch_dtype if gather_table is None else None)
     lse = _FusedLse.apply(o_p.contiguous(), pos_p.contiguous(), table, src,
-                          ids_p, valid_p.contiguous(), perms, T, kw,
-                          table_grad_pairs, scatter_impl)
+                          read_ids, valid_p.contiguous(), perms, T, kw,
+                          table_grad_pairs, scatter_impl, ids_p, V)
     return lse[:T]
 
 

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -18,6 +18,11 @@ Batch = dict
 #: The recall loss's negative paths (the §4.3 / Table-7 ablation).
 NEG_MODES = ("fused", "baseline", "segmented")
 
+#: The master is drawn in blocks of this many rows, each from a seed of its
+#: own (64 MB at d = 1024), so any row range draws alone.
+TABLE_DRAW_ROWS = 1 << 14
+_BLOCK_SEED_STRIDE = 0x9E3779B97F4A7C15
+
 
 @dataclass(frozen=True)
 class GRBundle:
@@ -30,12 +35,33 @@ class GRBundle:
         return GR.GRModel(self.cfg, device=device, generator=generator)
 
     def init_table(self, generator: Optional[torch.Generator] = None,
-                   device: DeviceLike = None) -> torch.Tensor:
-        """The (V, d) fp32 master, N(0, 0.02²), drawn where it lives."""
+                   device: DeviceLike = None,
+                   rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """The (V, d) fp32 master, N(0, 0.02²), drawn where it lives; with
+        ``rows=(lo, hi)`` only those rows, the same bits as the whole
+        table's (a rank of a sharded table draws its shard alone). One seed
+        is drawn from ``generator``; row block k (of
+        :data:`TABLE_DRAW_ROWS`) is drawn from a generator seeded by it and
+        k."""
         device = resolve_device(device)
-        return torch.randn(self.cfg.vocab_size, self.cfg.d_model,
-                           dtype=torch.float32, device=device,
-                           generator=generator) * 0.02
+        V, d = self.cfg.vocab_size, self.cfg.d_model
+        lo, hi = (0, V) if rows is None else (int(rows[0]), int(rows[1]))
+        if not 0 <= lo <= hi <= V:
+            raise ValueError(f"rows [{lo}, {hi}) of a {V}-row table")
+        gdev = generator.device if generator is not None else "cpu"
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=gdev))
+        out = torch.empty((hi - lo, d), dtype=torch.float32, device=device)
+        B = TABLE_DRAW_ROWS
+        for k in range(lo // B, -(-hi // B)):
+            a, b = k * B, min((k + 1) * B, V)
+            g = torch.Generator(device=device).manual_seed(
+                (seed + k * _BLOCK_SEED_STRIDE) % 2 ** 63)
+            blk = torch.randn(b - a, d, dtype=torch.float32, device=device,
+                              generator=g)
+            s, e = max(a, lo), min(b, hi)
+            out[s - lo:e - lo] = blk[s - a:e - a]
+        return out.mul_(0.02)
 
     def input_gather(self, table: torch.Tensor, batch: Batch, *,
                      lookup_fn: Optional[Callable] = None) -> torch.Tensor:
@@ -58,7 +84,7 @@ class GRBundle:
              pos_emb: Optional[torch.Tensor] = None,
              shadow: Optional[torch.Tensor] = None,
              table_grad_pairs: Optional[TableGradSink] = None,
-             remat: bool = True) -> torch.Tensor:
+             remat: bool = True, hsp=None) -> torch.Tensor:
         """Sampled-softmax recall loss over a sharded jagged batch:
         ids/timestamps/labels (G, cap), offsets (G, S+1), neg_ids
         (G, cap, R), rng (2,).
@@ -86,10 +112,27 @@ class GRBundle:
         ``"two_pass"`` in the fused mode, as rows in the other two.
         ``perms`` (fused) and ``share_draws`` (G, cap, (k−1)·R) (the
         others): the §4.3.3 sharing draws for expansion > 1, else drawn
-        from a generator seeded by ``batch["rng"][0]``."""
+        from a generator seeded by ``batch["rng"][0]``.
+
+        ``hsp`` (a :class:`~repro_torch.core.hsp.HSPLookup`): ``table`` and
+        ``shadow`` are this rank's shard and ``batch`` its pack of the
+        global batch. The negative rows come through the HSP exchange (a
+        compact buffer K3/K4 read), and the loss is this rank's part of the
+        global batch's mean (its tokens over the global valid count), so
+        the parts of all ranks sum to the global loss. Fused mode only;
+        ``expansion`` > 1 across ranks is not ported (the shared pool spans
+        the global batch)."""
         cfg = self.cfg
         if neg_mode not in NEG_MODES:
             raise ValueError(f"neg_mode {neg_mode!r} not in {NEG_MODES}")
+        if hsp is not None and neg_mode != "fused":
+            raise ValueError(f"the sharded table runs the fused negative "
+                             f"path, not {neg_mode!r}")
+        if hsp is not None and expansion > 1 and hsp.world > 1:
+            raise NotImplementedError(
+                "logit sharing (expansion > 1) across ranks draws from the "
+                "global batch's pool; not ported (ROADMAP.md queue 1, "
+                "item 20)")
         if x_emb is None:
             x = self.input_gather(table, batch, lookup_fn=lookup_fn)
         else:
@@ -111,6 +154,20 @@ class GRBundle:
         if expansion > 1 and given is None:
             generator = torch.Generator(device=x.device).manual_seed(
                 int(batch["rng"][0]))
+        if hsp is not None:
+            src = table if shadow is None else shadow
+            rows, index = hsp.fetch_rows(src, neg_ids)
+            if shadow is None and fetch_dtype is not None:
+                rows = rows.to(fetch_dtype)     # the fetch's rounding
+            return NS.fused_sampled_softmax_loss(
+                h.reshape(T, d), pos_emb.reshape(T, -1), table, neg_ids,
+                perms=perms, generator=generator, tau=1.0,
+                valid=valid.reshape(-1), segment=neg_segment,
+                expansion=expansion, shadow=rows, shadow_index=index,
+                vocab=hsp.vocab_of(table),
+                valid_total=hsp.valid_total(valid),
+                scatter_impl=neg_scatter_impl,
+                table_grad_pairs=table_grad_pairs)
         if neg_mode == "fused":
             return NS.fused_sampled_softmax_loss(
                 h.reshape(T, d), pos_emb.reshape(T, -1), table, neg_ids,

@@ -71,6 +71,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.hsp import carry_span
 from repro_torch.embedding.tables import ShadowedTable
 from repro_torch.training.optim import AdamWState
 from repro_torch.training.trainer import GRTrainState
@@ -617,6 +618,15 @@ def save(ckpt_dir: str, step: int, tree: Any,
         final = _publish(ckpt_dir, step, snap, meta)
     finally:
         release(snap)
+    _flip_latest(ckpt_dir, step, keep_last_n)
+    _record_duration(registry, "ckpt_save", time.perf_counter() - _t0)
+    return final
+
+
+def _flip_latest(ckpt_dir: str, step: int,
+                 keep_last_n: Optional[int]) -> None:
+    """Point LATEST at a published step (atomically, durably), then apply
+    the retention policy."""
     ptr_tmp = os.path.join(ckpt_dir, ".LATEST.tmp")
     with open(ptr_tmp, "w") as f:
         f.write(f"step_{step}")
@@ -626,8 +636,6 @@ def save(ckpt_dir: str, step: int, tree: Any,
     _fsync_path(ckpt_dir)
     if keep_last_n is not None:
         gc_steps(ckpt_dir, keep_last_n)
-    _record_duration(registry, "ckpt_save", time.perf_counter() - _t0)
-    return final
 
 
 def _publish(ckpt_dir: str, step: int, snap: HostSnapshot,
@@ -638,29 +646,38 @@ def _publish(ckpt_dir: str, step: int, snap: HostSnapshot,
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=f".tmp_step_{step}_")
     try:
         crcs = _write_leaves(tmp, snap)
-        manifest = {
-            "step": int(step),
-            "treedef": "repro_torch:" + ",".join(snap.paths),
-            "num_leaves": len(snap.arrays),
-            "shapes": [[int(n) for n in s] for s in snap.shapes],
-            "dtypes": list(snap.dtypes),
-            "crc32s": crcs,
-            "meta": meta or {},
-        }
-        mpath = os.path.join(tmp, "manifest.msgpack")
-        with open(mpath, "wb") as f:
-            f.write(packb(manifest))
-            f.flush()
-            os.fsync(f.fileno())
-        _fsync_path(tmp)                      # directory entries durable
-        final = os.path.join(ckpt_dir, f"step_{step}")
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
-        _fsync_path(ckpt_dir)                 # the rename itself durable
+        return _seal(ckpt_dir, tmp, step, snap.paths, snap.shapes,
+                     snap.dtypes, crcs, meta)
     except Exception:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+
+
+def _seal(ckpt_dir: str, tmp: str, step: int, paths: List[str],
+          shapes: List[Tuple[int, ...]], dtypes: List[str],
+          crcs: List[int], meta: Optional[Dict]) -> str:
+    """Write the manifest of a tmp directory whose leaves are durable,
+    fsync it, and rename the directory to ``step_<n>``."""
+    manifest = {
+        "step": int(step),
+        "treedef": "repro_torch:" + ",".join(paths),
+        "num_leaves": len(paths),
+        "shapes": [[int(n) for n in s] for s in shapes],
+        "dtypes": list(dtypes),
+        "crc32s": [int(c) for c in crcs],
+        "meta": meta or {},
+    }
+    mpath = os.path.join(tmp, "manifest.msgpack")
+    with open(mpath, "wb") as f:
+        f.write(packb(manifest))
+        f.flush()
+        os.fsync(f.fileno())
+    _fsync_path(tmp)                          # directory entries durable
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    _fsync_path(ckpt_dir)                     # the rename itself durable
     return final
 
 
@@ -1215,3 +1232,272 @@ def restore_with_step(ckpt_dir: str, template: Any,
     tree = _load_arrays(template, arrs)
     _record_duration(registry, "ckpt_restore", time.perf_counter() - _t0)
     return tree, used
+
+
+# -- sharded states (hierarchical sparse parallelism) -------------------------
+
+def _gf2_times(mat: List[int], vec: int) -> int:
+    out, i = 0, 0
+    while vec:
+        if vec & 1:
+            out ^= mat[i]
+        vec >>= 1
+        i += 1
+    return out
+
+
+def _gf2_square(mat: List[int]) -> List[int]:
+    return [_gf2_times(mat, mat[n]) for n in range(32)]
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """The CRC32 of A + B from ``crc1`` = CRC32(A), ``crc2`` = CRC32(B) and
+    ``len2`` = len(B) (zlib's ``crc32_combine``, which Python's zlib does
+    not expose): the parts of a leaf written by several ranks are checked
+    as the one leaf they make."""
+    if len2 <= 0:
+        return crc1
+    odd = [0xEDB88320] + [1 << n for n in range(31)]   # one zero bit
+    even = _gf2_square(odd)                             # two zero bits
+    odd = _gf2_square(even)                             # four zero bits
+    while True:
+        even = _gf2_square(odd)
+        if len2 & 1:
+            crc1 = _gf2_times(even, crc1)
+        len2 >>= 1
+        if not len2:
+            break
+        odd = _gf2_square(even)
+        if len2 & 1:
+            crc1 = _gf2_times(odd, crc1)
+        len2 >>= 1
+        if not len2:
+            break
+    return crc1 ^ crc2
+
+
+#: Leaves of a sharded state written by the shards' owners, in parts.
+SHARDED_LEAVES = ("table.master", "table.accum", "pending_ids",
+                  "pending_rows")
+
+
+def _npy_header(shape: Tuple[int, ...], dtype: Any) -> bytes:
+    import io
+    buf = io.BytesIO()
+    np.lib.format.write_array_header_1_0(buf, {
+        "descr": np.lib.format.dtype_to_descr(np.dtype(dtype)),
+        "fortran_order": False, "shape": tuple(int(n) for n in shape)})
+    return buf.getvalue()
+
+
+@torch.no_grad()
+def _write_part(path: str, offset: int, t: torch.Tensor) -> int:
+    """Write ``t``'s C-order bytes at ``offset`` of a leaf file, a piece at
+    a time through one host buffer (pinned for a card tensor), and fsync
+    it; their CRC32."""
+    crc = 0
+    if t.numel() == 0:
+        return crc
+    n = t.shape[0]
+    rows = max(1, PIECE_BYTES // max(1, t[0].numel() * t.element_size()))
+    buf = torch.empty((min(rows, n),) + tuple(t.shape[1:]), dtype=t.dtype,
+                      pin_memory=t.is_cuda)
+    fd = os.open(path, os.O_WRONLY)
+    try:
+        pos = offset
+        for lo in range(0, n, rows):
+            piece = buf[:min(rows, n - lo)]
+            piece.copy_(t[lo:lo + rows])
+            b = piece.numpy().reshape(-1).view(np.uint8)
+            crc = zlib.crc32(b, crc)
+            done = 0
+            while done < b.size:
+                done += os.pwrite(fd, b[done:], pos + done)
+            pos += b.size
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    return crc
+
+
+def save_sharded(ckpt_dir: str, step: int, state: GRTrainState, hsp, *,
+                 meta: Optional[Dict] = None,
+                 keep_last_n: Optional[int] = None,
+                 registry: Any = None) -> List[int]:
+    """Save a state sharded over ``hsp``'s mesh in the full-table layout of
+    :func:`save` (so a single-process engine, or the reference, restores
+    it); every rank calls it, from the main thread, at the same step.
+
+    Rank 0 writes the dense leaves (every rank holds the same), and each
+    leaf file of the table and the τ=1 carry at its full size; then the
+    owners of the shards' first replicas write their rows of the master
+    and the accumulator, and their pairs of the carry (global ids,
+    ascending across owners), into those files with positioned writes,
+    each computing its part's CRC32; rank 0 combines the parts' CRCs into
+    the leaves' (:func:`crc32_combine`), writes the manifest and publishes
+    the step (LATEST flips after every part is durable). A step is intact
+    only when every part is on disk. Returns the leaves' CRC32s on every
+    rank."""
+    t0 = time.perf_counter()
+    mesh = hsp.mesh
+    tbl = state.table
+    V = hsp.vocab_of(tbl.master)
+    lo, _ = hsp.shard_range(V)
+    d = tbl.master.shape[1]
+    writer = mesh.group(hsp.dp_axes).index == 0
+    n_mine = int(state.pending_ids.numel()) if writer else 0
+    counts = mesh.all_gather_object(n_mine, mesh.axes)
+    n_carry = sum(counts)
+    c0 = sum(counts[:mesh.rank])
+    empty = tbl.master[:0]
+    small = state._replace(
+        table=ShadowedTable(empty, tbl.shadow, empty),
+        pending_ids=state.pending_ids[:0], pending_rows=state.pending_rows[:0])
+    leaves = _state_leaves(small)
+    full_shape = {"table.master": (V, d), "table.accum": (V, d),
+                  "pending_ids": (n_carry,), "pending_rows": (n_carry, d)}
+    saved_dt = {"table.master": np.float32, "table.accum": np.float32,
+                "pending_ids": np.int32, "pending_rows": np.float32}
+    shapes = [full_shape.get(lf.path, lf.shape) for lf in leaves]
+    heads = {i: _npy_header(shapes[i], saved_dt[lf.path])
+             for i, lf in enumerate(leaves) if lf.path in SHARDED_LEAVES}
+    tmp = os.path.join(ckpt_dir, f".tmp_step_{step}_sharded")
+    crcs: Dict[int, int] = {}
+    if mesh.rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        snap = snapshot(small)
+        for i, lf in enumerate(leaves):
+            if i not in heads:
+                crcs[i] = _write_leaf(tmp, i, snap.arrays[i], True)
+                continue
+            with open(os.path.join(tmp, f"arr_{i}.npy"), "wb") as f:
+                f.write(heads[i])
+                f.truncate(len(heads[i]) + int(np.prod(shapes[i])) * 4)
+    mesh.barrier()
+    parts: Dict[int, Tuple[int, int, int]] = {}
+    if writer:
+        mine = {"table.master": (tbl.master, lo),
+                "table.accum": (tbl.accum, lo),
+                "pending_ids": ((state.pending_ids.to(torch.int64) + lo).to(
+                    torch.int32), c0),
+                "pending_rows": (state.pending_rows, c0)}
+
+        def write(i: int) -> Tuple[int, int, int]:
+            t, row0 = mine[leaves[i].path]
+            off = row0 * int(np.prod(shapes[i][1:], dtype=np.int64)) * 4
+            crc = _write_part(os.path.join(tmp, f"arr_{i}.npy"),
+                              len(heads[i]) + off, t)
+            return off, t.numel() * 4, crc
+
+        with ThreadPoolExecutor(_IO_THREADS) as ex:
+            parts = dict(zip(heads, ex.map(write, heads)))
+    everyone = mesh.all_gather_object(parts, mesh.axes)
+    out = None
+    if mesh.rank == 0:
+        for i in heads:
+            crc, pos = 0, 0
+            for off, n, c in sorted(p[i] for p in everyone if i in p):
+                if off != pos:
+                    raise CheckpointCorrupt(f"{leaves[i].path}: parts leave "
+                                            f"a gap at byte {pos}")
+                crc = crc32_combine(crc, c, n)
+                pos += n
+            if pos != int(np.prod(shapes[i])) * 4:
+                raise CheckpointCorrupt(f"{leaves[i].path}: parts cover "
+                                        f"{pos} bytes")
+            crcs[i] = crc
+        out = [crcs[i] for i in range(len(leaves))]
+        _seal(ckpt_dir, tmp, step, [lf.path for lf in leaves], shapes,
+              [lf.dtype for lf in leaves], out,
+              dict(meta or {}, mesh=list(mesh.shape)))
+        _flip_latest(ckpt_dir, step, keep_last_n)
+    out = mesh.all_gather_object(out, mesh.axes)[0]
+    _record_duration(registry, "ckpt_save", time.perf_counter() - t0)
+    return out
+
+
+@torch.no_grad()
+def _read_rows(leaf: "LeafFile", dst: torch.Tensor, row0: int) -> None:
+    """Rows [row0, row0 + len(dst)) of a leaf file into ``dst`` in place, a
+    piece at a time (positioned reads) through one host buffer (pinned for
+    a card tensor)."""
+    n = dst.shape[0]
+    if n == 0:
+        return
+    row_bytes = leaf.nbytes // leaf.shape[0]
+    rows = max(1, PIECE_BYTES // row_bytes)
+    buf = torch.empty((min(rows, n),) + tuple(leaf.shape[1:]),
+                      dtype=torch.from_numpy(np.empty(0, leaf.dtype)).dtype,
+                      pin_memory=dst.is_cuda)
+    for lo in range(0, n, rows):
+        piece = buf[:min(rows, n - lo)]
+        leaf.read_into(piece.numpy(), row0 + lo)
+        dst[lo:lo + len(piece)].copy_(piece)
+
+
+@torch.no_grad()
+def restore_sharded(ckpt_dir: str, state: GRTrainState, hsp,
+                    step: Optional[int] = None, registry: Any = None
+                    ) -> Tuple[GRTrainState, int]:
+    """Restore a full-table checkpoint (of any world, or of a
+    single-process run) into this rank's sharded ``state`` in place; every
+    rank calls it. Rank 0 picks the newest intact step (every leaf's CRC32
+    checked, falling back past corrupt ones; ``step``: that one or raise)
+    and tells the others; each rank then reads the dense leaves and only
+    its own rows of the table and the carry, with positioned reads, so a
+    world of another data degree restores the same files. Returns (the
+    state, the step restored); FileNotFoundError on every rank when no
+    step is intact."""
+    t0 = time.perf_counter()
+    mesh = hsp.mesh
+    n = len(_state_leaves(state))
+    used, arrs, err = None, None, None
+    if mesh.rank == 0:
+        candidates = ([step] if step is not None
+                      else intact_steps(ckpt_dir))
+        for s in candidates:
+            try:
+                arrs, _ = _load_step_arrays(ckpt_dir, s, n, verify=True)
+                used = s
+                break
+            except (CheckpointCorrupt, FileNotFoundError) as e:
+                err = repr(e)
+    used, err = mesh.all_gather_object((used, err), mesh.axes)[0]
+    if used is None:
+        raise FileNotFoundError(f"no intact checkpoint under {ckpt_dir}"
+                                + (f": {err}" if err else ""))
+    if arrs is None:
+        arrs, _ = _load_step_arrays(ckpt_dir, used, n, verify=False)
+    leaves = _state_leaves(state)
+    by_path = {lf.path: i for i, lf in enumerate(leaves)}
+    tbl = state.table
+    V = hsp.vocab_of(tbl.master)
+    lo, hi = hsp.shard_range(V)
+    for key in ("table.master", "table.accum"):
+        a = arrs[by_path[key]]
+        if tuple(a.shape) != (V, tbl.master.shape[1]):
+            raise CheckpointCorrupt(f"{key}: checkpoint shape {a.shape} vs "
+                                    f"{(V, tbl.master.shape[1])}")
+    ids, rows = compact_carry(arrs[by_path["pending_ids"]],
+                              arrs[by_path["pending_rows"]])
+    a, b = carry_span(ids, lo, hi)
+    if isinstance(rows, LeafFile):
+        mine = np.empty((b - a,) + tuple(rows.shape[1:]), rows.dtype)
+        if b > a:
+            rows.read_into(mine, a)
+    else:
+        mine = np.ascontiguousarray(np.asarray(rows)[a:b])
+    arrs = list(arrs)
+    arrs[by_path["pending_ids"]] = (ids[a:b] - lo).astype(np.int32)
+    arrs[by_path["pending_rows"]] = mine
+    st = _load_state(state, arrs, table=False)
+    with ThreadPoolExecutor(2) as ex:
+        list(ex.map(lambda k: _read_rows(arrs[by_path["table." + k]],
+                                         getattr(tbl, k), lo),
+                    ("master", "accum")))
+    if tbl.shadow is not None:
+        tbl.shadow.copy_(tbl.master.to(tbl.shadow.dtype))
+    _record_duration(registry, "ckpt_restore", time.perf_counter() - t0)
+    return st, used

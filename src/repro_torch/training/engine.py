@@ -115,6 +115,7 @@ from repro_torch.core.pipeline import (PipelineHooks, STAGES, SixStagePipeline,
 from repro_torch.data.freq import ID_FEATURES
 from repro_torch.embedding.cache import CachedShadowedTable, CacheThrash
 from repro_torch.embedding.tables import ShadowedTable
+from repro_torch.models import gr as GR
 from repro_torch.obs import (Obs, gr_dense_params, measured_mfu,
                              peak_flops_of, pipeline_goodput, token_imbalance)
 from repro_torch.training import checkpoint as CKPT
@@ -129,13 +130,25 @@ SCHEDULES = ("algorithm1", "flat")
 #: clean. The others write it in place (see the module docstring).
 RETRY_SAFE_STAGES = ("dataload", "a2a", "unique", "dense_bwd")
 
+#: Stages that issue collectives over a sharded table (``hsp``): a retry
+#: on one rank alone would break the order the ranks issue them in, so
+#: none of them is retried in place.
+COLLECTIVE_STAGES = ("emb_fwd", "dense_fwd", "dense_bwd", "emb_bwd")
 
-def _step_fns(bundle, loss_kwargs: Optional[Dict[str, Any]]):
+
+def _step_fns(bundle, loss_kwargs: Optional[Dict[str, Any]], hsp=None):
     """(the loss with ``loss_kwargs`` bound, the input gather and label
     lookup of its ``lookup_fn`` (None: the plain gather) as the stages'
     keyword arguments): one rule for the flat step and the engine, so they
-    never disagree on the dataflow."""
+    never disagree on the dataflow. ``hsp``: bound in the loss, and its
+    exchange is the lookup."""
     lk = dict(loss_kwargs or {})
+    if hsp is not None:
+        if lk.get("lookup_fn") is not None:
+            raise ValueError("the HSP exchange is the lookup over a sharded "
+                             "table; a lookup_fn cannot be bound beside it")
+        lk["hsp"] = hsp
+        lk["lookup_fn"] = lambda t, ids: hsp.gather(t, ids)
     lookup_fn = lk.get("lookup_fn")
     return (lambda d, t, b, **kw: bundle.loss(d, t, b, **lk, **kw),
             dict(input_gather=lambda t, b: bundle.input_gather(
@@ -144,13 +157,35 @@ def _step_fns(bundle, loss_kwargs: Optional[Dict[str, Any]]):
 
 def make_gr_step_fn(bundle, *, loss_kwargs: Optional[Dict[str, Any]] = None,
                     lr_dense: float = 4e-3, lr_sparse: float = 4e-3,
-                    semi_async: bool = True):
+                    semi_async: bool = True, hsp=None):
     """The engine's flat train step as a standalone ``(state, batch) ->
     (state, metrics)`` function: what ``GREngine(schedule="flat")``
-    computes, and what both schedules are bit-identical to."""
-    loss_fn, fns = _step_fns(bundle, loss_kwargs)
+    computes, and what both schedules are bit-identical to. With ``hsp``
+    the state is this rank's and the batch its pack (:func:`rank_pack`)."""
+    loss_fn, fns = _step_fns(bundle, loss_kwargs, hsp)
     return make_gr_train_step(loss_fn, **fns, lr_dense=lr_dense,
-                              lr_sparse=lr_sparse, semi_async=semi_async)
+                              lr_sparse=lr_sparse, semi_async=semi_async,
+                              hsp=hsp)
+
+
+def rank_pack(batch: Dict[str, Any], rank: int) -> Dict[str, Any]:
+    """Pack ``rank`` of a global (G, ...) loader batch, as a (1, ...)
+    batch (``rng`` is the batch's and stays whole)."""
+    return {k: (v if k == "rng" else v[rank:rank + 1])
+            for k, v in batch.items()}
+
+
+def hsp_train_state(bundle, hsp, gen: torch.Generator, device,
+                    qdtype=torch.float16) -> GRTrainState:
+    """This rank's initial state over a sharded table: the dense params
+    drawn from ``gen`` as the single-process engine draws them, and only
+    the master's rows [lo, hi), the same bits as the single process's
+    (``GRBundle.init_table(rows=...)`` draws by row block)."""
+    dense = bundle.init_dense(gen, device=device)
+    rows = hsp.shard_range(bundle.cfg.vocab_size)
+    return gr_train_state(dense, bundle.init_table(gen, device=device,
+                                                   rows=rows),
+                          qdtype=qdtype)
 
 
 class GREngine:
@@ -193,6 +228,23 @@ class GREngine:
         (the step's hits, misses, chunks loaded and evicted, swap bytes),
         obs ``cache_step`` and ``cache``; checkpoints hold
         :meth:`full_snapshot`. A ``lookup_fn`` cannot be combined with it.
+    hsp: an :class:`~repro_torch.core.hsp.HSPLookup` (hierarchical sparse
+        parallelism, paper §4.2.1) over this rank's mesh: the state's table
+        is the rank's shard (default: its rows of the table the
+        single-process engine draws, drawn alone, :func:`hsp_train_state`),
+        the data give the
+        global (G = world, cap) batches and each step trains pack ``rank``
+        (every rank builds the same loader from the same seed); lookups,
+        negatives and table grads go through the exchange, the loss and
+        the dense grads are summed over all ranks, and records carry the
+        global loss. The collectives are issued from the device stages on
+        the main thread, so the ranks issue them in one order; a stage
+        that issues one is not retried in place (dense_bwd is no longer
+        retry-safe), and :meth:`run_resilient` ends on any failure, which
+        the elastic supervisor recovers from (``training/elastic.py``).
+        Checkpoints are the full-table layout, each owner writing its rows
+        (:func:`~repro_torch.training.checkpoint.save_sharded`). Not with
+        a ``cache`` (as the reference).
 
     ``run(steps)`` returns a list of per-step records ``{"step", "loss",
     "tokens"}``; ``events`` holds the run's :class:`StageEvent` trace and
@@ -210,9 +262,18 @@ class GREngine:
                  fault_policy: Optional[R.FaultPolicy] = None,
                  fault_injector: Optional[R.FaultInjector] = None,
                  obs: Optional[Obs] = None,
-                 peak_flops: Optional[float] = None):
+                 peak_flops: Optional[float] = None, hsp=None):
         if schedule not in SCHEDULES:
             raise ValueError(f"schedule must be one of {SCHEDULES}")
+        if cache is not None and hsp is not None:
+            raise ValueError("the embedding cache translates ids to window "
+                             "rows on the host; the HSP exchange expects "
+                             "global ids — the two cannot be combined")
+        if hsp is not None and \
+                hsp.compute_dtype != GR.torch_dtype(bundle.cfg.dtype):
+            raise ValueError(f"the HSP lookup computes in "
+                             f"{hsp.compute_dtype}, the model in "
+                             f"{bundle.cfg.dtype}")
         if cache is not None and \
                 dict(loss_kwargs or {}).get("lookup_fn") is not None:
             raise ValueError("the embedding cache translates ids to window "
@@ -231,6 +292,12 @@ class GREngine:
                 raise ValueError("a cached engine trains the cache's window: "
                                  "the given state's table is another one")
             device = cache.device
+        if state is None and hsp is not None:
+            dev = hsp.mesh.device if device is None else resolve_device(
+                device)
+            state = hsp_train_state(
+                bundle, hsp, torch.Generator(device=dev).manual_seed(seed),
+                dev, qdtype)
         if state is None:
             dev = resolve_device(device)
             gen = torch.Generator(device=dev).manual_seed(seed)
@@ -240,6 +307,7 @@ class GREngine:
                         else bundle.init_table(gen, device=dev)),
                 qdtype=qdtype)
         self.cache = cache
+        self.hsp = hsp
         self.bundle = bundle
         self.loader = None if callable(data) else data
         self._data_fn = data if callable(data) else None
@@ -250,10 +318,13 @@ class GREngine:
         self.workers = workers
         self.step_callback = step_callback
         self.events: List[StageEvent] = []
-        loss_fn, fns = _step_fns(bundle, loss_kwargs)
+        loss_fn, fns = _step_fns(bundle, loss_kwargs, hsp)
         self.stages = make_gr_stages(loss_fn, **fns,
                                      lr_dense=lr_dense, lr_sparse=lr_sparse,
-                                     semi_async=semi_async)
+                                     semi_async=semi_async, hsp=hsp)
+        self._retry_safe = (RETRY_SAFE_STAGES if hsp is None else
+                            tuple(s for s in RETRY_SAFE_STAGES
+                                  if s not in COLLECTIVE_STAGES))
         self._h2d = (torch.cuda.Stream(self.device)
                      if self.device.type == "cuda" else None)
         self._dlock = threading.Lock()
@@ -342,7 +413,7 @@ class GREngine:
                     global_step=lambda i: self._resume_base + i,
                     fault_events=self.fault_events,
                     poison=self._poison_dout if s == "dense_fwd" else None,
-                    retry_body=s in RETRY_SAFE_STAGES)
+                    retry_body=s in self._retry_safe)
                 for s, fn in base_fns.items()}
         else:
             self._stage_fns = base_fns
@@ -369,7 +440,8 @@ class GREngine:
 
     # -- Algorithm-1 hooks -------------------------------------------------
     def _hk_dataload(self, i: int):
-        return self._batch(i)
+        nb = self._batch(i)
+        return nb if self.hsp is None else rank_pack(nb, self.hsp.rank)
 
     def _hk_a2a(self, i: int, nb):
         # under the cache the id features stay on the host: the unique
@@ -429,6 +501,8 @@ class GREngine:
 
     def _hk_dense_bwd(self, i: int, art):
         full = self._arts[i]
+        # over a sharded table: the loss and the dense grads of all ranks
+        full["dout"] = self.stages.dense_reduce(full["dout"])
         loss = float(full["dout"].loss)   # realise the enqueued fwd+bwd
         tokens = int(np.asarray(full["np"]["offsets"])[:, -1].sum())
         rec = {"step": i, "loss": loss, "tokens": tokens}
@@ -784,7 +858,16 @@ class GREngine:
         cache's streamed view); its host copy is complete when this
         returns. A torn-save injection site for this step crashes the write
         as a real mid-save failure would (wreckage on disk, then the run
-        fails): recovery must fall back to the previous intact step."""
+        fails): recovery must fall back to the previous intact step. Over a
+        sharded table every rank takes part in a synchronous
+        :func:`~repro_torch.training.checkpoint.save_sharded` (no torn-save
+        injection there)."""
+        if self.hsp is not None:
+            t0 = time.perf_counter()
+            CKPT.save_sharded(ckpt_dir, step_num, state, self.hsp,
+                              keep_last_n=keep_last_n, registry=self._mx)
+            self.snapshots.append((step_num, time.perf_counter() - t0, 0))
+            return
         spec = (self._injector.take(R.SAVE_SITE, step_num)
                 if self._injector else None)
         torn = spec is not None and spec.kind == "torn_save"
@@ -858,6 +941,14 @@ class GREngine:
         streams every leaf), the anchor while it lives, and a cache's host
         store (held already). It raises :class:`MemoryError` if the host
         does not.
+
+        Over a sharded table (``hsp``) the saves are every rank's
+        synchronous :func:`~repro_torch.training.checkpoint.save_sharded`,
+        there is no anchor and no host-memory count (a rank's save holds a
+        piece at a time), and any failure ends the run on this rank: its
+        peers' collectives fail within the mesh's timeout, and the elastic
+        supervisor restarts the world from the newest intact checkpoint
+        (:class:`~repro_torch.training.elastic.ElasticRunner`).
         """
         pol = policy if policy is not None else R.FaultPolicy()
         prev_pol, prev_inj = self._policy, self._injector
@@ -880,11 +971,14 @@ class GREngine:
         # hold one: a save removes old steps only after a newer one is
         # complete. For the same reason the anchor is dropped once this
         # run's first save has been written.
-        keep_anchor = not any(s >= base0 for s in CKPT.intact_steps(ckpt_dir))
-        self._check_host_memory(fetch(base0), keep_anchor)
+        sharded = self.hsp is not None
+        keep_anchor = not sharded and not any(
+            s >= base0 for s in CKPT.intact_steps(ckpt_dir))
+        if not sharded:
+            self._check_host_memory(fetch(base0), keep_anchor)
         saver = (CKPT.AsyncCheckpointer(ckpt_dir, keep_last_n=keep_last_n,
                                         registry=self._mx)
-                 if async_save else None)
+                 if async_save and not sharded else None)
         initial = self.full_snapshot() if keep_anchor else None
         saved_sync = []                   # steps a synchronous save wrote
 
@@ -919,7 +1013,7 @@ class GREngine:
                     self.run(steps - base)
                     break
                 except Exception as err:
-                    if isinstance(err, CacheThrash):
+                    if isinstance(err, CacheThrash) or sharded:
                         raise
                     t0 = time.perf_counter()
                     if saver is not None:
@@ -988,6 +1082,25 @@ class GREngine:
                 saver.wait()
         return [records[g] for g in sorted(records)]
 
+
+    def restore_latest(self, ckpt_dir: str, step: Optional[int] = None
+                       ) -> Optional[int]:
+        """Restore the newest intact checkpoint under ``ckpt_dir`` (or
+        ``step``) into the engine's state (uncached); the step restored, or
+        None when the directory holds none. Over a sharded table every rank
+        calls it (:func:`~repro_torch.training.checkpoint.restore_sharded`:
+        each reads its own rows)."""
+        try:
+            if self.hsp is not None:
+                self.state, used = CKPT.restore_sharded(
+                    ckpt_dir, self.state, self.hsp, step=step,
+                    registry=self._mx)
+            else:
+                self.state, used = CKPT.restore_with_step(
+                    ckpt_dir, self.state, step=step, registry=self._mx)
+        except FileNotFoundError:
+            return None
+        return used
 
     # -- reporting ---------------------------------------------------------
     def timeline_report(self) -> Dict[str, Any]:

@@ -196,18 +196,22 @@ class GRStages(NamedTuple):
     sparse_apply(table, p_ids, p_rows) -> table
         The deferred landing of pending pairs (Algorithm 1 line 3); the
         pairs are emb_bwd's, already unique, so it runs no second K6.
+    dense_reduce(dout) -> dout
+        Over a sharded table (``hsp``), the loss and the dense grads summed
+        over all ranks in rank order; the identity otherwise.
     """
     emb_fwd: Callable
     dense_fwd_bwd: Callable
     emb_bwd: Callable
     sparse_apply: Callable
+    dense_reduce: Callable
 
 
 def make_gr_stages(loss_fn: Callable[..., torch.Tensor], *,
                    input_gather: Callable,
                    lookup_fn: Optional[Callable] = None,
                    lr_dense: float = 4e-3, lr_sparse: float = 4e-3,
-                   semi_async: bool = True) -> GRStages:
+                   semi_async: bool = True, hsp=None) -> GRStages:
     """``loss_fn(dense, master, batch, *, x_emb, pos_emb, shadow,
     table_grad_pairs)`` → scalar (``GRBundle.loss`` with its modes bound);
     ``input_gather(master, batch)`` → x (``GRBundle.input_gather``, with
@@ -215,7 +219,15 @@ def make_gr_stages(loss_fn: Callable[..., torch.Tensor], *,
     label rows (None: a plain gather + cast). The port always gathers x as
     its own stage, so the reference's inline stale-table mode has no
     counterpart: in place, the stale master exists only until the pending
-    pairs land."""
+    pairs land.
+
+    ``hsp`` (a :class:`~repro_torch.core.hsp.HSPLookup`, also bound in the
+    loss and as ``lookup_fn``): the table is this rank's shard. emb_bwd
+    hands the batch's unique pairs (global ids) to the sparse gradient
+    exchange and lands the shard's final pairs (shard-relative ids, the
+    τ=1 carry too), then checks that the dense replicas and the shard's
+    data replicas agree; dense_reduce sums the loss and the dense grads
+    over all ranks."""
 
     def emb_fwd(master, batch):
         return input_gather(master, batch) if semi_async else None
@@ -261,26 +273,43 @@ def make_gr_stages(loss_fn: Callable[..., torch.Tensor], *,
 
     def emb_bwd(dense, dense_opt, table: ShadowedTable, dout: GRDenseOut,
                 batch, *, apply_sparse: bool = True):
-        p_ids, p_rows = _table_grad_pairs(dout.table_contribs.pop(),
-                                          table.master.shape[0])
+        vocab = (table.master.shape[0] if hsp is None
+                 else hsp.vocab_of(table.master))
+        p_ids, p_rows = _table_grad_pairs(dout.table_contribs.pop(), vocab)
+        if hsp is not None:
+            p_ids, p_rows = hsp.exchange_grads(p_ids, p_rows, vocab,
+                                               unique=True)
         new_opt = O.adamw_update(dout.grads_dense, dense_opt, dense,
                                  lr=lr_dense, weight_decay=0.0)
         if apply_sparse:
             table = O.adagrad_apply_unique(table, p_ids, p_rows,
                                            lr=lr_sparse)
+        if hsp is not None:
+            hsp.check_replicas(
+                [*(p.detach() for p in dense.parameters()),
+                 *new_opt.mu.values(), *new_opt.nu.values()],
+                [table.master, table.accum])
         return dense, new_opt, table, p_ids, p_rows
 
     def sparse_apply(table: ShadowedTable, p_ids, p_rows):
         return O.adagrad_apply_unique(table, p_ids, p_rows, lr=lr_sparse)
 
-    return GRStages(emb_fwd, dense_fwd_bwd, emb_bwd, sparse_apply)
+    def dense_reduce(dout: GRDenseOut) -> GRDenseOut:
+        if hsp is None:
+            return dout
+        return dout._replace(loss=hsp.reduce_loss(dout.loss),
+                             grads_dense=hsp.reduce_dense(dout.grads_dense))
+
+    return GRStages(emb_fwd, dense_fwd_bwd, emb_bwd, sparse_apply,
+                    dense_reduce)
 
 
 def make_gr_train_step(loss_fn: Callable[..., torch.Tensor], *,
                        input_gather: Callable,
                        lookup_fn: Optional[Callable] = None,
                        lr_dense: float = 4e-3, lr_sparse: float = 4e-3,
-                       semi_async: bool = True, stage_times: bool = False):
+                       semi_async: bool = True, stage_times: bool = False,
+                       hsp=None):
     """train_step(state, batch) → (state, {"loss"}), the flat composition
     of the :func:`make_gr_stages` stages. The dense params, the optimizer
     moments and the table are updated in place; the returned state holds
@@ -290,10 +319,11 @@ def make_gr_train_step(loss_fn: Callable[..., torch.Tensor], *,
     first, then last step's pairs land, then the dense stream runs, and
     this step's unique pairs become the carry. ``stage_times`` adds each
     stage's wall seconds to the metrics (host clock around work that ends
-    in a device synchronise: it costs the overlap of the stages)."""
+    in a device synchronise: it costs the overlap of the stages). ``hsp``:
+    see :func:`make_gr_stages`."""
     st = make_gr_stages(loss_fn, input_gather=input_gather,
                         lookup_fn=lookup_fn, lr_dense=lr_dense,
-                        lr_sparse=lr_sparse, semi_async=semi_async)
+                        lr_sparse=lr_sparse, semi_async=semi_async, hsp=hsp)
 
     def train_step(state: GRTrainState, batch: Batch):
         tbl = state.table
@@ -313,14 +343,14 @@ def make_gr_train_step(loss_fn: Callable[..., torch.Tensor], *,
             x = timed("emb_fwd", st.emb_fwd, tbl.master, batch)
             tbl = timed("sparse_apply", st.sparse_apply, tbl,
                         state.pending_ids, state.pending_rows)
-            dout = timed("dense_fwd_bwd", st.dense_fwd_bwd, state.dense, tbl,
-                         batch, x)
+            dout = st.dense_reduce(timed("dense_fwd_bwd", st.dense_fwd_bwd,
+                                         state.dense, tbl, batch, x))
             dense, opt, tbl, p_ids, p_rows = timed(
                 "emb_bwd", st.emb_bwd, state.dense, state.dense_opt, tbl,
                 dout, batch, apply_sparse=False)
         else:
-            dout = timed("dense_fwd_bwd", st.dense_fwd_bwd, state.dense, tbl,
-                         batch)
+            dout = st.dense_reduce(timed("dense_fwd_bwd", st.dense_fwd_bwd,
+                                         state.dense, tbl, batch))
             dense, opt, tbl, _, _ = timed(
                 "emb_bwd", st.emb_bwd, state.dense, state.dense_opt, tbl,
                 dout, batch, apply_sparse=True)

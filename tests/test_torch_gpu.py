@@ -1368,3 +1368,37 @@ def test_cached_run_resilient_at_full_vocab(cuda):
     import chip_smoke
     out = chip_smoke.check_cached_resilient()
     assert out["hwm_gb"] <= out["limit_gb"]
+
+
+def _card_world(entry, kwargs, shape, tmp_path):
+    import os
+    from repro_torch.launch import mesh as M
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = M.spawn_ranks(f"torch_hsp_ranks:{entry}", kwargs, shape=shape,
+                          run_dir=str(tmp_path), device="cuda",
+                          timeout_s=120, sys_path=[here])
+    rcs = M.wait_ranks(procs, 600)
+    assert rcs == [0] * len(procs), M.rank_logs(str(tmp_path), len(procs))
+    return M.rank_results(str(tmp_path), len(procs))
+
+
+def test_hsp_lookup_two_ranks_on_card(cuda, tmp_path):
+    """Two ranks sharing the card (gloo between them): the HSP lookup's
+    forward bit for bit a torch gather of the full table (fp32 and bf16),
+    its backward within 1e-5 of the largest grad of ``index_add_`` (fp32
+    sums in another order), on the card (K7 at the owners, K6 in the
+    exchange)."""
+    res = _card_world("card_lookup", dict(V=1 << 16, d=1024, n=8192,
+                                          seed=3), (1, 2), tmp_path)
+    for r in res:
+        assert r["fwd"] and r["bf16"] and r["on"].startswith("cuda"), r
+        assert r["grad_rel"] < 1e-5, r
+
+
+def test_hsp_world_of_one_equals_single_process_on_card(cuda, tmp_path):
+    """A world of one rank on the card: ``GREngine`` over the sharded
+    table (hstu-large widths, 2 layers, vocab 2^18) bit for bit the
+    single-process engine, 3 tau=1 steps."""
+    r, = _card_world("card_world1", dict(V=1 << 18, layers=2, upd=2,
+                                         steps=3), (1, 1), tmp_path)
+    assert r["bitwise"], r

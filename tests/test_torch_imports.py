@@ -3,7 +3,9 @@ no msgpack (every module, serving and training alike, HSTU, FuXi and
 SASRec, the streaming engine, the fused, baseline and segmented negative
 paths, the kernel lookup and the dense attention schedule, telemetry,
 checkpoints and the resilient engine, the embedding cache and its
-histograms, runs with all three blocked), and
+histograms, the sparse parallelism over a process-group mesh, its
+sharded checkpoints, the semi-async analysis and the elastic runner, runs
+with all three blocked), and
 its entry points run on the card unless the caller asks for the CPU."""
 import os
 import re
@@ -180,6 +182,31 @@ ce = GREngine(b, lambda i: first[i % 2], cache=cache,
 assert all(np.isfinite(r["loss"]) and "cache" in r for r in ce.run(3))
 assert ce.full_snapshot().shapes[ce.full_snapshot().paths.index(
     "table.master")] == (cfg.vocab_size, cfg.d_model)
+assert not any(m == "jax" or m.startswith(("jax.", "repro.", "msgpack"))
+               for m in sys.modules if sys.modules[m] is not None)
+import repro_torch.core.hsp, repro_torch.core.semi_async
+import repro_torch.launch.mesh, repro_torch.training.elastic
+from repro_torch.core.semi_async import collision_alpha
+from repro_torch.training.elastic import (build_gr_engine, rebuild_mesh,
+                                          viable_mesh_shape)
+assert viable_mesh_shape(12, 4) == (3, 4)
+assert 0.0 <= collision_alpha(np.stack([b["neg_ids"].reshape(-1)
+                                        for b in first])) <= 1.0
+with tempfile.TemporaryDirectory() as d:
+    mesh = rebuild_mesh(1, 2, rank=0, store_dir=d, timeout_s=30,
+                        device="cpu")
+    assert mesh.shape == (1, 1)
+    he = build_gr_engine(mesh, arch="hstu-tiny", reduce=True,
+                         overrides=dict(vocab_size=300, max_seq_len=40,
+                                        num_negatives=4),
+                         data=dict(users=12, mean_len=20, max_len=40,
+                                   users_per_device=2, max_seq_len=40,
+                                   seed=0),
+                         loss_kwargs=dict(neg_segment=32))
+    hr = he.run_resilient(2, ckpt_dir=d + "/hsp", ckpt_every=1)
+    assert len(hr) == 2 and all(np.isfinite(r["loss"]) for r in hr)
+    assert he.restore_latest(d + "/hsp") == 2
+    mesh.close()
 assert not any(m == "jax" or m.startswith(("jax.", "repro.", "msgpack"))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.encoded_batches)
