@@ -39,6 +39,25 @@ one card, so each phase frees its own.
                segment timed on the profiler's device clock) and K7 (the
                lookup's row gather, 8192 ids with -1s from the fp32 master
                of 2^22 rows to bf16), beside their library calls.
+  3b. acausal — the non-causal mask (every key of the row, the weights
+               over the row length): make_attn_fn(causal=False) forward
+               and backward through autograd at full width on the training
+               pack (q/k/v (8192, 8, 128) bf16), both time modes, both
+               schedules, launch counts zeroed before and read after; then
+               the acausal K1-fwd, K2 and K8 against the float64 plain
+               version at the long-tail and training packs, bf16 and fp32,
+               run to run bitwise, K8 bitwise K1-fwd/K2, times beside
+               bounds and beside the causal kernels on the same inputs.
+  3c. offload — the asynchronous negative offload: T=8192, R=128, d 1024
+               fp16 rows gathered from an fp16 shadow of 2^22 rows, in
+               pinned host memory (offload_negatives), streamed to K9 a
+               128-token segment at a time (neg_logits_offloaded), forward
+               and backward, launch counts zeroed before and read after;
+               logits, do and dn bitwise K9 on the same segments held on the
+               card; each direction's wall, the link's own GB/s (a plain
+               pinned copy), K9's summed time, the hidden share, and the
+               peak device memory against the same pass with the rows on
+               the card.
   4. serve   — RecallEngine on full-width hstu-large (vocab 2^22, fp32
                master + fp16 shadow on the card, 16 layers, bf16) serves a
                cold, a pure-hit and an incremental round; the kernels'
@@ -300,15 +319,17 @@ def phase_build():
         for ln in lines:
             say(f"[build]   {ln}")
     # K1-fwd's and K2's bf16 kernels run their products on the tensor
-    # cores (HMMA in their SASS; 16 K1-fwd kernels: 4 head dims x 2 time
-    # modes x the cold and the append launch, 16 K2 kernels: two per
-    # pair), their fp32 kernels keep the FMA path (no HMMA); ptxas spills
-    # none of K1-fwd's bf16 kernels
+    # cores (HMMA in their SASS; 24 K1-fwd kernels: 4 head dims x 2 time
+    # modes x the cold causal, the cold acausal and the append launch; 16
+    # K2 kernels in each mask's library: two per (head dim, time mode)),
+    # their fp32 kernels keep the FMA path (no HMMA); ptxas spills none of
+    # K1-fwd's bf16 kernels
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    k2_tags = ("attn_bwd_kv_kernelIf", "attn_bwd_q_kernelIf")
     for src, n_tc, fp32_tags in (
-            ("jagged_attn_fwd", 16, ("attn_fwd_kernelIf",)),
-            ("jagged_attn_bwd", 16, ("attn_bwd_kv_kernelIf",
-                                     "attn_bwd_q_kernelIf"))):
+            ("jagged_attn_fwd", 24, ("attn_fwd_kernelIf",)),
+            ("jagged_attn_bwd", 16, k2_tags),
+            ("jagged_attn_bwd_acausal", 16, k2_tags)):
         hmma = _sass_hmma_counts(_build.library_path(src), cuobjdump)
         tc = {f: n for f, n in hmma.items() if "_tc_kernel" in f}
         fp32 = {f: n for f, n in hmma.items()
@@ -326,7 +347,7 @@ def phase_build():
         f"{sorted(u['registers'] for u in tc.values())}, spill stores "
         f"{sorted(u['spill_stores'] for u in tc.values())}, spill loads "
         f"{sorted(u['spill_loads'] for u in tc.values())}")
-    check(len(tc) == 16, f"ptxas reported {len(tc)} bf16 K1-fwd kernels")
+    check(len(tc) == 24, f"ptxas reported {len(tc)} bf16 K1-fwd kernels")
     spills = sorted(f for f, u in tc.items()
                     if u["spill_stores"] or u["spill_loads"])
     check(not spills, f"bf16 K1-fwd kernels spill: {spills}")
@@ -448,6 +469,25 @@ def _attn_bound(plan, G, capp, H, D, itemsize, dtype_name, mode):
             + plan.meta_i32.numel() * 4 + plan.meta_f32.numel() * 4
             + plan.q_wl.numel() * 4 + plan.q_rowptr.numel() * 4
             + (256 + (3 if mode == "functional" else 32)) * H * 4)
+    bound_ms, bound_by, parts = _bound(flops, byts,
+                                       _attn_mufu(n_live, H, mode),
+                                       dtype_name)
+    return bound_ms, bound_by, n_live, flops, byts, parts
+
+
+def _attn_bwd_bound(plan, G, capp, H, D, itemsize, dtype_name, mode, ntb):
+    """K2: the work needs S, dP, dV, dK and dQ, 2·b²·D each per live pair
+    and head, and each entry's bias and SiLU' once (the kernel's
+    recomputation of S, dP and the bias in its second kernel is its own
+    choice and not counted); q, k, v, dy read and dq, dk, dv written once,
+    the plan and both tables and their grads."""
+    n_live = int(plan.n_live.sum())
+    flops = 10 * 128 * 128 * D * H * n_live
+    byts = (7 * G * capp * H * D * itemsize          # q k v dy in, 3 out
+            + plan.meta_i32.numel() * 4 + plan.meta_f32.numel() * 4
+            + (plan.q_wl.numel() + plan.kv_wl.numel()
+               + plan.q_rowptr.numel() + plan.kv_rowptr.numel()) * 4
+            + 2 * (256 + ntb) * H * 4)
     bound_ms, bound_by, parts = _bound(flops, byts,
                                        _attn_mufu(n_live, H, mode),
                                        dtype_name)
@@ -644,10 +684,13 @@ def phase_kernels():
     return results
 
 
-def _plain_core_f64(q, k, v, pt, tt, plan, *, schedule="worklist", **kw):
+def _plain_core_f64(q, k, v, pt, tt, plan, *, schedule="worklist",
+                    causal=True, **kw):
     """K1-fwd's plain version in float64 (an ``ops.run_attention`` core)."""
     import torch
+    from repro_torch.kernels.jagged_attention import ops
     from repro_torch.kernels.jagged_attention.ref import attention_fwd_plain
+    ops.check_causal(plan, causal)
     return attention_fwd_plain(q, k, v, pt, tt, plan,
                                acc_dtype=torch.float64, **kw)
 
@@ -713,19 +756,8 @@ def _check_attn_bwd(q, k, v, rab, plan, pack_name, dname, gen, mode,
     ms = timed_ms(lambda: ops._launch_bwd(*args, **kw), 10)
     plain_ms = timed_ms(lambda: attention_bwd_plain(*args, **kw), 2,
                         warmup=1)
-    # the work needs S, dP, dV, dK and dQ, 2·b²·D each per live pair and
-    # head, and each entry's bias and SiLU' once; the kernel's
-    # recomputation of S, dP and the bias in its second kernel is its own
-    # choice and not counted
-    n_live = int(plan.n_live.sum())
-    flops = 10 * 128 * 128 * D * H * n_live
-    ntb = tt.shape[0]
-    byts = (7 * G * cap * H * D * q.element_size()   # q k v dy in, 3 out
-            + p.meta_i32.numel() * 4 + p.meta_f32.numel() * 4
-            + (p.q_wl.numel() + p.kv_wl.numel() + p.q_rowptr.numel()
-               + p.kv_rowptr.numel()) * 4 + 2 * (256 + ntb) * H * 4)
-    bound_ms, bound_by, parts = _bound(flops, byts,
-                                       _attn_mufu(n_live, H, mode), dname)
+    bound_ms, bound_by, n_live, flops, byts, parts = _attn_bwd_bound(
+        p, G, cap, H, D, q.element_size(), dname, mode, tt.shape[0])
     err = max(e["max_abs"] for e in errs.values())
     unit = "tensor cores" if dname == "bfloat16" else "fp32 FMA"
     say(f"[kernels] {bname} {pack_name} {dname}: "
@@ -1352,6 +1384,385 @@ def phase_gather_kernel():
     torch.cuda.empty_cache()
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
+
+
+# --------------------------------------------------------------------------
+# phase 3b: the non-causal mask (acausal K1-fwd, K2, K8)
+# --------------------------------------------------------------------------
+
+ACAUSAL_PACKS = ("long_tail", "train_1x4x2048")
+
+
+def phase_acausal():
+    """The non-causal mask (``causal=False``: a query sees every key of its
+    row, its weights divided by the row length). First the path, at full
+    width with the launch counts zeroed just before and read just after:
+    ``make_attn_fn(causal=False)`` forward and backward through autograd
+    on the engine's training pack (q/k/v (8192, 8, 128) bf16, 1 x 4 x 2048
+    rows), HSTU's bucket table (pos 256 / time 32) and FuXi's functional
+    (3, H), the work-list and the dense schedule. Then each acausal
+    instantiation of K1-fwd, K2 and K8 at the long-tail and the training
+    pack, bf16 and fp32, against the float64 plain version (bf16 outputs and
+    q/k/v grads per (token, head) by relative L2, fp32 ones and every table
+    grad by max abs over the largest value), bit-identical run to run, K8
+    bit for bit K1-fwd/K2 on the plan; each with its time, bound, TFLOP/s
+    and the causal kernel's time on the same inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import RABConfig
+    from repro_torch.kernels.jagged_attention import make_attn_fn, ops
+    from repro_torch.kernels.jagged_attention.ref import (attention_bwd_plain,
+                                                          attention_fwd_plain,
+                                                          max_row_rel_err)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 24)
+    cap, H, D, max_len = 8192, 8, 128, 2048
+    rab_cfg = RABConfig()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    rab = {"pos_table": torch.randn(256, H, device=dev, generator=gen) * .5,
+           "time_table": torch.randn(32, H, device=dev, generator=gen) * .5}
+    rabs = {"bucket": rab, "functional": _functional_rab(rab, H, dev)}
+    packs = {n: tuple(torch.from_numpy(a).to(dev) for a in v)
+             for n, v in _packs(rng, cap, max_len).items()
+             if n in ACAUSAL_PACKS}
+    # the path: full width, launches counted
+    o_t, ts_t = packs["train_1x4x2048"]
+    qkv = [torch.randn(1, cap, H, D, device=dev, generator=gen)
+           .to(torch.bfloat16) for _ in range(3)]
+    dy = torch.randn(1, cap, H, D, device=dev, generator=gen).to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _zero_counts()
+    for mode in ("bucket", "functional"):
+        for sched in ops.SCHEDULES:
+            fn = make_attn_fn(schedule=sched, max_row_len=max_len,
+                              causal=False)
+            leaves = [t.clone().requires_grad_() for t in qkv]
+            tables = {n: t.clone().requires_grad_()
+                      for n, t in rabs[mode].items()}
+            out = fn(*leaves, o_t, ts_t, tables, rab_cfg, time_mode=mode,
+                     plan=fn.make_plan(o_t, ts_t, cap))
+            out.backward(dy)
+            check(all(torch.isfinite(t.grad.float()).all().item()
+                      for t in leaves + list(tables.values())),
+                  f"acausal {mode} {sched}: a non-finite grad")
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    path_s = time.perf_counter() - t0
+    launches = {n: c for n, c in counts.items() if n.startswith("attn_")}
+    want = {ops.launch_counter(kind, dense=dense, functional=func): 1
+            for kind in ("fwd", "bwd") for dense in (False, True)
+            for func in (False, True)}
+    say(f"[acausal] the path (make_attn_fn(causal=False), forward and "
+        f"backward through autograd, training pack, both time modes and "
+        f"schedules): {path_s:.2f} s; launches {launches}")
+    check({n: c for n, c in launches.items() if c} == want,
+          f"acausal path launches {launches}, expected {want}")
+    del qkv, dy, out, leaves, tables
+    results = {}
+    for pack_name, (o_t, ts_t) in packs.items():
+        G = o_t.shape[0]
+        plan = ops._as_batched(ops.build_attn_plan(
+            o_t, ts_t, cap, block=128, max_row_len=max_len, causal=False))
+        cplan = ops._as_batched(ops.build_attn_plan(
+            o_t, ts_t, cap, block=128, max_row_len=max_len))
+        n_a, n_c = int(plan.n_live.sum()), int(cplan.n_live.sum())
+        say(f"[acausal] pack {pack_name}: G={G} live block pairs {n_a} "
+            f"acausal against {n_c} causal ({n_a / n_c:.3f}x)")
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            q, k, v, dy = (torch.randn(G, cap, H, D, device=dev,
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+            dy = ops._masked(plan.meta_i32, dy).contiguous()
+            for mode in ("bucket", "functional"):
+                func = mode == "functional"
+                pt = rabs[mode]["pos_table"]
+                tt = (ops.functional_time_table(rabs[mode]) if func
+                      else rabs[mode]["time_table"])
+                kw = dict(scale=D ** -0.5,
+                          tb_denom=ops.time_bucket_denom(
+                              rab_cfg.time_bucket_scale),
+                          use_pos=True, use_time=True, time_functional=func)
+                fargs = (q, k, v, pt, tt)
+                bargs = (q, k, v, dy, pt, tt)
+                out = ops._launch_fwd(*fargs, plan, **kw)
+                same = torch.equal(out, ops._launch_fwd(*fargs, plan, **kw))
+                dense_same = torch.equal(
+                    out, ops._launch_fwd(*fargs, plan, dense=True, **kw))
+                got = ops._launch_bwd(*bargs, plan, **kw)
+                same &= all(torch.equal(a, b) for a, b in zip(
+                    got, ops._launch_bwd(*bargs, plan, **kw)))
+                dense_same &= all(torch.equal(a, b) for a, b in zip(
+                    got, ops._launch_bwd(*bargs, plan, dense=True, **kw)))
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                plain = attention_fwd_plain(*fargs, plan,
+                                            acc_dtype=torch.float64, **kw)
+                torch.cuda.synchronize()
+                plain_fwd_ms = (time.perf_counter() - t) * 1e3
+                t = time.perf_counter()
+                want_b = attention_bwd_plain(*bargs, plan,
+                                             acc_dtype=torch.float64, **kw)
+                torch.cuda.synchronize()
+                plain_bwd_ms = (time.perf_counter() - t) * 1e3
+                out_m, plain_m = (ops._masked(plan.meta_i32, x)
+                                  for x in (out, plain))
+                errs = {"out": (out_m, plain_m)}
+                errs.update(zip(("dq", "dk", "dv", "dpt",
+                                 "d(amp,sigma,rho)" if func else "dtt"),
+                                ((ops._masked(plan.meta_i32, a)
+                                  if a.dim() == 4 else a, b)
+                                 for a, b in zip(got, want_b))))
+                worst = {}
+                for name, (a, b) in errs.items():
+                    check(torch.isfinite(a.float()).all().item(),
+                          f"acausal {name} non-finite")
+                    if a.dim() == 4 and dtype == torch.bfloat16:
+                        worst[name] = ("row_rel", max_row_rel_err(a, b),
+                                       REL_TOL_BF16)
+                    else:
+                        worst[name] = ("rel_to_max", _rel_to_max(a, b),
+                                       GRAD_TOL_FP32)
+                del plain, want_b, errs, out_m, plain_m
+                ms = {}
+                for kname, fn_, it in (
+                        ("fwd", lambda: ops._launch_fwd(*fargs, plan, **kw),
+                         10),
+                        ("fwd_dense", lambda: ops._launch_fwd(
+                            *fargs, plan, dense=True, **kw), 10),
+                        ("fwd_causal", lambda: ops._launch_fwd(
+                            *fargs, cplan, **kw), 10),
+                        ("bwd", lambda: ops._launch_bwd(*bargs, plan, **kw),
+                         5),
+                        ("bwd_dense", lambda: ops._launch_bwd(
+                            *bargs, plan, dense=True, **kw), 5),
+                        ("bwd_causal", lambda: ops._launch_bwd(
+                            *bargs, cplan, **kw), 5)):
+                    ms[kname] = timed_ms(fn_, it)
+                fb = _attn_bound(plan, G, cap, H, D, q.element_size(), dname,
+                                 mode)
+                bb = _attn_bwd_bound(plan, G, cap, H, D, q.element_size(),
+                                     dname, mode, tt.shape[0])
+                suffix = "_functional" if func else ""
+                for kind, bound, pms in (("fwd", fb, plain_fwd_ms),
+                                         ("bwd", bb, plain_bwd_ms)):
+                    bound_ms, bound_by, _, flops, byts, parts = bound
+                    err = max(worst[n][1] for n in worst
+                              if (n == "out") == (kind == "fwd"))
+                    for dense in (False, True):
+                        t_ms = ms[kind + ("_dense" if dense else "")]
+                        results[(f"attn_{kind}{'_dense' if dense else ''}"
+                                 f"{suffix}", pack_name, dname)] = dict(
+                            max_abs_err=err, ms=t_ms, plain_ms=pms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            tflops=flops / t_ms / 1e9,
+                            causal_ms=ms[f"{kind}_causal"])
+                    say(f"[acausal] attn_{kind}{suffix} {pack_name} {dname}:"
+                        f" kernel {ms[kind]:.4f} ms, dense (K8) "
+                        f"{ms[kind + '_dense']:.4f} ms, causal on the same "
+                        f"inputs {ms[kind + '_causal']:.4f} ms "
+                        f"({ms[kind] / ms[kind + '_causal']:.3f}x); plain "
+                        f"(float64) {pms:.1f} ms; bound {bound_ms:.5f} ms by "
+                        f"{bound_by} (operations {parts['operations']:.5f}, "
+                        f"bytes {parts['bytes']:.5f}, special functions "
+                        f"{parts['special functions']:.5f}; "
+                        f"{flops / 1e9:.2f} GFLOP, {byts / 1e6:.2f} MB) -> "
+                        f"{bound_ms / ms[kind]:.4f} of bound; "
+                        f"{flops / ms[kind] / 1e9:.1f} TFLOP/s")
+                say(f"[acausal] {mode} {pack_name} {dname} against the "
+                    f"float64 plain version: " + "; ".join(
+                        f"{n} {w[0]} {w[1]:.3e}" for n, w in worst.items())
+                    + f"; bit-identical rerun {same}; K8 = K1-fwd/K2 "
+                    f"{dense_same}")
+                check(same, f"acausal {mode} {pack_name} {dname} differs "
+                      f"between two runs")
+                check(dense_same, f"acausal K8 {mode} {pack_name} {dname} "
+                      f"differs from K1-fwd/K2")
+                for n, (kind_, val, tol) in worst.items():
+                    check(val <= tol, f"acausal {mode} {pack_name} {dname} "
+                          f"{n}: {kind_} {val} > {tol}")
+            del q, k, v, dy, out, got
+    torch.cuda.empty_cache()
+    return {"launches": launches, "results": results, "path_s": path_s}
+
+
+# --------------------------------------------------------------------------
+# phase 3c: the asynchronous negative offload (K9 over streamed host rows)
+# --------------------------------------------------------------------------
+
+OFFLOAD_SHAPE = dict(T=8192, R=128, D=1024, V=2 ** 22, segment=128)
+# the offloaded pass holds two segments of rows and two of dn, the logits,
+# do and o's grad: ~0.19 GB at OFFLOAD_SHAPE; the (T, R, D) rows are 2.15
+OFFLOAD_PEAK_GB = 0.25
+ONCARD_PEAK_GB = 2.1
+
+
+def phase_offload():
+    """The asynchronous negative offload at the engine's shape (T = 8192
+    tokens, R = 128, d 1024): fp16 rows gathered from an fp16 shadow of
+    2^22 x 1024 drawn from seed 0, moved to pinned host memory by
+    ``offload_negatives``, and ``neg_logits_offloaded`` forward and
+    backward through autograd (o bf16, a 128-token segment a launch, the
+    launch counts zeroed before and read after its two passes, the first
+    of which also pins the grad's 2.15 GB). The logits, do (in o's dtype)
+    and dn are held bit for bit to K9 launched on the same segments of the
+    rows held on the card; the rows and their grad must be pinned, the
+    offloaded pass's peak device memory above its inputs below
+    OFFLOAD_PEAK_GB and the same pass with the rows on the card (the
+    baseline path) at least ONCARD_PEAK_GB above. Printed: each direction's
+    wall, the link's own rate (a plain pinned copy of the same bytes each
+    way), K9's summed device time per direction (profiler), and the hidden
+    share 1 - wall / (copy time + K9 time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.negative_sampling import (neg_logits_baseline,
+                                                    neg_logits_offloaded,
+                                                    offload_negatives)
+    from repro_torch.kernels import neg_logits as NL
+    dev = torch.device("cuda")
+    T, R, D, V, seg = (OFFLOAD_SHAPE[k] for k in
+                       ("T", "R", "D", "V", "segment"))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shadow = torch.empty((V, D), dtype=torch.float16, device=dev)
+    chunk = 1 << 20
+    for lo in range(0, V, chunk):
+        shadow[lo:lo + chunk] = torch.randn(chunk, D, device=dev,
+                                            generator=gen) * 0.02
+    ids = torch.randint(0, V, (T * R,), device=dev, generator=gen)
+    rows = shadow[ids].view(T, R, D)
+    del shadow, ids
+    o = torch.randn(T, D, device=dev, generator=gen).to(torch.bfloat16)
+    g = torch.randn(T, R, device=dev, generator=gen) * 1e-4
+    nbytes = rows.numel() * rows.element_size()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    host = offload_negatives(rows)
+    offload_s = time.perf_counter() - t
+    check(host.is_pinned() and host.dtype == rows.dtype
+          and host.shape == rows.shape, "offload_negatives did not return "
+          "pinned host rows of the card rows' dtype and shape")
+    # the link's own rate: a plain pinned copy of the same bytes, each way
+    # (the card → host copy writes the same values back)
+    buf = torch.empty_like(rows)
+    h2d_ms = timed_ms(lambda: buf.copy_(host, non_blocking=True), 3,
+                      warmup=1)
+    d2h_ms = timed_ms(lambda: host.copy_(buf, non_blocking=True), 3,
+                      warmup=1)
+    check(torch.equal(buf, rows), "the pinned rows differ from the card's")
+    del buf
+    # K9 on the same segments of the card rows: the bitwise yardstick, and
+    # K9's summed device time per direction
+    ref_lg = torch.empty((T, R), dtype=torch.float32, device=dev)
+    ref_do = torch.empty((T, D), dtype=torch.float32, device=dev)
+    ref_dn = torch.empty_like(rows)
+    k9 = {}
+    for kind in ("fwd", "bwd"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for lo in range(0, T, seg):
+                s = slice(lo, lo + seg)
+                if kind == "fwd":
+                    ref_lg[s] = NL.neg_logits_fwd(o[s], rows[s], inv_tau=1.0)
+                else:
+                    ref_do[s], _ = NL.neg_logits_bwd(
+                        o[s], rows[s], g[s], inv_tau=1.0, dn=ref_dn[s])
+            torch.cuda.synchronize()
+        k9[kind] = sum(ms for ms, _, key in _device_rows(prof)
+                       if f"neg_logits_{kind}_kernel" in key)
+    # the same pass with the rows on the card (the baseline path, K9 over
+    # all T): its peak above the inputs holds the (T, R, D) grad
+    oo = o.clone().requires_grad_()
+    rl = rows.clone().requires_grad_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    lg = neg_logits_baseline(oo, rl)
+    torch.cuda.synchronize()
+    card_fwd = time.perf_counter() - t
+    t = time.perf_counter()
+    lg.backward(g)
+    torch.cuda.synchronize()
+    card_bwd = time.perf_counter() - t
+    card_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del lg, oo, rl
+    torch.cuda.empty_cache()
+    # the offloaded path: two passes, launches counted over both
+    oo = o.clone().requires_grad_()
+    hl = host.requires_grad_()
+    passes = []
+    _zero_counts()
+    for rep in range(2):
+        oo.grad = hl.grad = None
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        lg = neg_logits_offloaded(oo, hl, segment=seg)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t
+        t = time.perf_counter()
+        lg.backward(g)
+        torch.cuda.synchronize()
+        t_bwd = time.perf_counter() - t
+        passes.append(dict(
+            fwd_s=t_fwd, bwd_s=t_bwd,
+            peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9))
+        if rep == 0:
+            lg = None
+    launches = {n: c for n, c in _read_counts().items() if c}
+    n_seg = T // seg
+    check(launches == {"neg_logits_fwd": 2 * n_seg,
+                       "neg_logits_bwd": 2 * n_seg},
+          f"the offloaded passes launched {launches}, not K9-fwd and "
+          f"K9-bwd {2 * n_seg} times each")
+    check(hl.grad.is_pinned() and hl.grad.dtype == rows.dtype,
+          "the host rows' grad is not pinned in their dtype")
+    same_lg = torch.equal(lg, ref_lg)
+    same_do = torch.equal(oo.grad, ref_do.to(o.dtype))
+    same_dn = all(torch.equal(hl.grad[s].to(dev), ref_dn[s])
+                  for s in (slice(lo, lo + seg) for lo in range(0, T, seg)))
+    fwd_s, bwd_s = passes[1]["fwd_s"], passes[1]["bwd_s"]
+    hidden_fwd = 1 - fwd_s * 1e3 / (h2d_ms + k9["fwd"])
+    hidden_bwd = 1 - bwd_s * 1e3 / (h2d_ms + d2h_ms + k9["bwd"])
+    peak = max(p["peak_gb"] for p in passes)
+    say(f"[offload] T={T} R={R} d={D} fp16 rows ({nbytes / 1e9:.3f} GB) "
+        f"from an fp16 shadow of {V} x {D}; offload_negatives "
+        f"{offload_s:.3f} s; link (plain pinned copy of the same bytes) "
+        f"host->card {h2d_ms:.2f} ms = {nbytes / h2d_ms / 1e6:.2f} GB/s, "
+        f"card->host {d2h_ms:.2f} ms = {nbytes / d2h_ms / 1e6:.2f} GB/s; "
+        f"K9 summed over the {n_seg} segments (profiler): fwd "
+        f"{k9['fwd']:.3f} ms, bwd {k9['bwd']:.3f} ms")
+    for i, p in enumerate(passes):
+        pins = "" if i else " (pins the grad)"
+        say(f"[offload] offloaded pass {i}{pins}: forward "
+            f"{p['fwd_s'] * 1e3:.2f} ms, backward {p['bwd_s'] * 1e3:.2f} "
+            f"ms, peak above the inputs {p['peak_gb']:.4f} GB")
+    say(f"[offload] hidden share 1 - wall / (copy + K9): forward "
+        f"{hidden_fwd:.4f} (wall {fwd_s * 1e3:.2f} ms against "
+        f"{h2d_ms:.2f} + {k9['fwd']:.3f}), backward {hidden_bwd:.4f} (wall "
+        f"{bwd_s * 1e3:.2f} ms against {h2d_ms:.2f} + {d2h_ms:.2f} + "
+        f"{k9['bwd']:.3f}); rows on the card (baseline, K9 over all T): "
+        f"forward {card_fwd * 1e3:.2f} ms, backward {card_bwd * 1e3:.2f} ms,"
+        f" peak above the inputs {card_peak:.4f} GB; offloaded peak "
+        f"{peak:.4f} GB")
+    say(f"[offload] bitwise against K9 on the card's segments: logits "
+        f"{same_lg}, do {same_do}, dn {same_dn}; launches {launches}")
+    check(same_lg and same_do and same_dn, "the offloaded path differs "
+          "from K9 on the card's segments")
+    check(peak < OFFLOAD_PEAK_GB, f"the offloaded pass's peak {peak:.4f} GB "
+          f"above its inputs is not below {OFFLOAD_PEAK_GB}")
+    check(card_peak >= ONCARD_PEAK_GB, f"the on-card pass's peak "
+          f"{card_peak:.4f} GB is below {ONCARD_PEAK_GB}")
+    del rows, host, hl, oo, lg, ref_lg, ref_do, ref_dn, o, g
+    torch.cuda.empty_cache()
+    return dict(launches=launches, h2d_gb_s=nbytes / h2d_ms / 1e6,
+                d2h_gb_s=nbytes / d2h_ms / 1e6, k9_fwd_ms=k9["fwd"],
+                k9_bwd_ms=k9["bwd"], passes=passes, hidden_fwd=hidden_fwd,
+                hidden_bwd=hidden_bwd, peak_gb=peak, card_peak_gb=card_peak,
+                card_fwd_s=card_fwd, card_bwd_s=card_bwd,
+                offload_s=offload_s)
 
 
 # --------------------------------------------------------------------------
@@ -4564,6 +4975,8 @@ def main():
         ws = run("wscatter_kernel", phase_wscatter_kernel)
         k9 = run("neg_logits_kernel", phase_neg_logits_kernel)
         k7 = run("gather_kernel", phase_gather_kernel)
+        acausal = run("acausal", phase_acausal)
+        offload = run("offload", phase_offload)
         serve = run("serve", phase_serve, "hstu-large", "serve")
         serve_fuxi = run("serve_fuxi", phase_serve, "fuxi-large",
                          "serve_fuxi")
@@ -4595,9 +5008,9 @@ def main():
     for r in per_step:
         for k, v in r["launches"].items():
             train_launches[k] = train_launches.get(k, 0) + v
-    say(f"[result] total {time.perf_counter() - t_start:.1f} s; phases "
-        f"{times}; rounds {json.dumps(serve[1])}; FuXi rounds "
-        f"{json.dumps(serve_fuxi[1])}")
+    say(f"[result] total {time.perf_counter() - t_start:.1f} s on "
+        f"{smi_line}; phases {times}; rounds {json.dumps(serve[1])}; FuXi "
+        f"rounds {json.dumps(serve_fuxi[1])}")
     say(f"[result] stream {json.dumps({k: v for k, v in stream.items() if k != 'stats'})}")
     say(f"[result] train steps {json.dumps(per_step)}")
     say(f"[result] engine {json.dumps([alg, flat, engine_prof])}")
@@ -4609,6 +5022,7 @@ def main():
     say(f"[result] hsp {json.dumps(hsp)}")
     say(f"[result] hsp_mesh {json.dumps(hsp_mesh)}")
     say(f"[result] elastic {json.dumps(elastic)}")
+    say(f"[result] offload {json.dumps(offload)}")
 
     def rank_launches(ranks, arms, kname):
         return sum(r[arm][sched]["launches"][kname] for r in ranks
@@ -4679,7 +5093,9 @@ def main():
                    "hsp": rank_launches(hsp["ranks"], ("hsp",), kname),
                    "hsp_mesh": rank_launches(hsp_mesh["ranks"],
                                              ("hsp", "global"), kname),
-                   "parity": parity_launches.get(kname, 0)}
+                   "parity": parity_launches.get(kname, 0),
+                   "acausal": acausal["launches"].get(kname, 0),
+                   "offload": offload["launches"].get(kname, 0)}
         if sum(by_path.values()) == 0:
             say(f"FAIL: {kname} was launched on no path")
             return 1
@@ -4709,6 +5125,24 @@ def main():
         train_pack = attn.get((kname, "train_1x4x2048", "bfloat16"))
         if train_pack is not None:
             kernels[-1]["train_pack_ms"] = train_pack["ms"]
+        # the acausal instantiation (causal=False) at the long-tail pack,
+        # bf16, and its time at the training pack and in fp32
+        ac = acausal["results"].get((kname, "long_tail", "bfloat16"))
+        if ac is not None:
+            kernels[-1]["acausal"] = dict(
+                {k: ac[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "max_abs_err", "tflops", "causal_ms")},
+                train_pack_ms=acausal["results"][
+                    (kname, "train_1x4x2048", "bfloat16")]["ms"],
+                fp32_ms=acausal["results"][
+                    (kname, "long_tail", "float32")]["ms"])
+        # K9 over rows streamed from pinned host memory a segment at a time
+        if kname.startswith("neg_logits_"):
+            kind = kname.rsplit("_", 1)[1]
+            kernels[-1]["offload"] = {
+                "k9_summed_ms": offload[f"k9_{kind}_ms"],
+                "wall_ms": offload["passes"][1][f"{kind}_s"] * 1e3,
+                "hidden_share": offload[f"hidden_{kind}"]}
         # K9 at the segmented path's 128-token launch, fp16 rows, one call
         # at a time (warm, and cold beside it)
         seg = k9["fp16 segment"].get(kname)

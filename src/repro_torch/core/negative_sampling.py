@@ -10,7 +10,9 @@ pairs without building the negative rows (``scatter_impl="fused"``).
 The §4.3 / Table-7 ablation's other paths compute the (T, R) negative
 logits first: :func:`neg_logits_baseline` over a materialised (T, R, D)
 tensor, :func:`neg_logits_segmented` fetching fp16 rows one segment of
-tokens at a time (§4.3.1 + §4.3.2). Both run K9 (``csrc/neg_logits.cu``)
+tokens at a time (§4.3.1 + §4.3.2), and :func:`neg_logits_offloaded` over
+rows held in pinned host memory (:func:`offload_negatives`), streamed to
+the card a segment at a time (``core/offload.py``). Both run K9 (``csrc/neg_logits.cu``)
 on the card, the reference's baseline an XLA einsum of the same function
 (a declared divergence), and both can hand their rows' table grad to a
 ``TableGradSink`` in its rows form. :func:`share_logits` (§4.3.3) widens
@@ -23,12 +25,14 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core.offload import neg_logits_offloaded, offload_negatives
 from repro_torch.kernels.neg_logits import (NEG_POOL, TableGradSink,
                                             fused_recall_lse, neg_logits,
                                             neg_logits_bwd, neg_logits_fwd)
 
 __all__ = ["NEG_POOL", "fused_sampled_softmax_loss", "neg_logits_baseline",
-           "neg_logits_segmented", "recall_loss", "sample_negative_ids",
+           "neg_logits_offloaded", "neg_logits_segmented",
+           "offload_negatives", "recall_loss", "sample_negative_ids",
            "sampled_softmax_loss", "share_logits"]
 
 

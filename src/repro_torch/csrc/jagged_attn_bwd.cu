@@ -67,6 +67,21 @@
 //   where E underflows to 0 (z^rho may be inf there), so a masked entry,
 //   whose ds is 0, adds exactly 0.
 //
+// The mask is a template parameter (CAUSAL), as in the TPU kernels (their
+// `causal` flag, _mask_block / _block_live, kernel.py:218-237): causal, a
+// query sees the keys of its row at or before it; acausal, every key of its
+// row (the plan's 1/n is then the row length, ops.py). Acausal drops the
+// in-tile test qslot >= kslot, the dense grid's qb >= kb, and the skips of
+// chunk pairs that lie wholly above the diagonal (every pair acausal: a =
+// ds = 0 under the causal mask, live under the other). The position grads
+// need no change: every pair at a negative distance falls in bucket 0,
+// which the per-bucket collapse of the diagonal sums already clamps to
+// (an acausal 64 x 64 tile feeds it up to 127 diagonals, a causal one at
+// most 63). The causal instantiations are the code they were before the
+// flag. Each build of this source holds one mask's kernels (JAB_CAUSAL,
+// below): kernels/_build.py makes two libraries of it, which compile side
+// by side in half the time one library of both would take.
+//
 // K8-bwd, the dense-grid schedule, is a launch variant of these kernels
 // (`dense` set). It replaces bwd_pallas (bodies _bwd_kv_kernel and
 // _bwd_q_kernel, kernel.py:696), whose (nb, nb) grids skip dead pairs by
@@ -85,6 +100,11 @@
 
 #include "block_live.cuh"
 #include "time_bias.cuh"
+
+// The mask of this build's kernels: 1 (causal) unless defined otherwise.
+#ifndef JAB_CAUSAL
+#define JAB_CAUSAL 1
+#endif
 
 namespace {
 
@@ -171,7 +191,7 @@ __device__ void load_rows(float* dst, const T* __restrict__ src,
 // time bucket (sm.tb); in the functional mode (FUNC) each row's sums of
 // ds * d bias / d(amp, sigma, rho) over the tile's keys (sm.rowpart, 3 per
 // row).
-template <int D, bool FUNC>
+template <int D, bool FUNC, bool CAUSAL>
 __device__ void recompute_tile(const Smem& sm, int q0, int key0, float scale,
                                float tb_denom, int npb, int ntb, int use_pos,
                                int use_time, bool keep_a, bool time_grads) {
@@ -238,7 +258,8 @@ __device__ void recompute_tile(const Smem& sm, int q0, int key0, float scale,
         }
       }
       const float x = s[i][j] * scale + bias;
-      const bool live = qseg == sm.kseg[c] && qseg >= 0 && qslot >= kslot;
+      const bool live =
+          qseg == sm.kseg[c] && qseg >= 0 && (!CAUSAL || qslot >= kslot);
       const float mw = live ? qninv : 0.0f;
       const float sig = 1.0f / (1.0f + expf(-x));
       if (keep_a) sm.a[r * (CH + 1) + c] = x * sig * mw;
@@ -289,7 +310,7 @@ __device__ void load_meta(int* seg, int* ts, float* ninv,
 // dk, dv: one CTA per (64-key chunk, head, pack), walking kv_rowptr
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool FUNC>
+template <typename T, int D, bool FUNC, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dy,
@@ -333,18 +354,19 @@ attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int p0 = dense ? 0 : kv_rowptr[g * (nb + 1) + kb];
   const int p1 = dense ? nb : kv_rowptr[g * (nb + 1) + kb + 1];
   for (int p = p0; p < p1; ++p) {
-    if (dense && !block_live(rng, p, kb)) continue;  // uniform in the CTA
+    if (dense && !block_live<CAUSAL>(rng, p, kb)) continue;  // uniform
     const int qb = dense ? p : kv_wl[((size_t)g * L + p) * 2 + 0];
     for (int qc = 0; qc < BLK / CH; ++qc) {
       const int q0 = qb * BLK + qc * CH;
-      if (q0 + CH - 1 < key0) continue;  // every pair acausal: ds = a = 0
+      // every pair past the causal band: ds = a = 0
+      if (CAUSAL && q0 + CH - 1 < key0) continue;
       __syncthreads();  // the previous chunk's readers are done
       load_rows<T, D>(sm.q, q, pack + q0, H, h);
       load_rows<T, D>(sm.dy, dy, pack + q0, H, h);
       load_meta(sm.qseg, sm.qts, sm.qninv, meta_i32, meta_f32, pack + q0);
       __syncthreads();
-      recompute_tile<D, FUNC>(sm, q0, key0, scale, tb_denom, npb, ntb,
-                              use_pos, use_time, true, false);
+      recompute_tile<D, FUNC, CAUSAL>(sm, q0, key0, scale, tb_denom, npb,
+                                      ntb, use_pos, use_time, true, false);
       __syncthreads();
       // keys ty + 16 i, head dims tx + 16 j
       for (int qq = 0; qq < CH; ++qq) {
@@ -387,7 +409,7 @@ attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dq + RAB partials: one CTA per (64-row q chunk, head, pack), q_rowptr
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool FUNC>
+template <typename T, int D, bool FUNC, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dy,
@@ -432,19 +454,21 @@ attn_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int p0 = dense ? 0 : q_rowptr[g * (nb + 1) + qb];
   const int p1 = dense ? nb : q_rowptr[g * (nb + 1) + qb + 1];
   for (int p = p0; p < p1; ++p) {
-    if (dense && !block_live(rng, qb, p)) continue;  // uniform in the CTA
+    if (dense && !block_live<CAUSAL>(rng, qb, p)) continue;  // uniform
     const int kb = dense ? p : q_wl[((size_t)g * L + p) * 2 + 1];
     for (int kc = 0; kc < BLK / CH; ++kc) {
       const int key0 = kb * BLK + kc * CH;
-      if (key0 > q0 + CH - 1) continue;  // every pair acausal: ds = 0
+      // every pair past the causal band: ds = 0
+      if (CAUSAL && key0 > q0 + CH - 1) continue;
       __syncthreads();
       load_rows<T, D>(sm.k, k, pack + key0, H, h);
       load_rows<T, D>(sm.v, v, pack + key0, H, h);
       load_meta(sm.kseg, sm.kts, nullptr, meta_i32, meta_f32, pack + key0);
       for (int t = tid; t < CH * ntb; t += THREADS) sm.rowpart[t] = 0.0f;
       __syncthreads();
-      recompute_tile<D, FUNC>(sm, q0, key0, scale, tb_denom, npb, ntb,
-                              use_pos, use_time, false, use_time != 0);
+      recompute_tile<D, FUNC, CAUSAL>(sm, q0, key0, scale, tb_denom, npb,
+                                      ntb, use_pos, use_time, false,
+                                      use_time != 0);
       __syncthreads();
       // rows ty + 16 i, head dims tx + 16 j
       for (int kk = 0; kk < CH; ++kk) {
@@ -798,7 +822,7 @@ __device__ __forceinline__ void scores_tc(const bf16* Q, const bf16* DY,
 // grads' row slices: in the bucket mode each entry's ds added to this
 // thread's slice of its row at its bucket, in key order; in the
 // functional mode this warp's half-row sums (slice wj of the row, 3 wide).
-template <bool FUNC, bool KV>
+template <bool FUNC, bool KV, bool CAUSAL>
 __device__ __forceinline__ void epilogue_tc(
     const SmemTC& sm, const float (&s)[4][4], const float (&da)[4][4],
     const int* rseg, const int* rts, const float* rninv, const int* cseg,
@@ -851,7 +875,8 @@ __device__ __forceinline__ void epilogue_tc(
           }
         }
         const float x = s[nt][2 * hr + e] * scale + bias;
-        const bool live = qseg == cseg[c] && qseg >= 0 && qslot >= kslot;
+        const bool live =
+            qseg == cseg[c] && qseg >= 0 && (!CAUSAL || qslot >= kslot);
         const float mw = live ? qninv : 0.0f;
         const float sig = 1.0f / (1.0f + expf(-x));
         av[e] = x * sig * mw;
@@ -980,7 +1005,7 @@ __device__ void rab_tile_reduce_tc(const SmemTC& sm, int q0, int key0,
 
 // ---- dk, dv on the tensor cores: one CTA per (64-key chunk, head, pack)
 
-template <int D, bool FUNC>
+template <int D, bool FUNC, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_kv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dy,
@@ -1030,9 +1055,10 @@ attn_bwd_kv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   auto next_live = [&](int i) {
     for (; i < end; ++i) {
-      if (dense && !block_live(rng, p0 + (i >> 1), kb)) continue;
+      if (dense && !block_live<CAUSAL>(rng, p0 + (i >> 1), kb)) continue;
       const int q0 = q0_of(i);
-      if (q0 + CH - 1 < key0) continue;  // all acausal: ds = a = 0
+      // all past the causal band: ds = a = 0
+      if (CAUSAL && q0 + CH - 1 < key0) continue;
       if (!chunks_meet(meta_i32, pack, q0, key0)) continue;
       return i;
     }
@@ -1068,9 +1094,10 @@ attn_bwd_kv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[4][4], da[4][4];
     unsigned unused[2][4];
     scores_tc<D>(g.r0, g.r1, sm.fx0, sm.fx1, s, da, wi, wj, lane);
-    epilogue_tc<FUNC, true>(sm, s, da, g.seg, g.ts, g.ninv, sm.fseg, sm.fts,
-                            q0, key0, scale, tb_denom, npb, ntb, use_pos,
-                            use_time, false, unused, wi, wj, lane);
+    epilogue_tc<FUNC, true, CAUSAL>(sm, s, da, g.seg, g.ts, g.ninv, sm.fseg,
+                                    sm.fts, q0, key0, scale, tb_denom, npb,
+                                    ntb, use_pos, use_time, false, unused,
+                                    wi, wj, lane);
     __syncthreads();
     // dv += a^T.dy, dk += ds^T.q: rows = this warp's 16 keys, columns its
     // WN head dims, over the chunk's 64 queries
@@ -1130,7 +1157,7 @@ attn_bwd_kv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---- dq + RAB partials on the tensor cores: one CTA per (64-row q
 // chunk, head, pack)
 
-template <int D, bool FUNC>
+template <int D, bool FUNC, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_q_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dy,
@@ -1178,9 +1205,10 @@ attn_bwd_q_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   auto next_live = [&](int i) {
     for (; i < end; ++i) {
-      if (dense && !block_live(rng, qb, p0 + (i >> 1))) continue;
+      if (dense && !block_live<CAUSAL>(rng, qb, p0 + (i >> 1))) continue;
       const int key0 = key0_of(i);
-      if (key0 > q0 + CH - 1) continue;  // all acausal: ds = 0
+      // all past the causal band: ds = 0
+      if (CAUSAL && key0 > q0 + CH - 1) continue;
       if (!chunks_meet(meta_i32, pack, q0, key0)) continue;
       return i;
     }
@@ -1216,10 +1244,10 @@ attn_bwd_q_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[4][4], da[4][4];
     unsigned dsf[2][4];
     scores_tc<D>(sm.fx0, sm.fx1, g.r0, g.r1, s, da, wi, wj, lane);
-    epilogue_tc<FUNC, false>(sm, s, da, sm.fseg, sm.fts, sm.fninv, g.seg,
-                             g.ts, q0, key0, scale, tb_denom, npb, ntb,
-                             use_pos, use_time, time_grads, dsf, wi, wj,
-                             lane);
+    epilogue_tc<FUNC, false, CAUSAL>(sm, s, da, sm.fseg, sm.fts, sm.fninv,
+                                     g.seg, g.ts, q0, key0, scale, tb_denom,
+                                     npb, ntb, use_pos, use_time, time_grads,
+                                     dsf, wi, wj, lane);
     // dq += ds.k over this warp's 32 keys: A from registers, B = the k
     // rows (keys x head dims) by ldmatrix.trans
     const bf16* K = g.r0;
@@ -1315,7 +1343,7 @@ cudaError_t set_smem(const void* kern, int smem, int* done) {
   return cudaSuccess;
 }
 
-template <typename T, int D, bool FUNC>
+template <typename T, int D, bool FUNC, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dy, const float* pt, const float* tt,
                    const int* meta_i32, const float* meta_f32,
@@ -1338,15 +1366,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
          : smem_fma;
   auto kv_kern = [] {
     if constexpr (TC)
-      return attn_bwd_kv_tc_kernel<D, FUNC>;
+      return attn_bwd_kv_tc_kernel<D, FUNC, CAUSAL>;
     else
-      return attn_bwd_kv_kernel<T, D, FUNC>;
+      return attn_bwd_kv_kernel<T, D, FUNC, CAUSAL>;
   }();
   auto q_kern = [] {
     if constexpr (TC)
-      return attn_bwd_q_tc_kernel<D, FUNC>;
+      return attn_bwd_q_tc_kernel<D, FUNC, CAUSAL>;
     else
-      return attn_bwd_q_kernel<T, D, FUNC>;
+      return attn_bwd_q_kernel<T, D, FUNC, CAUSAL>;
   }();
   static int kv_set[MAX_DEVICES] = {};
   static int q_set[MAX_DEVICES] = {};
@@ -1377,7 +1405,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CAUSAL>
 cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
                          const void* v,
                          const void* dy, const float* pt, const float* tt,
@@ -1390,17 +1418,16 @@ cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
                          int use_time, int dense, cudaStream_t s) {
 #define JAB_CASE(DD)                                                        \
   case DD:                                                                  \
-    return func ? launch<T, DD, true>(q, k, v, dy, pt, tt, mi, mf, q_wl,    \
-                                      q_rowptr, kv_wl, kv_rowptr, seg_rng,  \
-                                      dq, dk, dv, partial, dpt, dtt, G,     \
-                                      cap, H, L, npb, ntb, scale, tb_denom, \
-                                      use_pos, use_time, dense, s)          \
-                : launch<T, DD, false>(q, k, v, dy, pt, tt, mi, mf, q_wl,   \
-                                       q_rowptr, kv_wl, kv_rowptr, seg_rng, \
-                                       dq, dk, dv, partial, dpt, dtt, G,    \
-                                       cap, H, L, npb, ntb, scale,          \
-                                       tb_denom, use_pos, use_time, dense,  \
-                                       s);
+    return func ? launch<T, DD, true, CAUSAL>(                              \
+                      q, k, v, dy, pt, tt, mi, mf, q_wl, q_rowptr, kv_wl,   \
+                      kv_rowptr, seg_rng, dq, dk, dv, partial, dpt, dtt, G, \
+                      cap, H, L, npb, ntb, scale, tb_denom, use_pos,        \
+                      use_time, dense, s)                                   \
+                : launch<T, DD, false, CAUSAL>(                             \
+                      q, k, v, dy, pt, tt, mi, mf, q_wl, q_rowptr, kv_wl,   \
+                      kv_rowptr, seg_rng, dq, dk, dv, partial, dpt, dtt, G, \
+                      cap, H, L, npb, ntb, scale, tb_denom, use_pos,        \
+                      use_time, dense, s);
   switch (D) {
     JAB_CASE(16)
     JAB_CASE(32)
@@ -1422,7 +1449,9 @@ cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
 // q_rowptr, kv_rowptr (G, cap/128 + 1); seg_rng (G, cap/128, 2); partial
 // (G * 2 * cap/128 * H, npb + ntb) float32 scratch. With `dense` set (K8)
 // the kernels walk the dense grid on seg_rng and read no work-list; else
-// (K2) they walk the work-lists and read no seg_rng. Launches three kernels
+// (K2) they walk the work-lists and read no seg_rng. `causal`: the plan's
+// mask (1: keys at or before the query; 0: every key of its row), which
+// must be this build's (JAB_CAUSAL). Launches three kernels
 // on `stream`, on the calling thread's current device. Returns the first
 // cudaError_t (0 on success).
 extern "C" int jagged_attn_bwd(
@@ -1433,23 +1462,24 @@ extern "C" int jagged_attn_bwd(
     void* dk, void* dv, float* partial, float* dpt, float* dtt, int G,
     int cap, int H, int D, int L, int npb, int ntb, float scale,
     float tb_denom, int use_pos, int use_time, int time_functional,
-    int dense, int dtype, void* stream) {
+    int dense, int causal, int dtype, void* stream) {
   if (G <= 0 || cap <= 0 || cap % BLK != 0 || H <= 0 || L <= 0 || npb <= 0 ||
-      ntb <= 0 || (time_functional && ntb != 3) ||
+      ntb <= 0 || (time_functional && ntb != 3) || causal != JAB_CAUSAL ||
       (dense ? seg_rng == nullptr
              : (q_wl == nullptr || q_rowptr == nullptr || kv_wl == nullptr ||
                 kv_rowptr == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr bool CAUSAL = JAB_CAUSAL != 0;
   cudaError_t e;
   if (dtype == 0)
-    e = launch_dtype<float>(D, time_functional, q, k, v, dy, pos_table,
-                            time_table, meta_i32, meta_f32, q_wl, q_rowptr,
-                            kv_wl, kv_rowptr, seg_rng, dq, dk, dv, partial,
-                            dpt, dtt, G, cap, H, L, npb, ntb, scale, tb_denom,
-                            use_pos, use_time, dense, s);
+    e = launch_dtype<float, CAUSAL>(
+        D, time_functional, q, k, v, dy, pos_table, time_table, meta_i32,
+        meta_f32, q_wl, q_rowptr, kv_wl, kv_rowptr, seg_rng, dq, dk, dv,
+        partial, dpt, dtt, G, cap, H, L, npb, ntb, scale, tb_denom, use_pos,
+        use_time, dense, s);
   else if (dtype == 1)
-    e = launch_dtype<__nv_bfloat16>(
+    e = launch_dtype<__nv_bfloat16, CAUSAL>(
         D, time_functional, q, k, v, dy, pos_table, time_table, meta_i32,
         meta_f32, q_wl, q_rowptr, kv_wl, kv_rowptr, seg_rng, dq, dk, dv,
         partial, dpt, dtt, G, cap, H, L, npb, ntb, scale, tb_denom, use_pos,

@@ -45,6 +45,17 @@
 // fast-math), as the plain version computes it. Dead pairs are never
 // visited: the work-list holds live pairs only.
 //
+// The mask is a template parameter (CAUSAL), as in the TPU kernel (its
+// `causal` flag, _mask_block / _block_live, kernel.py:218-237): causal, a
+// query sees the keys of its row at or before it; acausal, every key of its
+// row. The plan's 1/n (the causal count pos+1, or the row length) and its
+// live pairs are built for one of the two (ops.py), and the wrapper picks
+// the instantiation by the plan. Acausal drops the in-tile test qslot >=
+// kslot and the dense grid's qb >= kb, and nothing else: K1-fwd has no
+// whole-tile causal skip (its work-list holds the live pairs, and a
+// sub-tile is skipped only when it shares no row with the q-block), so the
+// causal instantiations are the code they were before the flag.
+//
 // K8-fwd, the dense-grid schedule, is a launch variant of this kernel
 // (`dense` set). It replaces fwd_pallas (body _fwd_kernel, kernel.py:333),
 // which walks the whole (nb, nb) grid and skips dead pairs by _block_live.
@@ -133,7 +144,7 @@ __host__ __device__ constexpr size_t smem_floats_fixed() {
          + 2 * KC;                // k seg / ts
 }
 
-template <typename T, int D, bool FUNC, bool APPEND>
+template <typename T, int D, bool FUNC, bool APPEND, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v,
@@ -232,7 +243,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.0f;
 
   for (int p = p0; p < p1; ++p) {
-    if (!APPEND && dense && !block_live(rng, qb, p)) continue;  // uniform
+    if (!APPEND && dense && !block_live<CAUSAL>(rng, qb, p))  // uniform
+      continue;
     const int kb = APPEND || dense ? p : q_wl[((size_t)g * L + p) * 2 + 1];
     for (int c = 0; c < BK / KC; ++c) {
       const int key0 = kb * BK + c * KC;  // first key slot of the sub-tile
@@ -304,7 +316,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
           const float x = s[i][j] * scale + bias;
           const bool live = qseg == kseg_s[cl] && qseg >= 0 &&
-                            qslot >= kslot;
+                            (!CAUSAL || qslot >= kslot);
           const float mw = live ? qninv : 0.0f;
           const float a = x * (1.0f / (1.0f + expf(-x))) * mw;
           a_s[r * (KC + 1) + cl] = to_f32(from_f32<T>(a));
@@ -453,7 +465,7 @@ __device__ __forceinline__ bool tile_meets(const int* __restrict__ meta_i32,
   return qlo <= khi && klo <= qhi;
 }
 
-template <int D, bool FUNC, bool APPEND>
+template <int D, bool FUNC, bool APPEND, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, APPEND ? 1 : TC_MIN_CTAS)
 attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v,
@@ -556,7 +568,7 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if constexpr (APPEND) {
         if (q0 >= wt || key0_of(i) >= wt) continue;
       } else {
-        if (dense && !block_live(rng, qb, p0 + (i >> 1))) continue;
+        if (dense && !block_live<CAUSAL>(rng, qb, p0 + (i >> 1))) continue;
         if (!tile_meets(meta_i32, pack, q0, key0_of(i))) continue;
       }
       return i;
@@ -659,8 +671,11 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               }
             }
             const float x = s[nt][2 * hr + e] * scale + bias;
+            // acausal: kslot - cap < 0 <= qslot always holds; written as
+            // a comparison (not dropped) because without it ptxas spills
+            // in the functional D = 128 kernel under the 128-register cap
             const bool live = qseg[hr] == kseg[c] && qseg[hr] >= 0 &&
-                              qslot[hr] >= kslot;
+                              qslot[hr] >= kslot - (CAUSAL ? 0 : cap);
             const float mw = live ? qninv[hr] : 0.0f;
             av[e] = x * (1.0f / (1.0f + expf(-x))) * mw;
           }
@@ -709,9 +724,10 @@ __global__ void time_bucket_kernel(const int* __restrict__ qts, int nq,
     out[i] = time_bucket(qts[i / nk], kts[i % nk], denom, ntb);
 }
 
-// The kernel for (T, D, FUNC, APPEND), launched on a grid of G packs (the
-// append launch: G window rows of `nqb` q-blocks each; else nqb is cap/BQ).
-template <typename T, int D, bool FUNC, bool APPEND>
+// The kernel for (T, D, FUNC, APPEND, CAUSAL), launched on a grid of G
+// packs (the append launch, causal only: G window rows of `nqb` q-blocks
+// each; else nqb is cap/BQ).
+template <typename T, int D, bool FUNC, bool APPEND, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* pt, const float* tt, const int* meta_i32,
                    const float* meta_f32, const int* q_wl,
@@ -721,15 +737,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const Window& win, int nqb, cudaStream_t stream) {
   // bf16: the tensor-core kernel; fp32: the FMA kernel
   constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
+  static_assert(CAUSAL || !APPEND, "the append launch is causal only");
   SmemTC sizes;
   const int smem =
       TC ? (int)layout_tc<D>(nullptr, sizes, npb, ntb)
          : (int)((smem_floats_fixed<D>() + npb + ntb) * sizeof(float));
   auto kern = [] {
     if constexpr (TC)
-      return attn_fwd_tc_kernel<D, FUNC, APPEND>;
+      return attn_fwd_tc_kernel<D, FUNC, APPEND, CAUSAL>;
     else
-      return attn_fwd_kernel<T, D, FUNC, APPEND>;
+      return attn_fwd_kernel<T, D, FUNC, APPEND, CAUSAL>;
   }();
   // Opt in to more than 48 KB of shared memory once per device, and again
   // only when longer bias tables need more than was set there before.
@@ -753,7 +770,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, bool APPEND>
+template <typename T, bool APPEND, bool CAUSAL>
 cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
                          const void* v, const float* pt, const float* tt,
                          const int* meta_i32, const float* meta_f32,
@@ -764,12 +781,12 @@ cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
                          const Window& win, int nqb, cudaStream_t stream) {
 #define JAF_CASE(DD)                                                       \
   case DD:                                                                 \
-    return func ? launch<T, DD, true, APPEND>(                             \
+    return func ? launch<T, DD, true, APPEND, CAUSAL>(                     \
                       q, k, v, pt, tt, meta_i32, meta_f32, q_wl, q_rowptr, \
                       seg_rng, out, G, cap, H, L, npb, ntb, scale,         \
                       tb_denom, use_pos, use_time, dense, win, nqb,        \
                       stream)                                              \
-                : launch<T, DD, false, APPEND>(                            \
+                : launch<T, DD, false, APPEND, CAUSAL>(                    \
                       q, k, v, pt, tt, meta_i32, meta_f32, q_wl, q_rowptr, \
                       seg_rng, out, G, cap, H, L, npb, ntb, scale,         \
                       tb_denom, use_pos, use_time, dense, win, nqb,        \
@@ -785,6 +802,29 @@ cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
 #undef JAF_CASE
 }
 
+// The cold launch's instantiation for the plan's mask.
+template <typename T>
+cudaError_t launch_cold(int causal, int D, int func, const void* q,
+                        const void* k, const void* v, const float* pt,
+                        const float* tt, const int* meta_i32,
+                        const float* meta_f32, const int* q_wl,
+                        const int* q_rowptr, const int* seg_rng, void* out,
+                        int G, int cap, int H, int L, int npb, int ntb,
+                        float scale, float tb_denom, int use_pos,
+                        int use_time, int dense, cudaStream_t stream) {
+  const Window none = {};
+  return causal
+             ? launch_dtype<T, false, true>(
+                   D, func, q, k, v, pt, tt, meta_i32, meta_f32, q_wl,
+                   q_rowptr, seg_rng, out, G, cap, H, L, npb, ntb, scale,
+                   tb_denom, use_pos, use_time, dense, none, cap / BQ, stream)
+             : launch_dtype<T, false, false>(
+                   D, func, q, k, v, pt, tt, meta_i32, meta_f32, q_wl,
+                   q_rowptr, seg_rng, out, G, cap, H, L, npb, ntb, scale,
+                   tb_denom, use_pos, use_time, dense, none, cap / BQ,
+                   stream);
+}
+
 }  // namespace
 
 // q, k, v, out: (G, cap, H, D) float32 (dtype 0) or bfloat16 (dtype 1);
@@ -793,7 +833,8 @@ cudaError_t launch_dtype(int D, int func, const void* q, const void* k,
 // meta_f32 (G, cap, 1); q_wl (G, L, 2); q_rowptr (G, cap/128 + 1);
 // seg_rng (G, cap/128, 2). With `dense` set (K8) the kernel walks the dense
 // grid on seg_rng and reads neither q_wl nor q_rowptr; else (K1) it walks
-// the work-list and reads no seg_rng.
+// the work-list and reads no seg_rng. `causal`: the plan's mask (1: keys at
+// or before the query; 0: every key of its row).
 // Launches on the calling thread's current device, which the caller sets.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int jagged_attn_fwd(const void* q, const void* k, const void* v,
@@ -804,24 +845,24 @@ extern "C" int jagged_attn_fwd(const void* q, const void* k, const void* v,
                                void* out, int G, int cap, int H, int D, int L,
                                int npb, int ntb, float scale, float tb_denom,
                                int use_pos, int use_time, int time_functional,
-                               int dense, int dtype, void* stream) {
+                               int dense, int causal, int dtype,
+                               void* stream) {
   if (G <= 0 || cap <= 0 || cap % BQ != 0 || H <= 0 || L <= 0 || npb <= 0 ||
       ntb <= 0 || (time_functional && ntb != 3) ||
       (dense ? seg_rng == nullptr : (q_wl == nullptr || q_rowptr == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Window none = {};
   cudaError_t e;
   if (dtype == 0)
-    e = launch_dtype<float, false>(
-        D, time_functional, q, k, v, pos_table, time_table, meta_i32,
-        meta_f32, q_wl, q_rowptr, seg_rng, out, G, cap, H, L, npb, ntb,
-        scale, tb_denom, use_pos, use_time, dense, none, cap / BQ, s);
+    e = launch_cold<float>(
+        causal, D, time_functional, q, k, v, pos_table, time_table,
+        meta_i32, meta_f32, q_wl, q_rowptr, seg_rng, out, G, cap, H, L, npb,
+        ntb, scale, tb_denom, use_pos, use_time, dense, s);
   else if (dtype == 1)
-    e = launch_dtype<__nv_bfloat16, false>(
-        D, time_functional, q, k, v, pos_table, time_table, meta_i32,
-        meta_f32, q_wl, q_rowptr, seg_rng, out, G, cap, H, L, npb, ntb,
-        scale, tb_denom, use_pos, use_time, dense, none, cap / BQ, s);
+    e = launch_cold<__nv_bfloat16>(
+        causal, D, time_functional, q, k, v, pos_table, time_table,
+        meta_i32, meta_f32, q_wl, q_rowptr, seg_rng, out, G, cap, H, L, npb,
+        ntb, scale, tb_denom, use_pos, use_time, dense, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;
@@ -851,12 +892,12 @@ extern "C" int jagged_attn_fwd_append(
   if (nqb > cap / BQ) nqb = cap / BQ;
   cudaError_t e;
   if (dtype == 0)
-    e = launch_dtype<float, true>(
+    e = launch_dtype<float, true, true>(
         D, time_functional, q, k_cache, v_cache, pos_table, time_table,
         nullptr, nullptr, nullptr, nullptr, nullptr, out, R, cap, H, 1, npb,
         ntb, scale, tb_denom, use_pos, use_time, 0, win, nqb, s);
   else if (dtype == 1)
-    e = launch_dtype<__nv_bfloat16, true>(
+    e = launch_dtype<__nv_bfloat16, true, true>(
         D, time_functional, q, k_cache, v_cache, pos_table, time_table,
         nullptr, nullptr, nullptr, nullptr, nullptr, out, R, cap, H, 1, npb,
         ntb, scale, tb_denom, use_pos, use_time, 0, win, nqb, s);

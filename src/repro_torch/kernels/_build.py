@@ -1,11 +1,13 @@
 """Build the port's CUDA sources with nvcc at first use, load with ctypes.
 
-Each source under ``csrc/`` is one shared library with a plain C interface
-(pointers, sizes, the stream), compiled for Hopper (``sm_90a``) into
-``build/kernels/`` at the root of the checkout, named by a hash of the
-source, the headers under ``csrc/`` and the flags so an edited source or
-header rebuilds. :func:`build_all`
-starts one nvcc per source, all at once, and waits for them.
+Each library is a source under ``csrc/`` compiled to one shared library
+with a plain C interface (pointers, sizes, the stream), for Hopper
+(``sm_90a``), into ``build/kernels/`` at the root of the checkout, named
+by a hash of the source, the headers under ``csrc/`` and the flags so an
+edited source or header rebuilds. A source may make more than one library
+through ``DEFINES``: K2's is built once per attention mask, so the two
+halves of its kernels compile side by side. :func:`build_all` starts one
+nvcc per library, all at once, and waits for them.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"jagged_attn_fwd": "jagged_attn_fwd.cu",
            "jagged_attn_bwd": "jagged_attn_bwd.cu",
+           "jagged_attn_bwd_acausal": "jagged_attn_bwd.cu",
            "neg_fused": "neg_fused.cu",
            "runsum": "runsum.cu",
            "wscatter": "wscatter.cu",
@@ -30,6 +33,8 @@ SOURCES = {"jagged_attn_fwd": "jagged_attn_fwd.cu",
            "gather": "gather.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: nvcc flags of one library beyond NVCC_FLAGS
+DEFINES = {"jagged_attn_bwd_acausal": ["-DJAB_CAUSAL=0"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -52,7 +57,7 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + DEFINES.get(name, [])).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -81,7 +86,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Dict]:
     for n in todo:
         final = library_path(n)
         tmp = final.with_name(f"{final.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        cmd = [nvcc, *NVCC_FLAGS, *DEFINES.get(n, []), "-o", str(tmp),
+               str(CSRC / SOURCES[n])]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True))

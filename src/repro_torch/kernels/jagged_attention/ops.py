@@ -75,9 +75,12 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 # the plan
 # --------------------------------------------------------------------------
 
-def _token_meta(cap: int, offsets: torch.Tensor, timestamps: torch.Tensor):
+def _token_meta(cap: int, offsets: torch.Tensor, timestamps: torch.Tensor,
+                causal: bool = True):
     """(meta_i32 (…, cap, 3): seg/pos/ts, meta_f32 (…, cap, 1): per-query
-    1/(pos+1), the count of keys each query sees)."""
+    1/n, n the count of keys each query sees: pos+1 when causal (which
+    keeps a prefix's hidden states unchanged as its row grows), the row
+    length (at least 1) when not; 0 on padding)."""
     offsets = offsets.to(torch.int32).contiguous()
     slot = torch.arange(cap, dtype=torch.int32, device=offsets.device)
     slot = slot.expand(*offsets.shape[:-1], cap).contiguous()
@@ -85,7 +88,11 @@ def _token_meta(cap: int, offsets: torch.Tensor, timestamps: torch.Tensor):
     valid = slot < offsets[..., -1:]
     segc = seg.clamp(0, offsets.shape[-1] - 2).long()
     pos = slot - torch.gather(offsets, -1, segc)
-    n = (pos + 1).to(torch.float32)
+    if causal:
+        n = (pos + 1).to(torch.float32)
+    else:
+        lengths = offsets[..., 1:] - offsets[..., :-1]
+        n = torch.gather(lengths, -1, segc).clamp(min=1).to(torch.float32)
     seg = torch.where(valid, seg, NEG_SEG)
     pos = torch.where(valid, pos, 0)
     ninv = torch.where(valid, 1.0 / n, 0.0)
@@ -103,15 +110,19 @@ def _seg_ranges(seg: torch.Tensor, nb: int, block: int) -> torch.Tensor:
     return torch.stack([lo, hi], dim=-1).to(torch.int32)
 
 
-def _live_block_matrix(seg_rng: torch.Tensor, block: int) -> torch.Tensor:
+def _live_block_matrix(seg_rng: torch.Tensor, block: int,
+                       causal: bool = True) -> torch.Tensor:
     """(…, nb, nb) bool [qb, kb]: does the pair hold any live token pair?
     Exact: packed segments are contiguous, so intersecting [lo, hi] ranges
-    share a segment, and the causal band (i+1)·b−1 ≥ j·b means i ≥ j."""
+    share a segment, and the causal band (i+1)·b−1 ≥ j·b means i ≥ j;
+    acausal, no band."""
     nb = seg_rng.shape[-2]
     lo, hi = seg_rng[..., 0], seg_rng[..., 1]
     live = ((lo[..., :, None] <= hi[..., None, :])
             & (lo[..., None, :] <= hi[..., :, None])
             & (hi[..., :, None] >= 0) & (hi[..., None, :] >= 0))
+    if not causal:
+        return live
     i = torch.arange(nb, dtype=torch.int32, device=seg_rng.device)
     return live & (((i[:, None] + 1) * block - 1) >= (i[None, :] * block))
 
@@ -163,14 +174,16 @@ def _run_pointers(dest: torch.Tensor, live: torch.Tensor,
 
 
 def num_pairs_bound(nb: int, block: int, num_rows: int,
-                    max_row_len: Optional[int]) -> int:
+                    max_row_len: Optional[int], causal: bool = True) -> int:
     """Static worst-case live-pair count: a row of at most max_row_len
-    tokens straddles at most mr = ceil(max_row_len/block)+1 blocks."""
-    dense = nb * (nb + 1) // 2
+    tokens straddles at most mr = ceil(max_row_len/block)+1 blocks, which
+    hold mr·(mr+1)/2 causal pairs (mr² acausal); the dense grid nb·(nb+1)/2
+    (nb²)."""
+    dense = nb * (nb + 1) // 2 if causal else nb * nb
     if max_row_len is None:
         return max(1, dense)
     mr = min(-(-max_row_len // block) + 1, nb)
-    per_row = mr * (mr + 1) // 2
+    per_row = mr * (mr + 1) // 2 if causal else mr * mr
     return max(1, min(num_rows * per_row, dense))
 
 
@@ -185,6 +198,9 @@ class JaggedAttnPlan(NamedTuple):
     walk: one CTA per q-block (forward, dq) or k-block (dk, dv). Rows
     longer than the ``max_row_len`` the plan was built with would overflow
     the static list and drop pairs; the model passes ``cfg.max_seq_len``.
+    ``causal`` is the mask the plan was built for (its 1/n and its live
+    pairs depend on it); the kernels read it from here, and a call that
+    asks for the other mask is refused.
     """
     meta_i32: torch.Tensor      # (cap, 3) int32: seg / pos / ts
     meta_f32: torch.Tensor      # (cap, 1) f32: 1/n
@@ -198,6 +214,7 @@ class JaggedAttnPlan(NamedTuple):
     n_live: torch.Tensor        # (1,) int32 live-pair count
     q_rowptr: torch.Tensor      # (nb+1,) int32 CSR runs over q_wl
     kv_rowptr: torch.Tensor     # (nb+1,) int32 CSR runs over kv_wl
+    causal: bool = True         # the mask: key at or before the query
 
     @property
     def capacity(self) -> int:
@@ -222,11 +239,14 @@ class JaggedAttnPlan(NamedTuple):
 
 def build_attn_plan(offsets: torch.Tensor, timestamps: torch.Tensor,
                     capacity: int, *, block: int = 128,
-                    max_row_len: Optional[int] = None) -> JaggedAttnPlan:
+                    max_row_len: Optional[int] = None,
+                    causal: bool = True) -> JaggedAttnPlan:
     """Build the plan on the tensors' device. ``capacity`` may be any size
     ≥ offsets[-1]; it is padded up to a block multiple. ``max_row_len``
     tightens the work-list bound from O(nb²) to O(rows · blocks_per_row²).
-    offsets (S+1,) with timestamps (cap,), or (G, S+1) with (G, cap)."""
+    offsets (S+1,) with timestamps (cap,), or (G, S+1) with (G, cap).
+    ``causal`` False: every key of the row, each query's weights over the
+    row length (the plan records which)."""
     pad = (-capacity) % block
     capp = capacity + pad
     timestamps = timestamps.to(torch.int32)
@@ -234,11 +254,12 @@ def build_attn_plan(offsets: torch.Tensor, timestamps: torch.Tensor,
         timestamps = torch.cat(
             [timestamps,
              timestamps.new_zeros((*timestamps.shape[:-1], pad))], dim=-1)
-    meta_i32, meta_f32 = _token_meta(capp, offsets, timestamps)
+    meta_i32, meta_f32 = _token_meta(capp, offsets, timestamps, causal)
     nb = capp // block
     seg_rng = _seg_ranges(meta_i32[..., 0], nb, block)
-    live = _live_block_matrix(seg_rng, block)
-    P = num_pairs_bound(nb, block, offsets.shape[-1] - 1, max_row_len)
+    live = _live_block_matrix(seg_rng, block, causal)
+    P = num_pairs_bound(nb, block, offsets.shape[-1] - 1, max_row_len,
+                        causal)
     q_wl, q_flags, q_live, n_live = _compact_worklist(live, P)
     kv_wl, kv_flags, kv_live, _ = _compact_worklist(live, P, kv_major=True)
     return JaggedAttnPlan(
@@ -247,13 +268,24 @@ def build_attn_plan(offsets: torch.Tensor, timestamps: torch.Tensor,
         kv_wl=kv_wl, kv_flags=kv_flags, kv_live=kv_live,
         n_live=n_live[..., None],
         q_rowptr=_run_pointers(q_wl[..., 0], q_live, nb),
-        kv_rowptr=_run_pointers(kv_wl[..., 1], kv_live, nb))
+        kv_rowptr=_run_pointers(kv_wl[..., 1], kv_live, nb),
+        causal=bool(causal))
 
 
 def _as_batched(plan: JaggedAttnPlan) -> JaggedAttnPlan:
     if plan.batched:
         return plan
-    return JaggedAttnPlan(*(f.unsqueeze(0) for f in plan))
+    return JaggedAttnPlan(*(f.unsqueeze(0) for f in plan[:-1]),
+                          causal=plan.causal)
+
+
+def check_causal(plan: JaggedAttnPlan, causal: bool) -> None:
+    """Refuse a call whose mask is not its plan's: the plan's work-lists
+    and 1/n were built for one mask, and the other would drop live pairs
+    (causal plan, acausal call) or weigh keys it must not see."""
+    if bool(causal) != plan.causal:
+        raise ValueError(f"the call asks for causal={bool(causal)}, the "
+                         f"plan was built with causal={plan.causal}")
 
 
 # --------------------------------------------------------------------------
@@ -261,7 +293,7 @@ def _as_batched(plan: JaggedAttnPlan) -> JaggedAttnPlan:
 # --------------------------------------------------------------------------
 
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
-                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
+                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 6
                  + [ctypes.c_void_p])
 _TB_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_int, ctypes.c_float, ctypes.c_int,
@@ -309,7 +341,9 @@ def _launch_fwd(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
                 dense: bool = False) -> torch.Tensor:
     """Launch the CUDA forward on q, k, v (G, capp, H, D) and a batched
     plan: K1-fwd over the work-list, or with ``dense`` K8-fwd over the
-    dense block grid; raises on anything the kernel does not take."""
+    dense block grid, with the plan's mask (``plan.causal``: the causal or
+    the acausal instantiation); raises on anything the kernel does not
+    take."""
     G, capp, H, D = q.shape
     dev = q.device
     _require(dev.type == "cuda", f"tensors on {dev}, not on the card")
@@ -352,7 +386,8 @@ def _launch_fwd(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
             G, capp, H, D, plan.num_pairs, pos_table.shape[0],
             time_table.shape[0], scale, tb_denom, int(use_pos),
             int(use_time), int(time_functional), int(dense),
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+            int(plan.causal), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"jagged_attn_fwd launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES[launch_counter("fwd", dense=dense,
@@ -433,14 +468,24 @@ def _launch_append(q, k_cache, v_cache, rows, timestamps, prefix_len,
 def attention_append(q, k_cache, v_cache, rows, timestamps, prefix_len,
                      total_len, pos_table, time_table, ninv, *, scale: float,
                      tb_denom: float, use_pos: bool, use_time: bool,
-                     time_functional: bool = False) -> torch.Tensor:
+                     time_functional: bool = False,
+                     causal: bool = True) -> torch.Tensor:
     """K1-fwd's append launch for card tensors, its plain version
     (``ref.attention_append_plain``) for CPU tensors: the warm window's
     queries q (R, Q, H, D) at rows [p_r, p_r + Q) of slot ``rows[r]``
     against keys [0, p_r + Q) of the layer's cache (N+1, cap, H, D), with
     ``total_len`` T_r = p_r + n_r live tokens; each live query gets the
     bits of the cold work-list launch on its row. → (R, Q, H, D), 0 at
-    window rows at or past T_r. Forward only (serving)."""
+    window rows at or past T_r. Forward only (serving).
+
+    Causal only, as the reference's append is: an acausal row's 1/n is its
+    length, so its prefix's hidden states change as it grows and no cache
+    of them can be extended; ``causal=False`` (the mask of the cold plan
+    the caches came from) raises."""
+    if not causal:
+        raise ValueError("the append launch is causal only: an acausal "
+                         "plan's prefix states change as the row grows, so "
+                         "its K/V caches cannot be extended")
     kw = dict(scale=scale, tb_denom=tb_denom, use_pos=use_pos,
               use_time=use_time, time_functional=time_functional)
     if q.device.type == "cuda":
@@ -477,12 +522,15 @@ def kernel_time_buckets(qts: torch.Tensor, kts: torch.Tensor,
 
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
-                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
+                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 6
                  + [ctypes.c_void_p])
 
 
-def _bwd_lib():
-    lib = _build.load("jagged_attn_bwd")
+def _bwd_lib(causal: bool):
+    """K2's library for the mask: ``jagged_attn_bwd.cu`` is built once per
+    mask (``_build.DEFINES``), each library holding that mask's kernels."""
+    lib = _build.load("jagged_attn_bwd" if causal
+                      else "jagged_attn_bwd_acausal")
     if lib.jagged_attn_bwd.argtypes is None:
         lib.jagged_attn_bwd.argtypes = _BWD_ARGTYPES
         lib.jagged_attn_bwd.restype = ctypes.c_int
@@ -495,9 +543,10 @@ def _launch_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan,
                 dense: bool = False):
     """Launch K2 (the dk/dv kernel, the dq + RAB-partials kernel and the
     fixed-order sum of the per-CTA RAB partials) on a batched plan, or with
-    ``dense`` K8-bwd (the same three over the dense block grid); raises on
-    anything the kernels do not take. → (dq, dk, dv, dpt, dtt); in the
-    functional time mode dtt is d(amp, σ, ρ) (3, H)."""
+    ``dense`` K8-bwd (the same three over the dense block grid), with the
+    plan's mask (one library per mask); raises on anything the kernels do
+    not take. → (dq, dk, dv, dpt, dtt); in the functional time mode dtt is
+    d(amp, σ, ρ) (3, H)."""
     G, capp, H, D = q.shape
     dev = q.device
     _require(dev.type == "cuda", f"tensors on {dev}, not on the card")
@@ -539,14 +588,15 @@ def _launch_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan,
                           device=dev)
     dpt = torch.empty((npb, H), dtype=torch.float32, device=dev)
     dtt = torch.empty((ntb, H), dtype=torch.float32, device=dev)
-    lib = _bwd_lib()
+    lib = _bwd_lib(plan.causal)
     with torch.cuda.device(dev):
         rc = lib.jagged_attn_bwd(
             *(t.data_ptr() for t in tensors),
             *(t.data_ptr() for t in (dq, dk, dv, partial, dpt, dtt)),
             G, capp, H, D, plan.num_pairs, npb, ntb, scale, tb_denom,
             int(use_pos), int(use_time), int(time_functional), int(dense),
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+            int(plan.causal), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"jagged_attn_bwd launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES[launch_counter("bwd", dense=dense,
@@ -557,8 +607,8 @@ def _launch_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan,
 class _AttnCore(torch.autograd.Function):
     """The kernels of ``schedule`` (K1-fwd/K2 for "worklist", K8 for
     "dense"), or with ``schedule=None`` the plain versions, which serve
-    both. The plan and the static settings ride along as non-tensor
-    arguments."""
+    both; each takes the plan's mask. The plan and the static settings
+    ride along as non-tensor arguments."""
 
     @staticmethod
     def forward(ctx, q, k, v, pos_table, time_table, plan, kw, schedule):
@@ -590,10 +640,13 @@ class _AttnCore(torch.autograd.Function):
 
 
 def attention_core(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
-                   schedule: str = "worklist", **kw) -> torch.Tensor:
+                   schedule: str = "worklist", causal: bool = True,
+                   **kw) -> torch.Tensor:
     """The kernels of ``schedule`` for card tensors, the plain versions for
-    CPU tensors; differentiable in q, k, v and both tables."""
+    CPU tensors; differentiable in q, k, v and both tables. ``causal``
+    must be the plan's (checked)."""
     check_schedule(schedule)
+    check_causal(plan, causal)
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"jagged attention: unsupported device {q.device}")
     return _AttnCore.apply(q, k, v, pos_table, time_table, plan, kw,
@@ -601,11 +654,13 @@ def attention_core(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
 
 
 def plain_core(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
-               schedule: str = "worklist", **kw) -> torch.Tensor:
+               schedule: str = "worklist", causal: bool = True,
+               **kw) -> torch.Tensor:
     """The plain versions on any device, for either schedule (what a check
     calls to recompute a kernel result), differentiable like
     :func:`attention_core`."""
     check_schedule(schedule)
+    check_causal(plan, causal)
     return _AttnCore.apply(q, k, v, pos_table, time_table, plan, kw, None)
 
 
@@ -664,7 +719,8 @@ def run_attention(q, k, v, offsets, timestamps, rab_params,
                   time_mode: str = "bucket", block: int = 128,
                   plan: Optional[JaggedAttnPlan] = None,
                   schedule: str = "worklist",
-                  max_row_len: Optional[int] = None) -> torch.Tensor:
+                  max_row_len: Optional[int] = None,
+                  causal: bool = True) -> torch.Tensor:
     """Shared body of :func:`jagged_attention` and the plain
     ``ref.jagged_attention_ref``: tables, padding, plan, ``core``, mask.
     In the functional time mode the kernels take
@@ -684,7 +740,7 @@ def run_attention(q, k, v, offsets, timestamps, rab_params,
         q, k, v = (torch.cat([t, zpad], dim=1) for t in (q, k, v))
     if plan is None:
         plan = build_attn_plan(offsets, timestamps, cap, block=block,
-                               max_row_len=max_row_len)
+                               max_row_len=max_row_len, causal=causal)
     plan = _as_batched(plan)
     if (plan.capacity != cap + pad or plan.block != block
             or plan.meta_i32.shape[0] != G):
@@ -693,7 +749,8 @@ def run_attention(q, k, v, offsets, timestamps, rab_params,
             f"{plan.capacity}, block={plan.block}) does not match call "
             f"(packs={G}, capacity={cap + pad}, block={block})")
     out = core(q.contiguous(), k.contiguous(), v.contiguous(), pt, tt, plan,
-               scale=1.0 / math.sqrt(D), schedule=schedule, **tkw)
+               scale=1.0 / math.sqrt(D), schedule=schedule, causal=causal,
+               **tkw)
     out = _masked(plan.meta_i32, out)[:, :cap]
     return out if batched else out[0]
 
@@ -704,21 +761,27 @@ def jagged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      time_mode: str = "bucket", block: int = 128,
                      plan: Optional[JaggedAttnPlan] = None,
                      schedule: str = "worklist",
-                     max_row_len: Optional[int] = None) -> torch.Tensor:
-    """Fused jagged pointwise attention + RAB, forward, causal within each
-    row. q, k, v (cap, H, D) with offsets (S+1,), or (G, cap, H, D) with
+                     max_row_len: Optional[int] = None,
+                     causal: bool = True) -> torch.Tensor:
+    """Fused jagged pointwise attention + RAB within each row.
+    q, k, v (cap, H, D) with offsets (S+1,), or (G, cap, H, D) with
     offsets (G, S+1). ``time_mode`` "bucket" reads ``rab_params``'
     ``time_table``; "functional" its ``time_amp``, ``time_log_sigma`` and
     ``time_rho`` (FuXi). ``schedule`` "worklist" runs K1-fwd/K2 over the
     live-pair work-list, "dense" K8 over the dense block grid: the same
     function, bit for bit on one plan.
 
+    ``causal`` (default): a query sees the keys of its row at or before
+    it, its weights divided by that count, pos+1. ``causal=False``: it
+    sees every key of its row, its weights divided by the row's length
+    (the acausal instantiations of the same kernels).
+
     ``plan`` reuses a :func:`build_attn_plan` result; it must match
-    capacity and block (checked)."""
+    capacity, block and ``causal`` (checked)."""
     return run_attention(q, k, v, offsets, timestamps, rab_params, rab,
                          core=attention_core, time_mode=time_mode,
                          block=block, plan=plan, schedule=schedule,
-                         max_row_len=max_row_len)
+                         max_row_len=max_row_len, causal=causal)
 
 
 # --------------------------------------------------------------------------
@@ -727,20 +790,24 @@ def jagged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class PlannedAttention:
     """attn_fn with one plan per micro-batch (models/gr.py detects
-    ``make_plan`` and builds the plan once, outside the layer loop)."""
+    ``make_plan`` and builds the plan once, outside the layer loop). Its
+    mask is fixed: ``causal`` builds every plan and goes with every
+    call."""
 
     def __init__(self, *, block: int = 128, schedule: str = "worklist",
-                 max_row_len: Optional[int] = None):
+                 max_row_len: Optional[int] = None, causal: bool = True):
         check_schedule(schedule)
         self.block = block
         self.schedule = schedule
         self.max_row_len = max_row_len
+        self.causal = bool(causal)
 
     def make_plan(self, offsets: torch.Tensor, timestamps: torch.Tensor,
                   capacity: int) -> JaggedAttnPlan:
         return build_attn_plan(offsets, timestamps, capacity,
                                block=self.block,
-                               max_row_len=self.max_row_len)
+                               max_row_len=self.max_row_len,
+                               causal=self.causal)
 
     def __call__(self, q, k, v, offsets, timestamps, rab_params, rab, *,
                  time_mode: str = "bucket",
@@ -749,12 +816,14 @@ class PlannedAttention:
                                 rab, time_mode=time_mode,
                                 block=self.block, plan=plan,
                                 schedule=self.schedule,
-                                max_row_len=self.max_row_len)
+                                max_row_len=self.max_row_len,
+                                causal=self.causal)
 
 
 def make_attn_fn(*, block: int = 128, schedule: str = "worklist",
-                 max_row_len: Optional[int] = None) -> PlannedAttention:
+                 max_row_len: Optional[int] = None,
+                 causal: bool = True) -> PlannedAttention:
     """attn_fn factory for models.hstu.hstu_block(attn_fn=...):
-    ``schedule="dense"`` selects K8."""
+    ``schedule="dense"`` selects K8, ``causal=False`` the acausal mask."""
     return PlannedAttention(block=block, schedule=schedule,
-                            max_row_len=max_row_len)
+                            max_row_len=max_row_len, causal=causal)

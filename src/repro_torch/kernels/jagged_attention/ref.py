@@ -8,9 +8,11 @@ the kernels' arithmetic: scores and bias in fp32, the time bucket as
 floor(log(1+dt)/denom) in fp32 or, with ``time_functional``, FuXi's
 encoder amp·exp(−exp(ρ·ln z)), z = (float(|Δt|) + 1e-6)/σ, from the
 packed (3, H) ``[amp; σ; ρ]`` in place of the time table; SiLU weights
-scaled by 1/(pos+1) and, in the forward, rounded to v's dtype before the
-a·v product; products accumulated in fp32. The wrapper uses them for CPU
-tensors; ``chip_smoke.py`` holds the kernels against them on the card.
+masked by the plan's mask (same row, and key at or before the query when
+``plan.causal``), scaled by the plan's 1/n and, in the forward, rounded
+to v's dtype before the a·v product; products accumulated in fp32. The
+wrapper uses them for CPU tensors; ``chip_smoke.py`` holds the kernels
+against them on the card.
 
 Both take an accumulation dtype, ``acc_dtype`` (float32 by default, the
 kernels' arithmetic bit for bit). With float64 the scores, the bias
@@ -67,6 +69,15 @@ def functional_grad_terms(E: torch.Tensor, zr: torch.Tensor,
     return E, ezr * c_sig, ezr * lnz * c_rho
 
 
+def _pair_mask(qseg, kseg, qslot, kslot, causal: bool) -> torch.Tensor:
+    """(P, bq, bk) bool: the query and the key lie in one row and, when
+    ``causal``, the key at or before the query."""
+    mask = (qseg[:, :, None] == kseg[:, None, :]) & (qseg[:, :, None] >= 0)
+    if causal:
+        mask &= qslot[:, :, None] >= kslot[:, None, :]
+    return mask
+
+
 def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         pos_table: torch.Tensor, time_table: torch.Tensor,
                         plan, *, scale: float, tb_denom: float,
@@ -112,10 +123,7 @@ def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias = bias + time_table[time_buckets(dt, tb_denom,
                                                           ntb)]
             s = s + bias
-            qseg, kseg = seg[qb], seg[kb]
-            mask = ((qseg[:, :, None] == kseg[:, None, :])
-                    & (qseg[:, :, None] >= 0)
-                    & (qslot[:, :, None] >= kslot[:, None, :]))
+            mask = _pair_mask(seg[qb], seg[kb], qslot, kslot, plan.causal)
             mw = mask.to(acc_dtype) * ninv[qb][:, :, None]
             a = (s * torch.sigmoid(s)) * mw[..., None]
             a = a.to(v.dtype).to(acc_dtype)
@@ -140,7 +148,7 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Per live pair it recomputes s and, like the TPU kernel, keeps the
     SiLU weights a in fp32 for dv (the forward's rounding of a to v's
     dtype passes the gradient straight through):
-    da = dy·vᵀ, ds = da·SiLU′(s)·mask/(pos+1); dv += aᵀ·dy,
+    da = dy·vᵀ, ds = da·SiLU′(s)·mask/n; dv += aᵀ·dy,
     dk += dsᵀ·q·scale, dq += ds·k·scale; the RAB grads sum ds per bucket.
     """
     G, capp, H, D = q.shape
@@ -181,10 +189,7 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     tb = time_buckets(dt, tb_denom, ntb)
                     bias = bias + time_table[tb]
             s = s + bias
-            qseg, kseg = seg[qb], seg[kb]
-            mask = ((qseg[:, :, None] == kseg[:, None, :])
-                    & (qseg[:, :, None] >= 0)
-                    & (qslot[:, :, None] >= kslot[:, None, :]))
+            mask = _pair_mask(seg[qb], seg[kb], qslot, kslot, plan.causal)
             mw = (mask.to(acc_dtype) * ninv[qb][:, :, None])[..., None]
             sig = torch.sigmoid(s)
             a = s * sig * mw
@@ -259,7 +264,8 @@ def attention_append_plain(q: torch.Tensor, k_cache: torch.Tensor,
 def jagged_attention_ref(q, k, v, offsets, timestamps, rab_params, rab, *,
                          time_mode: str = "bucket", block: int = 128,
                          plan=None, schedule: str = "worklist",
-                         max_row_len: Optional[int] = None) -> torch.Tensor:
+                         max_row_len: Optional[int] = None,
+                         causal: bool = True) -> torch.Tensor:
     """``ops.jagged_attention`` with the plain version in place of the
     kernel, on any device: what a check calls to recompute a kernel result
     explicitly. The plain version serves both schedules (K1/K2 and K8
@@ -268,7 +274,7 @@ def jagged_attention_ref(q, k, v, offsets, timestamps, rab_params, rab, *,
     return ops.run_attention(q, k, v, offsets, timestamps, rab_params, rab,
                              core=ops.plain_core, time_mode=time_mode,
                              block=block, plan=plan, schedule=schedule,
-                             max_row_len=max_row_len)
+                             max_row_len=max_row_len, causal=causal)
 
 
 def max_row_rel_err(out: torch.Tensor, plain: torch.Tensor) -> float:

@@ -463,12 +463,22 @@ def neg_logits_fwd(o: torch.Tensor, n: torch.Tensor, *,
 
 
 def neg_logits_bwd(o: torch.Tensor, n: torch.Tensor, g: torch.Tensor, *,
-                   inv_tau: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                   inv_tau: float, dn: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K9-bwd for card tensors, its plain version for CPU tensors: with gs
     = g · 1/τ, (do = Σ_r gs·n (T, D) fp32, dn = gs·o (T, R, D) in n's
-    dtype)."""
+    dtype). ``dn``, if given, is where dn is written (a contiguous tensor
+    like ``n``: the offloaded path's reused card buffers)."""
+    if dn is not None:
+        _require(dn.shape == n.shape and dn.dtype == n.dtype
+                 and dn.device == n.device and dn.is_contiguous()
+                 and dn.data_ptr() % 16 == 0,
+                 f"(neg_logits) dn {tuple(dn.shape)} {dn.dtype} on "
+                 f"{dn.device}; takes a contiguous, 16-byte aligned tensor "
+                 f"like n {tuple(n.shape)} {n.dtype} on {n.device}")
     if o.device.type == "cpu":
-        return R_.neg_logits_bwd_plain(o, n, g, inv_tau=inv_tau)
+        do, dn_ = R_.neg_logits_bwd_plain(o, n, g, inv_tau=inv_tau)
+        return do, dn_ if dn is None else dn.copy_(dn_)
     _check_nl(o, n)
     T, R, D = n.shape
     _require(g.shape == (T, R) and g.dtype == torch.float32
@@ -476,7 +486,7 @@ def neg_logits_bwd(o: torch.Tensor, n: torch.Tensor, g: torch.Tensor, *,
              f"(neg_logits) g {tuple(g.shape)} {g.dtype}; takes contiguous "
              f"({T}, {R}) float32")
     dout = torch.empty((T, D), dtype=torch.float32, device=o.device)
-    dn = torch.empty_like(n)
+    dn = torch.empty_like(n) if dn is None else dn
     with torch.cuda.device(o.device):
         rc = _nl_lib().neg_logits_bwd(
             o.data_ptr(), n.data_ptr(), g.data_ptr(), dout.data_ptr(),

@@ -187,10 +187,16 @@ def _last_rows(h: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return h[r, (n.long() - 1).clamp(min=0)]
 
 
-def _check_prefix_reuse(cfg: ArchConfig) -> None:
+def _check_prefix_reuse(cfg: ArchConfig, attn_fn=None) -> None:
+    """Prefix reuse needs the HSTU block (its K/V projections) and causal
+    attention (the append launch's mask; an acausal row's prefix states
+    change as it grows)."""
     if (cfg.gr_block or "hstu") != "hstu":
         raise ValueError("prefix reuse requires gr_block='hstu', got "
                          f"{cfg.gr_block!r}")
+    if not getattr(attn_fn, "causal", True):
+        raise ValueError("prefix reuse requires causal attention: the "
+                         "append launch is causal only")
 
 
 @torch.no_grad()
@@ -207,10 +213,10 @@ def gr_encode_slots(model: GRModel, cfg: ArchConfig, x: torch.Tensor,
     (L, N+1, cap, H, ·), cap = :func:`slot_capacity`). Positions past a
     row's length hold the projections of its padding tokens: finite, and
     masked to exact zeros by every later launch."""
-    _check_prefix_reuse(cfg)
     S = x.shape[1]
     offsets = _row_offsets(lengths)
     attn_fn = attn_fn or default_attn_fn(cfg)
+    _check_prefix_reuse(cfg, attn_fn)
     plan = attn_fn.make_plan(offsets, timestamps, S)
     rl = rows.long()
     for layer, bp in enumerate(model.blocks):

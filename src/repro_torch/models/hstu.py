@@ -91,12 +91,34 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def _row_count(offsets: torch.Tensor, seg: torch.Tensor, pos: torch.Tensor,
+               causal: bool) -> torch.Tensor:
+    """The per-query divisor n: pos+1 when causal, else the row's length
+    (at least 1)."""
+    if causal:
+        return pos + 1
+    lengths = offsets[1:] - offsets[:-1]
+    segc = seg.clamp(0, offsets.shape[0] - 2).long()
+    return lengths[segc].clamp(min=1)
+
+
+def _mask(qseg, kseg, qslot, kslot, causal: bool) -> torch.Tensor:
+    """(q, k) bool: one row, and the key at or before the query when
+    ``causal``."""
+    m = (qseg[:, None] == kseg[None, :]) & (qseg[:, None] >= 0)
+    if causal:
+        m &= qslot[:, None] >= kslot[None, :]
+    return m
+
+
 def jagged_pointwise_attention(q, k, v, offsets, timestamps, rab_params,
                                rab: Optional[RABConfig], *,
-                               time_mode: str = "bucket") -> torch.Tensor:
+                               time_mode: str = "bucket",
+                               causal: bool = True) -> torch.Tensor:
     """Oracle: full (cap, cap) materialization. q,k (cap,H,dqk), v
     (cap,H,dv) → (cap,H,dv) v.dtype. ``time_mode`` "bucket" (HSTU's time
-    table) or "functional" (FuXi's encoder)."""
+    table) or "functional" (FuXi's encoder). ``causal=False``: every key
+    of the row, weights over the row length."""
     cap, H, dqk = q.shape
     scale = 1.0 / math.sqrt(dqk)
     seg = segment_ids(offsets, cap)
@@ -107,9 +129,9 @@ def jagged_pointwise_attention(q, k, v, offsets, timestamps, rab_params,
         s = s + rab_bias(rab_params, rab, pos, pos, timestamps,
                          timestamps, time_mode)
     a = _silu(s)
-    mask = ((seg[:, None] == seg[None, :]) & (seg[:, None] >= 0)
-            & (slot[:, None] >= slot[None, :]))
-    a = torch.where(mask[..., None], a, 0.0) / (pos + 1)[:, None, None].float()
+    mask = _mask(seg, seg, slot, slot, causal)
+    n = _row_count(offsets, seg, pos, causal)
+    a = torch.where(mask[..., None], a, 0.0) / n[:, None, None].float()
     out = torch.einsum("qkh,khd->qhd", a.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
 
@@ -117,7 +139,8 @@ def jagged_pointwise_attention(q, k, v, offsets, timestamps, rab_params,
 def jagged_pointwise_attention_blocked(q, k, v, offsets, timestamps,
                                        rab_params, rab: Optional[RABConfig],
                                        *, block: int = 512,
-                                       time_mode: str = "bucket"
+                                       time_mode: str = "bucket",
+                                       causal: bool = True
                                        ) -> torch.Tensor:
     """Double-blocked scan, O(block²·H) scores at a time, same math as the
     oracle (divide by n once after the key loop)."""
@@ -131,7 +154,7 @@ def jagged_pointwise_attention_blocked(q, k, v, offsets, timestamps,
     seg = segment_ids(offsets, cap)
     pos = positions(offsets, cap)
     slot = torch.arange(cap, device=q.device)
-    n_row = pos + 1
+    n_row = _row_count(offsets, seg, pos, causal)
     out = torch.empty((cap, H, dv), dtype=v.dtype, device=v.device)
     for qi in range(nb):
         qs = slice(qi * block, (qi + 1) * block)
@@ -145,9 +168,7 @@ def jagged_pointwise_attention_blocked(q, k, v, offsets, timestamps,
                 s = s + rab_bias(rab_params, rab, pos[qs], pos[ks],
                                  timestamps[qs], timestamps[ks], time_mode)
             a = _silu(s)
-            m = ((seg[qs][:, None] == seg[ks][None, :])
-                 & (seg[qs][:, None] >= 0)
-                 & (slot[qs][:, None] >= slot[ks][None, :]))
+            m = _mask(seg[qs], seg[ks], slot[qs], slot[ks], causal)
             a = torch.where(m[..., None], a, 0.0)
             acc = acc + torch.einsum("qkh,khd->qhd", a.to(v.dtype).float(),
                                      v[ks].float())
@@ -320,7 +341,8 @@ def pointwise_attention_append(q, k_cache, v_cache, rows, timestamps,
     k-block walk), so every live query gets the bits a cold encode of its
     row gives; the reference's XLA order is not followed. Window rows at
     or past T_r come out 0. ``timestamps`` (R, cap) and ``ninv`` (cap,)
-    (``ops.position_ninv``) as the launch takes them."""
+    (``ops.position_ninv``) as the launch takes them. Causal only: the
+    cold encodes that filled the caches must be causal."""
     H, dqk = q.shape[-2:]
     pt, tt, tkw = attn_ops.rab_tables(rab_params, rab, H, q.device,
                                       time_mode)

@@ -414,6 +414,8 @@ class StreamingRecallEngine:
         self._block_v = self.retriever.block_v
         self._scan = self.retriever.scan_table(self.table)
         self.attn_fn = attn_fn or GR.default_attn_fn(cfg)
+        if self.prefix_reuse:
+            GR._check_prefix_reuse(cfg, self.attn_fn)
         self.graph_captures = 0
         # host mirror of the embedding rows, filled at rank time: what
         # cache-hit results carry without touching the device

@@ -77,8 +77,8 @@ def test_attention_backward_bf16_products_on_tensor_cores():
     src = (_build.CSRC / _build.SOURCES["jagged_attn_bwd"]).read_text()
     for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
                    "ldmatrix.sync.aligned", ".trans", "cp.async.cg",
-                   "attn_bwd_kv_tc_kernel<D, FUNC>",
-                   "attn_bwd_q_tc_kernel<D, FUNC>",
+                   "attn_bwd_kv_tc_kernel<D, FUNC, CAUSAL>",
+                   "attn_bwd_q_tc_kernel<D, FUNC, CAUSAL>",
                    "std::is_same<T, __nv_bfloat16>"):
         assert needle in src, needle
 
@@ -102,8 +102,8 @@ def test_attention_forward_bf16_products_on_tensor_cores():
     for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
                    "ldmatrix.sync.aligned", ".trans", "cp.async.cg"):
         assert needle in full, needle
-    for needle in ("attn_fwd_tc_kernel<D, FUNC, APPEND>",
-                   "attn_fwd_kernel<T, D, FUNC, APPEND>",
+    for needle in ("attn_fwd_tc_kernel<D, FUNC, APPEND, CAUSAL>",
+                   "attn_fwd_kernel<T, D, FUNC, APPEND, CAUSAL>",
                    "std::is_same<T, __nv_bfloat16>", "mma16816(", "ldsm_x4(",
                    "ldsm_x4_t(", "cp_async16(", "fmaf("):
         assert needle in src, needle
@@ -117,8 +117,8 @@ def test_append_launch_is_the_cold_kernels_with_the_pack_meta_in_place():
     walk and the output rows are taken another way."""
     src = (_build.CSRC / _build.SOURCES["jagged_attn_fwd"]).read_text()
     assert 'extern "C" int jagged_attn_fwd_append(' in src
-    assert "launch_dtype<float, true>" in src
-    assert "launch_dtype<__nv_bfloat16, true>" in src
+    assert "launch_dtype<float, true, true>" in src
+    assert "launch_dtype<__nv_bfloat16, true, true>" in src
     for kernel in ("attn_fwd_kernel(", "attn_fwd_tc_kernel("):
         body = src.split(kernel, 1)[1].split("\n}\n", 1)[0]
         assert body.count("if constexpr (APPEND)") >= 4, kernel

@@ -1402,3 +1402,147 @@ def test_hsp_world_of_one_equals_single_process_on_card(cuda, tmp_path):
     r, = _card_world("card_world1", dict(V=1 << 18, layers=2, upd=2,
                                          steps=3), (1, 1), tmp_path)
     assert r["bitwise"], r
+
+
+# --------------------------------------------------------------------------
+# the non-causal mask (K1-fwd, K2 and K8's acausal instantiations)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["bucket", "functional"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_acausal_kernels_match_plain_version(cuda, dtype, mode):
+    """K1-fwd and K2 on an acausal plan (every key of the row, weights over
+    the row length) against the float64 plain versions (an acausal tile
+    sends up to 127 diagonals to position bucket 0, a long sum of both
+    signs): bf16 outputs and q/k/v grads per (token, head) by relative L2
+    ≤ 1e-2, fp32 ones and every table grad (fp32 in either dtype) within
+    1e-4 of the largest value; bit-identical run to run; K8 (the dense
+    grid) bit for bit K1/K2 on the plan, its counters alone moving."""
+    from repro_torch.kernels.jagged_attention.ref import attention_bwd_plain
+    H, D, cap = 8, 128, 1024
+    q, k, v, offs, ts = _pack(cuda, dtype, H, D,
+                              [[500, 3, 0, 300, 129], [0, 0, 0]], cap)
+    pt = torch.randn(256, H, device=cuda) * 0.5
+    functional = mode == "functional"
+    tt = (_functional_time(cuda, H) if functional
+          else torch.randn(32, H, device=cuda) * 0.5)
+    plan = ops._as_batched(build_attn_plan(offs, ts, cap, block=128,
+                                           max_row_len=1024, causal=False))
+    kw = dict(scale=D ** -0.5, tb_denom=ops.time_bucket_denom(0.301),
+              use_pos=True, use_time=True, time_functional=functional)
+    dy = ops._masked(plan.meta_i32, torch.randn_like(q))
+    out = ops._launch_fwd(q, k, v, pt, tt, plan, **kw)
+    got = ops._launch_bwd(q, k, v, dy, pt, tt, plan, **kw)
+    again = ops._launch_bwd(q, k, v, dy, pt, tt, plan, **kw)
+    f64 = torch.float64
+    plain = attention_fwd_plain(q, k, v, pt, tt, plan, acc_dtype=f64, **kw)
+    want = attention_bwd_plain(q, k, v, dy, pt, tt, plan, acc_dtype=f64,
+                               **kw)
+    out_m, plain_m = (ops._masked(plan.meta_i32, t) for t in (out, plain))
+    if dtype == torch.float32:
+        assert _rel_to_max(out_m, plain_m) <= 1e-4
+    else:
+        assert max_row_rel_err(out_m, plain_m) <= 1e-2
+    for name, a, b, c in zip(("dq", "dk", "dv", "dpt", "dtt"), got, want,
+                             again):
+        assert torch.equal(a, c), f"{name} differs between runs"
+        assert torch.isfinite(a.float()).all(), name
+        if dtype == torch.float32 or name in ("dpt", "dtt"):
+            assert _rel_to_max(a, b) <= 1e-4, (name, _rel_to_max(a, b))
+        else:
+            assert max_row_rel_err(ops._masked(plan.meta_i32, a),
+                                   ops._masked(plan.meta_i32, b)) <= 1e-2
+    before = dict(ops.KERNEL_LAUNCHES)
+    d_out = ops._launch_fwd(q, k, v, pt, tt, plan, dense=True, **kw)
+    d_got = ops._launch_bwd(q, k, v, dy, pt, tt, plan, dense=True, **kw)
+    torch.cuda.synchronize()
+    moved = {n: ops.KERNEL_LAUNCHES[n] - before[n] for n in before}
+    fwd = ops.launch_counter("fwd", dense=True, functional=functional)
+    bwd = ops.launch_counter("bwd", dense=True, functional=functional)
+    assert moved == {n: int(n in (fwd, bwd)) for n in before}
+    assert torch.equal(d_out, out)
+    assert all(torch.equal(a, b) for a, b in zip(d_got, got))
+
+
+def test_acausal_entry_points_on_card(cuda):
+    """``make_attn_fn(causal=False)`` through the autograd Function on the
+    card against the same call on the CPU's plain versions (fp32), and a
+    causal plan refused for an acausal call."""
+    H, D, cap = 4, 32, 512
+    q, k, v, offs, ts = _pack(cuda, torch.float32, H, D, [[300, 0, 150]],
+                              cap)
+    rab = {"pos_table": torch.randn(256, H, device=cuda) * 0.5,
+           "time_table": torch.randn(32, H, device=cuda) * 0.5}
+    fn = ops.make_attn_fn(max_row_len=512, causal=False)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t[0].to(dev).requires_grad_() for t in (q, k, v)]
+        r = {n: t.to(dev) for n, t in rab.items()}
+        o, t_ = offs[0].to(dev), ts[0].to(dev)
+        out = fn(*leaves, o, t_, r, RABConfig(), plan=fn.make_plan(o, t_,
+                                                                   cap))
+        out.sum().backward()
+        outs.append([out.detach().cpu()] + [x.grad.cpu() for x in leaves])
+    for a, b in zip(*outs):
+        assert _rel_to_max(a, b) <= 1e-4
+    causal_plan = build_attn_plan(offs[0], ts[0], cap, block=128)
+    with pytest.raises(ValueError, match="causal"):
+        fn(q[0], k[0], v[0], offs[0], ts[0], rab, RABConfig(),
+           plan=causal_plan)
+
+
+# --------------------------------------------------------------------------
+# the asynchronous negative offload (K9 over rows streamed from the host)
+# --------------------------------------------------------------------------
+
+def test_offloaded_neg_logits_bitwise_per_segment_k9(cuda):
+    """Logits, do and dn of the offloaded path (pinned host rows streamed a
+    128-token segment at a time) bit for bit K9 on the same segments held
+    on the card; the host rows and their grad are pinned, and the card
+    never holds more than a few segments of rows."""
+    from repro_torch.core.negative_sampling import (neg_logits_offloaded,
+                                                    offload_negatives)
+    from repro_torch.kernels.neg_logits import (KERNEL_LAUNCHES,
+                                                neg_logits_bwd,
+                                                neg_logits_fwd)
+    T, R, D, seg = 1024, 64, 256, 128
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    o = torch.randn(T, D, device=cuda, generator=gen).to(torch.bfloat16)
+    rows = torch.randn(T, R, D, device=cuda, generator=gen).half()
+    g = torch.randn(T, R, device=cuda, generator=gen)
+    host = offload_negatives(rows).requires_grad_()
+    assert host.is_pinned() and host.dtype == torch.float16
+    assert torch.equal(host.detach().to(cuda), rows)
+    oo = o.clone().requires_grad_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(KERNEL_LAUNCHES)
+    logits = neg_logits_offloaded(oo, host, segment=seg)
+    logits.backward(g)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert KERNEL_LAUNCHES["neg_logits_fwd"] - before["neg_logits_fwd"] \
+        == T // seg
+    assert KERNEL_LAUNCHES["neg_logits_bwd"] - before["neg_logits_bwd"] \
+        == T // seg
+    assert host.grad.is_pinned() and host.grad.dtype == torch.float16
+    # two card buffers of rows and two of dn, plus the logits and do: under
+    # five segments of rows, of the eight the full rows take
+    assert peak < 5 * rows[:seg].numel() * rows.element_size(), peak
+    for lo in range(0, T, seg):
+        s = slice(lo, lo + seg)
+        want = neg_logits_fwd(o[s], rows[s], inv_tau=1.0)
+        do, dn = neg_logits_bwd(o[s], rows[s], g[s], inv_tau=1.0)
+        assert torch.equal(logits[s], want)
+        assert torch.equal(oo.grad[s], do.to(o.dtype))
+        assert torch.equal(host.grad[s].to(cuda), dn)
+
+
+def test_offloaded_neg_logits_refuses_pageable_rows(cuda):
+    from repro_torch.core.negative_sampling import neg_logits_offloaded
+    o = torch.randn(128, 256, device=cuda)
+    with pytest.raises(ValueError, match="pinned"):
+        neg_logits_offloaded(o, torch.randn(128, 8, 256))
+    with pytest.raises(ValueError, match="host rows"):
+        neg_logits_offloaded(o, torch.randn(128, 8, 256, device=cuda))
