@@ -10,7 +10,8 @@ one card, so each phase frees its own.
   1. device  — the card's name, count, power limit, maximum SM clock; no
                card is a failure.
   2. build   — nvcc builds every CUDA source of the port from this
-               checkout (one nvcc per source, all started together);
+               checkout (one nvcc per source, all started together, on a
+               thread beside phase 6f, which runs none of the kernels);
                cuobjdump shows K1-fwd's and K2's bf16 kernels on the tensor
                cores (HMMA in their SASS) and their fp32 kernels on the FMA
                path; ptxas shows no spill in K1-fwd's bf16 kernels.
@@ -115,7 +116,10 @@ one card, so each phase frees its own.
                uncached, in a process of its own: a torn first save (the
                anchor), a fault after the first intact save; losses and the
                final save's CRC32s the uninterrupted run's, peak host RSS
-               within the run's count, save and restore GB/s.
+               within the run's count, save and restore GB/s; each
+               final state's CRC32s checksummed from the card on 8 threads
+               (checkpoint.manifest_of), and the seconds that frees against
+               the runs before it.
                (check_cached_resilient, the same with the embedding cache
                and a round trip, is run by a card test.)
   6d. cache  — GREngine with the embedding cache at vocab 2^22 (window 512
@@ -136,6 +140,21 @@ one card, so each phase frees its own.
                hsp_mesh configuration under ElasticRunner, 2 of 4 ranks
                lost at step 5, restarted on 1 x 2 from step 3, bitwise the
                fault-free shrink at step 3 (losses, step-8 CRC32s).
+  6f. lm     — (run beside phase 2's build) the LM zoo, bf16, random
+               weights from SEED, no kernel of the port's (the reference
+               computes these in XLA): starcoder2-3b
+               at full width and depth (3 make_lm_train_step steps on one
+               batch of 8 x 4096 tokens as 8 microbatches, the loss of step
+               3 below step 1's, tokens/s, peak, measured MFU; prefill 2 x
+               4096 and 8 greedy decode steps held to a forward over the
+               same tokens within 3 x the bf16 forward's distance from an
+               fp32 forward, the same argmax; a 1 x 32768 prefill; 16 decode
+               steps at batch 16 against a 32768-position cache),
+               mamba2-2.7b at full width and depth (3 steps on 4 x 4096, the
+               check, batch-1 decode steps), olmoe-1b-7b (the check at full
+               depth, capacity factor 8; 3 steps cut to 4 layers, the share
+               of slots dropped), the other configs one layer deep (jamba at
+               reduced()): one forward and backward, every grad finite.
   7. parity  — at full width, 2 layers, vocab 2^18: one training step's
                dense pass and table-grad pairs with the kernels against the
                plain versions on the card (hstu-large two-pass and fused,
@@ -290,6 +309,14 @@ def phase_device():
     CARD["sm_clock_hz"] = float(clk.stdout.strip().splitlines()[0]) * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the first torch.utils.checkpoint call of a process imports
+    # torch._dynamo (~840 modules; its seconds are printed below): paid
+    # here, once, before the build's nvcc processes take the host's cores
+    t = time.perf_counter()
+    from torch.utils.checkpoint import checkpoint
+    checkpoint(lambda x: x * 2, torch.ones(1, requires_grad=True),
+               use_reentrant=False)
+    import_s = time.perf_counter() - t
     from repro_torch.obs import peak_flops_of
     for dt in ("bfloat16", "float16", "float32"):
         PEAK_FLOPS[dt] = peak_flops_of(name, dt)
@@ -299,7 +326,8 @@ def phase_device():
     say(f"[device] {name} x{count}; nvidia-smi: {smi_line}; max SM clock "
         f"{CARD['sm_clock_hz'] / 1e6:.0f} MHz; torch "
         f"{torch.__version__} cuda {torch.version.cuda}; matmul tf32 "
-        f"{torch.backends.cuda.matmul.allow_tf32}")
+        f"{torch.backends.cuda.matmul.allow_tf32}; the first checkpoint "
+        f"call's imports {import_s:.1f} s")
     return name, count, smi_line
 
 
@@ -1362,12 +1390,33 @@ def phase_gather_kernel():
            .to(torch.bfloat16) * valid[:, None].to(torch.bfloat16))
     bit_plain, bit_lib = torch.equal(out, plain), torch.equal(out, lib)
     it = iter(range(10 ** 9))
-    ms = timed_ms(lambda: JL.gather_rows(master, sets[next(it) % 8],
-                                         torch.bfloat16), 40)
     plain_ms = timed_ms(lambda: JR.jagged_lookup_ref(
         master, sets[next(it) % 8]), 16)
-    lib_ms = timed_ms(lambda: torch.index_select(
-        master, 0, sets[next(it) % 8].clamp(min=0)), 40)
+    # K7 and index_select (its library call) in turns, one call at a time
+    # behind a sleep kernel (a ~25 µs kernel takes less time than its
+    # wrapper takes to call); earlier runs timed K7 by a loop of calls, at
+    # 0.0243 and at 0.0494 ms, never beside index_select
+    fns = {"k7": lambda: JL.gather_rows(master, sets[next(it) % 8],
+                                        torch.bfloat16),
+           "index_select": lambda: torch.index_select(
+               master, 0, sets[next(it) % 8].clamp(min=0))}
+    for f in fns.values():
+        f()
+    torch.cuda.synchronize()
+    evs = {k: [] for k in fns}
+    for _ in range(41):
+        for k, f in fns.items():
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(200_000)
+            e0.record()
+            f()
+            e1.record()
+            evs[k].append((e0, e1))
+    torch.cuda.synchronize()
+    med = {k: sorted(a.elapsed_time(b) for a, b in v)[len(v) // 2]
+           for k, v in evs.items()}
+    ms, lib_ms = med["k7"], med["index_select"]
     n_valid = int(valid.sum())
     byts = n_valid * D * 4 + n * D * 2 + n * 4
     bound_ms = byts / PEAK_BYTES * 1e3
@@ -1375,7 +1424,9 @@ def phase_gather_kernel():
         f"to bf16; bitwise equal to the plain version {bit_plain}, to "
         f"index_select + mask + cast {bit_lib} | kernel {ms:.4f} ms  plain "
         f"(clamp, gather, cast, where) {plain_ms:.4f} ms  index_select "
-        f"alone (fp32 rows, no mask or cast) {lib_ms:.4f} ms  bound "
+        f"alone (fp32 rows, no mask or cast) {lib_ms:.4f} ms (the two in "
+        f"turns, one call at a time, medians of 41: K7 "
+        f"{'wins' if ms < lib_ms else 'loses'})  bound "
         f"{bound_ms:.5f} ms by bytes ({byts / 1e6:.2f} MB) -> "
         f"{bound_ms / ms:.3f} of bound")
     check(bit_plain and bit_lib, "K7 differs from its plain version or "
@@ -3206,21 +3257,34 @@ RESILIENT_RESTORED = [0, 4]
 RESILIENT_SAVED = 4
 
 
-def _manifest_of(snap):
-    """What a save of a host snapshot records of its leaves: CRC32s,
-    shapes, dtypes (the leaves are checksummed, no file is written)."""
+# The final state's CRC32s took the uninterrupted child 23.7 and 26.8 s
+# and the resilient child 82.48 and 68.41 s in this script's last two runs
+# before the change (NVIDIA H100 80GB HBM3, 700.00 W): each took a pageable
+# host copy
+# of the 35.4 GB state, which the resilient child made beside the 44 GB of
+# pinned buffers its saver had left cached in the host allocator, and
+# then checksummed the two 17.2 GB tables on a thread each. Now the leaves
+# are checksummed from the card through piece buffers, each table in
+# segments on 8 threads (checkpoint.manifest_of), in both children.
+BEFORE_CRC_S = ((23.7, 82.48), (26.8, 68.41))
+# Phase resilient's seconds in those two runs.
+BEFORE_RESILIENT_S = (302.6, 301.4)
+
+
+def _manifest_of(tree):
+    """What a save of ``tree`` records of its leaves: CRC32s, shapes,
+    dtypes (checksummed, no file written, no host copy of a card state)."""
     from repro_torch.training import checkpoint as CKPT
-    return dict(crc32s=CKPT.crc32s(snap),
-                shapes=[[int(n) for n in sh] for sh in snap.shapes],
-                dtypes=list(snap.dtypes))
+    return CKPT.manifest_of(tree)
 
 
 def _resilient_reference():
-    """The uninterrupted run the resilient children are held to (a child
-    of its own: the host copy it checksums is gone with it): GREngine from
-    SEED on full-width hstu-large (vocab 2^22) over the Zipf batches of
-    cell *cache*, RESILIENT_STEPS steps; its losses and what a save of its
-    final carry-convention state would record."""
+    """The uninterrupted run the resilient children are held to (in this
+    process: its state is checksummed from the card, no host copy):
+    GREngine from SEED on full-width hstu-large (vocab 2^22) over the Zipf
+    batches of cell *cache*, RESILIENT_STEPS steps; its losses and what a
+    save of its final carry-convention state would record. The card's
+    memory is freed for the child that follows."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.model_zoo import GRBundle
@@ -3233,9 +3297,12 @@ def _resilient_reference():
     ref = GREngine(GRBundle(cfg), lambda i: batches[i], seed=SEED, device=dev)
     out = dict(losses=[r["loss"] for r in ref.run(N)])
     t1 = time.perf_counter()
-    out["manifest"] = _manifest_of(ref.full_snapshot())
+    out["manifest"] = _manifest_of(ref.checkpoint_tree())
     out["crc_s"] = time.perf_counter() - t1
     out["wall_s"] = time.perf_counter() - t
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3264,10 +3331,6 @@ def _run_child(fn, tag, timeout=1000, args=()):
     check(p.returncode == 0 and result is not None,
           f"{tag}: the child process exited {p.returncode}")
     return result
-
-
-def resilient_reference_child():
-    return _child_main(_resilient_reference)
 
 
 def resilient_child_uncached():
@@ -3444,8 +3507,7 @@ def _resilient_child(cached):
         check(refused is not None and "CRC mismatch" in refused,
               f"{tag}: the flipped step restored ({refused})")
         t = time.perf_counter()
-        manifest = _manifest_of(eng.checkpoint_tree() if cached
-                                else eng.full_snapshot())
+        manifest = _manifest_of(eng.checkpoint_tree())
         crc_s = time.perf_counter() - t
         verify = [x for _, x, e in checks if e is None]
         out = dict(
@@ -3555,9 +3617,10 @@ def _same_manifest(got, want, tag, what):
 def phase_resilient():
     """GREngine.run_resilient on full-width, full-depth hstu-large (d 1024,
     16 layers, bf16) at the full vocab 2^22, uncached: the uninterrupted
-    run (RESILIENT_STEPS steps over the Zipf batches of cell *cache*,
-    fused with K5, tau=1, Algorithm 1; its final state's CRC32s from a
-    host copy, no file), then in a process of its own a fresh supervised
+    run in this process (RESILIENT_STEPS steps over the Zipf batches of
+    cell *cache*, fused with K5, tau=1, Algorithm 1; its final state's
+    CRC32s checksummed from the card, no file), then in a process of its
+    own a fresh supervised
     run from the same seed (async checkpoints every RESILIENT_EVERY)
     through a torn first save (the anchor) and a fault after the first
     intact save (restored), and a flipped byte in the saved step that only
@@ -3568,11 +3631,11 @@ def phase_resilient():
     the end."""
     from repro_torch.configs import get_arch
     tag = "resilient"
-    ref = _run_child("resilient_reference_child", tag)
+    ref = _resilient_reference()
     check(all(math.isfinite(x) for x in ref["losses"]),
           f"{tag}: uninterrupted losses {ref['losses']}")
-    say(f"[{tag}] uninterrupted: {RESILIENT_STEPS} steps, losses "
-        f"{ref['losses']}; its state's CRC32s from a host copy in "
+    say(f"[{tag}] uninterrupted (in this process): {RESILIENT_STEPS} "
+        f"steps, losses {ref['losses']}; its state's CRC32s in "
         f"{ref['crc_s']:.1f} s; {ref['wall_s']:.1f} s")
     out = _run_child("resilient_child_uncached", tag)
     check(out["losses"] == ref["losses"], f"{tag}: resilient losses "
@@ -3589,6 +3652,15 @@ def phase_resilient():
         f"state's {len(ref['manifest']['crc32s'])} leaves' CRC32s, shapes "
         f"and dtypes its state's (so the refused restore wrote nothing)")
     out["card"] = CARD.get("smi_line")
+    out["ref_crc_s"] = ref["crc_s"]
+    now = ref["crc_s"] + out["crc_s"]
+    out["crc_freed_s"] = min(a + b for a, b in BEFORE_CRC_S) - now
+    say(f"[{tag}] the final states' CRC32s: {ref['crc_s']:.2f} s "
+        f"(uninterrupted) + {out['crc_s']:.2f} s (resilient) = {now:.2f} s, "
+        f"against "
+        f"{' and '.join(f'{a} + {b} = {a + b:.2f}' for a, b in BEFORE_CRC_S)}"
+        f" s in the two runs before: {out['crc_freed_s']:.2f} s freed "
+        f"(against the lesser)")
     return out
 
 
@@ -3603,7 +3675,7 @@ def check_cached_resilient():
     cached engine that trains on to the uninterrupted run's losses and
     CRC32s."""
     tag = "cache resilient"
-    ref = _run_child("resilient_reference_child", tag)
+    ref = _resilient_reference()
     out = _run_child("resilient_child_cached", tag)
     check(out["losses"] == ref["losses"], f"{tag}: losses {out['losses']} "
           f"vs the uninterrupted run's {ref['losses']}")
@@ -4527,6 +4599,457 @@ def phase_elastic():
 
 
 # --------------------------------------------------------------------------
+# phase 6f: the LM zoo
+# --------------------------------------------------------------------------
+
+# Phase lm's time budget (s); the seconds freed elsewhere must cover it.
+LM_BUDGET_S = 90.0
+# Tokens a sequence in the prefill/decode checks, and the greedy steps.
+LM_PROMPT = 4096
+LM_STEPS = 8
+# The decode check, bf16 at full depth: each greedy step's logits against
+# a forward over the same tokens (the reference's check,
+# tests/test_models.py:42-78, which holds fp32 at 1e-4). The two bf16
+# paths round in other places (GEMMs of B rows against B·S rows pick other
+# kernels and split-K orders; the attention reads the cache in blocks of
+# another size; Mamba's recurrence against its chunked scan), and how far
+# such roundings carry through L random layers is not a constant: it is
+# measured. The same forward with the weights widened to fp32 is the
+# witness: its distance from the bf16 forward is bf16's own error on these
+# tokens (the floor). Each bf16 path lies within its error of the fp32
+# forward; the decode path's is allowed twice the forward's, so the two
+# may differ by LM_DECODE_FLOORS = 3 floors. bf16 logits tie at the top
+# (an 8-bit mantissa over 49152 values; the first CPU rehearsal met a gap
+# of 0), and a tie has no argmax to agree on: there the decode's pick
+# must be tied with the forward's within the same limit, in the forward's
+# logits, and the count of such steps is printed.
+LM_DECODE_FLOORS = 3
+# (sequences, tokens each, microbatches) of each train run; the prefill_32k
+# length; the decode_32k batch and cache; long_500k's length; the tokens
+# of the one-layer runs.
+LM_TRAIN = {"starcoder2-3b": (8, 4096, 8), "mamba2-2.7b": (4, 4096, 1),
+            "olmoe-1b-7b": (4, 4096, 4)}
+LM_PREFILL_LONG = 32768
+LM_DECODE_BATCH, LM_DECODE_CACHE = 16, 32768
+LM_LONG = 524288
+LM_ONE_LAYER_TOKENS = 2048
+# The configs run at full width with the depth cut to one layer.
+LM_ONE_LAYER = ("glm4-9b", "internlm2-20b", "command-r-35b",
+                "deepseek-moe-16b", "pixtral-12b", "musicgen-large")
+
+
+def _lm_batch(cfg, B, S, gen, dev):
+    """A fixed random batch: tokens (or stub embeds) and next-token
+    labels."""
+    import torch
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"labels": toks[:, 1:].contiguous()}
+    if cfg.frontend == "stub_embed":
+        batch["embeds"] = torch.randn(B, S, cfg.d_model, generator=gen,
+                                      device=dev, dtype=torch.bfloat16)
+    else:
+        batch["tokens"] = toks[:, :S].contiguous()
+    return batch
+
+
+def _lm_train(bundle, model, batch, n_mb, steps, tag):
+    """``steps`` steps of make_lm_train_step on one fixed batch: losses,
+    walls, peak memory above the start, tokens/s and the measured MFU (6 ×
+    count_params × tokens over the wall, against the card's cited bf16
+    peak). The moments are freed at the end."""
+    import torch
+    from repro_torch.configs import count_params
+    from repro_torch.training import lm_train_state, make_lm_train_step
+    cfg = bundle.cfg
+    st = lm_train_state(model)
+    step = make_lm_train_step(lambda m, b: bundle.loss(m, b),
+                              num_microbatches=n_mb)
+    tokens = batch["labels"].numel()
+    n_params = count_params(cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i in range(steps):
+        t = time.perf_counter()
+        st, m = step(st, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        mfu = 6 * n_params * tokens / walls[-1] / PEAK_FLOPS["bfloat16"]
+        say(f"[{tag}] train step {i}: loss {losses[-1]:.5f}; wall "
+            f"{walls[-1]:.3f} s; {tokens / walls[-1]:.0f} tokens/s; "
+            f"measured MFU {mfu:.4f} (6 x {n_params / 1e9:.3f} B params x "
+            f"{tokens} tokens / wall, against "
+            f"{PEAK_FLOPS['bfloat16'] / 1e12:.1f} TFLOP/s bf16)")
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(all(math.isfinite(x) for x in losses),
+          f"{tag}: train losses {losses}")
+    steady = walls[1:] or walls
+    wall = sum(steady) / len(steady)
+    out = dict(losses=losses, walls_s=walls, tokens=tokens,
+               microbatches=n_mb, params=n_params,
+               peak_above_start_gb=peak, state_gb=base / 1e9,
+               tokens_per_s=tokens / wall,
+               mfu=6 * n_params * tokens / wall / PEAK_FLOPS["bfloat16"])
+    say(f"[{tag}] train: {steps} steps of {batch['labels'].shape[0]} x "
+        f"{batch['labels'].shape[1]} tokens as {n_mb} microbatch"
+        f"{'es' if n_mb > 1 else ''}; losses "
+        f"{[round(x, 5) for x in losses]}; steps 1.. {wall:.3f} s, "
+        f"{out['tokens_per_s']:.0f} tokens/s, measured MFU {out['mfu']:.4f};"
+        f" peak {peak:.2f} GB above the {base / 1e9:.2f} GB held before "
+        f"the steps (params and AdamW moments; the fp32 accumulators "
+        f"within the peak)")
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_decode_check(bundle, model, prompt, tag):
+    """Prefill ``prompt`` (B, S), take LM_STEPS greedy decode steps, then
+    run one forward over the prompt and the generated tokens and hold each
+    step's logits to that forward's at the same position (LM_DECODE_FLOORS,
+    the same argmax)."""
+    import torch
+    from repro_torch.models import transformer as TF
+    cfg = bundle.cfg
+    B, S = prompt.shape
+    n = LM_STEPS
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = bundle.prefill(model, {"tokens": prompt},
+                                       max_len=S + n)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        toks, got = [logits[:, -1].argmax(-1)], []
+        t = time.perf_counter()
+        for i in range(n):
+            lg, cache = bundle.decode(model, toks[-1][:, None].int(), cache,
+                                      S + i)
+            got.append(lg[:, -1].float())
+            toks.append(lg[:, -1].argmax(-1))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+        del cache
+        t = time.perf_counter()
+        full = torch.cat([prompt, torch.stack(toks[:n], 1).int()], 1)
+        x = TF._inputs(model, cfg, {"tokens": full})
+        pos = torch.arange(S + n, dtype=torch.int32,
+                           device=x.device)[None].repeat(B, 1)
+        hidden, _ = TF.lm_hidden(model, cfg, x, pos, remat=False)
+        want = TF.lm_logits(model, cfg, hidden[:, S:S + n]).float()
+        del hidden, x
+        # bf16's own error on these tokens: the forward in fp32
+        m32 = copy.deepcopy(model).float()
+        x = TF._inputs(m32, cfg, {"tokens": full})
+        hidden, _ = TF.lm_hidden(m32, cfg, x, pos, remat=False)
+        want32 = TF.lm_logits(m32, cfg, hidden[:, S:S + n]).float()
+        del hidden, x, m32
+        _lm_free()
+        forwards_s = time.perf_counter() - t
+    got = torch.stack(got, 1)
+    diff = float((got - want).abs().max())
+    floor = float((want - want32).abs().max())
+    off32 = float((got - want32).abs().max())
+    scale = float(want.abs().max())
+    tol = LM_DECODE_FLOORS * floor
+    pick, best = got.argmax(-1), want.argmax(-1)
+    exact = pick == best
+    behind = want.max(-1).values - want.gather(-1, pick[..., None])[..., 0]
+    agree = bool((exact | (behind <= tol)).all())
+    ties = int((~exact).sum())
+    top2 = want.topk(2, dim=-1).values
+    gap = float((top2[..., 0] - top2[..., 1]).min())
+    say(f"[{tag}] prefill {B} x {S} tokens {prefill_s:.3f} s, then {n} "
+        f"greedy decode steps {decode_s / n * 1e3:.2f} ms each; each "
+        f"step's logits against a forward over the same {S + n} tokens: "
+        f"max |diff| {diff:.5f}, limit {tol:.5f} ({LM_DECODE_FLOORS} x the "
+        f"bf16 forward's distance {floor:.5f} from the fp32 forward; the "
+        f"decode's own {off32:.5f}; largest |logit| {scale:.4f}); argmax "
+        f"agrees "
+        f"{agree}: {B * n - ties} of {B * n} steps the same token, {ties} "
+        f"tied within the limit (smallest top-2 gap of the forward "
+        f"{gap:.5f}); the bf16 and fp32 forwards {forwards_s:.2f} s")
+    check(math.isfinite(diff) and diff <= tol and agree,
+          f"{tag}: decode against the forward: max |diff| {diff} (limit "
+          f"{tol}), argmax agrees {agree}")
+    return dict(prefill_s=prefill_s, decode_ms=decode_s / n * 1e3,
+                max_diff=diff, max_logit=scale, limit=tol, floor=floor,
+                decode_from_fp32=off32, forwards_s=forwards_s,
+                argmax_agrees=agree, ties=ties, min_top2_gap=gap)
+
+
+def _lm_free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_starcoder(gen, dev):
+    """starcoder2-3b at full width and depth: train, the decode check, a
+    prefill_32k prefill and decode_32k decode steps."""
+    import torch
+    from repro_torch.configs import count_params, get_arch
+    from repro_torch.models.model_zoo import get_bundle
+    tag = "lm starcoder2"
+    cfg = get_arch("starcoder2-3b")
+    bundle = get_bundle(cfg)
+    t = time.perf_counter()
+    model = bundle.init(gen, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    biases = sum(p.numel() for k, p in model.named_parameters()
+                 if k.rsplit(".", 1)[-1] in ("bq", "bk", "bv", "bo", "b_in",
+                                             "b_out"))
+    say(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {cfg.dtype}, tied, biases, GELU (not cut):"
+        f" {n / 1e9:.4f} B params ({count_params(cfg) / 1e9:.4f} B by "
+        f"count_params, which leaves out the {biases} biases), drawn in "
+        f"{time.perf_counter() - t:.2f} s")
+    # count_params, the reference's analytic count, leaves out the biases
+    check(n - biases == count_params(cfg), f"{tag}: {n} params, "
+          f"{biases} of them biases, count_params {count_params(cfg)}")
+    out = {}
+    B, S, mb = LM_TRAIN[cfg.name]
+    batch = _lm_batch(cfg, B, S, gen, dev)
+    out["train"] = _lm_train(bundle, model, batch, mb, 3, tag)
+    losses = out["train"]["losses"]
+    check(losses[2] < losses[0], f"{tag}: the loss of step 3 {losses[2]} "
+          f"is not below step 1's {losses[0]}")
+    del batch
+    prompt = torch.randint(0, cfg.vocab_size, (2, LM_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    out["decode_check"] = _lm_decode_check(bundle, model, prompt, tag)
+    # prefill_32k: one sequence of 32768 tokens (its batch of 32 cut to 1)
+    L = LM_PREFILL_LONG
+    long = torch.randint(0, cfg.vocab_size, (1, L), generator=gen,
+                         device=dev, dtype=torch.int32)
+    _lm_free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    logits, cache = bundle.prefill(model, {"tokens": long})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(bool(torch.isfinite(logits).all()), f"{tag}: prefill_32k logits")
+    out["prefill_32k"] = dict(s=wall, tokens_per_s=L / wall,
+                              peak_above_params_gb=peak)
+    say(f"[{tag}] prefill_32k (batch 32 cut to 1): 1 x {L} tokens in "
+        f"{wall:.3f} s ({L / wall:.0f} tokens/s), peak {peak:.2f} GB "
+        f"above the params (its cache "
+        f"{sum(k.numel() * 2 * k.element_size() for k, _ in cache.kv.values()) / 1e9:.2f} GB)")
+    del logits, cache, long
+    _lm_free()
+    # decode_32k: 16 sequences (its batch of 128 cut to 16) against a
+    # cache of 32768 positions, filled with random K/V
+    Bd, C = LM_DECODE_BATCH, LM_DECODE_CACHE
+    cache = bundle.init_cache(Bd, C, device=dev)
+    for k, v in cache.kv.values():
+        k.normal_(generator=gen)
+        v.normal_(generator=gen)
+    cache_gb = sum(k.numel() * 2 * k.element_size()
+                   for k, _ in cache.kv.values()) / 1e9
+    tok = torch.randint(0, cfg.vocab_size, (Bd, 1), generator=gen,
+                        device=dev, dtype=torch.int32)
+    bundle.decode(model, tok, cache, C - 17)             # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(16):
+        lg, cache = bundle.decode(model, tok, cache, C - 16 + i)
+        tok = lg[:, -1].argmax(-1)[:, None].int()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / 16 * 1e3
+    check(bool(torch.isfinite(lg).all()), f"{tag}: decode_32k logits")
+    out["decode_32k"] = dict(ms_per_step=ms, batch=Bd,
+                             tokens_per_s=Bd / ms * 1e3, cache_gb=cache_gb)
+    say(f"[{tag}] decode_32k (batch 128 cut to {Bd}): 16 steps at "
+        f"positions {C - 16}.. against a {cache_gb:.2f} GB cache of {C} "
+        f"positions: {ms:.2f} ms a step ({Bd / ms * 1e3:.0f} tokens/s, "
+        f"batch {Bd})")
+    del cache, lg, tok, model
+    _lm_free()
+    return out
+
+
+def _lm_mamba(gen, dev):
+    """mamba2-2.7b at full width and depth: train 3 steps on 4 x 4096, the
+    decode check, decode steps at long_500k's batch of 1."""
+    import torch
+    from repro_torch.configs import count_params, get_arch
+    from repro_torch.models.model_zoo import get_bundle
+    tag = "lm mamba2"
+    cfg = get_arch("mamba2-2.7b")
+    bundle = get_bundle(cfg)
+    model = bundle.init(gen, device=dev)
+    n = sum(p.numel() for p in model.parameters())
+    say(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"d_state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk} (not cut): "
+        f"{n / 1e9:.3f} B params ({count_params(cfg) / 1e9:.3f} B by "
+        f"count_params)")
+    B, S, mb = LM_TRAIN[cfg.name]
+    out = {"train": _lm_train(bundle, model, _lm_batch(cfg, B, S, gen, dev),
+                              mb, 3, tag)}
+    prompt = torch.randint(0, cfg.vocab_size, (2, LM_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    out["decode_check"] = _lm_decode_check(bundle, model, prompt, tag)
+    # long_500k: batch 1, a decode step at position 524288 - 16 + i; the
+    # state holds no KV (a zero state: the step's work does not depend on
+    # the position)
+    cache = bundle.init_cache(1, 1, device=dev)
+    state_gb = sum(t.numel() * t.element_size() for st in cache.ssm.values()
+                   for t in st.values()) / 1e9
+    tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
+                        device=dev, dtype=torch.int32)
+    bundle.decode(model, tok, cache, LM_LONG - 17)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(16):
+        lg, cache = bundle.decode(model, tok, cache, LM_LONG - 16 + i)
+        tok = lg[:, -1].argmax(-1)[:, None].int()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / 16 * 1e3
+    check(bool(torch.isfinite(lg).all()), f"{tag}: long_500k logits")
+    out["long_500k"] = dict(ms_per_step=ms, state_gb=state_gb)
+    say(f"[{tag}] long_500k (batch 1): 16 decode steps at positions "
+        f"{LM_LONG - 16}..: {ms:.2f} ms a step; the state "
+        f"{state_gb * 1e3:.1f} MB "
+        f"(no KV)")
+    del cache, lg, model
+    _lm_free()
+    return out
+
+
+def _lm_olmoe(gen, dev):
+    """olmoe-1b-7b at full width: the decode check at full depth with the
+    reference test's capacity factor 8; 3 train steps with the depth cut
+    to 4 layers, and the share of slots dropped at capacity factor 1.25."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import count_params, get_arch
+    from repro_torch.models import moe as E
+    from repro_torch.models.model_zoo import get_bundle
+    tag = "lm olmoe"
+    full = get_arch("olmoe-1b-7b")
+    cfg = full.replace(moe=dataclasses.replace(full.moe,
+                                               capacity_factor=8.0))
+    bundle = get_bundle(cfg)
+    model = bundle.init(gen, device=dev)
+    say(f"[{tag}] {cfg.name}: {cfg.num_layers} layers (not cut), d "
+        f"{cfg.d_model}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k}, d_expert {cfg.moe.d_expert}: "
+        f"{count_params(cfg) / 1e9:.3f} B params "
+        f"({count_params(cfg) * 2 / 1e9:.1f} GB bf16), "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B held; "
+        f"serving at capacity factor 8 (the reference test's: no drops)")
+    prompt = torch.randint(0, cfg.vocab_size, (2, LM_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    out = {"decode_check": _lm_decode_check(bundle, model, prompt, tag)}
+    del model
+    _lm_free()
+    cut = full.replace(num_layers=4)
+    bundle = get_bundle(cut)
+    model = bundle.init(gen, device=dev)
+    B, S, mb = LM_TRAIN[full.name]
+    batch = _lm_batch(cut, B, S, gen, dev)
+    with torch.no_grad(), E.dispatch_stats() as ds:
+        bundle.loss(model, {k: v[:1] for k, v in batch.items()})
+    say(f"[{tag}] train cut to 4 of 16 layers ({count_params(cut) / 1e9:.3f}"
+        f" B params; 16 layers would hold ~16 B of params and moments a "
+        f"parameter, ~110 GB), capacity factor "
+        f"{cut.moe.capacity_factor}: a {S}-token sequence dispatches "
+        f"{ds.slots} slots over its 4 layers, {ds.dropped} dropped "
+        f"({ds.drop_share:.4f})")
+    out["train"] = _lm_train(bundle, model, batch, mb, 3, tag)
+    out["train"]["drop_share"] = ds.drop_share
+    del model, batch
+    _lm_free()
+    return out
+
+
+def _lm_one_layer(gen, dev):
+    """The other configs at full width with the depth cut to one layer (one
+    forward and backward at 1 x 2048: the loss and every gradient finite);
+    jamba at reduced()."""
+    import torch
+    from repro_torch.configs import count_params, get_arch, reduced
+    from repro_torch.models.model_zoo import get_bundle
+    out = {}
+    jamba = get_arch("jamba-1.5-large-398b")
+    period = jamba.replace(num_layers=jamba.attn_every)
+    say(f"[lm one-layer] jamba-1.5-large-398b runs at reduced(): one "
+        f"hybrid period of {period.num_layers} layers at d "
+        f"{jamba.d_model} holds {count_params(period) / 1e9:.1f} B params "
+        f"by count_params, {count_params(period) * 2 / 1e9:.1f} GB in bf16")
+    for name in LM_ONE_LAYER + ("jamba-1.5-large-398b",):
+        cfg = (reduced(get_arch(name)) if name == "jamba-1.5-large-398b"
+               else get_arch(name).replace(num_layers=1))
+        bundle = get_bundle(cfg)
+        t = time.perf_counter()
+        model = bundle.init(gen, device=dev)
+        batch = _lm_batch(cfg, 1, LM_ONE_LAYER_TOKENS, gen, dev)
+        torch.cuda.reset_peak_memory_stats()
+        loss = bundle.loss(model, batch)
+        named = list(model.named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    allow_unused=True)
+        unused = [n for (n, _), g in zip(named, grads) if g is None]
+        bad = [n for (n, _), g in zip(named, grads)
+               if g is not None and not bool(torch.isfinite(g).all())]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        lv = float(loss.detach())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        say(f"[lm one-layer] {cfg.name}: {cfg.num_layers} layer(s), d "
+            f"{cfg.d_model}, {count_params(cfg) / 1e9:.3f} B params, "
+            f"{cfg.frontend}; 1 x {LM_ONE_LAYER_TOKENS} tokens forward + "
+            f"backward: loss "
+            f"{lv:.5f}, {len(named) - len(unused)} grads finite "
+            f"{not bad}{f', unused {unused}' if unused else ''}; "
+            f"{wall:.2f} s with the draw; peak {peak:.2f} GB")
+        check(math.isfinite(lv) and not bad,
+              f"{cfg.name}: loss {lv}, non-finite grads {bad}")
+        check(unused == ([] if cfg.frontend == "token" else ["embed"]),
+              f"{cfg.name}: no grad for {unused}")
+        out[name] = dict(loss=lv, params=count_params(cfg), s=wall,
+                         peak_gb=peak, unused=unused)
+        del model, batch, loss, grads, named
+        _lm_free()
+    return out
+
+
+def phase_lm():
+    """The LM zoo on the card, bf16, device="cuda", random weights from
+    SEED: starcoder2-3b at full width and depth (3 train steps on one batch
+    of 8 x 4096 tokens as 8 microbatches; the prefill/decode check on 2 x
+    4096 and 8 greedy steps; one prefill of 1 x 32768; 16 decode steps at
+    batch 16 against a cache of 32768 positions); mamba2-2.7b at full width
+    and depth (3 train steps on 4 x 4096; the check; decode at batch 1);
+    olmoe-1b-7b at full width (the check at full depth, capacity factor 8;
+    3 train steps cut to 4 layers); the other configs one layer deep at
+    full width (jamba at reduced()). The fp32 products run with TF32 off."""
+    import torch
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the LM's fp32 products need TF32 off")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    t0 = time.perf_counter()
+    out = {"starcoder2-3b": _lm_starcoder(gen, dev),
+           "mamba2-2.7b": _lm_mamba(gen, dev),
+           "olmoe-1b-7b": _lm_olmoe(gen, dev),
+           "one_layer": _lm_one_layer(gen, dev)}
+    out["s"] = time.perf_counter() - t0
+    say(f"[lm] phase lm {out['s']:.1f} s (budget {LM_BUDGET_S:.0f} s) on "
+        f"{CARD.get('smi_line')}")
+    out["card"] = CARD.get("smi_line")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 6b: the §4.3 / Table-7 ablation (baseline and segmented negatives)
 # --------------------------------------------------------------------------
 
@@ -4945,6 +5468,31 @@ def phase_cli():
 
 # --------------------------------------------------------------------------
 
+def _beside(background, foreground):
+    """``background()`` on a thread beside ``foreground()``; returns the
+    foreground's result and the wall of the two. Either's exception is
+    raised once both have ended."""
+    import threading
+    box = {}
+
+    def target():
+        try:
+            box["out"] = background()
+        except BaseException as e:                   # noqa: BLE001 — re-raised
+            box["err"] = e
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=target, name="beside")
+    th.start()
+    try:
+        out = foreground()
+    finally:
+        th.join()
+    if "err" in box:
+        raise box["err"]
+    return out, time.perf_counter() - t0
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         say(f"FAIL: no src/repro_torch beside {Path(__file__).name}: run "
@@ -4968,7 +5516,10 @@ def main():
 
     try:
         name, count, smi_line = phase_device()
-        run("build", phase_build)
+        # phase lm runs none of the port's kernels: it uses the card while
+        # nvcc builds them on the host's cores
+        lm, pair_s = _beside(lambda: run("build", phase_build),
+                             lambda: run("lm", phase_lm))
         attn = run("attn_kernels", phase_kernels)
         neg = run("neg_kernels", phase_neg_kernels)
         rs = run("runsum_kernel", phase_runsum_kernel)
@@ -5023,6 +5574,17 @@ def main():
     say(f"[result] hsp_mesh {json.dumps(hsp_mesh)}")
     say(f"[result] elastic {json.dumps(elastic)}")
     say(f"[result] offload {json.dumps(offload)}")
+    say(f"[result] lm {json.dumps(lm)}")
+    beside = times["build"] + times["lm"] - pair_s
+    freed = min(BEFORE_RESILIENT_S) - times["resilient"]
+    say(f"[result] room: phase lm {times['lm']} s (budget "
+        f"{LM_BUDGET_S:.0f} s), run beside the build ({times['build']} s): "
+        f"the two in {pair_s:.1f} s, {beside:.1f} s freed; phase resilient "
+        f"{times['resilient']} s against "
+        f"{' and '.join(map(str, BEFORE_RESILIENT_S))} s before: {freed:.1f} s "
+        f"freed, of which the final states' CRC32s "
+        f"{resilient['crc_freed_s']:.1f} s; freed in all "
+        f"{beside + freed:.1f} s, less phase lm {beside + freed - times['lm']:.1f} s")
 
     def rank_launches(ranks, arms, kname):
         return sum(r[arm][sched]["launches"][kname] for r in ranks

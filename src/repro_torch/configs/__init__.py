@@ -1,5 +1,6 @@
-"""Config registry: ``get_arch(name)`` / ``ARCHS`` for the GR models the
-port serves and trains: HSTU, FuXi-α and SASRec."""
+"""Config registry: ``get_arch(name)`` / ``ARCHS`` for ``--arch``
+selection: the GR models the port serves and trains (HSTU, FuXi-α,
+SASRec) and the 10 assigned LM architectures."""
 from __future__ import annotations
 
 from typing import Dict
@@ -8,10 +9,36 @@ from repro_torch.configs import fuxi as _fuxi
 from repro_torch.configs import hstu as _hstu
 from repro_torch.configs import sasrec as _sasrec
 from repro_torch.configs.base import (ArchConfig, MoEConfig, RABConfig,
-                                      SSMConfig)
+                                      SSMConfig, count_active_params,
+                                      count_params)
+from repro_torch.configs.command_r_35b import CONFIG as COMMAND_R_35B
+from repro_torch.configs.deepseek_moe_16b import CONFIG as DEEPSEEK_MOE_16B
+from repro_torch.configs.glm4_9b import CONFIG as GLM4_9B
+from repro_torch.configs.internlm2_20b import CONFIG as INTERNLM2_20B
+from repro_torch.configs.jamba_1_5_large import CONFIG as JAMBA_1_5_LARGE
+from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA2_2_7B
+from repro_torch.configs.musicgen_large import CONFIG as MUSICGEN_LARGE
+from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE_1B_7B
+from repro_torch.configs.pixtral_12b import CONFIG as PIXTRAL_12B
+from repro_torch.configs.shapes import (ALL_SHAPES, DECODE_32K, GR_SHAPES,
+                                        LONG_500K, PREFILL_32K,
+                                        SHAPES_BY_NAME, TRAIN_4K, ShapeConfig,
+                                        cells_for, shape_applicable,
+                                        shapes_for)
+from repro_torch.configs.starcoder2_3b import CONFIG as STARCODER2_3B
 
-ARCHS: Dict[str, ArchConfig] = {**_hstu.CONFIGS, **_fuxi.CONFIGS,
-                                 **_sasrec.CONFIGS}
+# The 10 assigned LM architectures.
+ASSIGNED: Dict[str, ArchConfig] = {c.name: c for c in (
+    PIXTRAL_12B, OLMOE_1B_7B, DEEPSEEK_MOE_16B, STARCODER2_3B, GLM4_9B,
+    INTERNLM2_20B, COMMAND_R_35B, JAMBA_1_5_LARGE, MAMBA2_2_7B,
+    MUSICGEN_LARGE,
+)}
+
+# The paper's own models (+ its SASRec baseline, Appendix A).
+GR_CONFIGS: Dict[str, ArchConfig] = {**_hstu.CONFIGS, **_fuxi.CONFIGS,
+                                     **_sasrec.CONFIGS}
+
+ARCHS: Dict[str, ArchConfig] = {**ASSIGNED, **GR_CONFIGS}
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -55,5 +82,8 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
     return cfg.replace(**kw)
 
 
-__all__ = ["ArchConfig", "MoEConfig", "RABConfig", "SSMConfig", "ARCHS",
-           "get_arch", "reduced"]
+__all__ = ["ALL_SHAPES", "ARCHS", "ASSIGNED", "ArchConfig", "DECODE_32K",
+           "GR_CONFIGS", "GR_SHAPES", "LONG_500K", "MoEConfig", "PREFILL_32K",
+           "RABConfig", "SHAPES_BY_NAME", "SSMConfig", "ShapeConfig",
+           "TRAIN_4K", "cells_for", "count_active_params", "count_params",
+           "get_arch", "reduced", "shape_applicable", "shapes_for"]

@@ -11,7 +11,13 @@ AdamW moments in the params' pytree layout; ``pending_to_numpy`` reads a
 ``unshard_table_states`` split a full state (numpy) into rank r's part on a
 (data, model) mesh and join the parts back (hierarchical sparse
 parallelism, ``core/hsp.py``), so both packages run on the same weights.
-bfloat16 numpy arrays (the ml_dtypes
+``lm_params_from_numpy``/``lm_params_to_numpy`` carry an LM's ``init_lm``
+pytree (each period slot's leaves stacked over the periods, under
+``params["slots"][s]``) to the port's :class:`~repro_torch.models.
+transformer.LM` (one module per layer, layer i = slot i % p of period
+i // p) and back; ``lm_cache_from_numpy``/``lm_cache_to_numpy`` do the same
+for a ``DecodeCache`` and ``lm_tree_of`` for any tensors keyed by the LM's
+parameter names (AdamW moments, grads). bfloat16 numpy arrays (the ml_dtypes
 type) cannot go through ``torch.from_numpy``: they cross as their uint16
 bits and are viewed back as bfloat16, bit for bit; the way out gives
 bfloat16 tensors as float32 arrays (exact).
@@ -29,6 +35,7 @@ from repro_torch.core.hsp import carry_span, shard_bounds
 from repro_torch.embedding.tables import ShadowedTable
 from repro_torch.launch.mesh import group_index
 from repro_torch.models.gr import GRModel
+from repro_torch.models.transformer import LM, DecodeCache, period_len
 from repro_torch.training.optim import AdamWState
 
 
@@ -271,3 +278,131 @@ def unshard_table_states(parts: Sequence[Mapping[str, Any]],
         out["pending_rows"] = np.concatenate(
             [np.asarray(p["pending_rows"]) for p in shards])
     return out
+
+
+# -- LM stacks -----------------------------------------------------------------
+
+def _lm_key(name: str, p: int) -> Tuple[Tuple[Any, ...], Optional[int]]:
+    """An LM parameter name → (pytree path, period or None):
+    ``layers.9.attn.wq`` at period length 2 → (("slots", 1, "attn", "wq"),
+    4)."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return tuple(parts), None
+    i = int(parts[1])
+    return ("slots", i % p, *parts[2:]), i // p
+
+
+def lm_tree_of(named: Mapping[str, torch.Tensor],
+               cfg: ArchConfig) -> Dict[str, Any]:
+    """Tensors by LM parameter name → the ``init_lm`` pytree layout (numpy,
+    ``slots`` a list of per-slot dicts, each leaf stacked over the
+    periods)."""
+    p = period_len(cfg)
+    stacks: Dict[Tuple[Any, ...], Dict[int, np.ndarray]] = {}
+    tree: Dict[str, Any] = {"slots": [{} for _ in range(p)]}
+    for name, t in named.items():
+        path, per = _lm_key(name, p)
+        if per is None:
+            tree[path[0]] = tensor_to_numpy(t)
+        else:
+            stacks.setdefault(path, {})[per] = tensor_to_numpy(t)
+    for path, by_period in stacks.items():
+        node = tree["slots"][path[1]]
+        for key in path[2:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([by_period[j]
+                                   for j in sorted(by_period)])
+    return tree
+
+
+def _lm_leaf(tree: Mapping[str, Any], name: str, p: int) -> np.ndarray:
+    path, per = _lm_key(name, p)
+    node: Any = tree
+    for key in path:
+        node = node[key]
+    node = np.asarray(node)
+    return node if per is None else node[per]
+
+
+def _tree_leaf_names(tree: Any, prefix: str = "") -> set:
+    if isinstance(tree, Mapping):
+        return set().union(*(_tree_leaf_names(v, f"{prefix}{k}.")
+                             for k, v in tree.items())) if tree else set()
+    return {prefix[:-1]}
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
+                         device: DeviceLike = None,
+                         dtype: Optional[torch.dtype] = None) -> LM:
+    """The ``init_lm`` pytree as numpy arrays → an :class:`LM` holding the
+    same values in ``dtype`` (default the config's; the router and Mamba's
+    ``A_log``, ``D``, ``dt_bias`` keep fp32): bit for bit, bf16 leaves
+    given as float32 (what :func:`lm_params_to_numpy` gives) included. The
+    tree's leaves must be the config's, slot for slot."""
+    device = resolve_device(device)
+    p = period_len(cfg)
+    model = LM(cfg, dtype=dtype, device=device,
+               generator=torch.Generator(device=device).manual_seed(0))
+    want = {".".join(str(k) for k in _lm_key(n, p)[0])
+            for n, _ in model.named_parameters()}
+    got = (_tree_leaf_names({k: v for k, v in tree.items() if k != "slots"})
+           | {f"slots.{s}.{n}" for s, sl in enumerate(tree["slots"])
+              for n in _tree_leaf_names(sl)})
+    if want != got:
+        raise ValueError(f"tree leaves {sorted(got ^ want)} differ from the "
+                         f"config's")
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            t = tensor_from_numpy(_lm_leaf(tree, name, p), device)
+            if t.shape != prm.shape:
+                raise ValueError(f"{name}: {tuple(t.shape)} vs "
+                                 f"{tuple(prm.shape)}")
+            prm.copy_(t)
+    return model
+
+
+def lm_params_to_numpy(model: LM) -> Dict[str, Any]:
+    """Inverse of :func:`lm_params_from_numpy`: the ``init_lm`` pytree."""
+    return lm_tree_of(dict(model.named_parameters()), model.cfg)
+
+
+def lm_cache_from_numpy(cache: Any, cfg: ArchConfig,
+                        device: DeviceLike = None) -> DecodeCache:
+    """The reference's ``DecodeCache`` (``kv[slot]`` = (K, V) and
+    ``ssm[slot]`` = {"ssm", "conv"}, stacked over the periods) as numpy →
+    the port's per-layer cache."""
+    device = resolve_device(device)
+    p = period_len(cfg)
+    kv_in, ssm_in = (cache.kv, cache.ssm) if hasattr(cache, "kv") \
+        else (cache["kv"], cache["ssm"])
+    kv, ssm = {}, {}
+    for i, kind in enumerate(cfg.layer_kinds()):
+        s, per = i % p, i // p
+        if kind == "attn":
+            kv[i] = tuple(tensor_from_numpy(np.asarray(a)[per], device)
+                          for a in kv_in[s])
+        else:
+            ssm[i] = {k: tensor_from_numpy(np.asarray(a)[per], device)
+                      for k, a in ssm_in[s].items()}
+    return DecodeCache(kv=kv, ssm=ssm)
+
+
+def lm_cache_to_numpy(cache: DecodeCache, cfg: ArchConfig
+                      ) -> Dict[str, Dict[int, Any]]:
+    """Inverse of :func:`lm_cache_from_numpy`: {"kv": {slot: (K, V)},
+    "ssm": {slot: {"ssm", "conv"}}}, each stacked over the periods (bf16
+    as float32)."""
+    p = period_len(cfg)
+    kv: Dict[int, Any] = {}
+    ssm: Dict[int, Any] = {}
+    for s in range(p):
+        layers = range(s, cfg.num_layers, p)
+        if s in cache.kv:
+            kv[s] = tuple(np.stack([tensor_to_numpy(cache.kv[i][j])
+                                    for i in layers]) for j in range(2))
+        elif s in cache.ssm:
+            ssm[s] = {k: np.stack([tensor_to_numpy(cache.ssm[i][k])
+                                   for i in layers])
+                      for k in cache.ssm[s]}
+    return {"kv": kv, "ssm": ssm}

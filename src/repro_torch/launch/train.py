@@ -116,9 +116,14 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    cfg = get_arch(args.arch).replace(max_seq_len=args.max_seq_len,
-                                      num_negatives=args.num_negatives,
-                                      vocab_size=args.num_items)
+    cfg = get_arch(args.arch)
+    if not cfg.gr:
+        raise SystemExit("train.py drives GR models; LM archs run through "
+                         "models.model_zoo.LMBundle and "
+                         "training.make_lm_train_step")
+    cfg = cfg.replace(max_seq_len=args.max_seq_len,
+                      num_negatives=args.num_negatives,
+                      vocab_size=args.num_items)
     print(f"[data] synthesizing KuaiRand surrogate "
           f"({args.synthetic_users} users)...", flush=True)
     gen = SyntheticKuaiRand(num_users=args.synthetic_users,

@@ -1,19 +1,93 @@
-"""ArchConfig → the GR model functions the train step binds (the port of
-``repro.models.model_zoo.GRBundle``)."""
+"""ArchConfig → model functions (the port of ``repro.models.model_zoo``).
+
+Two families:
+  * LM bundles (the 10 assigned architectures): init / loss / prefill /
+    decode over (tokens|embeds, labels) batches, and ``input_specs``.
+  * GR bundles (HSTU, FuXi, SASRec: the paper's models): dense init + the
+    jagged batch's sampled-softmax recall loss.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.core import negative_sampling as NS
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.kernels.neg_logits import TableGradSink
 from repro_torch.models import gr as GR
+from repro_torch.models import transformer as TF
 
 Batch = dict
+
+META = torch.device("meta")
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=META)
+
+
+@dataclass(frozen=True)
+class LMBundle:
+    cfg: ArchConfig
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device: DeviceLike = None) -> TF.LM:
+        """The stack's parameters (:class:`~repro_torch.models.transformer.
+        LM`) drawn from ``generator``; ``device=None`` means the card."""
+        return TF.LM(self.cfg, device=device, generator=generator)
+
+    def loss(self, model: TF.LM, batch: Batch, *, q_block: int = 1024,
+             remat: bool = True) -> torch.Tensor:
+        return TF.lm_loss(model, self.cfg, batch, q_block=q_block,
+                          remat=remat)
+
+    def prefill(self, model: TF.LM, batch: Batch, *, q_block: int = 1024,
+                max_len: Optional[int] = None):
+        return TF.lm_prefill(model, self.cfg, batch, q_block=q_block,
+                             max_len=max_len)
+
+    def decode(self, model: TF.LM, token, cache, cache_index, *,
+               embeds=None):
+        return TF.lm_decode_step(model, self.cfg, token, cache, cache_index,
+                                 embeds=embeds)
+
+    def init_cache(self, batch: int, max_len: int,
+                   device: DeviceLike = None) -> TF.DecodeCache:
+        return TF.init_cache(self.cfg, batch, max_len, device=device)
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Every model input of ``shape`` as a tensor on the ``meta`` device
+        (shape and dtype, no memory), where the reference returns
+        ``ShapeDtypeStruct`` s: the batch for train and prefill; for decode
+        the cache of ``seq_len`` positions, ``cache_index`` and the token
+        (and embeds for stub frontends)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        stub = cfg.frontend == "stub_embed"
+        dt = GR.torch_dtype(cfg.dtype)
+        i32 = torch.int32
+        if shape.kind == "train":
+            batch: Dict[str, Any] = {"labels": _spec((B, S), i32)}
+            if stub:
+                batch["embeds"] = _spec((B, S, cfg.d_model), dt)
+            else:
+                batch["tokens"] = _spec((B, S), i32)
+            return {"batch": batch}
+        if shape.kind == "prefill":
+            batch = ({"embeds": _spec((B, S, cfg.d_model), dt)} if stub
+                     else {"tokens": _spec((B, S), i32)})
+            return {"batch": batch}
+        out: Dict[str, Any] = {"cache": TF.init_cache(cfg, B, S,
+                                                      device=META),
+                               "cache_index": _spec((), i32),
+                               "token": _spec((B, 1), i32)}
+        if stub:
+            out["embeds"] = _spec((B, 1, cfg.d_model), dt)
+        return out
 
 #: The recall loss's negative paths (the §4.3 / Table-7 ablation).
 NEG_MODES = ("fused", "baseline", "segmented")
@@ -202,7 +276,5 @@ class GRBundle:
                               logits, valid=valid.reshape(-1))
 
 
-def get_bundle(cfg: ArchConfig) -> GRBundle:
-    if not cfg.gr:
-        raise NotImplementedError(f"{cfg.name}: only GR models are ported")
-    return GRBundle(cfg)
+def get_bundle(cfg: ArchConfig):
+    return GRBundle(cfg) if cfg.gr else LMBundle(cfg)

@@ -521,10 +521,18 @@ _IO_THREADS = 4
 #: Bytes of a leaf checksummed and written, or read, at a time.
 PIECE_BYTES = 64 << 20
 
+#: Threads that checksum at once (``zlib.crc32`` and positioned reads
+#: release the GIL). A leaf of more than :data:`CRC_SPLIT_BYTES` is cut in
+#: up to this many segments of whole pieces, each checksummed on a thread
+#: of its own, and their CRCs combined (:func:`crc32_combine`): one thread
+#: checksums ~1.7 GB/s, so a 17 GB table took 10 s on one.
+CRC_THREADS = max(1, min(8, os.cpu_count() or 1))
+
 #: Host memory a save's or a restore's piece buffers hold at most (a
-#: restore checks up to ``_IO_THREADS`` leaves at once, then reads one
-#: piece at a time; a leaf of at most a piece is read whole).
-IO_BUFFER_BYTES = _IO_THREADS * PIECE_BYTES
+#: restore checks up to ``CRC_THREADS`` segments at once, a piece buffer
+#: each, then reads one piece at a time; a leaf of at most a piece is read
+#: whole).
+IO_BUFFER_BYTES = max(_IO_THREADS, CRC_THREADS) * PIECE_BYTES
 
 
 def _byte_pieces(a: Any):
@@ -548,15 +556,131 @@ def _crc32(a: Any) -> int:
     return crc
 
 
+#: A leaf of more than this is checksummed in segments (:data:`CRC_THREADS`).
+CRC_SPLIT_BYTES = 4 * PIECE_BYTES
+
+
+def _segments(nbytes: int) -> List[Tuple[int, int]]:
+    if nbytes <= CRC_SPLIT_BYTES:
+        return [(0, nbytes)]
+    per = -(-nbytes // CRC_THREADS)
+    per = -(-per // PIECE_BYTES) * PIECE_BYTES
+    return [(lo, min(lo + per, nbytes)) for lo in range(0, nbytes, per)]
+
+
+def _segment_crc(src: Any, lo: int, hi: int,
+                 abort: Optional[threading.Event] = None) -> int:
+    """zlib's CRC32 of bytes [lo, hi) of a leaf, a piece at a time: a host
+    array's own bytes; a card tensor's through a pinned piece buffer; a
+    :class:`LeafFile` 's read from its file (stops once ``abort`` is
+    set)."""
+    crc = 0
+    if isinstance(src, LeafFile):
+        mv = memoryview(bytearray(min(PIECE_BYTES, max(hi - lo, 1))))
+        try:
+            for p in range(lo, hi, len(mv)):
+                if abort is not None and abort.is_set():
+                    return crc
+                piece = mv[:min(len(mv), hi - p)]
+                _pread(src, piece, src.offset + p)
+                crc = zlib.crc32(piece, crc)
+        except BaseException as e:
+            if abort is not None:
+                abort.set()                  # the other segments stop early
+            if isinstance(e, OSError):
+                raise CheckpointCorrupt(f"unreadable leaf {src.path}: "
+                                        f"{e}") from e
+            raise
+        return crc
+    if isinstance(src, torch.Tensor):
+        flat = src.reshape(-1).view(torch.uint8)
+        buf = torch.empty(min(PIECE_BYTES, max(hi - lo, 1)),
+                          dtype=torch.uint8, pin_memory=True)
+        for p in range(lo, hi, PIECE_BYTES):
+            n = min(PIECE_BYTES, hi - p)
+            buf[:n].copy_(flat[p:p + n])
+            crc = zlib.crc32(buf[:n].numpy(), crc)
+        return crc
+    b = np.ascontiguousarray(src).reshape(-1).view(np.uint8)
+    for p in range(lo, hi, PIECE_BYTES):
+        crc = zlib.crc32(b[p:min(p + PIECE_BYTES, hi)], crc)
+    return crc
+
+
+def _source_nbytes(src: Any) -> int:
+    if isinstance(src, torch.Tensor):
+        return src.numel() * src.element_size()
+    return int(src.nbytes)
+
+
+def _leaf_crcs(srcs: List[Any],
+               abort: Optional[threading.Event] = None) -> List[int]:
+    """The CRC32 of each leaf's C-order bytes, the leaves' segments on
+    :data:`CRC_THREADS` threads; a leaf streamed from a cache's host store
+    (read once, in order) on one. A source is a host array, a contiguous
+    card tensor of the saved dtype, a :class:`LeafFile` or a streamed
+    leaf."""
+    with ThreadPoolExecutor(CRC_THREADS) as ex:
+        futs = []
+        for src in srcs:
+            if _is_streamed(src) and not isinstance(src, LeafFile):
+                futs.append([(ex.submit(_crc32, src), src.nbytes)])
+                continue
+            futs.append([(ex.submit(_segment_crc, src, lo, hi, abort),
+                          hi - lo)
+                         for lo, hi in _segments(_source_nbytes(src))])
+    out = []
+    for segs in futs:
+        crc = segs[0][0].result()
+        for f, n in segs[1:]:
+            crc = crc32_combine(crc, f.result(), n)
+        out.append(crc)
+    return out
+
+
 def crc32s(snap: HostSnapshot) -> List[int]:
     """The CRC32 of each leaf of a host snapshot, as a save of it records
     them in its manifest; like a save, it reads and closes the streamed
     leaves."""
     try:
-        with ThreadPoolExecutor(_IO_THREADS) as ex:
-            return list(ex.map(_crc32, snap.arrays))
+        return _leaf_crcs(list(snap.arrays))
     finally:
         release(snap)
+
+
+@torch.no_grad()
+def _leaf_source(leaf: _Leaf) -> Any:
+    """A leaf's bytes as a save writes them: a card tensor of the saved
+    dtype (stacked parts stacked on the card), or a host array."""
+    first = leaf.parts[0]
+    stacked = len(leaf.parts) > 1 or leaf.shape != tuple(np.shape(first))
+    if isinstance(first, torch.Tensor):
+        dt = _saved_torch_dtype(leaf, first)
+        t = (torch.stack([p.to(dt) for p in leaf.parts]).reshape(leaf.shape)
+             if stacked else first.to(dt).contiguous())
+        return t if t.is_cuda else t.numpy()
+    if _is_streamed(first):
+        return first
+    a = (np.stack([np.asarray(p) for p in leaf.parts]) if stacked
+         else np.asarray(first))
+    return a.astype(np.float32) if leaf.dtype == "bfloat16" else a
+
+
+def manifest_of(tree: Any) -> Dict[str, Any]:
+    """What a save of ``tree`` (a state or a :class:`HostSnapshot`) records
+    of its leaves: their CRC32s, shapes and dtype names, with no file
+    written and, for a card state, no host copy of it: each leaf is
+    checksummed from the card through piece buffers on threads."""
+    if isinstance(tree, HostSnapshot):
+        shapes, dtypes = list(tree.shapes), list(tree.dtypes)
+        crcs = crc32s(tree)
+    else:
+        leaves = _leaves(tree)
+        shapes = [lf.shape for lf in leaves]
+        dtypes = [lf.dtype for lf in leaves]
+        crcs = _leaf_crcs([_leaf_source(lf) for lf in leaves])
+    return dict(crc32s=crcs, shapes=[[int(n) for n in sh] for sh in shapes],
+                dtypes=dtypes)
 
 
 def _write_leaf(d: str, i: int, a: Any, fsync: bool) -> int:
@@ -957,22 +1081,6 @@ def _open_leaf(path: str, shape: Optional[List[int]]) -> LeafFile:
     return leaf
 
 
-def _check_crc(leaf: LeafFile, want: int, abort: threading.Event) -> None:
-    """Stream the leaf's data through a piece buffer and compare its CRC32
-    with the manifest's (stops early once ``abort`` is set)."""
-    crc = 0
-    mv = memoryview(bytearray(min(PIECE_BYTES, max(leaf.nbytes, 1))))
-    for lo in range(0, leaf.nbytes, len(mv)):
-        if abort.is_set():
-            return
-        piece = mv[:min(len(mv), leaf.nbytes - lo)]
-        _pread(leaf, piece, leaf.offset + lo)
-        crc = zlib.crc32(piece, crc)
-    if crc != want:
-        raise CheckpointCorrupt(f"CRC mismatch on {leaf.path}: {crc} != "
-                                f"{want}")
-
-
 def _load_step_arrays(ckpt_dir: str, step: int, num_leaves: int,
                       verify: bool = True) -> Tuple[List[LeafFile], Dict]:
     """Check one step directory and return its leaves as
@@ -991,23 +1099,11 @@ def _load_step_arrays(ckpt_dir: str, step: int, num_leaves: int,
                          None if shapes is None else shapes[i])
               for i in range(num_leaves)]
     if verify and crcs is not None:
-        abort = threading.Event()
-
-        def check(i: int) -> None:
-            try:
-                _check_crc(leaves[i], crcs[i], abort)
-            except OSError as e:
-                abort.set()                  # the other leaves stop early
-                raise CheckpointCorrupt(f"unreadable leaf "
-                                        f"{leaves[i].path}: {e}") from e
-            except BaseException:
-                abort.set()
-                raise
-
-        with ThreadPoolExecutor(_IO_THREADS) as ex:
-            futs = [ex.submit(check, i) for i in range(num_leaves)]
-        for fut in futs:
-            fut.result()
+        got = _leaf_crcs(leaves, threading.Event())
+        for leaf, crc, want in zip(leaves, got, crcs):
+            if crc != want:
+                raise CheckpointCorrupt(f"CRC mismatch on {leaf.path}: "
+                                        f"{crc} != {want}")
     return leaves, manifest
 
 

@@ -1,4 +1,10 @@
-"""The GR train step (the port of the GR half of ``repro.training.trainer``).
+"""The train steps (the port of ``repro.training.trainer``).
+
+:func:`make_lm_train_step` is the step of the 10 assigned LM
+architectures: gradient accumulation over microbatches in ``accum_dtype``
+(one microbatch's activations at a time), then AdamW.
+
+The rest of this module is the GR train step.
 
 :func:`make_gr_stages` factors the step into the Algorithm-1 (§4.2.3)
 device stages — ``emb_fwd`` (input-side gather, the τ=1 stale read),
@@ -50,6 +56,83 @@ from repro_torch.models.gr import GRModel
 from repro_torch.training import optim as O
 
 Batch = Dict[str, torch.Tensor]
+
+
+# --------------------------------------------------------------------------
+# LM trainer
+# --------------------------------------------------------------------------
+
+class LMTrainState(NamedTuple):
+    params: torch.nn.Module
+    opt: O.AdamWState
+    step: int
+
+
+def lm_train_state(params: torch.nn.Module,
+                   opt_dtype=torch.float32) -> LMTrainState:
+    return LMTrainState(params=params, opt=O.adamw_init(params, opt_dtype),
+                        step=0)
+
+
+def make_lm_train_step(loss_fn: Callable[[torch.nn.Module, Batch],
+                                         torch.Tensor], *,
+                       num_microbatches: int = 1,
+                       accum_dtype=torch.float32, lr: float = 3e-4,
+                       weight_decay: float = 0.1, b1: float = 0.9,
+                       b2: float = 0.95):
+    """``loss_fn(params, microbatch)`` → scalar. Returns ``train_step(state,
+    batch)`` → (state, {"loss"}), which updates the parameters and moments
+    in place. With ``num_microbatches`` > 1 the batch's rows are split in
+    that many consecutive microbatches; each one's grads are added to
+    zeros in ``accum_dtype`` in order, then scaled by 1/n (the
+    reference's scan of grads), and the losses summed in fp32 and scaled
+    alike. AdamW with the reference's LM defaults."""
+
+    def grads_of(model, plist, mbatch):
+        loss = loss_fn(model, mbatch)
+        gs = torch.autograd.grad(loss, plist, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(plist, gs)]
+
+    def train_step(state: LMTrainState, batch: Batch):
+        model = state.params
+        named = dict(model.named_parameters())
+        names, plist = list(named), list(named.values())
+        if num_microbatches <= 1:
+            loss, gs = grads_of(model, plist, batch)
+            grads = dict(zip(names, gs))
+        else:
+            B = next(iter(batch.values())).shape[0]
+            if B % num_microbatches:
+                raise ValueError(f"batch {B} is not a multiple of "
+                                 f"{num_microbatches} microbatches")
+            mb = B // num_microbatches
+            grads = {n: torch.zeros(p.shape, dtype=accum_dtype,
+                                    device=p.device)
+                     for n, p in named.items()}
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=plist[0].device)
+            for i in range(num_microbatches):
+                mbatch = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                l_i, gs = grads_of(model, plist, mbatch)
+                for n, g in zip(names, gs):
+                    grads[n].add_(g.to(accum_dtype))
+                del gs
+                loss = loss + l_i
+            inv = 1.0 / num_microbatches
+            for g in grads.values():
+                g.mul_(inv)
+            loss = loss * inv
+        opt = O.adamw_update(grads, state.opt, model, lr=lr, b1=b1, b2=b2,
+                             weight_decay=weight_decay)
+        return LMTrainState(model, opt, state.step + 1), {"loss": loss}
+
+    return train_step
+
+
+# --------------------------------------------------------------------------
+# GR trainer
+# --------------------------------------------------------------------------
 
 
 class GRTrainState(NamedTuple):

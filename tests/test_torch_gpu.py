@@ -1546,3 +1546,86 @@ def test_offloaded_neg_logits_refuses_pageable_rows(cuda):
         neg_logits_offloaded(o, torch.randn(128, 8, 256))
     with pytest.raises(ValueError, match="host rows"):
         neg_logits_offloaded(o, torch.randn(128, 8, 256, device=cuda))
+
+
+# -- the LM zoo ---------------------------------------------------------------
+
+def _lm_on(cfg, device, seed=0):
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.models.model_zoo import get_bundle
+    cpu = get_bundle(cfg).init(torch.Generator().manual_seed(seed),
+                               device="cpu")
+    return lm_params_from_numpy(lm_params_to_numpy(cpu), cfg, device=device)
+
+
+def test_moe_combine_is_run_to_run_bitwise_on_the_card(cuda):
+    """The combine adds each token's kept slots in a fixed order (no
+    index_add_), so two runs on the card give the same bits; capacity
+    factor 1 forces drops."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as E
+    cfg = reduced(get_arch("olmoe-1b-7b"))
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=1.0))
+    mod = E.MoE(cfg, dtype=torch.bfloat16, device=cuda,
+                generator=torch.Generator(device=cuda).manual_seed(1))
+    x = torch.randn(4, 512, cfg.d_model, device=cuda, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=cuda).manual_seed(2))
+    with E.dispatch_stats() as st:
+        a, aux_a = E.moe_apply(mod, cfg, x)
+    b, aux_b = E.moe_apply(mod, cfg, x)
+    assert st.dropped > 0
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+# fp32 on both sides (TF32 off): the same fp32 arithmetic with sums in
+# other orders (cuBLAS against the CPU's BLAS), through a 2-layer (jamba:
+# 16) stack: the loss to 1e-5 relative.
+@pytest.mark.parametrize("name", ["starcoder2-3b", "olmoe-1b-7b",
+                                  "mamba2-2.7b", "jamba-1.5-large-398b",
+                                  "deepseek-moe-16b", "musicgen-large"])
+def test_reduced_lm_loss_on_the_card_equals_the_cpu(cuda, name):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import get_bundle
+    cfg = reduced(get_arch(name)).replace(dtype="float32")
+    bundle = get_bundle(cfg)
+    rng = np.random.default_rng(3)
+    batch = {"labels": rng.integers(0, cfg.vocab_size, (2, 64))}
+    if cfg.frontend == "stub_embed":
+        batch["embeds"] = rng.standard_normal((2, 64, cfg.d_model))
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (2, 64))
+    losses = []
+    for dev in (torch.device("cpu"), cuda):
+        model = _lm_on(cfg, dev)
+        b = {k: torch.from_numpy(v).to(dev, torch.int32 if v.dtype.kind == "i"
+                                       else torch.float32)
+             for k, v in batch.items()}
+        losses.append(float(bundle.loss(model, b, q_block=32).detach()))
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+
+
+def test_matmul_f32_on_the_tensor_cores(cuda):
+    """Two bf16 card tensors: exact products and fp32 sums on the tensor
+    cores (against float64: fp32 accumulation of 128 terms, 1e-6 of the
+    largest), and the grads of the fp32 path (the same fp32 products)."""
+    from repro_torch.models.layers import matmul_f32
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(3, 64, 128, device=cuda, generator=g,
+                    dtype=torch.bfloat16).requires_grad_()
+    b = torch.randn(3, 128, 96, device=cuda, generator=g,
+                    dtype=torch.bfloat16).requires_grad_()
+    out = matmul_f32(a, b)
+    assert out.dtype == torch.float32
+    want = torch.bmm(a.detach().double(), b.detach().double())
+    assert float((out.double() - want).abs().max()) \
+        <= 1e-6 * float(want.abs().max())
+    cot = torch.randn(out.shape, device=cuda, generator=g)
+    da, db = torch.autograd.grad(out, (a, b), cot)
+    a2, b2 = (t.detach().clone().requires_grad_() for t in (a, b))
+    da2, db2 = torch.autograd.grad(torch.bmm(a2.float(), b2.float()),
+                                   (a2, b2), cot)
+    assert da.dtype == torch.bfloat16 and db.dtype == torch.bfloat16
+    for x, y in ((da, da2), (db, db2)):
+        assert float((x.float() - y.float()).abs().max()) \
+            <= 2 ** -8 * float(y.float().abs().max())

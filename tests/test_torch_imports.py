@@ -4,7 +4,8 @@ SASRec, the streaming engine, the fused, baseline and segmented negative
 paths, the kernel lookup and the dense attention schedule, telemetry,
 checkpoints and the resilient engine, the embedding cache and its
 histograms, the sparse parallelism over a process-group mesh, its
-sharded checkpoints, the semi-async analysis and the elastic runner, runs
+sharded checkpoints, the semi-async analysis and the elastic runner, the
+LM zoo's configs, layers, MoE, Mamba, stack, bundle and train step, runs
 with all three blocked), and
 its entry points run on the card unless the caller asks for the CPU."""
 import os
@@ -24,7 +25,9 @@ from repro_torch.data import synth_jagged_batch
 from repro_torch.embedding import CachedShadowedTable
 from repro_torch.launch import train as train_cli
 from repro_torch.models.gr import GRModel
-from repro_torch.models.model_zoo import GRBundle
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.models.model_zoo import GRBundle, LMBundle
+from repro_torch.models.transformer import LM
 from repro_torch.serving import RecallEngine, StreamingRecallEngine
 from repro_torch.training import GREngine
 
@@ -62,7 +65,9 @@ import repro_torch.kernels.jagged_lookup, repro_torch.kernels.neg_logits
 import repro_torch.models.model_zoo, repro_torch.training
 import repro_torch.convert
 from repro_torch.data import GRLoader, SyntheticKuaiRand
-from repro_torch.models.model_zoo import GRBundle
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.models.model_zoo import GRBundle, LMBundle
+from repro_torch.models.transformer import LM
 from repro_torch.training import gr_train_state, make_gr_train_step, to_device
 cfg = cfg.replace(num_negatives=4)
 b = GRBundle(cfg)
@@ -209,6 +214,38 @@ with tempfile.TemporaryDirectory() as d:
     mesh.close()
 assert not any(m == "jax" or m.startswith(("jax.", "repro.", "msgpack"))
                for m in sys.modules if sys.modules[m] is not None)
+import repro_torch.configs.shapes, repro_torch.core.sharding
+import repro_torch.models.layers, repro_torch.models.mamba
+import repro_torch.models.moe, repro_torch.models.transformer
+from repro_torch.configs import ASSIGNED, cells_for, count_params
+from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+from repro_torch.models.model_zoo import LMBundle, get_bundle
+from repro_torch.training import lm_train_state, make_lm_train_step
+assert len(ASSIGNED) == 10
+for name in ("starcoder2-3b", "olmoe-1b-7b", "jamba-1.5-large-398b",
+             "musicgen-large"):
+    lcfg = reduced(get_arch(name))
+    lb = get_bundle(lcfg)
+    assert isinstance(lb, LMBundle) and count_params(lcfg) > 0
+    assert lb.input_specs(cells_for(get_arch(name))[0][0])
+    lm = lb.init(torch.Generator().manual_seed(0), device="cpu")
+    lm = lm_params_from_numpy(lm_params_to_numpy(lm), lcfg, device="cpu")
+    toks = torch.randint(0, lcfg.vocab_size, (2, 17), generator=g)
+    inp = ({"embeds": torch.randn(2, 17, lcfg.d_model, generator=g)}
+           if lcfg.frontend == "stub_embed" else {"tokens": toks})
+    lst = lm_train_state(lm)
+    lstep = make_lm_train_step(lambda m, bt: lb.loss(m, bt, q_block=8),
+                               num_microbatches=2)
+    lst, mm = lstep(lst, dict({k: v[:, :16] for k, v in inp.items()},
+                              labels=toks[:, 1:]))
+    assert np.isfinite(float(mm["loss"]))
+    _, cache = lb.prefill(lm, {k: v[:, :16] for k, v in inp.items()},
+                          max_len=17)
+    logits, _ = lb.decode(lm, toks[:, 16:], cache, 16,
+                          embeds=inp.get("embeds", toks)[:, 16:])
+    assert logits.shape == (2, 1, lcfg.vocab_size)
+assert not any(m == "jax" or m.startswith(("jax.", "repro.", "msgpack"))
+               for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.encoded_batches)
 """
 
@@ -236,6 +273,10 @@ def _cfg():
     return PC.reduced(PC.get_arch("hstu-tiny")).replace(vocab_size=64)
 
 
+def _lm_cfg():
+    return PC.reduced(PC.get_arch("starcoder2-3b"))
+
+
 def _cpu_model():
     return GRModel(_cfg(), device="cpu",
                    generator=torch.Generator().manual_seed(0))
@@ -261,6 +302,10 @@ ENTRY_POINTS = {
         np.zeros((64, 2), np.float32), capacity_chunks=2, chunk_rows=16),
     "synth_jagged_batch": lambda: synth_jagged_batch(None, 1, 8, 10, 2),
     "launch.train.main": lambda: train_cli.main(["--arch", "hstu-tiny"]),
+    "LM": lambda: LM(_lm_cfg()),
+    "LMBundle.init": lambda: LMBundle(_lm_cfg()).init(),
+    "LMBundle.init_cache": lambda: LMBundle(_lm_cfg()).init_cache(1, 8),
+    "lm_params_from_numpy": lambda: lm_params_from_numpy({}, _lm_cfg()),
 }
 
 
