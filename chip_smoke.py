@@ -136,7 +136,19 @@ one card, so each phase frees its own.
                alpha of the engine cell's id stream. hsp_mesh: 2 layers,
                vocab 2^20, 4 ranks: HSP (2 x 2) against global sharding
                (bytes by kind, data replicas bitwise each step), and a
-               world of one bitwise the single process. elastic: the
+               world of one bitwise the single process; then logit sharing
+               across the ranks (expansion 2, the pool the global batch's):
+               2 tau=1 steps at segment 128 (aligned with the 2048-token
+               packs) and 2 at segment 96 (2048 % 96 = 32: straddling
+               segments' tokens travel to their owner), each in the same
+               spawns (the world of one bitwise the single process; the 4
+               ranks' losses within HSP_LOSS_TOL of a single process over
+               the same 4 packs, run in this process; after the first
+               step the same table rows carry, the carry at rows the
+               straddling segments' tokens feed within SHARE_GRAD_TOL of
+               the single process's, and the dense first moments too;
+               replicas, shadow, launches, and the share_* bytes equal to
+               the counts the layout gives). elastic: the
                hsp_mesh configuration under ElasticRunner, 2 of 4 ranks
                lost at step 5, restarted on 1 x 2 from step 3, bitwise the
                fault-free shrink at step 3 (losses, step-8 CRC32s).
@@ -155,6 +167,16 @@ one card, so each phase frees its own.
                depth, capacity factor 8; 3 steps cut to 4 layers, the share
                of slots dropped), the other configs one layer deep (jamba at
                reduced()): one forward and backward, every grad finite.
+  6g. autotune — the port's autotune harness (kernels/autotune.py) on a
+               store in a temporary directory (REPRO_TORCH_TUNED_JSON; the
+               committed tuned.json stays empty): K9-fwd's row split swept
+               at T 8192, R 128, D 1024 (o and rows bf16) and at the
+               segment's T 128 (rows fp16), the fused path's scatter_impl
+               (K5 against two-pass rows + K6) at the engine's T 8192;
+               every candidate's outputs bit for bit its default's, each
+               one's time (one call at a time, CUDA events) beside the
+               card's name and power limit, resolve() returning the stored
+               winner and neg_logits_fwd launching with it.
   7. parity  — at full width, 2 layers, vocab 2^18: one training step's
                dense pass and table-grad pairs with the kernels against the
                plain versions on the card (hstu-large two-pass and fused,
@@ -178,6 +200,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import weakref
@@ -3966,6 +3989,172 @@ def phase_cache():
 
 
 # --------------------------------------------------------------------------
+# phase 6g: the autotune harness
+# --------------------------------------------------------------------------
+
+AUTOTUNE_ITERS = 7
+AUTOTUNE_BUDGET_S = 20.0
+
+
+def phase_autotune():
+    """The port's autotune harness on the card, on a store in a temporary
+    directory named by REPRO_TORCH_TUNED_JSON (restored after; the
+    committed tuned.json stays empty, so no other phase's launch moves):
+    K9-fwd's row split at the ablation's T 8192 (o and rows bf16) and at
+    the segmented path's 128-token launch (rows fp16), the fused path's
+    scatter_impl (K5 over factored rows against two-pass rows + K6, the
+    device sort included in both) at the engine's T 8192 x R 128 slots
+    with its 2T ready rows. Every candidate's outputs are bit for bit the
+    default's; each is timed one call at a time (autotune.measure: CUDA
+    events, behind a sleep kernel), the sweep stores the fastest, resolve
+    returns it, and a launch through neg_logits_fwd uses it (the split it
+    launched with is recorded) and fused_recall_lse's backward hands its
+    table gradient on in the stored form."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import neg_logits as NL
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.training.trainer import TableContribs, _table_grad_pairs
+    tag = "autotune"
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="autotune_")
+    before = os.environ.get(AT.ENV)
+    os.environ[AT.ENV] = os.path.join(tmp, "tuned.json")
+    tracer, metrics = Tracer(enabled=True), MetricsRegistry()
+    out = {"card": CARD.get("smi_line"), "backend": AT.backend_of(dev)}
+    try:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+        T, R, D = 8192, 128, 1024
+        o = torch.randn(T, D, device=dev, generator=gen).to(torch.bfloat16)
+        n16 = (torch.randn(T, R, D, device=dev, generator=gen) * 0.02)
+        shapes = {"T8192 bf16": (o, n16.to(torch.bfloat16)),
+                  "T128 fp16": (o[:128].contiguous(),
+                                n16[:128].to(torch.float16))}
+        del n16
+        for name, (oo, nn) in shapes.items():
+            dims = NL.nl_fwd_dims(oo, nn)
+            default = NL.fwd_row_split(nn.shape[0], R)
+            want = NL.neg_logits_fwd(oo, nn, inv_tau=1.0, row_split=default)
+            bits = {}
+
+            def run_fn(cfg):
+                got = NL.neg_logits_fwd(oo, nn, inv_tau=1.0,
+                                        row_split=cfg["row_split"])
+                bits[cfg["row_split"]] = torch.equal(got, want)
+                return lambda: NL.neg_logits_fwd(
+                    oo, nn, inv_tau=1.0, row_split=cfg["row_split"])
+            res = AT.sweep("neg_logits_fwd", dims, run_fn,
+                           iters=AUTOTUNE_ITERS, warmup=1, tracer=tracer,
+                           metrics=metrics, device=dev)
+            check(all(bits.values()) and len(bits) == len(res["trials"]),
+                  f"{tag} {name}: a row split changed K9-fwd's bits {bits}")
+            best = res["best"]["config"]["row_split"]
+            got = AT.resolve("neg_logits_fwd", dims, "row_split",
+                             default=default, backend=AT.backend_of(dev))
+            check(got == best, f"{tag} {name}: resolve gave {got}, the "
+                  f"sweep stored {best}")
+            NL.neg_logits_fwd(oo, nn, inv_tau=1.0)
+            used = NL.LAUNCH_KNOBS["neg_logits_fwd"]["row_split"]
+            check(used == best, f"{tag} {name}: neg_logits_fwd launched "
+                  f"with split {used}, the store holds {best}")
+            times = {t["config"]["row_split"]: round(t["seconds"] * 1e3, 4)
+                     for t in res["trials"]}
+            say(f"[{tag}] K9-fwd row split at {name} ({res['bucket']}): ms "
+                f"by split {times}, one call at a time, medians of "
+                f"{AUTOTUNE_ITERS} (heuristic default {default}, stored "
+                f"{best}; every split bit for bit the default's) on "
+                f"{out['card']}")
+            out[f"neg_logits_fwd {name}"] = dict(
+                ms=times, default=default, best=best, key=res["key"])
+        del shapes, want
+        # scatter_impl at the engine's fused shape
+        V = 2 ** 22
+        zipf, neg, drop = _k6_phase_ids(np.random.default_rng(SEED), T, R, V)
+        ids = torch.from_numpy(np.concatenate([neg, zipf, drop])).to(dev)
+        n, TR = ids.numel(), T * R
+        w = torch.rand(T, R, device=dev, generator=gen) / R
+        extra = torch.randn(n - TR, D, device=dev, generator=gen)
+        rows = torch.empty((n, D), device=dev)
+
+        def variant(impl):
+            if impl == "fused":
+                return lambda: _table_grad_pairs(
+                    TableContribs(ids, extra, (w, o, 1.0)), V)
+
+            def two_pass():
+                torch.mul(w[:, :, None], o.float()[:, None],
+                          out=rows[:TR].view(T, R, D))
+                rows[TR:] = extra
+                return _table_grad_pairs(TableContribs(ids, rows, None), V)
+            return two_pass
+        ref_u, ref_t = variant("fused")()
+        same = {}
+
+        def run_scatter(cfg):
+            u, t = variant(cfg["scatter_impl"])()
+            same[cfg["scatter_impl"]] = (torch.equal(u, ref_u)
+                                         and torch.equal(t, ref_t))
+            return variant(cfg["scatter_impl"])
+        sdims = dict(segment=128, R=R, D=D, T=T, expansion=1)
+        res = AT.sweep("neg_fused", sdims, run_scatter,
+                       iters=AUTOTUNE_ITERS, warmup=1, tracer=tracer,
+                       metrics=metrics, device=dev)
+        check(all(same.values()) and len(same) == 2, f"{tag}: the two "
+              f"scatter impls differ {same}")
+        best = res["best"]["config"]["scatter_impl"]
+        check(AT.resolve("neg_fused", sdims, "scatter_impl",
+                         backend=AT.backend_of(dev)) == best,
+              f"{tag}: resolve does not give the stored scatter_impl")
+        del rows, extra, w, ref_t
+        # fused_recall_lse's backward at that shape takes the stored form
+        table = torch.randn(2 ** 16, D, device=dev, generator=gen) * 0.02
+        nid = torch.randint(0, 2 ** 16, (T, R), device=dev, generator=gen)
+        oo = o.detach().requires_grad_()
+        sink = NL.TableGradSink()
+        NL.fused_recall_lse(oo, torch.zeros(T, device=dev), table, nid,
+                            gather_table=table.half(),
+                            table_grad_pairs=sink).sum().backward()
+        check((sink.neg is None) == (best == "two_pass"), f"{tag}: the "
+              f"fused path's table gradient is not in the stored form "
+              f"{best}")
+        times = {t["config"]["scatter_impl"]: round(t["seconds"] * 1e3, 4)
+                 for t in res["trials"]}
+        say(f"[{tag}] neg_fused scatter_impl at T {T}, R {R}, D {D} "
+            f"({n} slots, the sort included): ms {times}, medians of "
+            f"{AUTOTUNE_ITERS} (default fused, stored {best}; bit for bit "
+            f"alike) on {out['card']}")
+        out["neg_fused scatter_impl"] = dict(ms=times, best=best,
+                                             key=res["key"])
+        spans = [x for x in tracer.spans() if x.track == "autotune"]
+        snap = metrics.snapshot()
+        check(len(spans) == AUTOTUNE_ITERS * (3 + 3 + 2) and
+              "autotune_trial_seconds" in snap, f"{tag}: {len(spans)} "
+              f"spans, metrics {sorted(snap)}")
+        stored = json.load(open(os.environ[AT.ENV]))["entries"]
+        check(len(stored) == 3 and all(k.endswith("|" + out["backend"])
+                                       for k in stored),
+              f"{tag}: the store holds {sorted(stored)}")
+        out["stored"] = stored
+        out["seconds"] = time.perf_counter() - t_start
+        say(f"[{tag}] checks: every candidate bit for bit its default; "
+            f"{len(spans)} spans on track autotune; resolve gives the "
+            f"stored winners ({len(stored)} entries, backend "
+            f"{out['backend']}); phase {out['seconds']:.1f} s (budget "
+            f"{AUTOTUNE_BUDGET_S:.0f} s)")
+        return out
+    finally:
+        if before is None:
+            os.environ.pop(AT.ENV, None)
+        else:
+            os.environ[AT.ENV] = before
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
 # phase 6e: hierarchical sparse parallelism, semi-async, elastic restart
 # --------------------------------------------------------------------------
 
@@ -4002,6 +4191,26 @@ ARMS = {"hsp": (("model",), ("data",)), "global": (("data", "model"), ())}
 # (measured 4.7e-9 and 1.3e-8: limit 1e-6); the accumulators, sums of g²,
 # differ by at most 2.6e-6 and 5.5e-6 (limit 1e-4).
 HSP_LOSS_TOL = 2e-3
+#: logit sharing across ranks in phase hsp_mesh: the expansion, its
+#: segments (128 divides the 2048-token pack; 2048 % 96 = 32, so segments
+#: straddle two ranks' packs, and 96 is a multiple of K4's 8 tokens a
+#: CTA) and its steps a segment
+SHARE_EXPANSION = 2
+SHARE_SEGMENTS = (128, 96)
+SHARE_STEPS = 2
+#: rows of each sample set whose first-step table grads (the τ=1 carry
+#: after step 1) the sharing runs compare with the single process's
+SHARE_SAMPLE = 2048
+#: the first-step grads of the sharing runs against the single process's,
+#: each field's largest difference over its largest. The carry's rows
+#: (summed table grads) differ only in the order of fp32 sums: the owner's
+#: K3/K4 see the same segment bits as the single process's, the moved
+#: tokens' included (H100: 7.9e-8 and 8.0e-8 at the moved rows, 8.5e-8
+#: and 8.6e-8 at the control rows, segments 128 and 96); the dense first
+#: moments differ at bf16's rounding, since each rank takes its pack's
+#: dense grads in bf16 (3.8e-3 and 4.5e-3, with 1495 and 1481 of 10.5 M
+#: elements' signs flipped). The limits are about 12x and 2x those.
+SHARE_GRAD_TOL = {"table": 1e-6, "dense": 1e-2}
 HSP_MASTER_TOL = 2 * 4e-3
 HSP_MASTER_MEDIAN_TOL = 1e-6
 HSP_ACCUM_TOL = 1e-4
@@ -4034,11 +4243,14 @@ def _shadow_bad(tbl, rows_per=1 << 17):
     return bad
 
 
-def _run_hsp_engine(mesh, hsp, cfg, batches, steps, sched, tag):
+def _run_hsp_engine(mesh, hsp, cfg, batches, steps, sched, tag,
+                    loss_kwargs=None, on_first=None):
     """GREngine over ``mesh`` (this rank's shard, ``hsp``), tau=1,
-    ``steps`` steps of ``sched`` with launch counts and exchange counters
-    zeroed just before and read just after; the rank's walls, peaks and
-    the final state's checksums."""
+    ``steps`` steps of ``sched`` (``loss_kwargs`` bound into the loss)
+    with launch counts and exchange counters zeroed just before and read
+    just after; the rank's walls, peaks and the final state's checksums.
+    ``on_first(state)`` sees the state after the first step (its carry the
+    step's table grads); the walls leave its time out."""
     import torch
     from repro_torch.core.hsp import bit_checksum
     from repro_torch.models.model_zoo import GRBundle
@@ -4049,20 +4261,24 @@ def _run_hsp_engine(mesh, hsp, cfg, batches, steps, sched, tag):
     mesh.barrier()
     t0 = time.perf_counter()
     eng = GREngine(GRBundle(cfg), lambda i: batches[i], seed=SEED, hsp=hsp,
-                   schedule=sched, semi_async=True)
+                   schedule=sched, semi_async=True, loss_kwargs=loss_kwargs)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    marks, peaks, clocks = [], [], []
+    marks, peaks, clocks, held = [], [], [], [0.0]
 
     def on_step(i, rec, state):
-        marks.append(time.perf_counter())
+        marks.append(time.perf_counter() - held[0])
         peaks.append(torch.cuda.max_memory_allocated() - base)
         torch.cuda.reset_peak_memory_stats()
         clocks.append({k: (v["seconds"], v["wait_s"])
                        for k, v in mesh.stats.items()})
+        if i == 0 and on_first is not None:
+            t = time.perf_counter()
+            on_first(state)
+            held[0] += time.perf_counter() - t
 
     eng.step_callback = on_step
     checks0 = dict(hsp.checks)
@@ -4130,12 +4346,17 @@ def _split_line(split, first=2):
 
 def hsp_rank(mesh, *, V, upd, steps, layers=None, arms=("hsp",),
              schedules=("algorithm1", "flat"), sample=None, out=None,
-             tag="hsp"):
+             tag="hsp", share_segments=(), share_steps=0, share_sample=None,
+             share_out=None):
     """A rank of phase hsp / hsp_mesh: for each arm (``hsp``: the table
     over ``model``; ``global``: over the whole world) and schedule, the
     engine over the global batches of the phase's loader; with ``sample``
     (a .npy of global ids), the first run's final master and accumulator
-    rows at those ids in this rank's shard, to ``out``."""
+    rows at those ids in this rank's shard, to ``out``. Then, for each of
+    ``share_segments``, ``share_steps`` Algorithm-1 steps of the ``hsp``
+    arm at expansion 2 and that segment (logit sharing across ranks); with
+    ``share_sample`` (a .npy of global ids), the state after the first of
+    them to the .npz ``share_out`` (:func:`_first_step_state`)."""
     import numpy as np
     import torch
     from repro_torch.core.hsp import make_hsp_lookup
@@ -4163,6 +4384,26 @@ def hsp_rank(mesh, *, V, upd, steps, layers=None, arms=("hsp",),
                          accum=tbl.accum[idx].cpu().numpy())
                 del tbl, idx
             del eng                     # the next run draws its own table
+    if share_segments:
+        ga, da = ARMS["hsp"]
+        hsp = make_hsp_lookup(mesh, group_axes=ga, dp_axes=da,
+                              compute_dtype=torch.bfloat16)
+        res["share"] = {}
+        lo, hi = hsp.shard_range(V)
+        for seg in share_segments:
+            cap = None
+            if share_sample is not None:
+                cap = lambda st, seg=seg: np.savez(  # noqa: E731
+                    share_out.format(rank=mesh.rank, seg=seg),
+                    **_first_step_state(st, np.load(share_sample), lo, hi,
+                                        dense=mesh.rank == 0))
+            eng, r = _run_hsp_engine(
+                mesh, hsp, cfg, batches, share_steps, "algorithm1",
+                f"{tag} expansion 2 segment {seg}",
+                loss_kwargs=dict(expansion=SHARE_EXPANSION, neg_segment=seg),
+                on_first=cap)
+            res["share"][str(seg)] = r
+            del eng
     return res
 
 
@@ -4243,12 +4484,19 @@ def _pack_reads(batch, V):
                 cand=np.unique(np.concatenate([neg, ids, lab])))
 
 
-def _expected_bytes(batches, V, shape, arm, d):
+def _expected_bytes(batches, V, shape, arm, d, share_segment=None):
     """Per rank, the exchange bytes a run over ``batches`` must count,
     from the batches alone: the ids and rows of the lookups (bf16 rows) and
     the negatives (fp16 rows), and the grad pairs (id + fp32 row) within
-    the group and across replicas."""
+    the group and across replicas. With ``share_segment`` (logit sharing
+    across ranks at that segment): a rank's negatives and negative grad
+    pairs are those of the segments it owns, the global tokens [seg_lo,
+    seg_hi) x segment (``share_layout``), and the straddling tokens travel
+    (``share_tokens``: the bf16 o row, the fp32 positive logit and valid
+    flag and R int32 ids of each token a rank sends; ``share_grads``: the
+    bf16 dout and fp32 dpos of each token it borrowed)."""
     import numpy as np
+    from repro_torch.kernels.neg_logits import share_layout
     world = int(np.prod(shape))
     M_ = shape[1]
     group = (lambda r: [r // M_ * M_ + j for j in range(M_)]) \
@@ -4258,10 +4506,26 @@ def _expected_bytes(batches, V, shape, arm, d):
     sidx = (lambda r: r % M_) if arm == "hsp" else (lambda r: r)
     D = shape[0] if arm == "hsp" else 1
     out = [dict(lookup_ids=0, lookup_rows=0, neg_ids=0, neg_rows=0,
-                grad_group=0, grad_replicas=0) for _ in range(world)]
+                grad_group=0, grad_replicas=0, share_tokens=0,
+                share_grads=0) for _ in range(world)]
     for b in batches:
         reads = [_pack_reads({k: v[r:r + 1] for k, v in b.items()}, V)
                  for r in range(world)]
+        if share_segment:
+            cap = np.asarray(b["ids"]).shape[1]
+            neg = np.asarray(b["neg_ids"]).reshape(world * cap, -1)
+            R = neg.shape[1]
+            for r in range(world):
+                lay = share_layout(world, r, cap, share_segment)
+                mine = np.unique(np.clip(neg[
+                    lay.seg_lo * share_segment:
+                    min(lay.seg_hi * share_segment, world * cap)], 0, V - 1))
+                reads[r]["neg"] = mine
+                reads[r]["cand"] = np.unique(np.concatenate(
+                    [mine, reads[r]["ids"], reads[r]["labels"]]))
+                if lay.moves:
+                    out[r]["share_tokens"] += lay.keep * (2 * d + 8 + 4 * R)
+                    out[r]["share_grads"] += lay.borrow * (2 * d + 4)
         for r in range(world):
             lo, hi = sidx(r) * Vs, (sidx(r) + 1) * Vs
             own = lambda u: (u >= lo) & (u < hi)          # noqa: E731
@@ -4424,9 +4688,11 @@ def phase_hsp():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def hsp_world1(mesh, *, V, upd, steps):
+def hsp_world1(mesh, *, V, upd, steps, share_segments=(), share_steps=0):
     """A world of one: the HSP engine against the single-process engine
-    on the same batches, bit for bit (losses and every state tensor)."""
+    on the same batches, bit for bit (losses and every state tensor); then
+    the same at expansion 2 for each of ``share_segments``,
+    ``share_steps`` steps each."""
     import torch
     from repro_torch.core.hsp import make_hsp_lookup
     from repro_torch.models.model_zoo import GRBundle
@@ -4434,16 +4700,29 @@ def hsp_world1(mesh, *, V, upd, steps):
     cfg = _hsp_cfg(V, MESH_LAYERS)
     batches = list(_hsp_loader(V, 1, upd).batches(steps))
     hsp = make_hsp_lookup(mesh, compute_dtype=torch.bfloat16)
-    a = GREngine(GRBundle(cfg), lambda i: batches[i], seed=SEED, hsp=hsp)
-    la = [r["loss"] for r in a.run(steps)]
-    b = GREngine(GRBundle(cfg), lambda i: batches[i], seed=SEED,
-                 device=mesh.device)
-    lb = [r["loss"] for r in b.run(steps)]
-    same = la == lb and all(torch.equal(x, y) for x, y in zip(
-        state_tensors(a.state), state_tensors(b.state)))
-    say(f"[hsp_mesh] world of one: HSP losses {la}, single process {lb}; "
-        f"every state tensor equal: {same}")
-    return dict(losses=la, single=lb, bitwise=same)
+    out = {}
+    for seg in (None, *share_segments):
+        lk = None if seg is None else dict(expansion=SHARE_EXPANSION,
+                                           neg_segment=seg)
+        n = steps if seg is None else share_steps
+        a = GREngine(GRBundle(cfg), lambda i: batches[i], seed=SEED,
+                     hsp=hsp, loss_kwargs=lk)
+        la = [r["loss"] for r in a.run(n)]
+        b = GREngine(GRBundle(cfg), lambda i: batches[i], seed=SEED,
+                     device=mesh.device, loss_kwargs=lk)
+        lb = [r["loss"] for r in b.run(n)]
+        same = la == lb and all(torch.equal(x, y) for x, y in zip(
+            state_tensors(a.state), state_tensors(b.state)))
+        what = ("" if seg is None else
+                f" at expansion {SHARE_EXPANSION}, segment {seg}")
+        say(f"[hsp_mesh] world of one{what}: HSP losses {la}, single "
+            f"process {lb}; every state tensor equal: {same}")
+        out["plain" if seg is None else str(seg)] = dict(
+            losses=la, single=lb, bitwise=same)
+        del a, b
+        gc.collect()                    # the next pair draws its own tables
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_hsp_mesh():
@@ -4455,15 +4734,24 @@ def phase_hsp_mesh():
     tag = "hsp_mesh"
     V = MESH_V
     cfg = _hsp_cfg(V, MESH_LAYERS)
-    w1 = _spawn_world("hsp_world1", dict(V=V, upd=1, steps=MESH_STEPS),
-                         (1, 1), tag)
-    check(w1[0]["bitwise"], f"{tag}: a world of one differs from the "
-          f"single-process engine")
+    w1 = _spawn_world("hsp_world1", dict(
+        V=V, upd=1, steps=MESH_STEPS, share_segments=list(SHARE_SEGMENTS),
+        share_steps=SHARE_STEPS), (1, 1), tag)
+    for k, v in w1[0].items():
+        check(v["bitwise"], f"{tag}: a world of one differs from the "
+              f"single-process engine ({k})")
+    batches = list(_hsp_loader(V, 4, 1).batches(MESH_STEPS))
+    sample = _share_sample_ids(batches[0], V, 4, 2048, min(SHARE_SEGMENTS))
+    share_dir = tempfile.mkdtemp(prefix="hsp_share_")
+    ids_path = os.path.join(share_dir, "ids.npy")
+    np.save(ids_path, np.unique(np.concatenate(list(sample.values()))))
     res = _spawn_world("hsp_rank", dict(
         V=V, upd=1, steps=MESH_STEPS, layers=MESH_LAYERS,
-        arms=["hsp", "global"], schedules=["algorithm1"], tag=tag),
+        arms=["hsp", "global"], schedules=["algorithm1"], tag=tag,
+        share_segments=list(SHARE_SEGMENTS), share_steps=SHARE_STEPS,
+        share_sample=ids_path,
+        share_out=os.path.join(share_dir, "r{rank}_s{seg}.npz")),
         (2, 2), tag)
-    batches = list(_hsp_loader(V, 4, 1).batches(MESH_STEPS))
     totals = {}
     for arm in ("hsp", "global"):
         exp = _expected_bytes(batches, V, (2, 2), arm, cfg.d_model)
@@ -4513,7 +4801,240 @@ def phase_hsp_mesh():
         f"AdaGrad states equal at each of {MESH_STEPS} steps (row "
         f"checksums) and at the end (checksums of every state tensor); "
         f"a world of one bit for bit the single-process engine")
-    return dict(ranks=res, totals=totals, world1=w1[0])
+    try:
+        share = _check_mesh_sharing(res, cfg, V, batches, tag, sample,
+                                    share_dir)
+    finally:
+        import shutil
+        shutil.rmtree(share_dir, ignore_errors=True)
+    return dict(ranks=res, totals=totals, world1=w1[0], share=share)
+
+
+def _first_step_state(state, ids, lo, hi, dense):
+    """After a run's first step: the τ=1 carry's rows (that step's summed
+    table grads) at the global ``ids`` in [lo, hi), whether each id has
+    one, and with ``dense`` the AdamW first moments (0.1 x the step's
+    dense grads, keys ``mu/<name>``), as numpy arrays."""
+    import numpy as np
+    import torch
+    rows, dev = state.pending_rows, state.pending_rows.device
+    mine = ids[(ids >= lo) & (ids < hi)]
+    pid = state.pending_ids.long()
+    pid = pid[pid >= 0]
+    pos = torch.full((hi - lo,), -1, dtype=torch.long, device=dev)
+    pos[pid] = torch.arange(pid.numel(), device=dev)
+    at = pos[torch.from_numpy(mine - lo).long().to(dev)]
+    out = dict(ids=mine, present=(at >= 0).cpu().numpy(),
+               rows=rows[at.clamp_min(0)].float().cpu().numpy())
+    if dense:
+        out.update({f"mu/{n}": v.float().cpu().numpy()
+                    for n, v in state.dense_opt.mu.items()})
+    return out
+
+
+def _share_sample_ids(batch, V, world, cap, seg):
+    """Two samples of SHARE_SAMPLE table rows, neither an input nor a
+    label of ``batch`` (whose grads pass through the bf16 dense
+    backward): ``moved``, negatives of the tokens of the segments that
+    straddle two ranks' packs at ``seg``, whose table grads the moved
+    tokens' logits feed; ``control``, negatives of segment 0's tokens and
+    of no straddling segment's."""
+    import numpy as np
+    R = batch["neg_ids"].shape[-1]
+    neg = np.clip(np.asarray(batch["neg_ids"]).reshape(-1, R), 0, V - 1)
+    skip = np.union1d(np.asarray(batch["ids"]).reshape(-1),
+                      np.asarray(batch["labels"]).reshape(-1))
+    n_tok = world * cap
+    straddle = [s for s in range(-(-n_tok // seg))
+                if (s * seg) // cap != (min((s + 1) * seg, n_tok) - 1) // cap]
+    moved = np.unique(np.concatenate(
+        [neg[s * seg:min((s + 1) * seg, n_tok)] for s in straddle]))
+    moved = np.setdiff1d(moved, skip)
+    control = np.setdiff1d(np.setdiff1d(np.unique(neg[:seg]), moved), skip)
+    rng = np.random.default_rng(SEED)
+    return {k: np.sort(rng.choice(v, min(SHARE_SAMPLE, v.size),
+                                  replace=False)).astype(np.int64)
+            for k, v in (("moved", moved), ("control", control))}
+
+
+def _compare_first_step(single, ranks, sample):
+    """The 4 ranks' first-step state (``ranks``: per rank, its .npz, one
+    rank of each shard first) against the single process's (``single``:
+    the same keys over the whole table): the dense first moments' largest
+    difference over each leaf's largest and their sign flips (an element
+    whose first AdamW step, ≈ lr·sign(g), goes the other way); per sample
+    set, whether the same rows have a carry, its rows' largest difference
+    over their largest and their sign flips (each a first AdaGrad step the
+    other way)."""
+    import numpy as np
+    mu_r = {k[3:]: v for k, v in ranks[0].items() if k.startswith("mu/")}
+    rel, flips, n = 0.0, 0, 0
+    for name, b in single["mu"].items():
+        a = mu_r[name]
+        rel = max(rel, float(np.abs(a - b).max() / max(np.abs(b).max(),
+                                                       1e-30)))
+        flips += int((a * b < 0).sum())
+        n += b.size
+    out = dict(dense_rel=rel, dense_flips=flips, dense_elems=n)
+    seen, ids, present, rows = set(), [], [], []
+    for z in ranks:
+        key = (int(z["ids"][0]) if z["ids"].size else -1, z["ids"].size)
+        if key in seen:
+            continue                    # the other replica of a shard
+        seen.add(key)
+        ids.append(z["ids"])
+        present.append(z["present"])
+        rows.append(z["rows"])
+    ids, present, rows = (np.concatenate(x) for x in (ids, present, rows))
+    order = np.argsort(ids, kind="stable")
+    ids, present, rows = ids[order], present[order], rows[order]
+    check(np.array_equal(ids, single["ids"]), "sharing: the ranks' sampled "
+          "ids are not the single process's")
+    for k, want in sample.items():
+        sel = np.isin(ids, want)
+        p_r, p_s = present[sel], single["present"][sel]
+        a, b = rows[sel][p_s], single["rows"][sel][p_s]
+        out[k] = dict(rows=int(sel.sum()), with_carry=int(p_s.sum()),
+                      same_carry=bool(np.array_equal(p_r, p_s)),
+                      rel=float(np.abs(a - b).max() / max(np.abs(b).max(),
+                                                          1e-30))
+                      if b.size else 0.0,
+                      flips=int((a * b < 0).sum()), elems=int(b.size))
+    return out
+
+
+def _single_share(cfg, V, batches, seg, steps, sample=None):
+    """The single-process engine over the 4 packs of phase hsp_mesh's
+    global batches at expansion 2 and segment ``seg``: its losses, and
+    with ``sample`` (global ids) its state after the first step at them
+    (:func:`_first_step_state`, the moments as ``mu``)."""
+    import torch
+    from repro_torch.models.model_zoo import GRBundle
+    from repro_torch.training import GREngine
+    eng = GREngine(GRBundle(cfg), lambda i: batches[i], seed=SEED,
+                   device=torch.device("cuda"), loss_kwargs=dict(
+                       expansion=SHARE_EXPANSION, neg_segment=seg))
+    first, held = {}, [0.0]
+    if sample is not None:
+        def on_step(i, rec, st):
+            if i == 0:
+                t = time.perf_counter()
+                z = _first_step_state(st, sample, 0, V, dense=True)
+                first.update(ids=z["ids"], present=z["present"],
+                             rows=z["rows"], mu={k[3:]: v for k, v in
+                                                 z.items()
+                                                 if k.startswith("mu/")})
+                held[0] += time.perf_counter() - t
+        eng.step_callback = on_step
+    t0 = time.perf_counter()
+    losses = [r["loss"] for r in eng.run(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - held[0]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, wall, first
+
+
+def _check_mesh_sharing(res, cfg, V, batches, tag, sample, share_dir):
+    """Logit sharing across the 4 ranks of phase hsp_mesh: at each segment
+    every rank reports the same losses, within HSP_LOSS_TOL of the single
+    process over the same 4 packs (run here); after the first step the
+    same table rows have a carry as in the single process, and the carry
+    at the rows the moved tokens' logits feed (``sample``) and the dense
+    first moments lie within SHARE_GRAD_TOL of the single process's; K3
+    and K4 once a step on each rank (each owns segments: a pack is longer
+    than a segment), the other launches a step's; the share_* and every
+    other exchange's bytes the counts the layout and the batches give
+    (share_* 0 when the pack is a segment multiple); the data replicas of
+    each shard and the shadow equal."""
+    import numpy as np
+    from repro_torch.kernels.neg_logits import share_layout
+    ids = np.load(os.path.join(share_dir, "ids.npy"))
+    out = {}
+    want = _rank_launch_want(cfg, SHARE_STEPS, runsum=2)
+    for seg in SHARE_SEGMENTS:
+        key = str(seg)
+        exp = _expected_bytes(batches[:SHARE_STEPS], V, (2, 2), "hsp",
+                              cfg.d_model, share_segment=seg)
+        runs = [r["share"][key] for r in res]
+        for r, run in zip(res, runs):
+            check(run["launches"] == want, f"{tag} sharing segment {seg} "
+                  f"rank {r['rank']}: launches {run['launches']}, expected "
+                  f"{want}")
+            check(run["shadow_bad"] == 0, f"{tag}: shadow != master.half()")
+            got = {k: run["stats"].get(k, {}).get("bytes", 0)
+                   for k in exp[r["rank"]]}
+            check(got == exp[r["rank"]], f"{tag} sharing segment {seg} rank "
+                  f"{r['rank']}: exchange bytes {got}, from the batches "
+                  f"{exp[r['rank']]}")
+            check(run["losses"] == runs[0]["losses"], f"{tag} sharing: the "
+                  f"ranks report different losses")
+            check(run["checks"]["dense"] == SHARE_STEPS and
+                  run["checks"]["table"] == SHARE_STEPS,
+                  f"{tag} sharing: replica checks {run['checks']}")
+        for r, run in zip(res, runs):
+            twin = [q["share"][key] for q in res
+                    if q["hsp"]["lo"] == r["hsp"]["lo"]]
+            check(len(twin) == 2 and twin[0]["checksums"]
+                  == twin[1]["checksums"], f"{tag} sharing: the data "
+                  f"replicas of shard {r['hsp']['lo']} differ")
+        single, wall, first = _single_share(cfg, V, batches, seg,
+                                            SHARE_STEPS, sample=ids)
+        dl = float(np.max(np.abs(np.array(runs[0]["losses"]) - single)))
+        grads = _compare_first_step(
+            first, [dict(np.load(os.path.join(share_dir,
+                                              f"r{q}_s{seg}.npz")))
+                    for q in range(4)], sample)
+        lays = [share_layout(4, q, 2048, seg) for q in range(4)]
+        say(f"[{tag}] sharing, expansion {SHARE_EXPANSION}, segment {seg}: "
+            f"losses {runs[0]['losses']} on every rank, single process over "
+            f"the same 4 packs {single} ({wall:.2f} s): max |diff| "
+            f"{dl:.3g} (limit {HSP_LOSS_TOL}); segments owned "
+            f"{[(x.seg_lo, x.seg_hi) for x in lays]}, tokens sent "
+            f"{[x.keep for x in lays]} and borrowed "
+            f"{[x.borrow for x in lays]} a rank; share bytes "
+            f"{[{k: run['stats'].get(k, {}).get('bytes', 0) for k in ('share_tokens', 'share_grads')} for run in runs]}, "
+            f"ms a step {[{k: round(1e3 * run['stats'][k]['seconds'] / SHARE_STEPS, 2) for k in ('share_tokens', 'share_grads') if k in run['stats']} for run in runs]}; "
+            f"launches a rank {runs[0]['launches']}; walls (time-shared) "
+            f"{[[round(w * 1e3, 1) for w in run['walls_s']] for run in runs]} ms")
+        say(f"[{tag}] sharing, segment {seg}, after the first step against "
+            f"the single process: dense first moments largest difference "
+            f"{grads['dense_rel']:.3g} of a leaf's largest, sign flips "
+            f"{grads['dense_flips']} of {grads['dense_elems']}; table grads "
+            f"(the carry) at "
+            + "; ".join(f"{k} rows ({g['rows']} sampled, {g['with_carry']} "
+                        f"with a carry, the same rows as the single process "
+                        f"{g['same_carry']}): largest difference "
+                        f"{g['rel']:.3g} of their largest, sign flips "
+                        f"{g['flips']} of {g['elems']}"
+                        for k, g in grads.items() if isinstance(g, dict))
+            + f" (limits {SHARE_GRAD_TOL})")
+        check(dl <= HSP_LOSS_TOL, f"{tag} sharing segment {seg}: losses "
+              f"{dl:.3g} from the single process, limit {HSP_LOSS_TOL}")
+        for k in ("moved", "control"):
+            check(grads[k]["same_carry"] and grads[k]["with_carry"] > 0,
+                  f"{tag} sharing segment {seg}: the {k} rows with a carry "
+                  f"differ from the single process's")
+            check(grads[k]["rel"] <= SHARE_GRAD_TOL["table"],
+                  f"{tag} sharing segment {seg}: {k} rows' first table "
+                  f"grads {grads[k]['rel']:.3g} from the single process's, "
+                  f"limit {SHARE_GRAD_TOL['table']}")
+        check(grads["dense_rel"] <= SHARE_GRAD_TOL["dense"],
+              f"{tag} sharing segment {seg}: dense first moments "
+              f"{grads['dense_rel']:.3g} from the single process's, limit "
+              f"{SHARE_GRAD_TOL['dense']}")
+        out[key] = dict(losses=runs[0]["losses"], single=single,
+                        loss_diff=dl, single_wall_s=wall, first_step=grads,
+                        share=[{k: run["stats"].get(k) for k in (
+                            "share_tokens", "share_grads")} for run in runs],
+                        walls_s=[run["walls_s"] for run in runs])
+    say(f"[{tag}] sharing checks: at segments {list(SHARE_SEGMENTS)} the 4 "
+        f"ranks' losses within {HSP_LOSS_TOL} of the single process, the "
+        f"data replicas and the shadow equal, K3 and K4 once a step on each "
+        f"rank, every exchange's bytes (share_* too) the layout's and the "
+        f"batches' counts; a world of one bit for bit the single process")
+    return out
 
 
 def phase_elastic():
@@ -5526,6 +6047,7 @@ def main():
         ws = run("wscatter_kernel", phase_wscatter_kernel)
         k9 = run("neg_logits_kernel", phase_neg_logits_kernel)
         k7 = run("gather_kernel", phase_gather_kernel)
+        tuned = run("autotune", phase_autotune)
         acausal = run("acausal", phase_acausal)
         offload = run("offload", phase_offload)
         serve = run("serve", phase_serve, "hstu-large", "serve")
@@ -5575,6 +6097,7 @@ def main():
     say(f"[result] elastic {json.dumps(elastic)}")
     say(f"[result] offload {json.dumps(offload)}")
     say(f"[result] lm {json.dumps(lm)}")
+    say(f"[result] autotune {json.dumps(tuned)}")
     beside = times["build"] + times["lm"] - pair_s
     freed = min(BEFORE_RESILIENT_S) - times["resilient"]
     say(f"[result] room: phase lm {times['lm']} s (budget "
@@ -5655,6 +6178,9 @@ def main():
                    "hsp": rank_launches(hsp["ranks"], ("hsp",), kname),
                    "hsp_mesh": rank_launches(hsp_mesh["ranks"],
                                              ("hsp", "global"), kname),
+                   "hsp_mesh_share": sum(
+                       run["launches"][kname] for r in hsp_mesh["ranks"]
+                       for run in r["share"].values()),
                    "parity": parity_launches.get(kname, 0),
                    "acausal": acausal["launches"].get(kname, 0),
                    "offload": offload["launches"].get(kname, 0)}

@@ -32,6 +32,16 @@ Topology: the embedding table is split into contiguous row ranges over the
   the identical aggregate G_t, so the AdaGrad states stay bitwise equal
   across groups (Eq. 1). The reference's dense ``psum`` of the (V/I, d)
   shard (8.6 GB a step at 2²¹ rows) is not ported (a declared divergence).
+* **Logit sharing across ranks** (:meth:`HSPLookup.share_tokens`, §4.3.3
+  at ``expansion`` > 1): the pool is the global batch's, ordered rank by
+  rank and cut into segments (``kernels/neg_logits/ops.py``
+  ``share_layout``); K3 builds a segment's logits in one CTA, so each
+  segment is computed on the rank that holds its first token. The tokens
+  of a segment that straddles two ranks' packs travel to that owner (o
+  row, positive logit, valid flag, R negative ids), the owner fetches
+  their negative rows with its own and counts them in its part of the
+  loss; in backward their dout and dpos travel home. Nothing moves when
+  the pack is a segment multiple.
 * **Baseline** — global sharding is the same object with
   ``group_axes=("data", "model")`` and no ``dp_axes``: the exchange then
   spans the whole world (Table 4's other arm).
@@ -43,8 +53,10 @@ dense replicas and the ``data`` replicas of each shard stay equal.
 
 Every exchange counts, by kind, the bytes and the peers this rank sends to
 (``Mesh.stats``): ``lookup_ids``, ``lookup_rows``, ``neg_ids``,
-``neg_rows``, ``grad_group`` (pairs within the group), ``grad_replicas``
-(pairs across groups), ``dense``, ``loss``, ``check``.
+``neg_rows``, ``share_tokens`` and ``share_grads`` (the straddling
+tokens out and their grads back), ``grad_group`` (pairs within the
+group), ``grad_replicas`` (pairs across groups), ``dense``, ``loss``,
+``check``.
 
 Collectives are issued only from the training step's device stages, which
 the engine runs on its main thread in the schedule's fixed order, so every
@@ -61,6 +73,7 @@ from repro_torch.kernels.jagged_lookup.ops import (gather_rows, run_totals,
                                                    scatter_add_rows as
                                                    _dense_scatter,
                                                    sort_pairs, unique_pairs)
+from repro_torch.kernels.neg_logits.ops import ShareLayout
 
 GRAD_WIRE_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
@@ -377,6 +390,33 @@ class HSPLookup:
             uids, urows = run_totals(rrows, order, keys)
         return uids, urows
 
+    # -- logit sharing across ranks ----------------------------------------
+    def share_tokens(self, layout: ShareLayout, o: torch.Tensor,
+                     pos: torch.Tensor, valid: torch.Tensor,
+                     neg_ids: torch.Tensor):
+        """The tokens of the segments this rank computes (``layout``, this
+        rank's :class:`~repro_torch.kernels.neg_logits.ops.ShareLayout`):
+        o (T, d), pos (T,) fp32 positive logits, valid (T,), neg_ids (T, R)
+        → (o, pos, valid fp32, neg_ids int32, anchor) of its tokens from
+        ``layout.keep`` on followed by the ``layout.borrow`` tokens of the
+        ranks after it, differentiable in o and pos. The first ``keep``
+        tokens go to their segment's owner; in backward their grads come
+        back. ``anchor`` is a zero scalar to add to the loss, so that
+        every rank runs the backward exchange (None when no rank sends:
+        nothing is exchanged then)."""
+        k = layout.keep
+        valid = valid.to(torch.float32)
+        neg_ids = neg_ids.to(torch.int32)
+        if not layout.moves:
+            return o[k:], pos[k:], valid[k:], neg_ids[k:], None
+        counts = [0] * self.world
+        counts[layout.owner] = k
+        o_in, pos_in, v_in, ids_in, anchor = _ShareTokensFn.apply(
+            o[:k], pos[:k], valid[:k], neg_ids[:k], self, counts)
+        return (torch.cat([o[k:], o_in]), torch.cat([pos[k:], pos_in]),
+                torch.cat([valid[k:], v_in]),
+                torch.cat([neg_ids[k:], ids_in]), anchor)
+
     # -- the dense half of a training step ---------------------------------
     def valid_total(self, valid: torch.Tensor) -> torch.Tensor:
         """The valid tokens of the global batch, an fp32 scalar on the
@@ -465,6 +505,49 @@ class _HSPLookupFn(torch.autograd.Function):
         dshard = torch.zeros((vs, d), dtype=torch.float32, device=g.device)
         dshard[u.long()] = rows
         return dshard.to(ctx.dtype), None, None
+
+
+class _ShareTokensFn(torch.autograd.Function):
+    """Forward: (o, pos, valid, ids) rows to the members ``counts`` names,
+    as one byte row a token (kind ``share_tokens``); the rows received, in
+    rank order, and a zero anchor. Backward: their o and pos grads back to
+    the ranks they came from (kind ``share_grads``); o's grad travels in
+    o's dtype, the dtype autograd hands it in."""
+
+    @staticmethod
+    def forward(ctx, o, pos, valid, ids, hsp, counts):
+        mesh = hsp.mesh
+        D, R = o.shape[1], ids.shape[1]
+        msg = torch.cat([_as_bytes(o), _as_bytes(pos.float()[:, None]),
+                         _as_bytes(valid[:, None]), _as_bytes(ids)], dim=1)
+        got, rcounts = mesh.all_to_all_v(msg, counts, mesh.axes,
+                                         "share_tokens")
+        w = D * o.element_size()
+        o_in = _from_bytes(got[:, :w], o.dtype, D)
+        pos_in = _from_bytes(got[:, w:w + 4], torch.float32, 1).reshape(-1)
+        v_in = _from_bytes(got[:, w + 4:w + 8], torch.float32, 1).reshape(-1)
+        ids_in = _from_bytes(got[:, w + 8:], torch.int32, R)
+        ctx.hsp, ctx.rcounts, ctx.dtype, ctx.D, ctx.w = (hsp, rcounts,
+                                                         o.dtype, D, w)
+        ctx.n_in = got.shape[0]
+        ctx.mark_non_differentiable(v_in, ids_in)
+        return o_in, pos_in, v_in, ids_in, pos.new_zeros((),
+                                                          dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g_o, g_pos, _v, _ids, _anchor):
+        mesh, n, D, w = ctx.hsp.mesh, ctx.n_in, ctx.D, ctx.w
+        if g_o is None:
+            g_o = torch.zeros((n, D), dtype=ctx.dtype, device=mesh.device)
+        if g_pos is None:
+            g_pos = torch.zeros((n,), dtype=torch.float32, device=mesh.device)
+        msg = torch.cat([_as_bytes(g_o.to(ctx.dtype)),
+                         _as_bytes(g_pos.float()[:, None])], dim=1)
+        back, _ = mesh.all_to_all_v(msg, ctx.rcounts, mesh.axes,
+                                    "share_grads")
+        return (_from_bytes(back[:, :w], ctx.dtype, D),
+                _from_bytes(back[:, w:], torch.float32, 1).reshape(-1),
+                None, None, None, None)
 
 
 def make_hsp_lookup(mesh, *, group_axes: Tuple[str, ...] = ("model",),

@@ -1,8 +1,9 @@
 """Negative-sampling recall loss (paper §4.3), the port's training path.
 
-:func:`fused_sampled_softmax_loss` is Eq. 2 straight from ids through the
-fused kernels (``repro_torch.kernels.neg_logits``): the negative rows are
-gathered from the half-precision shadow inside K3/K4, and the table
+:func:`fused_sampled_softmax_loss` (:func:`fused_recall_loss` from the
+positive logits) is Eq. 2 straight from ids through the fused kernels
+(``repro_torch.kernels.neg_logits``): the negative rows are gathered from
+the half-precision shadow inside K3/K4, and the table
 gradient leaves as sparse (id, row) pairs (a ``TableGradSink``) or, when
 the table requires grad, as a dense grad at test sizes; K5 reduces the
 pairs without building the negative rows (``scatter_impl="fused"``).
@@ -26,14 +27,16 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.offload import neg_logits_offloaded, offload_negatives
-from repro_torch.kernels.neg_logits import (NEG_POOL, TableGradSink,
-                                            fused_recall_lse, neg_logits,
-                                            neg_logits_bwd, neg_logits_fwd)
+from repro_torch.kernels.neg_logits import (NEG_POOL, ShareLayout,
+                                            TableGradSink, fused_recall_lse,
+                                            neg_logits, neg_logits_bwd,
+                                            neg_logits_fwd)
 
-__all__ = ["NEG_POOL", "fused_sampled_softmax_loss", "neg_logits_baseline",
-           "neg_logits_offloaded", "neg_logits_segmented",
-           "offload_negatives", "recall_loss", "sample_negative_ids",
-           "sampled_softmax_loss", "share_logits"]
+__all__ = ["NEG_POOL", "fused_recall_loss", "fused_sampled_softmax_loss",
+           "neg_logits_baseline", "neg_logits_offloaded",
+           "neg_logits_segmented", "offload_negatives", "positive_logits",
+           "recall_loss", "sample_negative_ids", "sampled_softmax_loss",
+           "share_logits"]
 
 
 def sample_negative_ids(generator: Optional[torch.Generator], *,
@@ -205,36 +208,51 @@ def recall_loss(out_emb: torch.Tensor, pos_emb: torch.Tensor,
     return sampled_softmax_loss(pos, neg_logits, valid)
 
 
+def positive_logits(out_emb: torch.Tensor, pos_emb: torch.Tensor,
+                    tau: float = 1.0) -> torch.Tensor:
+    """(T,) fp32 o·p/τ of each token and its label row."""
+    return (out_emb.float() * pos_emb.float()).sum(-1) / tau
+
+
 def fused_sampled_softmax_loss(out_emb: torch.Tensor, pos_emb: torch.Tensor,
                                table: torch.Tensor, neg_ids: torch.Tensor, *,
-                               perms: Optional[torch.Tensor] = None,
-                               generator: Optional[torch.Generator] = None,
-                               tau: float = 1.0,
-                               valid: Optional[torch.Tensor] = None,
-                               segment: int = 128, expansion: int = 1,
-                               fetch_dtype=torch.float16,
-                               shadow: Optional[torch.Tensor] = None,
-                               shadow_index: Optional[torch.Tensor] = None,
-                               vocab: Optional[int] = None,
-                               valid_total: Optional[torch.Tensor] = None,
-                               scatter_impl: str = "fused",
-                               table_grad_pairs: Optional[TableGradSink] = None
-                               ) -> torch.Tensor:
+                               tau: float = 1.0, **kw) -> torch.Tensor:
     """Eq. 2 from ids: out_emb (T, D), pos_emb (T, D) label rows, table
-    (V, D) fp32 master, neg_ids (T, R). ``shadow`` is the half-precision
-    table the negatives are read from (else ``fetch_dtype`` rounds master
-    rows). ``perms``/``generator``: the §4.3.3 sharing shuffle (see
-    ``make_share_perms``). ``scatter_impl``: the form of the table
-    gradient, ``"fused"`` (K5) or ``"two_pass"``. A sharded table
-    (``core/hsp.py``) passes the exchanged rows as ``shadow``, each
-    negative's position in them as ``shadow_index``, the global ``vocab``
-    and the global batch's ``valid_total``."""
-    pos = (out_emb.float() * pos_emb.float()).sum(-1) / tau
-    lse = fused_recall_lse(out_emb, pos, table, neg_ids, segment=segment,
-                           tau=tau, expansion=expansion, perms=perms,
-                           generator=generator, valid=valid,
+    (V, D) fp32 master, neg_ids (T, R); the keywords are
+    :func:`fused_recall_loss`'s."""
+    return fused_recall_loss(out_emb, positive_logits(out_emb, pos_emb, tau),
+                             table, neg_ids, tau=tau, **kw)
+
+
+def fused_recall_loss(out_emb: torch.Tensor, pos_logit: torch.Tensor,
+                      table: torch.Tensor, neg_ids: torch.Tensor, *,
+                      perms: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None,
+                      tau: float = 1.0, valid: Optional[torch.Tensor] = None,
+                      segment: int = 128, expansion: int = 1,
+                      fetch_dtype=torch.float16,
+                      shadow: Optional[torch.Tensor] = None,
+                      shadow_index: Optional[torch.Tensor] = None,
+                      vocab: Optional[int] = None,
+                      valid_total: Optional[torch.Tensor] = None,
+                      scatter_impl: Optional[str] = None,
+                      table_grad_pairs: Optional[TableGradSink] = None,
+                      share: Optional[ShareLayout] = None) -> torch.Tensor:
+    """Eq. 2 from ids and the positive logits (T,) fp32. ``shadow`` is the
+    half-precision table the negatives are read from (else ``fetch_dtype``
+    rounds master rows). ``perms``/``generator``: the §4.3.3 sharing
+    shuffle (see ``make_share_perms``). ``scatter_impl``: the form of the
+    table gradient, ``"fused"`` (K5) or ``"two_pass"`` (None: the tuned
+    store's). A sharded table (``core/hsp.py``) passes the exchanged rows
+    as ``shadow``, each negative's position in them as ``shadow_index``,
+    the global ``vocab`` and the global batch's ``valid_total``; with
+    sharing across its ranks, ``share`` (this rank's segments of the
+    pool)."""
+    lse = fused_recall_lse(out_emb, pos_logit, table, neg_ids,
+                           segment=segment, tau=tau, expansion=expansion,
+                           perms=perms, generator=generator, valid=valid,
                            fetch_dtype=fetch_dtype, gather_table=shadow,
                            gather_index=shadow_index, vocab=vocab,
                            scatter_impl=scatter_impl,
-                           table_grad_pairs=table_grad_pairs)
-    return _masked_mean(lse - pos, valid, valid_total)
+                           table_grad_pairs=table_grad_pairs, share=share)
+    return _masked_mean(lse - pos_logit, valid, valid_total)

@@ -29,15 +29,26 @@ Sharing permutations: the reference draws them with ``jax.random`` from
 the batch's key; the port takes them as ``perms`` or draws its own from a
 ``torch.Generator`` (a declared divergence: same distribution, other
 numbers). ``expansion=1`` draws nothing.
+
+A batch split over ranks (``core/hsp.py``) shares one pool, as the
+reference's flattened batch does: :func:`share_layout` gives a rank's view
+of it (:class:`ShareLayout`). Tokens are ordered rank by rank, the global
+token count is padded at its end to a segment multiple, and every rank
+draws the global perms and keeps the rows of the segments it owns, those
+whose first token it holds. A rank that owns no segment launches neither
+K3 nor K4.
+
+Knobs: K9-fwd's row split and the fused path's ``scatter_impl`` come from
+the tuned store (``kernels/autotune.py``) when the caller passes none.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.jagged_lookup.ops import (check_scatter_impl,
                                                    scatter_add_weighted_rows)
 from repro_torch.kernels.neg_logits import ref as R_
@@ -47,6 +58,8 @@ from repro_torch.kernels.neg_logits.ref import NEG_POOL
 #: launches it and nowhere else.
 KERNEL_LAUNCHES: Dict[str, int] = {"neg_fwd": 0, "neg_bwd": 0,
                                    "neg_logits_fwd": 0, "neg_logits_bwd": 0}
+#: The knobs of each kernel's last launch (K9-fwd's ``row_split``).
+LAUNCH_KNOBS: Dict[str, Dict[str, Any]] = {}
 
 KERNEL_WIDTHS = (256, 512, 768, 1024)
 _O_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -131,29 +144,79 @@ class TableGradSink:
         return self.rows[:n]
 
 
+class ShareLayout(NamedTuple):
+    """One rank's part of a sharing pool split over ``world`` ranks of
+    ``tokens`` tokens each (:func:`share_layout`). Global token k lies on
+    rank k // tokens; the world·tokens tokens are padded at the end to
+    ``n_seg`` segments. The rank computes segments [seg_lo, seg_hi), those
+    whose first token it holds: its tokens from ``keep`` on, then
+    ``borrow`` tokens of the ranks after it; its first ``keep`` tokens
+    (0 when its first token opens a segment) belong to a segment of rank
+    ``owner``."""
+    world: int
+    rank: int
+    tokens: int
+    segment: int
+    n_seg: int
+    seg_lo: int
+    seg_hi: int
+    keep: int
+    owner: int
+    borrow: int
+
+    @property
+    def moves(self) -> bool:
+        """Whether any rank of the world sends tokens: a segment straddles
+        two ranks' tokens (the same answer on every rank)."""
+        return self.world > 1 and self.tokens % self.segment != 0
+
+
+def share_layout(world: int, rank: int, tokens: int,
+                 segment: int) -> ShareLayout:
+    """Rank ``rank``'s :class:`ShareLayout` of ``world`` ranks holding
+    ``tokens`` tokens each, shared in segments of ``segment``."""
+    if not (0 <= rank < world and tokens > 0 and segment > 0):
+        raise ValueError(f"rank {rank} of {world}, {tokens} tokens a rank, "
+                         f"segment {segment}")
+    first, end = rank * tokens, (rank + 1) * tokens
+    lo, hi = -(-first // segment), -(-end // segment)
+    keep = min(lo * segment - first, tokens)
+    borrow = (max(0, min(hi * segment, world * tokens) - end)
+              if hi > lo else 0)
+    return ShareLayout(world, rank, tokens, segment,
+                       -(-world * tokens // segment), lo, hi, keep,
+                       first // segment * segment // tokens, borrow)
+
+
 def make_share_perms(n_seg: int, segment: int, expansion: int, *,
                      perms: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None,
-                     device: Optional[torch.device] = None) -> torch.Tensor:
+                     device: Optional[torch.device] = None,
+                     segments: Optional[Tuple[int, int]] = None
+                     ) -> torch.Tensor:
     """(n_seg, max(expansion−1, 1), segment) int32 per-segment shuffle for
     §4.3.3 sharing: entry [s, e, t] is the segment-local token whose R
     logits consumer t borrows for slot e, a random cyclic shift (never the
     identity). ``perms`` given → checked and returned (the tests inject the
     reference's); otherwise drawn from ``generator``. expansion ≤ 1 → a
-    zero dummy of the same rank, nothing drawn."""
+    zero dummy of the same rank, nothing drawn. ``segments`` (lo, hi):
+    only those rows of the n_seg (a rank's own segments of a pool split
+    over ranks, :func:`share_layout`), the whole draw made and sliced."""
+    lo, hi = (0, n_seg) if segments is None else segments
     shape = (n_seg, max(expansion - 1, 1), segment)
     if expansion <= 1:
-        return torch.zeros(shape, dtype=torch.int32, device=device)
+        return torch.zeros((hi - lo, *shape[1:]), dtype=torch.int32,
+                           device=device)
     if perms is not None:
         perms = torch.as_tensor(perms, device=device).to(torch.int32)
         if tuple(perms.shape) != shape:
             raise ValueError(f"perms {tuple(perms.shape)}, expected {shape}")
-        return perms.contiguous()
+        return perms[lo:hi].contiguous()
     gen_dev = generator.device if generator is not None else device
     shifts = torch.randint(1, segment, (n_seg, expansion - 1),
                            generator=generator, device=gen_dev)
     base = torch.arange(segment, device=gen_dev)
-    return ((base[None, None, :] + shifts[:, :, None]) % segment).to(
+    return ((base[None, None, :] + shifts[lo:hi, :, None]) % segment).to(
         device=device, dtype=torch.int32)
 
 
@@ -167,16 +230,25 @@ def prepare_fused_inputs(out_emb, pos_logit, vocab: int, neg_ids, *,
                          segment: int, expansion: int,
                          perms: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None,
-                         valid: Optional[torch.Tensor] = None):
+                         valid: Optional[torch.Tensor] = None,
+                         share: Optional[ShareLayout] = None):
     """Pad / clip / mask / shuffle prep shared by the kernels and the plain
     versions. → (o_p, pos_p, ids_p (Tp·R,) int32, valid_p, perms, n_seg),
     rows zero-padded to a segment multiple (padded tokens invalid, their
-    ids row 0)."""
+    ids row 0). ``share``: the tokens are a rank's segments of a pool
+    split over ranks, whose global perms are drawn (or given) and sliced
+    to them."""
     T, R = neg_ids.shape
     if not 1 <= expansion <= segment:
         raise ValueError(f"expansion {expansion} not in [1, {segment}]")
     pad = (-T) % segment
     n_seg = (T + pad) // segment
+    rows = None
+    if share is not None:
+        rows = (share.seg_lo, share.seg_hi)
+        if share.segment != segment or share.seg_hi - share.seg_lo != n_seg:
+            raise ValueError(f"{T} tokens in segments of {segment} for "
+                             f"{share}")
     dev = out_emb.device
     v = (torch.ones((T,), dtype=torch.float32, device=dev) if valid is None
          else valid.to(torch.float32))
@@ -184,8 +256,9 @@ def prepare_fused_inputs(out_emb, pos_logit, vocab: int, neg_ids, *,
     pos_p = _pad_rows(pos_logit.to(torch.float32), pad)
     ids_p = _pad_rows(neg_ids.clamp(0, vocab - 1).to(torch.int32), pad)
     o_p = _pad_rows(out_emb, pad)
-    perms = make_share_perms(n_seg, segment, expansion, perms=perms,
-                             generator=generator, device=dev)
+    perms = make_share_perms(n_seg if share is None else share.n_seg,
+                             segment, expansion, perms=perms,
+                             generator=generator, device=dev, segments=rows)
     return o_p, pos_p, ids_p.reshape(-1).contiguous(), valid_p, perms, n_seg
 
 
@@ -232,9 +305,12 @@ def _check(o, pos, src, ids, valid, perms, segment, R, fetch_dtype,
 def neg_fwd(o, pos, src, ids, valid, perms, *, segment: int, R: int,
             expansion: int, inv_tau: float,
             fetch_dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """K3 for card tensors, its plain version for CPU tensors → lse."""
+    """K3 for card tensors, its plain version for CPU tensors → lse. Over
+    zero segments (a rank that owns none) nothing is launched."""
     kw = dict(segment=segment, R=R, expansion=expansion, inv_tau=inv_tau,
               fetch_dtype=fetch_dtype)
+    if o.shape[0] == 0:
+        return torch.empty_like(pos)
     if o.device.type == "cpu":
         return R_.neg_fwd_plain(o, pos, src, ids, valid, perms, **kw)
     _check(o, pos, src, ids, valid, perms, segment, R, fetch_dtype)
@@ -257,9 +333,14 @@ def neg_bwd(o, pos, src, ids, valid, perms, lse, g, *, segment: int, R: int,
             expansion: int, inv_tau: float,
             fetch_dtype: Optional[torch.dtype]):
     """K4 for card tensors, its plain version for CPU tensors →
-    (w (Tp, R), dout (Tp, D), dpos (Tp,)), fp32."""
+    (w (Tp, R), dout (Tp, D), dpos (Tp,)), fp32. Over zero segments
+    nothing is launched."""
     kw = dict(segment=segment, R=R, expansion=expansion, inv_tau=inv_tau,
               fetch_dtype=fetch_dtype)
+    if o.shape[0] == 0:
+        return (o.new_empty((0, R), dtype=torch.float32),
+                o.new_empty(o.shape, dtype=torch.float32),
+                torch.empty_like(pos))
     if o.device.type == "cpu":
         return R_.neg_bwd_plain(o, pos, src, ids, valid, perms, lse, g, **kw)
     _check(o, pos, src, ids, valid, perms, segment, R, fetch_dtype,
@@ -344,8 +425,9 @@ def fused_recall_lse(out_emb: torch.Tensor, pos_logit: torch.Tensor,
                      gather_table: Optional[torch.Tensor] = None,
                      gather_index: Optional[torch.Tensor] = None,
                      vocab: Optional[int] = None,
-                     scatter_impl: str = "fused",
-                     table_grad_pairs: Optional[TableGradSink] = None
+                     scatter_impl: Optional[str] = None,
+                     table_grad_pairs: Optional[TableGradSink] = None,
+                     share: Optional[ShareLayout] = None
                      ) -> torch.Tensor:
     """Per-token logsumexp over [pos | R negatives | (k−1)·R shared]
     (Eq. 2): out_emb (T, D), pos_logit (T,), table (V, D) fp32 master,
@@ -360,14 +442,24 @@ def fused_recall_lse(out_emb: torch.Tensor, pos_logit: torch.Tensor,
     clipped to ``vocab`` (default the table's rows), still name the table
     gradient's rows. ``table_grad_pairs``, a :class:`TableGradSink`, receives the table
     gradient as sparse pairs in backward instead of a dense grad, in the
-    form ``scatter_impl`` names: ``"fused"`` (the default: factored, for
-    K5) or ``"two_pass"`` (the rows)."""
-    check_scatter_impl(scatter_impl)
+    form ``scatter_impl`` names: ``"fused"`` (factored, for K5) or
+    ``"two_pass"`` (the rows); None takes the tuned store's value for
+    this shape (:func:`~repro_torch.kernels.autotune.resolve`, default
+    ``"fused"``). ``share``: the tokens are this rank's segments of a
+    pool split over ranks (:func:`share_layout`), ``perms`` the global
+    ones."""
     T, R = neg_ids.shape
+    if scatter_impl is None:
+        scatter_impl = autotune.resolve(
+            "neg_fused", dict(segment=segment, R=R, D=out_emb.shape[1], T=T,
+                              expansion=expansion), "scatter_impl",
+            backend=autotune.backend_of(out_emb.device))
+    check_scatter_impl(scatter_impl)
     V = table.shape[0] if vocab is None else int(vocab)
     o_p, pos_p, ids_p, valid_p, perms, n_seg = prepare_fused_inputs(
         out_emb, pos_logit, V, neg_ids, segment=segment,
-        expansion=expansion, perms=perms, generator=generator, valid=valid)
+        expansion=expansion, perms=perms, generator=generator, valid=valid,
+        share=share)
     src = table if gather_table is None else gather_table
     read_ids = ids_p
     if gather_index is not None:
@@ -442,23 +534,42 @@ def bwd_row_split(T: int, R: int) -> int:
     return split
 
 
-def neg_logits_fwd(o: torch.Tensor, n: torch.Tensor, *,
-                   inv_tau: float) -> torch.Tensor:
+def nl_fwd_dims(o: torch.Tensor, n: torch.Tensor) -> Dict[str, Any]:
+    """K9-fwd's tuning dims (the tuned store's shape key)."""
+    T, R, D = n.shape
+    return dict(T=T, R=R, D=D, o=str(o.dtype).replace("torch.", ""),
+                n=str(n.dtype).replace("torch.", ""))
+
+
+def neg_logits_fwd(o: torch.Tensor, n: torch.Tensor, *, inv_tau: float,
+                   row_split: Optional[int] = None) -> torch.Tensor:
     """K9-fwd for card tensors, its plain version for CPU tensors: o (T, D)
-    fp32/bf16, n (T, R, D) fp32/bf16/fp16 → (T, R) fp32 o·n · 1/τ."""
+    fp32/bf16, n (T, R, D) fp32/bf16/fp16 → (T, R) fp32 o·n · 1/τ.
+    ``row_split``: CTAs per token (the same bits whatever it is); None
+    takes the tuned store's value for this shape, by default
+    :func:`fwd_row_split`. The split launched with is recorded in
+    ``LAUNCH_KNOBS["neg_logits_fwd"]``."""
     if o.device.type == "cpu":
         return R_.neg_logits_fwd_plain(o, n, inv_tau=inv_tau)
     _check_nl(o, n)
     T, R, D = n.shape
+    if row_split is None:
+        row_split = autotune.resolve(
+            "neg_logits_fwd", nl_fwd_dims(o, n), "row_split",
+            default=fwd_row_split(T, R), backend=autotune.backend_of(o.device))
+    _require(autotune.knob_valid("neg_logits_fwd", dict(R=R), "row_split",
+                                 row_split),
+             f"(neg_logits) row split {row_split} for R {R}")
     out = torch.empty((T, R), dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):
         rc = _nl_lib().neg_logits_fwd(
             o.data_ptr(), n.data_ptr(), out.data_ptr(), T, R, D,
-            fwd_row_split(T, R), inv_tau, _O_CODE[o.dtype], _N_CODE[n.dtype],
+            row_split, inv_tau, _O_CODE[o.dtype], _N_CODE[n.dtype],
             torch.cuda.current_stream(o.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"neg_logits_fwd launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["neg_logits_fwd"] += 1
+    LAUNCH_KNOBS["neg_logits_fwd"] = {"row_split": row_split}
     return out
 
 
@@ -544,7 +655,8 @@ def neg_logits(out_emb: torch.Tensor, neg_emb: torch.Tensor, *,
     return out[:T] if pad else out
 
 
-__all__ = ["KERNEL_LAUNCHES", "NEG_POOL", "TableGradSink", "bwd_row_split",
-           "fused_recall_lse", "fwd_row_split", "make_share_perms",
-           "neg_bwd", "neg_fwd", "neg_logits",
-           "neg_logits_bwd", "neg_logits_fwd", "prepare_fused_inputs"]
+__all__ = ["KERNEL_LAUNCHES", "LAUNCH_KNOBS", "NEG_POOL", "ShareLayout",
+           "TableGradSink", "bwd_row_split", "fused_recall_lse",
+           "fwd_row_split", "make_share_perms", "neg_bwd", "neg_fwd",
+           "neg_logits", "neg_logits_bwd", "neg_logits_fwd", "nl_fwd_dims",
+           "prepare_fused_inputs", "share_layout"]

@@ -17,7 +17,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.core import negative_sampling as NS
 from repro_torch.core.device import DeviceLike, resolve_device
-from repro_torch.kernels.neg_logits import TableGradSink
+from repro_torch.kernels.neg_logits import TableGradSink, share_layout
 from repro_torch.models import gr as GR
 from repro_torch.models import transformer as TF
 
@@ -150,7 +150,7 @@ class GRBundle:
              lookup_fn: Optional[Callable] = None,
              neg_mode: str = "fused", expansion: int = 1,
              neg_segment: int = 128, fetch_dtype=torch.float16,
-             neg_scatter_impl: str = "fused",
+             neg_scatter_impl: Optional[str] = None,
              perms: Optional[torch.Tensor] = None,
              share_draws: Optional[torch.Tensor] = None,
              attn_fn: Optional[Callable] = None,
@@ -182,31 +182,33 @@ class GRBundle:
         half-precision table the fused path gathers from.
         ``table_grad_pairs`` (a ``TableGradSink``) receives the negative
         rows' table grad as sparse pairs: factored for K5 with
-        ``neg_scatter_impl="fused"`` (the default) or as rows with
-        ``"two_pass"`` in the fused mode, as rows in the other two.
+        ``neg_scatter_impl="fused"`` or as rows with ``"two_pass"`` in the
+        fused mode (None: the tuned store's choice, ``"fused"`` unless a
+        sweep stored another), as rows in the other two.
         ``perms`` (fused) and ``share_draws`` (G, cap, (k−1)·R) (the
-        others): the §4.3.3 sharing draws for expansion > 1, else drawn
-        from a generator seeded by ``batch["rng"][0]``.
+        others): the §4.3.3 sharing draws for expansion > 1, else
+        ``batch["share_perms"]`` when the batch carries them (fused; the
+        global batch's, as :func:`~repro_torch.kernels.neg_logits.
+        make_share_perms` shapes them), else drawn from a generator
+        seeded by ``batch["rng"][0]``.
 
         ``hsp`` (a :class:`~repro_torch.core.hsp.HSPLookup`): ``table`` and
         ``shadow`` are this rank's shard and ``batch`` its pack of the
         global batch. The negative rows come through the HSP exchange (a
         compact buffer K3/K4 read), and the loss is this rank's part of the
         global batch's mean (its tokens over the global valid count), so
-        the parts of all ranks sum to the global loss. Fused mode only;
-        ``expansion`` > 1 across ranks is not ported (the shared pool spans
-        the global batch)."""
+        the parts of all ranks sum to the global loss. Fused mode only.
+        With ``expansion`` > 1 the shared pool is the global batch's, as
+        the reference's flattened batch: the packs in rank order, in
+        segments of ``neg_segment`` each computed on the rank that holds
+        its first token (``HSPLookup.share_tokens``), the global perms
+        drawn (or given) on every rank and sliced to its segments."""
         cfg = self.cfg
         if neg_mode not in NEG_MODES:
             raise ValueError(f"neg_mode {neg_mode!r} not in {NEG_MODES}")
         if hsp is not None and neg_mode != "fused":
             raise ValueError(f"the sharded table runs the fused negative "
                              f"path, not {neg_mode!r}")
-        if hsp is not None and expansion > 1 and hsp.world > 1:
-            raise NotImplementedError(
-                "logit sharing (expansion > 1) across ranks draws from the "
-                "global batch's pool; not ported (ROADMAP.md queue 1, "
-                "item 20)")
         if x_emb is None:
             x = self.input_gather(table, batch, lookup_fn=lookup_fn)
         else:
@@ -224,24 +226,32 @@ class GRBundle:
         T, d = G * cap, h.shape[-1]
         neg_ids = batch["neg_ids"].reshape(T, R)
         generator = None
+        if neg_mode == "fused" and perms is None and expansion > 1:
+            perms = batch.get("share_perms")
         given = perms if neg_mode == "fused" else share_draws
         if expansion > 1 and given is None:
             generator = torch.Generator(device=x.device).manual_seed(
                 int(batch["rng"][0]))
         if hsp is not None:
+            o = h.reshape(T, d)
+            pos = NS.positive_logits(o, pos_emb.reshape(T, -1))
+            v, share, anchor = valid.reshape(-1), None, None
+            vt = hsp.valid_total(valid)
+            if expansion > 1:
+                share = share_layout(hsp.world, hsp.rank, T, neg_segment)
+                o, pos, v, neg_ids, anchor = hsp.share_tokens(
+                    share, o, pos, v, neg_ids)
             src = table if shadow is None else shadow
             rows, index = hsp.fetch_rows(src, neg_ids)
             if shadow is None and fetch_dtype is not None:
                 rows = rows.to(fetch_dtype)     # the fetch's rounding
-            return NS.fused_sampled_softmax_loss(
-                h.reshape(T, d), pos_emb.reshape(T, -1), table, neg_ids,
-                perms=perms, generator=generator, tau=1.0,
-                valid=valid.reshape(-1), segment=neg_segment,
-                expansion=expansion, shadow=rows, shadow_index=index,
-                vocab=hsp.vocab_of(table),
-                valid_total=hsp.valid_total(valid),
-                scatter_impl=neg_scatter_impl,
-                table_grad_pairs=table_grad_pairs)
+            loss = NS.fused_recall_loss(
+                o, pos, table, neg_ids, perms=perms, generator=generator,
+                tau=1.0, valid=v, segment=neg_segment, expansion=expansion,
+                shadow=rows, shadow_index=index, vocab=hsp.vocab_of(table),
+                valid_total=vt, scatter_impl=neg_scatter_impl,
+                table_grad_pairs=table_grad_pairs, share=share)
+            return loss if anchor is None else loss + anchor
         if neg_mode == "fused":
             return NS.fused_sampled_softmax_loss(
                 h.reshape(T, d), pos_emb.reshape(T, -1), table, neg_ids,

@@ -168,10 +168,16 @@ def make_gr_step_fn(bundle, *, loss_kwargs: Optional[Dict[str, Any]] = None,
                               hsp=hsp)
 
 
+#: Batch entries of the whole global batch, which every rank keeps whole:
+#: its key, and the §4.3.3 sharing perms a caller may give (the global
+#: (n_seg, expansion − 1, segment) ones, ``GRBundle.loss``)
+WHOLE_BATCH_KEYS = ("rng", "share_perms")
+
+
 def rank_pack(batch: Dict[str, Any], rank: int) -> Dict[str, Any]:
     """Pack ``rank`` of a global (G, ...) loader batch, as a (1, ...)
-    batch (``rng`` is the batch's and stays whole)."""
-    return {k: (v if k == "rng" else v[rank:rank + 1])
+    batch (the entries of ``WHOLE_BATCH_KEYS`` stay whole)."""
+    return {k: (v if k in WHOLE_BATCH_KEYS else v[rank:rank + 1])
             for k, v in batch.items()}
 
 
@@ -204,7 +210,9 @@ class GREngine:
     loss_kwargs: bound into ``bundle.loss`` (neg_mode, expansion,
         neg_segment, neg_scatter_impl, attn_fn, lookup_fn, ...); a
         ``lookup_fn`` also gathers the input rows in emb_fwd and the label
-        rows in dense_fwd.
+        rows in dense_fwd. A batch may carry its §4.3.3 sharing perms as
+        ``"share_perms"`` (the tests inject the reference's that way);
+        else the loss draws them from the batch's ``rng``.
     schedule: "algorithm1" (six-stage pipelined execution) or "flat"
         (same stages, serial per step).
     step_callback: optional ``fn(i, record, state)`` invoked after each
@@ -237,7 +245,10 @@ class GREngine:
         (every rank builds the same loader from the same seed); lookups,
         negatives and table grads go through the exchange, the loss and
         the dense grads are summed over all ranks, and records carry the
-        global loss. The collectives are issued from the device stages on
+        global loss. With ``expansion`` > 1 in ``loss_kwargs`` the
+        sharing pool is the global batch's, bit for bit the single process
+        at a world of one (``HSPLookup.share_tokens``). The collectives
+        are issued from the device stages on
         the main thread, so the ranks issue them in one order; a stage
         that issues one is not retried in place (dense_bwd is no longer
         retry-safe), and :meth:`run_resilient` ends on any failure, which

@@ -840,6 +840,37 @@ def test_neg_logits_fwd_grid_at_segment_and_baseline_shapes(cuda, T,
     assert NL.fwd_row_split(T, R) == (4 if T == 128 else 1)
 
 
+@pytest.mark.parametrize("T,n_dtype", [(128, torch.float16),
+                                       (8192, torch.bfloat16)])
+def test_k9_fwd_row_split_knob_keeps_bits(cuda, tmp_path, monkeypatch, T,
+                                          n_dtype):
+    """K9-fwd's tunable row split (``kernels/autotune.py``): every valid
+    candidate gives the heuristic split's bits; a split stored for the
+    shape is what ``neg_logits_fwd`` launches with when given none."""
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import neg_logits as NL
+    monkeypatch.setenv("REPRO_TORCH_TUNED_JSON", str(tmp_path / "t.json"))
+    g = torch.Generator(device=cuda).manual_seed(26)
+    R, D = 128, 1024
+    o = torch.randn(T, D, device=cuda, generator=g).to(torch.bfloat16)
+    n = (torch.randn(T, R, D, device=cuda, generator=g) * 0.02).to(n_dtype)
+    want = NL.neg_logits_fwd(o, n, inv_tau=1.0)
+    assert NL.LAUNCH_KNOBS["neg_logits_fwd"]["row_split"] == \
+        NL.fwd_row_split(T, R)
+    dims = NL.nl_fwd_dims(o, n)
+    cands = [c["row_split"] for c in AT.enumerate_candidates(
+        "neg_logits_fwd", dims)]
+    assert cands == [1, 2, 4]
+    for split in cands:
+        assert torch.equal(NL.neg_logits_fwd(o, n, inv_tau=1.0,
+                                             row_split=split), want), split
+        st = AT.TunedStore()
+        st.put("neg_logits_fwd", dims, {"row_split": split})
+        st.save()
+        assert torch.equal(NL.neg_logits_fwd(o, n, inv_tau=1.0), want)
+        assert NL.LAUNCH_KNOBS["neg_logits_fwd"]["row_split"] == split
+
+
 def _uneven_perms(n_seg, seg, expansion, seed):
     """Sharing perms that are no permutation: in every slot some sources
     have two or four consumers and others none."""
@@ -1401,6 +1432,16 @@ def test_hsp_world_of_one_equals_single_process_on_card(cuda, tmp_path):
     single-process engine, 3 tau=1 steps."""
     r, = _card_world("card_world1", dict(V=1 << 18, layers=2, upd=2,
                                          steps=3), (1, 1), tmp_path)
+    assert r["bitwise"], r
+
+
+def test_hsp_sharing_world_of_one_equals_single_process_on_card(cuda,
+                                                                tmp_path):
+    """Logit sharing (expansion 2, segment 96) over a sharded table in a
+    world of one on the card: bit for bit the single-process engine."""
+    r, = _card_world("card_world1", dict(
+        V=1 << 18, layers=2, upd=2, steps=3,
+        loss_kwargs=dict(expansion=2, neg_segment=96)), (1, 1), tmp_path)
     assert r["bitwise"], r
 
 

@@ -5,8 +5,8 @@ paths, the kernel lookup and the dense attention schedule, telemetry,
 checkpoints and the resilient engine, the embedding cache and its
 histograms, the sparse parallelism over a process-group mesh, its
 sharded checkpoints, the semi-async analysis and the elastic runner, the
-LM zoo's configs, layers, MoE, Mamba, stack, bundle and train step, runs
-with all three blocked), and
+LM zoo's configs, layers, MoE, Mamba, stack, bundle and train step, the
+autotune harness and its store, runs with all three blocked), and
 its entry points run on the card unless the caller asks for the CPU."""
 import os
 import re
@@ -244,6 +244,25 @@ for name in ("starcoder2-3b", "olmoe-1b-7b", "jamba-1.5-large-398b",
     logits, _ = lb.decode(lm, toks[:, 16:], cache, 16,
                           embeds=inp.get("embeds", toks)[:, 16:])
     assert logits.shape == (2, 1, lcfg.vocab_size)
+assert not any(m == "jax" or m.startswith(("jax.", "repro.", "msgpack"))
+               for m in sys.modules if sys.modules[m] is not None)
+import json, os
+import repro_torch.kernels.autotune as AT
+from repro_torch.obs import MetricsRegistry, Tracer
+with tempfile.TemporaryDirectory() as d:
+    os.environ["REPRO_TORCH_TUNED_JSON"] = d + "/tuned.json"
+    dims = dict(T=64, R=64, D=16)
+    assert AT.resolve("neg_logits_fwd", dims, "row_split", default=2) == 2
+    tr = Tracer()
+    res = AT.sweep("neg_logits_fwd", dims, lambda c: (lambda: torch.ones(
+        8) * c["row_split"]), iters=2, warmup=0, tracer=tr,
+        metrics=MetricsRegistry(), device="cpu")
+    assert sorted(t["config"]["row_split"] for t in res["trials"]) == [1, 2]
+    assert AT.resolve("neg_logits_fwd", dims, "row_split", default=2,
+                      backend=AT.default_backend()) == \
+        res["best"]["config"]["row_split"]
+    assert json.load(open(d + "/tuned.json"))["version"] == 1
+    del os.environ["REPRO_TORCH_TUNED_JSON"]
 assert not any(m == "jax" or m.startswith(("jax.", "repro.", "msgpack"))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.encoded_batches)

@@ -21,7 +21,9 @@ from repro_torch.kernels import jagged_lookup as PL
 from repro_torch.kernels.jagged_lookup import ref as PLR
 from repro_torch.kernels.neg_logits import (TableGradSink,
                                             fused_recall_lse,
-                                            make_share_perms)
+                                            make_share_perms,
+                                            prepare_fused_inputs,
+                                            share_layout)
 from torch_parity import to_f32
 
 SEG = 32
@@ -179,6 +181,87 @@ def test_make_share_perms_are_cyclic_shifts():
     shift = (p - np.arange(SEG)) % SEG
     assert (shift == shift[:, :, :1]).all() and (shift > 0).all()
     assert (make_share_perms(3, SEG, 1).numpy() == 0).all()
+
+
+@pytest.mark.parametrize("world,tokens,seg", [
+    (1, 64, 32), (2, 64, 32), (2, 64, 48), (4, 64, 128), (3, 50, 16),
+    (4, 2048, 96), (4, 2048, 128)])
+def test_share_layout_partitions_the_global_pool(world, tokens, seg):
+    """A pool split over ranks (``share_layout``): every global token is
+    computed on exactly one rank, the owner of the segment it lies in (the
+    rank of the segment's first token); a rank's tokens from ``keep`` on
+    and its ``borrow`` tokens of the next ranks are its segments' tokens;
+    its perms are the rows of its segments of the whole draw."""
+    lays = [share_layout(world, r, tokens, seg) for r in range(world)]
+    n = world * tokens
+    where = np.full(n, -1)
+    for r, lay in enumerate(lays):
+        assert lay.n_seg == -(-n // seg)
+        lo, hi = lay.seg_lo * seg, min(lay.seg_hi * seg, n)
+        if lay.seg_hi > lay.seg_lo:
+            assert lo == r * tokens + lay.keep
+            assert hi - lo == tokens - lay.keep + lay.borrow
+            assert (where[lo:hi] == -1).all()
+            where[lo:hi] = r
+        else:
+            assert lay.keep == tokens and lay.borrow == 0
+        assert lay.owner == (r * tokens // seg * seg) // tokens
+        assert (lay.owner == r) == (lay.keep == 0)
+        assert lay.moves == (world > 1 and tokens % seg != 0)
+    assert (where >= 0).all()
+    for r, lay in enumerate(lays):
+        first = where[r * tokens:r * tokens + lay.keep]
+        assert (first == lay.owner).all()
+    whole = make_share_perms(lays[0].n_seg, seg, 3,
+                             generator=torch.Generator().manual_seed(5))
+    parts = [make_share_perms(lay.n_seg, seg, 3, segments=(
+        lay.seg_lo, lay.seg_hi), generator=torch.Generator().manual_seed(5))
+        for lay in lays]
+    assert torch.equal(torch.cat(parts), whole)
+    given = [make_share_perms(lay.n_seg, seg, 3, perms=whole.numpy(),
+                              segments=(lay.seg_lo, lay.seg_hi))
+             for lay in lays]
+    assert torch.equal(torch.cat(given), whole)
+
+
+def test_prepare_fused_inputs_takes_a_ranks_segments():
+    lay = share_layout(2, 1, 64, 48)              # segment 2 of 3: 32 tokens
+    o, pos, table, ids, valid, _ = _inputs(0, T=32)
+    args = (torch.from_numpy(o), torch.from_numpy(pos), 300,
+            torch.from_numpy(ids))
+    out = prepare_fused_inputs(*args, segment=48, expansion=2, share=lay,
+                               generator=torch.Generator().manual_seed(2))
+    whole = make_share_perms(3, 48, 2,
+                             generator=torch.Generator().manual_seed(2))
+    assert out[-1] == 1 and out[0].shape == (48, o.shape[1])
+    assert torch.equal(out[4], whole[2:3])
+    with pytest.raises(ValueError, match="tokens in segments"):
+        prepare_fused_inputs(*args, segment=32, expansion=2, share=lay)
+    empty = prepare_fused_inputs(
+        args[0][:0], args[1][:0], 300, args[3][:0], segment=128,
+        expansion=2, share=share_layout(4, 1, 64, 128),
+        generator=torch.Generator().manual_seed(2))
+    assert empty[-1] == 0 and empty[4].shape == (0, 1, 128)
+
+
+def test_no_segment_launches_nothing(monkeypatch):
+    """Over zero tokens (a rank that owns no segment) K3's and K4's
+    wrappers return empty results before they dispatch: neither the
+    kernel nor its plain version runs."""
+    from repro_torch.kernels.neg_logits import ref as NR
+
+    def boom(*a, **k):
+        raise AssertionError("dispatched over zero segments")
+    monkeypatch.setattr(NR, "neg_fwd_plain", boom)
+    monkeypatch.setattr(NR, "neg_bwd_plain", boom)
+    t = torch.from_numpy(_inputs(0)[2])
+    e = torch.zeros((0,), dtype=torch.float32)
+    lse = fused_recall_lse(torch.zeros((0, 64), requires_grad=True), e, t,
+                           torch.zeros((0, 8), dtype=torch.int32),
+                           segment=32, expansion=2,
+                           generator=torch.Generator())
+    assert lse.shape == (0,)
+    lse.sum().backward()
 
 
 @pytest.mark.parametrize("expansion", [1, 2])

@@ -123,17 +123,9 @@ def _shard_dump(st, hsp):
                 pending_rows=_np(st.pending_rows))
 
 
-def engine_cases(mesh, *, inputs, out):
-    """N sync then N τ=1 flat steps over a sharded table from the test's
-    init; GREngine in both schedules (τ=1, ``engine_steps`` steps), each
-    equal bit for bit to the flat τ=1 step; over more than one rank,
-    ``expansion`` > 1 must raise."""
-    z = _load(inputs)
-    cfg = _port_cfg(z)
-    b = GRBundle(cfg)
-    batches = [rank_pack(bt, mesh.rank) for bt in z["batches"]]
-    hsp = make_hsp_lookup(mesh, compute_dtype=torch.float32)
-    lk = z["loss_kwargs"]
+def _flat_run(b, hsp, z, cfg, batches, lk):
+    """N sync then N τ=1 flat steps from the test's init: (losses, the
+    final state)."""
     st = _shard_state(z, cfg, hsp)
     losses = []
     for i, bt in enumerate(batches[:2 * z["n"]]):
@@ -142,30 +134,63 @@ def engine_cases(mesh, *, inputs, out):
                                    hsp=hsp)
         st, m = step(st, to_device(bt, CPU))
         losses.append(float(m["loss"]))
-    res = dict(flat=dict(losses=losses, state=_shard_dump(st, hsp)))
+    return losses, st
+
+
+def _engine_vs_flat(b, hsp, z, cfg, batches, global_batches, lk):
+    """GREngine in both schedules (τ=1, ``engine_steps`` steps), each
+    against the flat τ=1 step bit for bit."""
     step = make_gr_step_fn(b, loss_kwargs=lk, semi_async=True, hsp=hsp)
     ref = _shard_state(z, cfg, hsp)
     ref_losses = []
     for bt in batches[:z["engine_steps"]]:
         ref, m = step(ref, to_device(bt, CPU))
         ref_losses.append(float(m["loss"]))
-    res["engine"] = {"losses": ref_losses}
+    res = {"losses": ref_losses}
     for sched in ("algorithm1", "flat"):
-        eng = GREngine(b, lambda i: z["batches"][i], state=_shard_state(
+        eng = GREngine(b, lambda i: global_batches[i], state=_shard_state(
             z, cfg, hsp), loss_kwargs=lk, schedule=sched, hsp=hsp)
         got = [r["loss"] for r in eng.run(z["engine_steps"])]
         same = got == ref_losses and all(
             torch.equal(x, y) for x, y in zip(state_tensors(eng.state),
                                               state_tensors(ref)))
-        res["engine"][sched] = dict(losses=got, bitwise=same)
-    if mesh.world > 1:
-        try:
-            GREngine(b, lambda i: z["batches"][i], state=_shard_state(
-                z, cfg, hsp), loss_kwargs=dict(lk, expansion=2),
-                hsp=hsp).run(1)
-            res["expansion_raised"] = None
-        except NotImplementedError as e:
-            res["expansion_raised"] = str(e)
+        res[sched] = dict(losses=got, bitwise=same)
+    return res
+
+
+def engine_cases(mesh, *, inputs, out):
+    """N sync then N τ=1 flat steps over a sharded table from the test's
+    init; GREngine in both schedules (τ=1, ``engine_steps`` steps), each
+    equal bit for bit to the flat τ=1 step. Then, for each segment of
+    ``z["share"]``, the same at ``expansion`` 2 (the pool shared across
+    ranks): the flat steps on batches that carry the test's perms
+    (``share_perms``), with each exchange's bytes; the engine on perms the
+    loss draws itself."""
+    z = _load(inputs)
+    cfg = _port_cfg(z)
+    b = GRBundle(cfg)
+    batches = [rank_pack(bt, mesh.rank) for bt in z["batches"]]
+    hsp = make_hsp_lookup(mesh, compute_dtype=torch.float32)
+    lk = z["loss_kwargs"]
+    losses, st = _flat_run(b, hsp, z, cfg, batches, lk)
+    res = dict(rank=mesh.rank,
+               flat=dict(losses=losses, state=_shard_dump(st, hsp)))
+    res["engine"] = _engine_vs_flat(b, hsp, z, cfg, batches, z["batches"],
+                                    lk)
+    res["share"] = {}
+    for seg, perms in z["share"].items():
+        slk = dict(lk, neg_segment=seg, expansion=2)
+        given = [rank_pack(dict(bt, share_perms=p), mesh.rank)
+                 for bt, p in zip(z["batches"], perms)]
+        mesh.stats.clear()
+        losses, st = _flat_run(b, hsp, z, cfg, given, slk)
+        stats = {k: dict(v) for k, v in mesh.stats.items()
+                 if k.startswith("share_")}
+        res["share"][seg] = dict(
+            flat=dict(losses=losses, state=_shard_dump(st, hsp)),
+            stats=stats,
+            engine=_engine_vs_flat(b, hsp, z, cfg, batches, z["batches"],
+                                   slk))
     res["checks"] = dict(hsp.checks)
     _dump(out, mesh.rank, res)
 
@@ -209,10 +234,10 @@ def card_lookup(mesh, *, V, d, n, seed):
     return dict(fwd=fwd, bf16=bf, grad_rel=err, on=str(emb.device))
 
 
-def card_world1(mesh, *, V, layers, upd, steps):
+def card_world1(mesh, *, V, layers, upd, steps, loss_kwargs=None):
     """On the card: a world of one against the single-process engine,
     hstu-large widths at ``layers`` layers, bit for bit (losses and every
-    state tensor)."""
+    state tensor); ``loss_kwargs`` bound into both losses."""
     from repro_torch.data import GRLoader, SyntheticKuaiRand
     cfg = get_arch("hstu-large").replace(vocab_size=V, num_layers=layers)
     gen = SyntheticKuaiRand(num_users=16, num_items=V, mean_len=400,
@@ -223,10 +248,11 @@ def card_world1(mesh, *, V, layers, upd, steps):
                             max_seq_len=512, num_negatives=128, num_items=V,
                             seed=0).batches(steps))
     hsp = make_hsp_lookup(mesh, compute_dtype=torch.bfloat16)
-    a = GREngine(GRBundle(cfg), lambda i: batches[i], seed=0, hsp=hsp)
+    a = GREngine(GRBundle(cfg), lambda i: batches[i], seed=0, hsp=hsp,
+                 loss_kwargs=loss_kwargs)
     la = [r["loss"] for r in a.run(steps)]
     b = GREngine(GRBundle(cfg), lambda i: batches[i], seed=0,
-                 device=mesh.device)
+                 device=mesh.device, loss_kwargs=loss_kwargs)
     lb = [r["loss"] for r in b.run(steps)]
     same = all(torch.equal(x, y) for x, y in zip(state_tensors(a.state),
                                                  state_tensors(b.state)))
