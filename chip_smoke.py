@@ -177,6 +177,21 @@ one card, so each phase frees its own.
                one's time (one call at a time, CUDA events) beside the
                card's name and power limit, resolve() returning the stored
                winner and neg_logits_fwd launching with it.
+  6h. dryrun — the launch tooling (launch/partition.py, op_analysis.py,
+               roofline.py, dryrun.py). (a) In a process of its own, on
+               the host beside the card phases from the end of the build
+               on: both production meshes over a fake world of 512 ranks,
+               DRYRUN_CELLS on meta (per-device state bytes, FLOPs, bytes,
+               collective bytes by kind, the dominant term), and the
+               world-1 cells of (b). (b) On a (1, 1) mesh (NCCL at world
+               1): starcoder2-3b at full width and depth as DTensors, its
+               state against memory_allocated() (within 1%), one 1 x 4096
+               microbatch's FLOPs under op_analysis equal to the dry-run's
+               on meta, its loss and grads bit for bit the plain LM's;
+               hstu-large at phase engine's pack, vocab 2^22: the state
+               within 1%, a segmented step's counted FLOPs (the kernels'
+               live counts) at most the dry-run's worst case; the
+               roofline terms beside the measured walls.
   7. parity  — at full width, 2 layers, vocab 2^18: one training step's
                dense pass and table-grad pairs with the kernels against the
                plain versions on the card (hstu-large two-pass and fused,
@@ -242,22 +257,12 @@ GRAD_TOL_FP32 = 1e-4
 # phase_device, so the kernels' bounds and the engine's measured MFU use
 # one peak.
 PEAK_FLOPS = {}
-PEAK_BYTES = 3.35e12
-# special-function (MUFU) instructions: 16 per clock per SM (Hopper's
-# SFUs), 132 SMs; the clock is the card's maximum SM clock (nvidia-smi)
-SFU_PER_CLOCK = 16 * 132
 CARD = {}        # "sm_clock_hz", set by phase_device
-# Special-function (MUFU) instructions that the attention's function
-# needs, derived from its math (not read from the kernels' code, which may
-# do more), by what they depend on. Per score entry and head: SiLU's exp
-# (EX2) and reciprocal (RCP), and in the functional mode the bias's two
-# exps, z^rho = exp(rho * ln z) and exp(-z^rho). Per (query, key) pair,
-# once for all heads: the time bucket's division (RCP); logf, precise, is
-# a polynomial on the FMA pipe, and ln z = ln(dt + eps) - ln sigma needs
-# no division per entry (1/sigma and ln sigma are per head). K2 needs each
-# entry's bias and SiLU' once, so its counts are the same.
-MUFU_PER_ENTRY_HEAD = {"bucket": 2, "functional": 4}
-MUFU_PER_PAIR = {"bucket": 1, "functional": 0}
+# Every kernel's bound comes from the port's cost model,
+# repro_torch.kernels.cost: its operations, bytes and special-function
+# (MUFU) counts, the memory rate and the SFU count (H100 SXM
+# specification figures), and bound_ms, which takes the peaks above and
+# the card's maximum SM clock (nvidia-smi).
 
 
 def say(*parts):
@@ -490,59 +495,32 @@ def _fit(lens, cap):
     return out
 
 
-def _bound(flops, byts, mufu, dtype_name):
-    """The least time of a work item on this card: the largest of its
-    tensor-core operations at the dtype's peak, its bytes at the memory
-    rate and its special-function instructions at the SFU rate; and the
-    name of the one that binds."""
-    t = {"operations": flops / PEAK_FLOPS[dtype_name] * 1e3,
-         "bytes": byts / PEAK_BYTES * 1e3,
-         "special functions": mufu / (SFU_PER_CLOCK * CARD["sm_clock_hz"])
-         * 1e3}
-    by = max(t, key=t.get)
-    return t[by], by, t
-
-
-def _attn_mufu(n_live, H, mode):
-    """Special-function instructions of the entries of n_live live block
-    pairs (128² pairs of a query and a key each, H heads per pair)."""
-    pairs = 128 * 128 * n_live
-    return pairs * (H * MUFU_PER_ENTRY_HEAD[mode] + MUFU_PER_PAIR[mode])
+def _bound(cost, dtype_name):
+    """The least time of a work item of ``cost`` (operations, bytes,
+    special functions; ``repro_torch.kernels.cost``) on this card, the
+    name of the term that binds, and every term."""
+    from repro_torch.kernels import cost as KC
+    return KC.bound_ms(cost, PEAK_FLOPS[dtype_name], CARD["sm_clock_hz"])
 
 
 def _attn_bound(plan, G, capp, H, D, itemsize, dtype_name, mode):
-    """K1-fwd: 4·b²·D flops per live block pair and head, q, k, v read and
-    out written once, the plan and the bias tables, and the special
-    functions of :func:`_attn_mufu`."""
-    n_live = int(plan.n_live.sum())
-    flops = 4 * 128 * 128 * D * H * n_live
-    byts = (4 * G * capp * H * D * itemsize          # q, k, v read, out
-            + plan.meta_i32.numel() * 4 + plan.meta_f32.numel() * 4
-            + plan.q_wl.numel() * 4 + plan.q_rowptr.numel() * 4
-            + (256 + (3 if mode == "functional" else 32)) * H * 4)
-    bound_ms, bound_by, parts = _bound(flops, byts,
-                                       _attn_mufu(n_live, H, mode),
-                                       dtype_name)
-    return bound_ms, bound_by, n_live, flops, byts, parts
+    """K1-fwd's bound (``kernels.cost.attn_fwd_cost``) at the plan's live
+    block pairs."""
+    from repro_torch.kernels import cost as KC
+    n_live = KC.plan_live_pairs(plan)
+    c = KC.attn_fwd_cost(plan, G, capp, H, D, itemsize, mode, n_live)
+    bound_ms, bound_by, parts = _bound(c, dtype_name)
+    return bound_ms, bound_by, n_live, c.operations, c.bytes, parts
 
 
 def _attn_bwd_bound(plan, G, capp, H, D, itemsize, dtype_name, mode, ntb):
-    """K2: the work needs S, dP, dV, dK and dQ, 2·b²·D each per live pair
-    and head, and each entry's bias and SiLU' once (the kernel's
-    recomputation of S, dP and the bias in its second kernel is its own
-    choice and not counted); q, k, v, dy read and dq, dk, dv written once,
-    the plan and both tables and their grads."""
-    n_live = int(plan.n_live.sum())
-    flops = 10 * 128 * 128 * D * H * n_live
-    byts = (7 * G * capp * H * D * itemsize          # q k v dy in, 3 out
-            + plan.meta_i32.numel() * 4 + plan.meta_f32.numel() * 4
-            + (plan.q_wl.numel() + plan.kv_wl.numel()
-               + plan.q_rowptr.numel() + plan.kv_rowptr.numel()) * 4
-            + 2 * (256 + ntb) * H * 4)
-    bound_ms, bound_by, parts = _bound(flops, byts,
-                                       _attn_mufu(n_live, H, mode),
-                                       dtype_name)
-    return bound_ms, bound_by, n_live, flops, byts, parts
+    """K2's bound (``kernels.cost.attn_bwd_cost``) at the plan's live
+    block pairs."""
+    from repro_torch.kernels import cost as KC
+    n_live = KC.plan_live_pairs(plan)
+    c = KC.attn_bwd_cost(plan, G, capp, H, D, itemsize, mode, n_live, ntb)
+    bound_ms, bound_by, parts = _bound(c, dtype_name)
+    return bound_ms, bound_by, n_live, c.operations, c.bytes, parts
 
 
 def _functional_rab(rab, H, dev):
@@ -891,6 +869,7 @@ def phase_neg_kernels():
     rows), with a quarter of the tokens invalid, at expansion 1 (the main
     path) and 4 (generator-drawn perms)."""
     import torch
+    from repro_torch.kernels import cost as KC
     from repro_torch.kernels import neg_logits as NL
     from repro_torch.kernels.neg_logits import ref as NR
     dev = torch.device("cuda")
@@ -936,22 +915,17 @@ def phase_neg_kernels():
                              warmup=1)
         bwd_plain = timed_ms(lambda: NR.neg_bwd_plain(*args, lse, g, **kw),
                              2, warmup=1)
-        rows_b = T * R * D * 2                    # each gathered row once
-        small = T * D * 2 + T * R * 4 + perms.numel() * 4
-        fwd_bytes = rows_b + small + 3 * T * 4
-        bwd_bytes = rows_b + small + 4 * T * 4 + T * R * 4 + T * D * 4 + T * 4
-        fwd_ops, bwd_ops = 2 * T * R * D, 4 * T * R * D
+        fwd_c = KC.neg_fwd_cost(T, R, D, perms.numel())
+        bwd_c = KC.neg_bwd_cost(T, R, D, perms.numel())
+        fwd_bytes, bwd_bytes = fwd_c.bytes, bwd_c.bytes
         res = {}
-        for name, ms, plain_ms, byts, ops_, err in (
-                ("neg_fwd", fwd_ms, fwd_plain, fwd_bytes, fwd_ops, e_lse),
-                ("neg_bwd", bwd_ms, bwd_plain, bwd_bytes, bwd_ops,
+        for name, ms, plain_ms, c, err in (
+                ("neg_fwd", fwd_ms, fwd_plain, fwd_c, e_lse),
+                ("neg_bwd", bwd_ms, bwd_plain, bwd_c,
                  max(e_w, e_dout, e_dpos))):
-            t_ops = ops_ / PEAK_FLOPS["float16"] * 1e3
-            t_bytes = byts / PEAK_BYTES * 1e3
-            res[name] = dict(ms=ms, plain_ms=plain_ms,
-                             bound_ms=max(t_ops, t_bytes),
-                             bound_by="operations" if t_ops > t_bytes
-                             else "bytes", max_abs_err=err)
+            b_ms, b_by, _ = _bound(c, KC.PEAK_DTYPE[name])
+            res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, max_abs_err=err)
         say(f"[kernels] neg expansion {expansion}: lse max_abs {e_lse:.3e}, "
             f"w {e_w:.3e} ({r_w:.3e} of max), dout {e_dout:.3e} "
             f"({r_dout:.3e} of max), dpos {e_dpos:.3e}; bit-identical rerun {same} | K3 {fwd_ms:.4f} ms"
@@ -1035,12 +1009,11 @@ def phase_runsum_kernel():
     lib_out = torch.zeros((n_runs, D), device=dev)
     lib_ms = timed_ms(lambda: lib_out.index_add_(0, run, rows), 10)
     # rows read once, one total written per run, the order, the sorted ids
-    # and the run pointers read
-    byts = n * D * 4 + n_runs * D * 4 + n * 8 + n * 4 + (n_runs + 1) * 4
-    t_ops = n * D / PEAK_FLOPS["float32"] * 1e3
-    t_bytes = byts / PEAK_BYTES * 1e3
-    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                               else "bytes")
+    # and the run pointers read (kernels.cost.runsum_cost)
+    from repro_torch.kernels import cost as KC
+    c = KC.runsum_cost(n, n_runs, D)
+    byts = c.bytes
+    bound_ms, bound_by, _ = _bound(c, KC.PEAK_DTYPE["runsum"])
     say(f"[kernels] runsum: {n} rows, {n_runs} runs (lengths 1 to "
         f"{lens.max()}, {(lens == 1).mean():.3f} of runs single rows), "
         f"{u.numel()} unique ids >= 0; ids equal {ids_ok}, max_abs "
@@ -1154,13 +1127,11 @@ def phase_wscatter_kernel():
     del csr
     # bf16 o, the weights, the ready rows, the order, the sorted ids and the
     # run pointers read once; one total written per run
-    byts = (T * D * 2 + TR * 4 + (n - TR) * D * 4 + n * 8 + n * 4
-            + (n_runs + 1) * 4 + n_runs * D * 4)
-    ops = 3 * TR * D + (n - TR) * D
-    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
-    t_bytes = byts / PEAK_BYTES * 1e3
-    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                               else "bytes")
+    # (kernels.cost.wscatter_cost)
+    from repro_torch.kernels import cost as KC
+    c = KC.wscatter_cost(T, TR, n, n_runs, D)
+    byts, ops = c.bytes, c.operations
+    bound_ms, bound_by, _ = _bound(c, KC.PEAK_DTYPE["wscatter"])
     say(f"[kernels] wscatter: {n} slots ({TR} negative from bf16 o, "
         f"{n - TR} ready rows), {n_runs} runs, {u.numel()} unique ids >= 0; "
         f"ids equal {ids_ok}, max_abs {err:.3e} ({rel:.3e} of max), "
@@ -1205,20 +1176,12 @@ def phase_wscatter_kernel():
 
 
 def _nl_bound(T, R, D, itemsize, bwd):
-    """K9's least time: n read once (and dn written once in backward), o,
-    g (backward) and the logits or do; 2 (forward) or 3 (backward, do's
-    FMA and dn's product) operations per element of n at the half-precision
-    tensor-core rate."""
-    if bwd:
-        byts = 2 * T * R * D * itemsize + T * D * 2 + T * R * 4 + T * D * 4
-        ops_ = 3 * T * R * D
-    else:
-        byts = T * R * D * itemsize + T * D * 2 + T * R * 4
-        ops_ = 2 * T * R * D
-    t_ops = ops_ / PEAK_FLOPS["bfloat16"] * 1e3
-    t_bytes = byts / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                 else "bytes"), byts
+    """K9's least time (``kernels.cost.neg_logits_cost``) at the
+    half-precision tensor-core rate."""
+    from repro_torch.kernels import cost as KC
+    c = KC.neg_logits_cost(T, R, D, itemsize, bwd)
+    bound_ms, bound_by, _ = _bound(c, KC.PEAK_DTYPE["neg_logits_fwd"])
+    return bound_ms, bound_by, c.bytes
 
 
 def phase_neg_logits_kernel():
@@ -1441,8 +1404,10 @@ def phase_gather_kernel():
            for k, v in evs.items()}
     ms, lib_ms = med["k7"], med["index_select"]
     n_valid = int(valid.sum())
-    byts = n_valid * D * 4 + n * D * 2 + n * 4
-    bound_ms = byts / PEAK_BYTES * 1e3
+    from repro_torch.kernels import cost as KC
+    c = KC.gather_cost(n, n_valid, D)
+    byts = c.bytes
+    bound_ms = _bound(c, KC.PEAK_DTYPE["gather"])[0]
     say(f"[kernels] gather: {n} ids ({n - n_valid} < 0) from {V} x {D} fp32 "
         f"to bf16; bitwise equal to the plain version {bit_plain}, to "
         f"index_select + mask + cast {bit_lib} | kernel {ms:.4f} ms  plain "
@@ -2396,22 +2361,13 @@ def _check_warm_equals_cold(eng, model, cfg, users, tag, rname):
 
 
 def _append_bound(rows_n, pref, total, H, D, itemsize, dtype_name):
-    """The append launch's least time, as K1-fwd's (:func:`_attn_bound`)
-    from the window's live (query, key) pairs: each live query at position
-    i sees the i + 1 keys before and at it; 4·D flops per pair and head,
-    the special functions of each entry; bytes: the window's q read and
-    output written, each row's K and V read over its T live keys, the
-    rows' timestamps and 1/(pos+1), the tables."""
-    pairs = sum((T * (T + 1) - p * (p + 1)) // 2 for p, T in zip(pref, total))
-    live_q = sum(T - p for p, T in zip(pref, total))
-    flops = 4 * D * H * pairs
-    byts = (2 * rows_n * H * D * itemsize               # q read, out written
-            + 2 * sum(total) * H * D * itemsize         # K, V prefixes
-            + 4 * sum(total) + 4 * max(total) + (256 + 32) * H * 4)
-    mufu = pairs * (H * MUFU_PER_ENTRY_HEAD["bucket"]
-                    + MUFU_PER_PAIR["bucket"])
-    bound_ms, bound_by, parts = _bound(flops, byts, mufu, dtype_name)
-    return bound_ms, bound_by, pairs, live_q, flops, byts
+    """The append launch's least time (``kernels.cost.attn_append_cost``)
+    from the window's live (query, key) pairs."""
+    from repro_torch.kernels import cost as KC
+    pairs, live_q = KC.append_live_pairs(pref, total)
+    c = KC.attn_append_cost(rows_n, pref, total, H, D, itemsize)
+    bound_ms, bound_by, parts = _bound(c, dtype_name)
+    return bound_ms, bound_by, pairs, live_q, c.operations, c.bytes
 
 
 def _append_kernel_check(eng, cfg, slots, tag):
@@ -5571,6 +5527,308 @@ def phase_lm():
 
 
 # --------------------------------------------------------------------------
+# phase 6h: the launch tooling (plans, the meta dry-run, the roofline)
+# --------------------------------------------------------------------------
+
+# (a) The production meshes' cells the child process runs on the fake
+# backend: (arch, shape, multi_pod).
+DRYRUN_CELLS = (("starcoder2-3b", "train_4k", False),
+                ("hstu-large", "gr_train_2k", False),
+                ("hstu-large", "gr_train_2k", True))
+# (b) The world-1 cells held against the card: phase lm's model, one
+# microbatch of 1 x 4096 tokens; phase engine's pack, 1 shard x 4 users x
+# 2048 events, vocab 2^22, R 128 (the dry-run's segmented negatives).
+DRYRUN_LM = ("starcoder2-3b", 1, 4096)
+DRYRUN_GR = ("hstu-large", 4, 2048)
+# predicted state bytes against torch.cuda.memory_allocated(): within 1%
+DRYRUN_STATE_TOL = 0.01
+DRYRUN_CHILD_TIMEOUT_S = 900
+
+
+def _dryrun_summary(rec):
+    """The numbers of a dry-run record the phase prints."""
+    rl = rec["roofline"]
+    out = {k: rec[k] for k in ("arch", "shape", "mesh", "chips",
+                               "state_bytes_per_device", "t_build_s",
+                               "t_step_s", "num_microbatches")}
+    out |= {"flops": rec["totals"]["flops"], "bytes": rec["totals"]["bytes"],
+            "coll_bytes": {k: v for k, v in
+                           rec["totals"]["coll_bytes"].items() if v},
+            "kernel_flops": rec["totals"]["kernel_flops"],
+            "dominant": rl["dominant"], "compute_s": rl["compute_s"],
+            "memory_s": rl["memory_s"], "collective_s": rl["collective_s"],
+            "roofline_frac": rl["roofline_frac"],
+            "model_flops": rl["model_flops"]}
+    for k in ("pend_spec", "kernels", "worst_case"):
+        if k in rec:
+            out[k] = rec[k]
+    return out
+
+
+def dryrun_child():
+    """Phase dryrun's part (a), in a process of its own on the fake
+    backend (a one-process world of 512 ranks): both production meshes,
+    the DRYRUN_CELLS on them, and the world-1 cells of part (b), all on
+    ``meta``; one JSON result."""
+    def body():
+        from repro_torch.configs.shapes import ShapeConfig
+        from repro_torch.launch import dryrun as DR
+        from repro_torch.launch import mesh as M
+        t0 = time.perf_counter()
+        M.init_fake_world(512)
+        meshes = {False: M.make_production_mesh(),
+                  True: M.make_production_mesh(multi_pod=True)}
+        out = {"meshes": {M.production_mesh_name(mp): {
+            "shape": list(m.shape), "axes": list(m.mesh_dim_names),
+            "device_type": m.device_type} for mp, m in meshes.items()},
+            "cells": {}, "world1": {}}
+        for arch, shape, mp in DRYRUN_CELLS:
+            rec = DR.run_cell(arch, shape, mp, mesh=meshes[mp])
+            out["cells"][f"{arch}__{shape}__{rec['mesh']}"] = \
+                _dryrun_summary(rec)
+        one = M.device_mesh((1, 1))
+        arch, B, S = DRYRUN_LM
+        out["world1"]["lm"] = _dryrun_summary(DR.run_cell(
+            arch, "lm_mb", mesh=one, mesh_name="card1x1",
+            shape=ShapeConfig(f"lm_mb_{B}x{S}", S, B, "train")))
+        arch, users, S = DRYRUN_GR
+        out["world1"]["gr"] = _dryrun_summary(DR.run_cell(
+            arch, "engine_pack", mesh=one, mesh_name="card1x1",
+            shape=ShapeConfig(f"engine_pack_1x{users}x{S}", S, users,
+                              "train")))
+        out["s"] = time.perf_counter() - t0
+        return out
+    return _child_main(body)
+
+
+def _start_child(fn):
+    """``chip_smoke.<fn>()`` started in a process of its own; finish it
+    with :func:`_finish_child`."""
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
+            f"{str(ROOT / 'src')!r}]; import chip_smoke as c; "
+            f"sys.exit(c.{fn}())")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish_child(p, tag, timeout):
+    """Wait for a :func:`_start_child` process (killed past ``timeout``),
+    relay its lines, return its ``[child-result]``."""
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            out, _ = p.communicate()
+    result = None
+    for ln in out.splitlines():
+        if ln.startswith("[child-result] "):
+            result = json.loads(ln[len("[child-result] "):])
+        elif not ln.startswith("[rank0]:W"):       # DTensor's advice
+            say(ln)
+    check(p.returncode == 0 and result is not None,
+          f"{tag}: the child process exited {p.returncode}")
+    return result
+
+
+def phase_dryrun(child):
+    """The launch tooling on the card. (a) The child's records: both
+    production meshes built over a fake world, and per device the state
+    bytes, FLOPs, bytes, collective bytes by kind and the dominant term of
+    DRYRUN_CELLS. (b) On a one-rank mesh (NCCL at world 1, a (1, 1)
+    DeviceMesh): starcoder2-3b at full width and depth as DTensors by the
+    plan (partition.shard_model), its state (params and AdamW moments)
+    against memory_allocated(), one 1 x 4096 microbatch's loss and grads
+    under op_analysis: FLOPs equal to the dry-run's on meta, loss and
+    grads bit for bit the plain LM's; hstu-large at phase engine's pack:
+    the state against memory_allocated(), a training step (segmented
+    negatives, the dry-run's path) under op_analysis with the kernels'
+    live counts, its FLOPs at most the dry-run's worst case. The roofline
+    terms beside the measured walls (reported, not held)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sharding import shard_ctx
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import op_analysis as OA
+    from repro_torch.launch import partition as PT
+    from repro_torch.launch.dryrun import _sharded
+    from repro_torch.models.model_zoo import get_bundle
+    from repro_torch.training import gr_train_state, make_gr_step_fn
+    from repro_torch.training.trainer import lm_train_state, to_device
+    t0 = time.perf_counter()
+    res = _finish_child(child, "dryrun (a)", DRYRUN_CHILD_TIMEOUT_S)
+    say(f"[dryrun] (a) child {res['s']:.1f} s; meshes {res['meshes']}")
+    for tag, r in res["cells"].items():
+        say(f"[dryrun] (a) {tag}: state {r['state_bytes_per_device'] / 1e9:.3f}"
+            f" GB/device, {r['flops']:.4e} FLOPs, {r['bytes']:.4e} bytes, "
+            f"collectives {r['coll_bytes']}, dominant {r['dominant']} "
+            f"(compute {r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s,"
+            f" collective {r['collective_s']:.4f} s, roofline_frac "
+            f"{r['roofline_frac']:.4f}); step on meta {r['t_step_s']} s")
+        if "pend_spec" in r:
+            check("data" in r["pend_spec"], f"{tag}: the tau=1 carry is "
+                  f"not sharded over the data axes")
+    out = {"child": res, "card": CARD.get("smi_line")}
+    dev = torch.device("cuda")
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{M.free_port()}", rank=0, world_size=1)
+    try:
+        mesh = M.device_mesh((1, 1), device="cuda")
+        # -- starcoder2-3b, one microbatch ------------------------------
+        arch, B, S = DRYRUN_LM
+        w1 = res["world1"]["lm"]
+        cfg = get_arch(arch)
+        bundle = get_bundle(cfg)
+        from repro_torch.configs.shapes import ShapeConfig
+        plan = PT.make_plan(cfg, ShapeConfig("lm_mb", S, B, "train"), mesh)
+        _lm_free()
+        m0 = torch.cuda.memory_allocated()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+        model = bundle.init(gen, device=dev)
+        PT.shard_model(model, mesh, plan)
+        st = lm_train_state(model, torch.float32)
+        torch.cuda.synchronize()
+        state_b = torch.cuda.memory_allocated() - m0
+        rel = abs(state_b - w1["state_bytes_per_device"]) / state_b
+        batch = _lm_batch(cfg, B, S, torch.Generator(device=dev)
+                          .manual_seed(SEED + 28), dev)
+        from torch.distributed.tensor import distribute_tensor
+        bspec = PT.to_placements(mesh, (plan.rules["batch"], None))
+        dbatch = {k: distribute_tensor(v, mesh, bspec)
+                  for k, v in batch.items()}
+        params = [p for _, p in model.named_parameters()]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with OA.OpAnalysis() as an, _sharded(mesh, plan):
+            loss = bundle.loss(model, dbatch, q_block=plan.q_block,
+                               remat=plan.remat)
+            grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t
+        loss_s = loss.full_tensor()
+        grads = [g.full_tensor() for g in grads]
+        card_flops = an.totals.flops
+        del st, an
+        plain = bundle.init(torch.Generator(device=dev)
+                            .manual_seed(SEED + 27), device=dev)
+        pparams = [p for _, p in plain.named_parameters()]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ploss = bundle.loss(plain, batch, q_block=plan.q_block,
+                            remat=plan.remat)
+        pgrads = torch.autograd.grad(ploss, pparams)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        same_loss = torch.equal(loss_s, ploss)
+        diff = [n for (n, _), a, b in zip(plain.named_parameters(), grads,
+                                          pgrads) if not torch.equal(a, b)]
+        lm = dict(state_bytes=state_b,
+                  predicted_state_bytes=w1["state_bytes_per_device"],
+                  state_rel=rel, meta_flops=w1["flops"],
+                  card_flops=card_flops, loss=float(ploss),
+                  bitwise_loss=same_loss, grads_differing=diff,
+                  sharded_s=sharded_s, plain_s=plain_s,
+                  roofline={k: w1[k] for k in ("compute_s", "memory_s",
+                                                "collective_s", "dominant",
+                                                "roofline_frac")})
+        say(f"[dryrun] (b) {arch} 1 x {S} on a (1, 1) mesh: state "
+            f"{state_b / 1e9:.4f} GB allocated, {w1['state_bytes_per_device'] / 1e9:.4f} "
+            f"GB predicted ({rel:.2e} apart); FLOPs on meta "
+            f"{w1['flops']:.6e}, on the card {card_flops:.6e} (equal "
+            f"{w1['flops'] == card_flops}); loss {float(ploss):.6f} bit for "
+            f"bit the plain LM's {same_loss}, grads differing "
+            f"{len(diff)} of {len(pparams)}; the microbatch's fwd+bwd as "
+            f"DTensors {sharded_s:.2f} s (op_analysis on), plain {plain_s:.3f}"
+            f" s; roofline compute {w1['compute_s']:.4f} s, memory "
+            f"{w1['memory_s']:.4f} s, collective {w1['collective_s']:.4f} s,"
+            f" dominant {w1['dominant']}, roofline_frac "
+            f"{w1['roofline_frac']:.4f}")
+        del model, plain, grads, pgrads, params, pparams, loss, ploss
+        _lm_free()
+        # -- hstu-large at the engine's pack ----------------------------
+        arch, users, S = DRYRUN_GR
+        w1 = res["world1"]["gr"]
+        cfg = get_arch(arch)
+        bundle = get_bundle(cfg)
+        m0 = torch.cuda.memory_allocated()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+        st = gr_train_state(bundle.init_dense(gen, device=dev),
+                            bundle.init_table(gen, device=dev))
+        torch.cuda.synchronize()
+        state_b = torch.cuda.memory_allocated() - m0
+        rel_gr = abs(state_b - w1["state_bytes_per_device"]) / state_b
+        from repro_torch.kernels.jagged_attention import make_attn_fn
+        plan = PT.make_plan(cfg, ShapeConfig("pack", S, users, "train"),
+                            mesh)
+        step = make_gr_step_fn(bundle, loss_kwargs=dict(
+            neg_mode="segmented", neg_segment=plan.neg_segment,
+            expansion=plan.neg_expansion, remat=plan.remat,
+            attn_fn=make_attn_fn(max_row_len=cfg.max_seq_len)),
+            semi_async=True)
+        gbatch = to_device(_train_batches(cfg.vocab_size, 1)[0], dev)
+        st, _ = step(st, gbatch)                     # warm: builds, plans
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with OA.OpAnalysis() as an:
+            st, met = step(st, gbatch)
+        torch.cuda.synchronize()
+        gr_s = time.perf_counter() - t
+        attn = [k for k in an.kernels if k["kernel"].startswith("attn_")]
+        live = sum(k["live_pairs"] for k in attn)
+        padded = sum(k["padded_pairs"] for k in attn)
+        w_attn = sum(v["operations"] for k, v in w1["kernels"].items()
+                     if k.startswith("attn_"))
+        c_attn = sum(k["operations"] for k in attn)
+        gr = dict(state_bytes=state_b,
+                  predicted_state_bytes=w1["state_bytes_per_device"],
+                  state_rel=rel_gr, meta_flops=w1["flops"],
+                  card_flops=an.totals.flops, live_pairs=live,
+                  padded_pairs=padded, attn_flops_card=c_attn,
+                  attn_flops_meta=w_attn, step_s=gr_s,
+                  loss=float(met["loss"]),
+                  kernels_card=sorted({k["kernel"] for k in an.kernels}),
+                  roofline={k: w1[k] for k in ("compute_s", "memory_s",
+                                                "collective_s", "dominant",
+                                                "roofline_frac")})
+        say(f"[dryrun] (b) {arch} 1 x {users} x {S}, vocab "
+            f"{cfg.vocab_size}: state {state_b / 1e9:.4f} GB allocated, "
+            f"{w1['state_bytes_per_device'] / 1e9:.4f} GB predicted "
+            f"({rel_gr:.2e} apart); a step's FLOPs on the card "
+            f"{an.totals.flops:.6e} (the kernels' live counts: attention "
+            f"{c_attn:.4e} at {live} of {padded} padded block pairs, a "
+            f"share {live / max(padded, 1):.4f}), the dry-run's worst case "
+            f"{w1['flops']:.6e} (attention {w_attn:.4e}); kernels "
+            f"{gr['kernels_card']}; step {gr_s * 1e3:.1f} ms (op_analysis "
+            f"on), loss {gr['loss']:.5f}; roofline compute "
+            f"{w1['compute_s'] * 1e3:.3f} ms, memory "
+            f"{w1['memory_s'] * 1e3:.3f} ms, dominant {w1['dominant']}, "
+            f"roofline_frac {w1['roofline_frac']:.4f}")
+        del st, an, step, gbatch
+        _lm_free()
+    finally:
+        dist.destroy_process_group()
+    out |= {"lm": lm, "gr": gr, "s": time.perf_counter() - t0}
+    say(f"[dryrun] phase (b) and the wait for (a) {out['s']:.1f} s on "
+        f"{CARD.get('smi_line')}")
+    check(lm["state_rel"] <= DRYRUN_STATE_TOL,
+          f"{DRYRUN_LM[0]}'s state bytes {lm['state_rel']:.3e} off the "
+          f"prediction")
+    check(gr["state_rel"] <= DRYRUN_STATE_TOL,
+          f"{DRYRUN_GR[0]}'s state bytes {gr['state_rel']:.3e} off the "
+          f"prediction")
+    check(lm["meta_flops"] == lm["card_flops"],
+          "the microbatch's FLOPs on meta and on the card differ")
+    check(lm["bitwise_loss"] and not lm["grads_differing"],
+          f"the world-1 sharded microbatch is not bit for bit the plain "
+          f"LM's: {lm['grads_differing'][:4]}")
+    check(gr["card_flops"] <= gr["meta_flops"],
+          "the GR step's FLOPs on the card exceed the dry-run's worst case")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 6b: the §4.3 / Table-7 ablation (baseline and segmented negatives)
 # --------------------------------------------------------------------------
 
@@ -6035,12 +6293,16 @@ def main():
         times[name] = round(time.perf_counter() - t, 1)
         return out
 
+    dryrun_proc = None
     try:
         name, count, smi_line = phase_device()
         # phase lm runs none of the port's kernels: it uses the card while
         # nvcc builds them on the host's cores
         lm, pair_s = _beside(lambda: run("build", phase_build),
                              lambda: run("lm", phase_lm))
+        # phase dryrun's part (a) runs on the host's CPU beside the card
+        # phases, in a process of its own (the fake world of 512 ranks)
+        dryrun_proc = _start_child("dryrun_child")
         attn = run("attn_kernels", phase_kernels)
         neg = run("neg_kernels", phase_neg_kernels)
         rs = run("runsum_kernel", phase_runsum_kernel)
@@ -6068,6 +6330,7 @@ def main():
         hsp = run("hsp", phase_hsp)
         hsp_mesh = run("hsp_mesh", phase_hsp_mesh)
         elastic = run("elastic", phase_elastic)
+        dryrun = run("dryrun", phase_dryrun, dryrun_proc)
         parity, parity_launches = run("parity", phase_parity)
         run("cli", phase_cli)
     except Failed as e:
@@ -6077,6 +6340,10 @@ def main():
         traceback.print_exc()
         say("FAIL: exception (traceback above)")
         return 1
+    finally:
+        if dryrun_proc is not None and dryrun_proc.poll() is None:
+            dryrun_proc.kill()
+            dryrun_proc.wait()
     train_launches = {}
     for r in per_step:
         for k, v in r["launches"].items():
@@ -6098,6 +6365,7 @@ def main():
     say(f"[result] offload {json.dumps(offload)}")
     say(f"[result] lm {json.dumps(lm)}")
     say(f"[result] autotune {json.dumps(tuned)}")
+    say(f"[result] dryrun {json.dumps(dryrun)}")
     beside = times["build"] + times["lm"] - pair_s
     freed = min(BEFORE_RESILIENT_S) - times["resilient"]
     say(f"[result] room: phase lm {times['lm']} s (budget "

@@ -3,8 +3,9 @@
 The parts the serving scheduler and the training loader use: Global Token
 Reallocation (an LPT greedy that spreads sequences over devices without
 splitting any), fixed and token-aware batches, the sample-count
-gradient weights of dynamic batch sizes, and the load-imbalance ratio that
-the telemetry's ``token_imbalance`` reports.
+gradient weights of dynamic batch sizes, and Table 3's two statistics: the
+load-imbalance ratio that the telemetry's ``token_imbalance`` reports and
+the max token-count difference across devices.
 """
 from __future__ import annotations
 
@@ -98,6 +99,17 @@ def assignment_token_loads(assignments: Sequence[Sequence[int]],
     lens = np.asarray(lengths, np.int64)
     return np.array([lens[np.asarray(a, np.int64)].sum() if len(a) else 0
                      for a in assignments], np.int64)
+
+
+def max_token_diff(assignments: Sequence[Sequence[int]],
+                   lengths: Sequence[int],
+                   loads: np.ndarray = None) -> int:
+    """Table 3's metric: max_w(tokens_w) − min_w(tokens_w). ``loads`` (from
+    :func:`assignment_token_loads`) short-circuits the per-device
+    summation."""
+    if loads is None:
+        loads = assignment_token_loads(assignments, lengths)
+    return int(np.max(loads) - np.min(loads))
 
 
 def imbalance_ratio(assignments: Sequence[Sequence[int]],

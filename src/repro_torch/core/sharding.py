@@ -11,13 +11,15 @@ The rules are the reference's: a logical axis resolves to mesh axes, an
 axis whose mesh size does not divide the tensor's dimension is dropped
 (replicated) rather than raising (e.g. 2 KV heads on a 16-way ``model``
 axis), and :func:`logical_axis_size` is 1 outside a context. The plans
-that set the rules per (arch, shape, mesh) are not ported yet.
+that set the rules per (arch, shape, mesh) are ``launch/partition.py``'s;
+:func:`guard` and :func:`placements_of` are the steps both share.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
+import functools
 from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -36,6 +38,44 @@ def _as_tuple(ax: Axes) -> Tuple[str, ...]:
     return (ax,) if isinstance(ax, str) else tuple(ax)
 
 
+def axes_size(mesh: "DeviceMesh", ax: Axes) -> int:
+    """The number of devices over mesh axes ``ax`` (1 for None)."""
+    n = 1
+    for a in () if ax is None else _as_tuple(ax):
+        n *= _axis_size(mesh, a)
+    return n
+
+
+def guard(mesh: "DeviceMesh", shape: Sequence[int],
+          axes: Sequence[Axes]) -> Tuple[Axes, ...]:
+    """Each dim's mesh axes, None where their size does not divide the
+    dim (the reference's divisibility guard: replicated, not padded). A
+    dim of size 1 is never split (over axes of one device, where the
+    reference's guard would keep it, DTensor refuses a view that drops
+    or flattens it)."""
+    spec = list(axes) + [None] * (len(shape) - len(axes))
+    out: List[Axes] = []
+    for size, ax in zip(shape, spec):
+        n = axes_size(mesh, ax)
+        out.append(None if ax is None or n == 0 or size % n or size == 1
+                   else ax)
+    return tuple(out)
+
+
+def placements_of(mesh: "DeviceMesh", axes: Sequence[Axes]) -> list:
+    """DTensor placements on ``mesh`` of a tensor whose dim i is split
+    over mesh axes ``axes[i]``: a mesh axis that some dim maps to shards
+    that dim, the others replicate. A dim over several axes is split over
+    them in the mesh's axis order, as the reference's tuple of axes is."""
+    from torch.distributed.tensor import Replicate, Shard
+    by_axis: Dict[str, int] = {}
+    for t_dim, ax in enumerate(axes):
+        for a in () if ax is None else _as_tuple(ax):
+            by_axis[a] = t_dim
+    return [Shard(by_axis[a]) if a in by_axis else Replicate()
+            for a in mesh.mesh_dim_names]
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
     mesh: "DeviceMesh"
@@ -51,75 +91,103 @@ class ShardCtx:
         """:meth:`resolve` for a tensor of ``shape``: a dim whose mesh size
         does not divide it is dropped (replicated)."""
         spec = list(dims) + [None] * (len(shape) - len(dims))
-        out: List[Axes] = []
-        for size, ax in zip(shape, self.resolve(spec)):
-            if ax is None:
-                out.append(None)
-                continue
-            n = 1
-            for a in _as_tuple(ax):
-                n *= _axis_size(self.mesh, a)
-            out.append(None if n == 0 or size % n else ax)
-        return tuple(out)
+        return guard(self.mesh, shape, self.resolve(spec))
 
     def placements(self, shape: Sequence[int],
                    dims: Sequence[Optional[str]]) -> list:
         """DTensor placements on :attr:`mesh` for :meth:`resolve_for`: a
         mesh axis that a tensor dim maps to shards that dim, the others
         replicate."""
-        from torch.distributed.tensor import Replicate, Shard
-        by_axis: Dict[str, int] = {}
-        for t_dim, ax in enumerate(self.resolve_for(shape, dims)):
-            for a in () if ax is None else _as_tuple(ax):
-                by_axis[a] = t_dim
-        return [Shard(by_axis[a]) if a in by_axis else Replicate()
-                for a in self.mesh.mesh_dim_names]
+        return placements_of(self.mesh, self.resolve_for(shape, dims))
 
 
 _CTX: contextvars.ContextVar[Optional[ShardCtx]] = contextvars.ContextVar(
     "repro_torch_shard_ctx", default=None)
+#: The contexts open in this process, innermost last: the backward pass on
+#: the card runs in autograd's device thread, which sees no context
+#: variable of the caller's, and a checkpoint's recomputation there must
+#: lay tensors out as the forward did.
+_OPEN: List[ShardCtx] = []
 
 
 @contextlib.contextmanager
 def shard_ctx(mesh: "DeviceMesh", rules: Dict[str, Axes]):
-    tok = _CTX.set(ShardCtx(mesh, dict(rules)))
+    ctx = ShardCtx(mesh, dict(rules))
+    tok = _CTX.set(ctx)
+    _OPEN.append(ctx)
     try:
         yield
     finally:
+        _OPEN.remove(ctx)
         _CTX.reset(tok)
 
 
 def current_ctx() -> Optional[ShardCtx]:
-    return _CTX.get()
+    """This thread's context, else the innermost one open in the process
+    (a backward pass in autograd's thread)."""
+    ctx = _CTX.get()
+    if ctx is None and _OPEN:
+        ctx = _OPEN[-1]
+    return ctx
+
+
+_RULES_REGISTERED = False
+
+
+def register_dtensor_rules() -> None:
+    """Sharding rules DTensor lacks for ops the port's models call:
+    ``aten.bmm.dtype`` (``torch.bmm(..., out_dtype=torch.float32)``, the
+    LM's fp32 products of bf16 operands on the card) takes
+    ``aten.bmm.default``'s, as its shapes and layouts are the same. Once
+    per process; a no-op once registered."""
+    global _RULES_REGISTERED
+    if _RULES_REGISTERED:
+        return
+    from torch.distributed.tensor import DTensor
+    aten = torch.ops.aten
+    prop = DTensor._op_dispatcher.sharding_propagator
+    single = getattr(prop, "op_single_dim_strategy_funcs", {})
+    if aten.bmm.default in single:
+        prop.register_single_dim_op_strategy(
+            aten.bmm.dtype, single[aten.bmm.default],
+            prop.op_to_schema_info_for_single_dim_strategy.get(
+                aten.bmm.default))
+    else:
+        prop.register_op_strategy(
+            aten.bmm.dtype, prop.op_strategy_funcs[aten.bmm.default],
+            prop.op_to_schema_info.get(aten.bmm.default))
+    _RULES_REGISTERED = True
+
+
+def _grad_to(mesh, want, g):
+    return g if tuple(g.placements) == want else g.redistribute(mesh, want)
 
 
 def constrain(x: torch.Tensor, *dims: Optional[str]) -> torch.Tensor:
     """Constrain x's layout by logical dim names: unchanged outside a
     context and for a plain tensor; a DTensor is redistributed to the
     resolved placements (a dim whose mesh size does not divide it is
-    replicated)."""
-    ctx = _CTX.get()
+    replicated), and so is its grad in backward (a non-leaf's)."""
+    ctx = current_ctx()
     if ctx is None:
         return x
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    want = ctx.placements(x.shape, dims)
-    if list(x.placements) == want:
-        return x
-    return x.redistribute(ctx.mesh, want)
+    want = tuple(ctx.placements(x.shape, dims))
+    y = x if tuple(x.placements) == want else x.redistribute(ctx.mesh, want)
+    if y.requires_grad and not y.is_leaf and torch.is_grad_enabled():
+        # the reference's constraint binds the cotangent too: without it
+        # the grad keeps whatever layout the op after it gave, which a
+        # later view (a head split the mesh does not divide) may refuse
+        y.register_hook(functools.partial(_grad_to, ctx.mesh, want))
+    return y
 
 
 def logical_axis_size(name: str) -> int:
     """Mesh size mapped to a logical axis (1 outside a context): lets model
     code pick between sharding strategies."""
-    ctx = _CTX.get()
+    ctx = current_ctx()
     if ctx is None:
         return 1
-    ax = ctx.rules.get(name)
-    if ax is None:
-        return 1
-    n = 1
-    for a in _as_tuple(ax):
-        n *= _axis_size(ctx.mesh, a)
-    return n
+    return axes_size(ctx.mesh, ctx.rules.get(name))

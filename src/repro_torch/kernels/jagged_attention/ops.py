@@ -23,8 +23,11 @@ HSTU's bucket table, or FuXi's functional encoder, whose raw parameters
 ``[amp; σ; ρ]`` in plain differentiable torch, so autograd carries the
 kernel's d(amp, σ, ρ) back to them. Dispatch is by where the tensors
 lie: CUDA tensors launch the hand-written kernels or raise; CPU tensors
-take the plain PyTorch versions in ``ref.py``. There is no fallback between
-the two.
+take the plain PyTorch versions in ``ref.py``; ``meta`` tensors (shapes
+only: the dry-run, ``launch/dryrun.py``) take neither and give empty
+outputs of the kernels' shapes, recording the kernels' costs
+(``kernels/cost.py``) at the plan's bound, every row full length. There
+is no fallback between the three.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import torch
 from repro_torch.configs.base import RABConfig
 from repro_torch.core.jagged import NEG_SEG
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as KC
 from repro_torch.kernels.jagged_attention import ref as R
 
 #: Launches of each kernel in this module, counted where the wrapper
@@ -59,6 +63,25 @@ def launch_counter(kind: str, *, dense: bool, functional: bool) -> str:
     "fwd_append" with ``dense`` False) launch."""
     return (f"attn_{kind}{'_dense' if dense else ''}"
             f"{'_functional' if functional else ''}")
+
+
+def _record(kind: str, plan, q, pos_table, time_table, *, dense: bool,
+            time_functional: bool) -> None:
+    """Hand a K1-fwd/K2 call's cost to the active analysis: the plan's live
+    pairs, or on ``meta`` its bound (every entry of the padded list)."""
+    if not KC.active():
+        return
+    G, capp, H, D = q.shape
+    mode = "functional" if time_functional else "bucket"
+    n_live = KC.plan_live_pairs(plan)
+    fn = KC.attn_fwd_cost if kind == "fwd" else KC.attn_bwd_cost
+    KC.record(launch_counter(kind, dense=dense, functional=time_functional),
+              fn(plan, G, capp, H, D, q.element_size(), mode, n_live,
+                 ntb=time_table.shape[0], npb=pos_table.shape[0]),
+              worst_case=q.device.type == "meta",
+              peak_dtype=str(q.dtype).replace("torch.", ""),
+              live_pairs=n_live, padded_pairs=int(plan.q_wl.shape[:-1]
+                                                  .numel()))
 
 
 def check_schedule(schedule: str) -> None:
@@ -392,6 +415,8 @@ def _launch_fwd(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
         raise RuntimeError(f"jagged_attn_fwd launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES[launch_counter("fwd", dense=dense,
                                    functional=time_functional)] += 1
+    _record("fwd", plan, q, pos_table, time_table, dense=dense,
+            time_functional=time_functional)
     return out
 
 
@@ -492,6 +517,19 @@ def attention_append(q, k_cache, v_cache, rows, timestamps, prefix_len,
         return _launch_append(q, k_cache, v_cache, rows, timestamps,
                               prefix_len, total_len, pos_table, time_table,
                               ninv, **kw)
+    if q.device.type == "meta":
+        # the worst case: each row's window the last Q of a full row
+        if KC.active():
+            Rr, Q, H, D = q.shape
+            cap = k_cache.shape[1]
+            KC.record(launch_counter("fwd_append", dense=False,
+                                     functional=time_functional),
+                      KC.attn_append_cost(Rr * Q, [cap - Q] * Rr,
+                                          [cap] * Rr, H, D,
+                                          q.element_size()),
+                      worst_case=True,
+                      peak_dtype=str(q.dtype).replace("torch.", ""))
+        return torch.empty_like(q)
     if q.device.type != "cpu":
         raise ValueError(f"append attention: unsupported device {q.device}")
     return R.attention_append_plain(q, k_cache, v_cache, rows, timestamps,
@@ -601,18 +639,43 @@ def _launch_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan,
         raise RuntimeError(f"jagged_attn_bwd launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES[launch_counter("bwd", dense=dense,
                                    functional=time_functional)] += 1
+    _record("bwd", plan, q, pos_table, time_table, dense=dense,
+            time_functional=time_functional)
     return dq, dk, dv, dpt, dtt
+
+
+def _meta_fwd(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
+              dense: bool = False, time_functional: bool = False, **kw):
+    """K1-fwd (K8-fwd) on ``meta`` tensors: the output's shape and dtype,
+    the kernel's cost at the plan's bound; nothing runs."""
+    _record("fwd", plan, q, pos_table, time_table, dense=dense,
+            time_functional=time_functional)
+    return torch.empty_like(v)
+
+
+def _meta_bwd(q, k, v, dy, pos_table, time_table, plan: JaggedAttnPlan, *,
+              dense: bool = False, time_functional: bool = False, **kw):
+    """K2 (K8-bwd) on ``meta`` tensors: the grads' shapes and dtypes, the
+    kernel's cost at the plan's bound; nothing runs."""
+    _record("bwd", plan, q, pos_table, time_table, dense=dense,
+            time_functional=time_functional)
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(pos_table), torch.empty_like(time_table))
 
 
 class _AttnCore(torch.autograd.Function):
     """The kernels of ``schedule`` (K1-fwd/K2 for "worklist", K8 for
     "dense"), or with ``schedule=None`` the plain versions, which serve
-    both; each takes the plan's mask. The plan and the static settings
-    ride along as non-tensor arguments."""
+    both; each takes the plan's mask. On ``meta`` tensors neither runs:
+    the outputs' shapes and the kernels' costs. The plan and the static
+    settings ride along as non-tensor arguments."""
 
     @staticmethod
     def forward(ctx, q, k, v, pos_table, time_table, plan, kw, schedule):
-        if schedule is None:
+        if q.device.type == "meta":
+            out = _meta_fwd(q, k, v, pos_table, time_table, plan,
+                            dense=schedule == "dense", **kw)
+        elif schedule is None:
             out = R.attention_fwd_plain(q, k, v, pos_table, time_table, plan,
                                         **kw)
         else:
@@ -627,7 +690,10 @@ class _AttnCore(torch.autograd.Function):
         q, k, v, pt, tt = ctx.saved_tensors
         plan, kw = ctx.plan, ctx.kw
         dy = _masked(plan.meta_i32, dy).contiguous()
-        if ctx.schedule is None:
+        if q.device.type == "meta":
+            grads = _meta_bwd(q, k, v, dy, pt, tt, plan,
+                              dense=ctx.schedule == "dense", **kw)
+        elif ctx.schedule is None:
             grads = R.attention_bwd_plain(q, k, v, dy, pt, tt, plan, **kw)
         else:
             grads = _launch_bwd(q, k, v, dy, pt, tt, plan,
@@ -643,14 +709,15 @@ def attention_core(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,
                    schedule: str = "worklist", causal: bool = True,
                    **kw) -> torch.Tensor:
     """The kernels of ``schedule`` for card tensors, the plain versions for
-    CPU tensors; differentiable in q, k, v and both tables. ``causal``
-    must be the plan's (checked)."""
+    CPU tensors, the kernels' shapes and costs for ``meta`` tensors;
+    differentiable in q, k, v and both tables. ``causal`` must be the
+    plan's (checked)."""
     check_schedule(schedule)
     check_causal(plan, causal)
-    if q.device.type not in ("cuda", "cpu"):
+    if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"jagged attention: unsupported device {q.device}")
     return _AttnCore.apply(q, k, v, pos_table, time_table, plan, kw,
-                           schedule if q.device.type == "cuda" else None)
+                           None if q.device.type == "cpu" else schedule)
 
 
 def plain_core(q, k, v, pos_table, time_table, plan: JaggedAttnPlan, *,

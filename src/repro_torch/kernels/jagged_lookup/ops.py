@@ -11,7 +11,11 @@ table-major.
 :func:`unique_pairs` sorts the pairs by id (the table-major regrouping) and
 reduces each run of equal ids with K6 (``csrc/runsum.cu``) for CUDA tensors
 or its plain version (``ref.run_totals_plain``) for CPU tensors: the
-unique (id, grad-row) pairs the sparse optimizer consumes.
+unique (id, grad-row) pairs the sparse optimizer consumes. On ``meta``
+tensors (the dry-run) the run-sums give their outputs at the worst case,
+every id distinct (u = n), and record their kernels' costs
+(``kernels/cost.py``) there; neither the kernel nor the plain version
+runs.
 :func:`weighted_run_totals` (K5, ``csrc/wscatter.cu``) does the same for
 rows given in factored form, ``w · o[src] · scale``, generating each row
 inside the kernel so the rows are never built in device memory; ready rows
@@ -29,6 +33,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as KC
 from repro_torch.kernels.jagged_lookup import ref as R
 
 #: Launches of each kernel in this module, counted where the wrapper
@@ -166,10 +171,25 @@ def _device_check(rows: torch.Tensor) -> bool:
     return rows.device.type == "cuda"
 
 
+def _record_runs(kernel: str, n: int, n_runs: int, D: int, *,
+                 worst_case: bool, T: int = 0, n_neg: int = 0,
+                 o_itemsize: int = 2) -> None:
+    """Hand a K5/K6 call's cost to the active analysis."""
+    if KC.active():
+        c = (KC.runsum_cost(n, n_runs, D) if kernel == "runsum" else
+             KC.wscatter_cost(T, n_neg, n, n_runs, D,
+                              o_itemsize=o_itemsize))
+        KC.record(kernel, c, worst_case=worst_case, runs=n_runs, slots=n)
+
+
 def _runs(sids: torch.Tensor):
     """(starts, num_runs, n_runs, n_kept, run ids): one host sync reads the
     run count and whether the last run is the dropped one, so outputs are
-    allocated at their size."""
+    allocated at their size. On ``meta`` (no data, no sync): the worst
+    case, every slot its own run and none dropped."""
+    if sids.device.type == "meta":
+        n = sids.numel()
+        return None, None, n, n, sids
     starts, num_runs = run_starts(sids)
     n_runs, dropped = torch.cat([num_runs, (sids[-1:] >= DROP_KEY).to(
         torch.int32)]).tolist()
@@ -186,9 +206,15 @@ def run_totals(rows: torch.Tensor, order: torch.Tensor, sids: torch.Tensor
     if sids.numel() == 0:
         return sids, rows
     starts, num_runs, n_runs, u, ids = _runs(sids)
+    if rows.device.type == "meta":
+        _record_runs("runsum", sids.numel(), n_runs, rows.shape[1],
+                     worst_case=True)
+        return ids[:u], rows.new_empty((u, rows.shape[1]))
     if _device_check(rows):
         out = rows.new_empty((n_runs, rows.shape[1]))
         _launch_runsum(rows, order, sids, starts, num_runs, out)
+        _record_runs("runsum", sids.numel(), n_runs, rows.shape[1],
+                     worst_case=False)
     else:
         out = R.run_totals_plain(rows, order, sids, n_runs, DROP_KEY)
     return ids[:u], out[:u]
@@ -211,10 +237,19 @@ def weighted_run_totals(o: torch.Tensor, w: torch.Tensor,
     if sids.numel() == 0:
         return sids, extra.float()
     starts, num_runs, n_runs, u, ids = _runs(sids)
+    rec = dict(T=o.shape[0], n_neg=sids.numel() - extra.shape[0],
+               o_itemsize=o.element_size())
+    if o.device.type == "meta":
+        _record_runs("wscatter", sids.numel(), n_runs, o.shape[1],
+                     worst_case=True, **rec)
+        return ids[:u], extra.new_empty((u, o.shape[1]),
+                                        dtype=torch.float32)
     if _device_check(o):
         out = extra.new_empty((n_runs, o.shape[1]), dtype=torch.float32)
         _launch_wscatter(o, w, extra, order, sids, starts, num_runs, out,
                          scale=scale)
+        _record_runs("wscatter", sids.numel(), n_runs, o.shape[1],
+                     worst_case=False, **rec)
     else:
         out = R.weighted_run_totals_plain(o, w, extra, order, sids, n_runs,
                                           DROP_KEY, scale)

@@ -38,6 +38,10 @@ draws the global perms and keeps the rows of the segments it owns, those
 whose first token it holds. A rank that owns no segment launches neither
 K3 nor K4.
 
+On ``meta`` tensors (the dry-run, ``launch/dryrun.py``) every wrapper here
+gives empty outputs of its kernel's shapes and records the kernel's cost
+(``kernels/cost.py``); it runs neither the kernel nor the plain version.
+
 Knobs: K9-fwd's row split and the fused path's ``scatter_impl`` come from
 the tuned store (``kernels/autotune.py``) when the caller passes none.
 """
@@ -49,6 +53,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, autotune
+from repro_torch.kernels import cost as KC
 from repro_torch.kernels.jagged_lookup.ops import (check_scatter_impl,
                                                    scatter_add_weighted_rows)
 from repro_torch.kernels.neg_logits import ref as R_
@@ -302,6 +307,17 @@ def _check(o, pos, src, ids, valid, perms, segment, R, fetch_dtype,
              f"bytes of shared memory")
 
 
+def _record_neg(kernel: str, o, src, perms, R: int) -> None:
+    """Hand a K3/K4 call's cost to the active analysis (a meta call: the
+    shape's; a launch: the same, the work depends on no data)."""
+    if KC.active():
+        fn = KC.neg_fwd_cost if kernel == "neg_fwd" else KC.neg_bwd_cost
+        KC.record(kernel, fn(o.shape[0], R, o.shape[1], perms.numel(),
+                             o_itemsize=o.element_size(),
+                             row_itemsize=src.element_size()),
+                  worst_case=o.device.type == "meta")
+
+
 def neg_fwd(o, pos, src, ids, valid, perms, *, segment: int, R: int,
             expansion: int, inv_tau: float,
             fetch_dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -310,6 +326,9 @@ def neg_fwd(o, pos, src, ids, valid, perms, *, segment: int, R: int,
     kw = dict(segment=segment, R=R, expansion=expansion, inv_tau=inv_tau,
               fetch_dtype=fetch_dtype)
     if o.shape[0] == 0:
+        return torch.empty_like(pos)
+    if o.device.type == "meta":
+        _record_neg("neg_fwd", o, src, perms, R)
         return torch.empty_like(pos)
     if o.device.type == "cpu":
         return R_.neg_fwd_plain(o, pos, src, ids, valid, perms, **kw)
@@ -326,6 +345,7 @@ def neg_fwd(o, pos, src, ids, valid, perms, *, segment: int, R: int,
     if rc != 0:
         raise RuntimeError(f"neg_fused_fwd launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["neg_fwd"] += 1
+    _record_neg("neg_fwd", o, src, perms, R)
     return lse
 
 
@@ -339,6 +359,11 @@ def neg_bwd(o, pos, src, ids, valid, perms, lse, g, *, segment: int, R: int,
               fetch_dtype=fetch_dtype)
     if o.shape[0] == 0:
         return (o.new_empty((0, R), dtype=torch.float32),
+                o.new_empty(o.shape, dtype=torch.float32),
+                torch.empty_like(pos))
+    if o.device.type == "meta":
+        _record_neg("neg_bwd", o, src, perms, R)
+        return (o.new_empty((o.shape[0], R), dtype=torch.float32),
                 o.new_empty(o.shape, dtype=torch.float32),
                 torch.empty_like(pos))
     if o.device.type == "cpu":
@@ -365,6 +390,7 @@ def neg_bwd(o, pos, src, ids, valid, perms, lse, g, *, segment: int, R: int,
     if rc != 0:
         raise RuntimeError(f"neg_fused_bwd launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["neg_bwd"] += 1
+    _record_neg("neg_bwd", o, src, perms, R)
     return w, dout, dpos
 
 
@@ -508,6 +534,15 @@ def _check_nl(o: torch.Tensor, n: torch.Tensor) -> None:
         "o and n must be contiguous and 16-byte aligned")
 
 
+def _record_nl(kernel: str, o: torch.Tensor, n: torch.Tensor) -> None:
+    """Hand a K9 call's cost to the active analysis."""
+    if KC.active():
+        T, R, D = n.shape
+        KC.record(kernel, KC.neg_logits_cost(
+            T, R, D, n.element_size(), kernel == "neg_logits_bwd",
+            o_itemsize=o.element_size()), worst_case=o.device.type == "meta")
+
+
 def fwd_row_split(T: int, R: int) -> int:
     """CTAs per token of K9-fwd: doubled from 1 while T·split is below
     ``NL_FWD_CTAS`` and each CTA keeps at least ``NL_FWD_MIN_ROWS`` of the
@@ -549,6 +584,9 @@ def neg_logits_fwd(o: torch.Tensor, n: torch.Tensor, *, inv_tau: float,
     takes the tuned store's value for this shape, by default
     :func:`fwd_row_split`. The split launched with is recorded in
     ``LAUNCH_KNOBS["neg_logits_fwd"]``."""
+    if o.device.type == "meta":
+        _record_nl("neg_logits_fwd", o, n)
+        return o.new_empty(n.shape[:2], dtype=torch.float32)
     if o.device.type == "cpu":
         return R_.neg_logits_fwd_plain(o, n, inv_tau=inv_tau)
     _check_nl(o, n)
@@ -570,6 +608,7 @@ def neg_logits_fwd(o: torch.Tensor, n: torch.Tensor, *, inv_tau: float,
         raise RuntimeError(f"neg_logits_fwd launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["neg_logits_fwd"] += 1
     LAUNCH_KNOBS["neg_logits_fwd"] = {"row_split": row_split}
+    _record_nl("neg_logits_fwd", o, n)
     return out
 
 
@@ -587,6 +626,10 @@ def neg_logits_bwd(o: torch.Tensor, n: torch.Tensor, g: torch.Tensor, *,
                  f"(neg_logits) dn {tuple(dn.shape)} {dn.dtype} on "
                  f"{dn.device}; takes a contiguous, 16-byte aligned tensor "
                  f"like n {tuple(n.shape)} {n.dtype} on {n.device}")
+    if o.device.type == "meta":
+        _record_nl("neg_logits_bwd", o, n)
+        return (o.new_empty(o.shape, dtype=torch.float32),
+                torch.empty_like(n) if dn is None else dn)
     if o.device.type == "cpu":
         do, dn_ = R_.neg_logits_bwd_plain(o, n, g, inv_tau=inv_tau)
         return do, dn_ if dn is None else dn.copy_(dn_)
@@ -607,6 +650,7 @@ def neg_logits_bwd(o: torch.Tensor, n: torch.Tensor, g: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"neg_logits_bwd launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["neg_logits_bwd"] += 1
+    _record_nl("neg_logits_bwd", o, n)
     return dout, dn
 
 

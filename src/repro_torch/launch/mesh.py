@@ -358,6 +358,71 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str] = AXES, *,
     return Mesh(shape, axes, rank, dev, backend, timeout)
 
 
+# -- the production meshes (DeviceMesh) ---------------------------------------
+
+#: The reference's production meshes: one pod (data 16, model 16) of 256
+#: devices, and two such pods (pod 2, data 16, model 16) of 512.
+PRODUCTION_MESHES = {
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def production_mesh_name(multi_pod: bool) -> str:
+    return "pod2x16x16" if multi_pod else "pod16x16"
+
+
+def init_fake_world(world_size: int) -> None:
+    """A default process group of ``world_size`` ranks in this one process,
+    on the ``fake`` backend (every collective returns at once, without
+    data): the dry-run's stand-in for the devices it plans for, as the
+    reference forces 512 host devices. This process is rank 0. An existing
+    group of that size is kept; one of another size raises."""
+    if dist.is_initialized():
+        if dist.get_world_size() != world_size:
+            raise RuntimeError(
+                f"a process group of {dist.get_world_size()} ranks exists; "
+                f"the fake world wants {world_size}")
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def device_mesh(shape: Sequence[int], axes: Sequence[str] = AXES, *,
+                device: Any = None):
+    """A ``DeviceMesh`` of ``shape`` over the first ``prod(shape)`` ranks of
+    the default process group, ranks laid out row-major (rank r at the
+    coordinates :class:`Mesh` gives it); ``device`` None means the card's
+    mesh type."""
+    from torch.distributed.device_mesh import DeviceMesh
+    shape = tuple(int(n) for n in shape)
+    n = int(np.prod(shape))
+    dev = resolve_device(device)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have < n:
+        raise RuntimeError(
+            f"mesh {shape} needs {n} ranks, the default process group has "
+            f"{have}: the dry-run's entry point makes a one-process world "
+            f"of {n} ranks on the fake backend first "
+            f"(launch.mesh.init_fake_world({n})); a real world starts "
+            f"{n} ranks (spawn_ranks)")
+    return DeviceMesh(dev.type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: Any = None):
+    """The reference's production mesh as a ``DeviceMesh``: (data 16, model
+    16), or (pod 2, data 16, model 16) with ``multi_pod``, the same shapes
+    and axis names, so every plan compares one to one with the
+    reference's. It needs a default process group of at least 256 (512)
+    ranks: :func:`init_fake_world` makes one in this process. ``device``
+    None means the card's mesh type ("cuda"; without a card it raises),
+    tests pass "cpu"."""
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    return device_mesh(shape, axes, device=device)
+
+
 # -- a world of rank processes ------------------------------------------------
 
 def _package_root() -> str:

@@ -188,17 +188,33 @@ class Attention(nn.Module):
             self.bo = _const((d,), 0.0, dtype, device)
 
 
+def whole_sequence(x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) with its sequence whole on each device before a
+    projection (Megatron-SP's gather; a no-op off a mesh): a matmul
+    flattens (B, S), which DTensor refuses while both are split."""
+    return constrain(x, "batch", None, None)
+
+
 def _qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
+    x = whole_sequence(x)
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if has(p, "bq"):
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     # TP strategy: shard attention over q heads when Hq divides the tp
-    # axis; otherwise context parallelism (the q sequence over tp, k/v
-    # replicated within the tp group)
+    # axis; otherwise (the reference's context parallelism) the heads and
+    # the sequence stay whole on each device of the tp group: a split
+    # sequence would have to be flattened with the heads, which DTensor
+    # refuses (a declared divergence)
     tp = logical_axis_size("tp")
     heads_ok = tp > 1 and cfg.num_heads % tp == 0
+    # the projections' layout before the head split: whole heads over tp
+    feat_ax = "tp" if heads_ok else None
+    q = constrain(q, "batch", None, feat_ax)
+    if heads_ok and cfg.num_kv_heads % tp:
+        feat_ax = None                   # too few KV heads: k, v whole
+    k, v = (constrain(t, "batch", None, feat_ax) for t in (k, v))
     q = q.reshape(B, S, cfg.num_heads, hd)
     k = k.reshape(B, S, cfg.num_kv_heads, hd)
     v = v.reshape(B, S, cfg.num_kv_heads, hd)
@@ -211,8 +227,8 @@ def _qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor):
 
 def gqa_scores_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        q_offset: int, block: int,
-                       lengths: Optional[torch.Tensor] = None,
-                       cp: bool = False) -> torch.Tensor:
+                       lengths: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Causal GQA attention over query blocks.
 
     q: (B, Sq, Hq, hd); k/v: (B, Sk, Hkv, hd). ``q_offset`` is the absolute
@@ -224,11 +240,22 @@ def gqa_scores_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reference's. With grad enabled each block runs under a non-reentrant
     checkpoint (the reference's ``nothing_saveable`` per block): its
     backward recomputes the scores instead of keeping the fp32
-    probabilities. ``cp``: the sequence of each block is constrained over
-    the tp axis (context parallelism)."""
+    probabilities."""
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    tp = logical_axis_size("tp")
+    if tp > 1 and Hq % tp == 0 and Hkv % tp:
+        # the q heads split over tp, too few KV heads to split: the group
+        # reshape below would cut the split heads dim, so each q head gets
+        # its KV head's copy (the same products, a group of one)
+        k = k.repeat_interleave(Hq // Hkv, dim=2)
+        v = v.repeat_interleave(Hq // Hkv, dim=2)
+        Hkv = Hq
     g = Hq // Hkv
+    # the scores' layout: batch over its axes, KV heads over tp when they
+    # split (DTensor may otherwise leave them partial sums, which the
+    # in-place mask below cannot take)
+    s_dims = ("batch", "tp" if tp > 1 and Hkv % tp == 0 else None)
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
     kpos = torch.arange(Sk, dtype=torch.int32, device=dev)
@@ -247,13 +274,9 @@ def gqa_scores_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # qb: (B, blk, Hkv, g, hd), absolute positions q0 .. q0 + blk
         blk = qb.shape[1]
         kend = max(1, min(Sk, q0 + blk))     # later keys: masked for all
-        if cp:
-            qb = constrain(qb, "batch", "act_sp", None, None, None)
         qh = qb.permute(0, 2, 3, 1, 4).reshape(B * Hkv, g * blk, hd)
         s = matmul_f32(qh, kh[:, :kend].transpose(1, 2)) * scale
-        s = s.view(B, Hkv, g, blk, kend)
-        if cp:
-            s = constrain(s, "batch", None, None, "act_sp", None)
+        s = constrain(s.view(B, Hkv, g, blk, kend), *s_dims)
         qpos = torch.arange(q0, q0 + blk, dtype=torch.int32, device=dev)
         if kv_valid is not None:
             mask = qpos[:, None] >= kpos[None, :kend]          # causal
@@ -306,8 +329,6 @@ def attention(p: Attention, cfg: ArchConfig, x: torch.Tensor,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     tp = logical_axis_size("tp")
-    cp = tp > 1 and cfg.num_heads % tp != 0 and S > 1
-
     new_cache = None
     if kv_cache is not None:
         ck, cv = kv_cache
@@ -317,17 +338,14 @@ def attention(p: Attention, cfg: ArchConfig, x: torch.Tensor,
             cv[:, i:i + S] = v.to(cv.dtype)
         new_cache = (ck, cv)
         klen = i + S
-        out = gqa_scores_blocked(q, ck[:, :klen], cv[:, :klen], i, q_block,
-                                 cp=cp)
+        out = gqa_scores_blocked(q, ck[:, :klen], cv[:, :klen], i, q_block)
     else:
-        out = gqa_scores_blocked(q, k, v, 0, q_block, lengths=lengths,
-                                 cp=cp)
+        out = gqa_scores_blocked(q, k, v, 0, q_block, lengths=lengths)
 
-    if tp > 1 and cfg.num_heads % tp == 0:
-        out = constrain(out, "batch", None, "tp", None)
-    else:
-        out = constrain(out, "batch", "act_sp", None, None)
-    out = out.reshape(B, S, cfg.num_heads * hd) @ p.wo
+    head_ax = "tp" if tp > 1 and cfg.num_heads % tp == 0 else None
+    out = constrain(out, "batch", None, head_ax, None)
+    out = constrain(out.reshape(B, S, cfg.num_heads * hd), "batch", None,
+                    head_ax) @ p.wo
     if has(p, "bo"):
         out = out + p.bo
     return out, new_cache
@@ -368,6 +386,7 @@ class MLP(nn.Module):
 
 def mlp(p: MLP, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     act = _ACTS[cfg.act]
+    x = whole_sequence(x)
     h = x @ p.w_in
     if has(p, "b_in"):
         h = h + p.b_in

@@ -28,7 +28,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.core.sharding import constrain
-from repro_torch.models.layers import _const, _normal, matmul_f32
+from repro_torch.models.layers import (_const, _normal, matmul_f32,
+                                       whole_sequence)
 
 
 class Mamba(nn.Module):
@@ -210,6 +211,7 @@ def mamba_block(p: Mamba, cfg: ArchConfig, x: torch.Tensor, *,
     d_bc = s.n_groups * s.d_state
     H = d_in // s.head_dim
 
+    x = whole_sequence(x)
     z = x @ p.in_z
     xbc = torch.cat([x @ p.in_x, x @ p.in_bc], dim=-1)
     dtr = x @ p.in_dt

@@ -89,6 +89,16 @@ class LMBundle:
             out["embeds"] = _spec((B, 1, cfg.d_model), dt)
         return out
 
+def gr_capacity(shape: ShapeConfig, num_shards: int) -> Tuple[int, int]:
+    """(tokens capacity, max samples) per device shard. The load balancer
+    (§4.1.3) packs users to a per-shard token budget; the worst case is
+    users_per_shard full-length sequences, with 2× sample-count slack for
+    token-aware dynamic batch scaling of short sequences."""
+    users = max(1, shape.global_batch // num_shards)
+    cap = users * shape.seq_len
+    return cap, 2 * users
+
+
 #: The recall loss's negative paths (the §4.3 / Table-7 ablation).
 NEG_MODES = ("fused", "baseline", "segmented")
 
@@ -136,6 +146,23 @@ class GRBundle:
             s, e = max(a, lo), min(b, hi)
             out[s - lo:e - lo] = blk[s - a:e - a]
         return out.mul_(0.02)
+
+    def input_specs(self, shape: ShapeConfig,
+                    num_shards: int = 256) -> Dict[str, Any]:
+        """The jagged batch of ``shape`` split over ``num_shards`` packs,
+        as tensors on the ``meta`` device (the reference's
+        ``ShapeDtypeStruct`` s): (G, cap) ids, labels, timestamps, (G,
+        samples + 1) offsets, (G, cap, R) negative ids and the (2,) rng,
+        cap and samples from :func:`gr_capacity`."""
+        cap, max_samples = gr_capacity(shape, num_shards)
+        G, i32 = num_shards, torch.int32
+        return {"batch": {
+            "ids": _spec((G, cap), i32),
+            "labels": _spec((G, cap), i32),
+            "timestamps": _spec((G, cap), i32),
+            "offsets": _spec((G, max_samples + 1), i32),
+            "neg_ids": _spec((G, cap, self.cfg.num_negatives), i32),
+            "rng": _spec((2,), torch.int64)}}
 
     def input_gather(self, table: torch.Tensor, batch: Batch, *,
                      lookup_fn: Optional[Callable] = None) -> torch.Tensor:

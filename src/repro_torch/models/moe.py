@@ -108,6 +108,9 @@ def moe_apply(p: MoE, cfg: ArchConfig, x: torch.Tensor
     """x: (B, S, d) → (out (B, S, d), aux loss). The dispatch runs per
     sample (the reference vmaps it), so capacity is per sample; the shared
     experts see every token."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return _moe_apply_sharded(p, cfg, x)
     m: MoEConfig = cfg.moe
     outs, auxs = zip(*(_moe_tokens(p, cfg, x[b]) for b in range(x.shape[0])))
     out = torch.stack(outs)
@@ -119,6 +122,39 @@ def moe_apply(p: MoE, cfg: ArchConfig, x: torch.Tensor
             hs = F.silu(hs)
         out = out + hs @ p.shared_w_out
     return out, torch.stack(auxs).mean()
+
+
+def _moe_apply_sharded(p: MoE, cfg: ArchConfig, x
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_apply` over a mesh (x a DTensor): the dispatch ranks a
+    sample's tokens, so each device takes whole samples, its part of x's
+    batch split (every other mesh axis gathered), and every expert (the
+    weights gathered), and runs the plain dispatch on its local tensors:
+    each sample's routing, capacity and drops are the single process's.
+    Data parallel, replicated over the other axes, where the reference
+    shards the experts over ``model`` (a declared divergence). The aux
+    loss, a mean over samples, is the devices' mean."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    keep = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in x.placements]
+    xl = x.redistribute(mesh, keep).to_local()
+    rep = [Replicate()] * mesh.ndim
+    local = SimpleNamespace(**{
+        n: (None if t is None else
+            t.redistribute(mesh, rep).to_local() if isinstance(t, DTensor)
+            else t)
+        for n, t in ((n, getattr(p, n, None)) for n in
+                     ("router", "w_in", "w_gate", "w_out", "shared_w_in",
+                      "shared_w_gate", "shared_w_out"))})
+    out, aux = moe_apply(local, cfg, xl)
+    out = DTensor.from_local(out, mesh, keep, run_check=False)
+    aux = DTensor.from_local(aux, mesh, [
+        Partial("avg") if isinstance(pl, Shard) else Replicate()
+        for pl in keep], run_check=False)
+    return out, aux
 
 
 def _moe_tokens(p: MoE, cfg: ArchConfig, xt: torch.Tensor

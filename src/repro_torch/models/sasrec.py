@@ -78,8 +78,12 @@ def causal_softmax_attention(q: torch.Tensor, k: torch.Tensor,
     G = math.prod(lead)
     seg = segment_ids(offsets, cap)
     slot = torch.arange(cap, device=q.device)
-    # queries past every pack's last token have no key: they stay 0
-    n_live = int(offsets[..., -1].max()) if offsets.numel() else 0
+    # queries past every pack's last token have no key: they stay 0 (on
+    # meta, shapes only: every slot live)
+    if q.device.type == "meta":
+        n_live = cap
+    else:
+        n_live = int(offsets[..., -1].max()) if offsets.numel() else 0
     chunk = max(1, SCORE_ELEMS // max(1, G * cap * H))
     scale = 1.0 / math.sqrt(hd)
     out = torch.zeros(v.shape, dtype=v.dtype, device=v.device)

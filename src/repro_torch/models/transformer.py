@@ -238,7 +238,20 @@ def lm_hidden(model: LM, cfg: ArchConfig, x: torch.Tensor,
 def _embed_tokens(model: LM, cfg: ArchConfig, tokens: torch.Tensor):
     emb = constrain(model.embed, "vocab", None)
     x = torch.nn.functional.embedding(tokens.long(), emb)
-    return constrain(x, "batch", "act_sp", None)
+    return constrain(_reduced(x), "batch", "act_sp", None)
+
+
+def _reduced(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's pending sums (a lookup into a vocab-sharded table gives
+    each rank its own rows' part) reduced first: DTensor's direct
+    masked-partial to shard step fails on a batch-sharded lookup. A plain
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
 
 
 def _inputs(model: LM, cfg: ArchConfig, batch):
@@ -252,12 +265,20 @@ def lm_logits(model: LM, cfg: ArchConfig, hidden: torch.Tensor
               ) -> torch.Tensor:
     head = model.embed.t() if cfg.tie_embeddings else model.lm_head
     head = constrain(head, None, "vocab")
-    return constrain(hidden @ head, "batch", None, "vocab")
+    return constrain(L.whole_sequence(hidden) @ head, "batch", None, "vocab")
 
 
 # --------------------------------------------------------------------------
 # losses / steps
 # --------------------------------------------------------------------------
+
+def _vocab_sharded(x: torch.Tensor) -> bool:
+    """Is ``x`` a DTensor split along its last dim?"""
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(x, DTensor) and any(
+        isinstance(p, Shard) and p.dim in (-1, x.dim() - 1)
+        for p in x.placements)
+
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -266,10 +287,21 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     SPMD); a gather gives the same value, the row's one nonzero term, and
     builds no one-hot (0.8 GB of fp32 a sequence at ``starcoder2-3b``).
     Labels must lie in [0, V) (the one-hot would give an out-of-range
-    label a target logit of 0)."""
+    label a target logit of 0).
+
+    Over a vocab-sharded DTensor (a plan's ``vocab`` axis) a gather along
+    the sharded dim has no sharding rule: there the target logit is the
+    reference's contraction, the row's one nonzero term selected by a mask
+    and summed (the same value: the other terms are zeros), which stays
+    sharded and reduces over the vocab axis."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
+    if _vocab_sharded(logits):
+        hit = (torch.arange(logits.shape[-1], device=logits.device)
+               == labels.long()[..., None])
+        tgt = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        tgt = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
     nll = lse - tgt
     if valid is not None:
         nll = nll * valid
@@ -321,6 +353,34 @@ def lm_loss_microbatched(model: LM, cfg: ArchConfig,
     return total / num_microbatches
 
 
+#: The logical layout of a decode cache's entries under a mesh (the
+#: reference's ``cache_specs``): K/V (B, S, Hkv, hd), the SSM state
+#: (B, H, P, N), the conv state (B, K-1, C).
+CACHE_AXES = {"kv": ("batch", "cache_seq", "tp", None),
+              "ssm": ("batch", "tp", None, None),
+              "conv": ("batch", None, "tp")}
+
+
+def _laid_out(cache: DecodeCache, x: torch.Tensor) -> DecodeCache:
+    """The cache a prefill fills, as DTensors in :data:`CACHE_AXES`' layout
+    when x is a DTensor (under a shard context); as it is otherwise."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.core.sharding import current_ctx
+    ctx = current_ctx()
+    if ctx is None or not isinstance(x, DTensor):
+        return cache
+
+    def lay(t, dims):
+        return distribute_tensor(t, ctx.mesh, ctx.placements(t.shape, dims))
+    for i, kv in cache.kv.items():
+        cache.kv[i] = tuple(lay(t, CACHE_AXES["kv"]) for t in kv)
+    for st in cache.ssm.values():
+        for key in st:
+            st[key] = lay(st[key], CACHE_AXES[key])
+    return cache
+
+
 @torch.no_grad()
 def lm_prefill(model: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                *, q_block: int = 1024, max_len: Optional[int] = None
@@ -333,7 +393,7 @@ def lm_prefill(model: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :] \
         .repeat(B, 1)
     lengths = batch.get("lengths")
-    cache = init_cache(cfg, B, max_len or S, device=x.device)
+    cache = _laid_out(init_cache(cfg, B, max_len or S, device=x.device), x)
     for i, lp in enumerate(model.layers):
         x, _ = _layer(lp, cfg, i, x, positions, lengths, None, q_block,
                       cache=cache, cache_index=0)

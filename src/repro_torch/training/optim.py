@@ -33,10 +33,11 @@ class AdamWState(NamedTuple):
 def adamw_init(params: Union[Params, torch.nn.Module],
                dtype=torch.float32) -> AdamWState:
     named = _named(params)
+    # zeros_like: a sharded parameter's moments are sharded like it
     return AdamWState(
-        mu={n: torch.zeros(p.shape, dtype=dtype, device=p.device)
+        mu={n: torch.zeros_like(p, dtype=dtype).detach()
             for n, p in named.items()},
-        nu={n: torch.zeros(p.shape, dtype=dtype, device=p.device)
+        nu={n: torch.zeros_like(p, dtype=dtype).detach()
             for n, p in named.items()},
         count=0)
 

@@ -62,6 +62,16 @@ Batch = Dict[str, torch.Tensor]
 # LM trainer
 # --------------------------------------------------------------------------
 
+def _laid_out_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A sharded parameter's grad in the parameter's layout (a DTensor
+    grad may come partial or otherwise placed; the accumulation and AdamW
+    update in place); a plain grad as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 class LMTrainState(NamedTuple):
     params: torch.nn.Module
     opt: O.AdamWState
@@ -91,7 +101,8 @@ def make_lm_train_step(loss_fn: Callable[[torch.nn.Module, Batch],
     def grads_of(model, plist, mbatch):
         loss = loss_fn(model, mbatch)
         gs = torch.autograd.grad(loss, plist, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
+        return loss.detach(), [torch.zeros_like(p) if g is None else
+                               _laid_out_like(g, p)
                                for p, g in zip(plist, gs)]
 
     def train_step(state: LMTrainState, batch: Batch):
@@ -107,8 +118,7 @@ def make_lm_train_step(loss_fn: Callable[[torch.nn.Module, Batch],
                 raise ValueError(f"batch {B} is not a multiple of "
                                  f"{num_microbatches} microbatches")
             mb = B // num_microbatches
-            grads = {n: torch.zeros(p.shape, dtype=accum_dtype,
-                                    device=p.device)
+            grads = {n: torch.zeros_like(p, dtype=accum_dtype)
                      for n, p in named.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=plist[0].device)

@@ -6,7 +6,10 @@ checkpoints and the resilient engine, the embedding cache and its
 histograms, the sparse parallelism over a process-group mesh, its
 sharded checkpoints, the semi-async analysis and the elastic runner, the
 LM zoo's configs, layers, MoE, Mamba, stack, bundle and train step, the
-autotune harness and its store, runs with all three blocked), and
+autotune harness and its store, the launch tooling (partition plans, the
+kernels' cost model, the per-device analysis, the roofline, the
+dry-run, its sweep, report and reanalysis), runs with all three
+blocked), and
 its entry points run on the card unless the caller asks for the CPU."""
 import os
 import re
@@ -24,6 +27,7 @@ from repro_torch.convert import (gr_params_from_numpy, pending_from_numpy,
 from repro_torch.data import synth_jagged_batch
 from repro_torch.embedding import CachedShadowedTable
 from repro_torch.launch import train as train_cli
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.gr import GRModel
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models.model_zoo import GRBundle, LMBundle
@@ -265,6 +269,28 @@ with tempfile.TemporaryDirectory() as d:
     del os.environ["REPRO_TORCH_TUNED_JSON"]
 assert not any(m == "jax" or m.startswith(("jax.", "repro.", "msgpack"))
                for m in sys.modules if sys.modules[m] is not None)
+import repro_torch.kernels.cost as KC
+import repro_torch.launch.dryrun, repro_torch.launch.dryrun_all
+import repro_torch.launch.op_analysis, repro_torch.launch.partition
+import repro_torch.launch.reanalyze, repro_torch.launch.report
+import repro_torch.launch.roofline
+from repro_torch.configs.shapes import SHAPES_BY_NAME as PC_SHAPES, ShapeConfig
+from repro_torch.core.load_balance import max_token_diff
+from repro_torch.launch import dryrun as DR, mesh as LM_, partition as PT
+from repro_torch.models.model_zoo import gr_capacity
+assert gr_capacity(ShapeConfig("t", 64, 8, "train"), 4) == (128, 4)
+assert max_token_diff([[0], [1, 2]], [5, 1, 1]) == 3
+am = PT.AbstractMesh((16, 16), ("data", "model"))
+assert PT.make_plan(get_arch("glm4-9b"), PC_SHAPES["train_4k"],
+                    am).num_microbatches == 8
+LM_.init_fake_world(4)
+dm = LM_.device_mesh((2, 2), ("data", "model"), device="cpu")
+rec = DR.run_cell("hstu-tiny", "gr_t", mesh=dm, mesh_name="fake2x2",
+                  cfg=reduced(get_arch("hstu-tiny")),
+                  shape=ShapeConfig("gr_t", 128, 4, "train"))
+assert rec["ok"] and rec["kernels"]["attn_fwd"]["worst_case"]
+assert not any(m == "jax" or m.startswith(("jax.", "repro.", "msgpack"))
+               for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.encoded_batches)
 """
 
@@ -325,6 +351,7 @@ ENTRY_POINTS = {
     "LMBundle.init": lambda: LMBundle(_lm_cfg()).init(),
     "LMBundle.init_cache": lambda: LMBundle(_lm_cfg()).init_cache(1, 8),
     "lm_params_from_numpy": lambda: lm_params_from_numpy({}, _lm_cfg()),
+    "make_production_mesh": lambda: make_production_mesh(),
 }
 
 
