@@ -182,8 +182,13 @@ one card, so each phase frees its own.
                the host beside the card phases from the end of the build
                on: both production meshes over a fake world of 512 ranks,
                DRYRUN_CELLS on meta (per-device state bytes, FLOPs, bytes,
-               collective bytes by kind, the dominant term), and the
-               world-1 cells of (b). (b) On a (1, 1) mesh (NCCL at world
+               collective bytes by kind, the dominant term), among them a
+               multi-pod LM cell of each family (glm4-9b prefill_32k,
+               olmoe-1b-7b train_4k, mamba2-2.7b decode_32k, jamba-1.5-
+               large-398b prefill_32k on pod2x16x16, under the card
+               machine's torch), each record ok, its state bytes equal to
+               DTensor's local shards of its specs; and the world-1 cells
+               of (b). (b) On a (1, 1) mesh (NCCL at world
                1): starcoder2-3b at full width and depth as DTensors, its
                state against memory_allocated() (within 1%), one 1 x 4096
                microbatch's FLOPs under op_analysis equal to the dry-run's
@@ -5534,7 +5539,13 @@ def phase_lm():
 # backend: (arch, shape, multi_pod).
 DRYRUN_CELLS = (("starcoder2-3b", "train_4k", False),
                 ("hstu-large", "gr_train_2k", False),
-                ("hstu-large", "gr_train_2k", True))
+                ("hstu-large", "gr_train_2k", True),
+                # one multi-pod LM cell of each family whose heads split
+                # over model (dense GQA, MoE, Mamba-2, the hybrid)
+                ("glm4-9b", "prefill_32k", True),
+                ("olmoe-1b-7b", "train_4k", True),
+                ("mamba2-2.7b", "decode_32k", True),
+                ("jamba-1.5-large-398b", "prefill_32k", True))
 # (b) The world-1 cells held against the card: phase lm's model, one
 # microbatch of 1 x 4096 tokens; phase engine's pack, 1 shard x 4 users x
 # 2048 events, vocab 2^22, R 128 (the dry-run's segmented negatives).
@@ -5584,8 +5595,11 @@ def dryrun_child():
             "cells": {}, "world1": {}}
         for arch, shape, mp in DRYRUN_CELLS:
             rec = DR.run_cell(arch, shape, mp, mesh=meshes[mp])
-            out["cells"][f"{arch}__{shape}__{rec['mesh']}"] = \
-                _dryrun_summary(rec)
+            summary = _dryrun_summary(rec) | {"ok": rec["ok"]}
+            # the state bytes of DTensor's own local shards of the specs
+            summary["local_state_bytes"] = DR.local_state_bytes(
+                DR.build_cell(arch, shape, mp, mesh=meshes[mp]))
+            out["cells"][f"{arch}__{shape}__{rec['mesh']}"] = summary
         one = M.device_mesh((1, 1))
         arch, B, S = DRYRUN_LM
         out["world1"]["lm"] = _dryrun_summary(DR.run_cell(
@@ -5661,6 +5675,11 @@ def phase_dryrun(child):
     res = _finish_child(child, "dryrun (a)", DRYRUN_CHILD_TIMEOUT_S)
     say(f"[dryrun] (a) child {res['s']:.1f} s; meshes {res['meshes']}")
     for tag, r in res["cells"].items():
+        say(f"[dryrun] (a) {tag} summary {json.dumps(r, default=str)}")
+        check(r["ok"], f"{tag}: the dry-run record is not ok")
+        check(r["state_bytes_per_device"] == r["local_state_bytes"],
+              f"{tag}: state {r['state_bytes_per_device']} bytes a device, "
+              f"DTensor's local shards {r['local_state_bytes']}")
         say(f"[dryrun] (a) {tag}: state {r['state_bytes_per_device'] / 1e9:.3f}"
             f" GB/device, {r['flops']:.4e} FLOPs, {r['bytes']:.4e} bytes, "
             f"collectives {r['coll_bytes']}, dominant {r['dominant']} "

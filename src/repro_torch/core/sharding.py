@@ -13,6 +13,10 @@ axis whose mesh size does not divide the tensor's dimension is dropped
 axis), and :func:`logical_axis_size` is 1 outside a context. The plans
 that set the rules per (arch, shape, mesh) are ``launch/partition.py``'s;
 :func:`guard` and :func:`placements_of` are the steps both share.
+:func:`per_shard` runs a function on each device's shards (the
+reference's ``shard_map``), as the model code does for its batched
+products over samples and heads; :func:`to_local_summed` is its step
+that sums the grads of inputs whole on a split mesh dim.
 """
 from __future__ import annotations
 
@@ -182,6 +186,101 @@ def constrain(x: torch.Tensor, *dims: Optional[str]) -> torch.Tensor:
         # later view (a head split the mesh does not divide) may refuse
         y.register_hook(functools.partial(_grad_to, ctx.mesh, want))
     return y
+
+
+def is_split(x: torch.Tensor, dim: int) -> bool:
+    """Whether ``x`` is a DTensor whose dim ``dim`` is split over the mesh."""
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(x, DTensor) and any(
+        isinstance(pl, Shard) and pl.dim == dim % x.dim()
+        for pl in x.placements)
+
+
+def to_local_summed(x: torch.Tensor, axes) -> torch.Tensor:
+    """``x.to_local()`` as the input of work that each device runs on its
+    own shards, those split over the mesh dims ``axes``. Where ``x`` is
+    whole on such a dim, the grad each device computes is its share of
+    the sum (the reference's ``shard_map`` sums such cotangents): marked
+    ``Partial``, DTensor sums it. Elsewhere the grad takes ``x``'s own
+    layout (``to_local``'s default, which would take a share for the
+    sum)."""
+    from torch.distributed.tensor import Partial, Shard
+    grad = [Partial() if m in axes and not isinstance(pl, Shard) else pl
+            for m, pl in enumerate(x.placements)]
+    return x.to_local(grad_placements=grad)
+
+
+def per_shard(fn, args: Sequence[Optional[torch.Tensor]],
+              dims: Sequence[Sequence[Optional[str]]],
+              out_dims: Sequence[Optional[str]]):
+    """``fn(*args)`` run on each device's shards (the reference's
+    ``shard_map``): each tensor of ``args`` laid out by its logical dims
+    ``dims[i]`` (:func:`constrain`; a plain tensor, whole on every device,
+    first taken as replicated), ``fn`` called on the local tensors, and
+    its output (a tensor, or a tuple whose tensors each take ``out_dims``
+    in turn: then ``out_dims`` is a sequence of them) wrapped back as
+    DTensors split as the inputs split the same logical dims. Outside a
+    context, or with no DTensor among ``args``, just ``fn(*args)``.
+
+    Sound only where ``fn`` is independent across every split dim (the
+    caller splits samples and heads, never a dim ``fn`` reduces or mixes):
+    each logical dim must be split alike in every input that names it, and
+    every output must name every split dim; else it raises. An input whole
+    on a mesh dim that splits another (B and C beside heads split over
+    ``tp``, A beside samples split over the data axes) gets on each device
+    its share of the grad, which DTensor sums (:func:`to_local_summed`).
+    A batched product over (samples, heads) then runs as one local
+    ``bmm``, where DTensor would flatten two split dims: torch 2.11
+    refuses that view, and 2.13 prices it with its graph search over
+    every strategy of the mesh (too slow on three mesh dims)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    ctx = current_ctx()
+    dts = [a for a in args if isinstance(a, DTensor)]
+    if ctx is None or not dts:
+        return fn(*args)
+    mesh = dts[0].device_mesh
+    split: Dict[str, Tuple[int, ...]] = {}
+    laid = []
+    for a, d in zip(args, dims):
+        if not isinstance(a, torch.Tensor):
+            laid.append(a)
+            continue
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        a = constrain(a, *d)
+        names = list(d) + [None] * (a.dim() - len(d))
+        for t_dim, name in enumerate(names):
+            if name is None:                # constrain replicated it
+                continue
+            axes = tuple(m for m, pl in enumerate(a.placements)
+                         if isinstance(pl, Shard) and pl.dim == t_dim)
+            if split.setdefault(name, axes) != axes:
+                raise ValueError(f"per_shard: inputs split {name!r} over "
+                                 f"mesh dims {split[name]} and {axes}")
+        laid.append(a)
+    split_axes = {m for axes in split.values() for m in axes}
+    out = fn(*(to_local_summed(a, split_axes) if isinstance(a, DTensor)
+               else a for a in laid))
+
+    def wrap(t, od):
+        if t is None:
+            return None
+        od = list(od) + [None] * (t.dim() - len(od))
+        pls = [Replicate()] * mesh.ndim
+        for name, axes in split.items():
+            if not axes:
+                continue
+            if name not in od:
+                raise ValueError(f"per_shard: an output drops the split "
+                                 f"dim {name!r}")
+            for m in axes:
+                pls[m] = Shard(od.index(name))
+        return DTensor.from_local(t, mesh, pls, run_check=False)
+
+    if isinstance(out, tuple):
+        return tuple(wrap(t, od) for t, od in zip(out, out_dims))
+    return wrap(out, out_dims)
 
 
 def logical_axis_size(name: str) -> int:

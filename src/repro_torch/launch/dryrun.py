@@ -84,6 +84,16 @@ def _sharded_bytes(entries: List[Entry], mesh) -> int:
                for _, shape, dtype, spec in entries)
 
 
+def local_state_bytes(cell: Cell) -> int:
+    """A cell's state bytes on this rank as DTensor itself lays them out:
+    each state tensor distributed on ``meta`` by its spec, its local
+    shard's bytes summed (the check of :func:`_sharded_bytes`)."""
+    return sum(_distribute(torch.empty(shape, dtype=dt, device=META),
+                           cell.mesh, spec).to_local().numel()
+               * torch.empty((), dtype=dt).element_size()
+               for _, shape, dt, spec in cell.state)
+
+
 def _distribute(x: torch.Tensor, mesh, spec: PT.Spec) -> torch.Tensor:
     from torch.distributed.tensor import distribute_tensor
     return distribute_tensor(x, mesh, PT.to_placements(mesh, spec))

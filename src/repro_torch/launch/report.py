@@ -70,10 +70,10 @@ def roofline_table(recs):
 TERM_LETTER = {"compute": "c", "memory": "m", "collective": "l"}
 
 
-def state_table(recs):
-    """One row per arch, one column per shape: each cell's per-device state
-    GB on pod16x16 / pod2x16x16 and its dominant roofline term (c, m, l:
-    compute, memory, collective; FAIL for a failure record)."""
+def _by_arch_table(recs, fmt):
+    """One row per arch, one column per shape: ``fmt(record)`` of each
+    cell on pod16x16 / pod2x16x16 (- for no record, FAIL for a failure
+    record)."""
     by = {}
     for r in recs:
         by.setdefault(r["arch"], {}).setdefault(r["shape"], {})[r["mesh"]] = r
@@ -83,10 +83,7 @@ def state_table(recs):
     def cell(m):
         if m is None:
             return "-"
-        if not m.get("ok"):
-            return "FAIL"
-        return (f"{m['state_bytes_per_device'] / 1e9:.2f} "
-                f"{TERM_LETTER[m['roofline']['dominant']]}")
+        return fmt(m) if m.get("ok") else "FAIL"
     rows = ["| arch | " + " | ".join(shapes) + " |",
             "|---|" + "---|" * len(shapes)]
     for arch in sorted(by):
@@ -98,6 +95,21 @@ def state_table(recs):
                         f"{cell(ms.get('pod2x16x16'))}")
         rows.append(f"| {arch} | " + " | ".join(cols) + " |")
     return "\n".join(rows)
+
+
+def state_table(recs):
+    """Each cell's per-device state GB on pod16x16 / pod2x16x16 and its
+    dominant roofline term (c, m, l: compute, memory, collective)."""
+    return _by_arch_table(recs, lambda m: (
+        f"{m['state_bytes_per_device'] / 1e9:.2f} "
+        f"{TERM_LETTER[m['roofline']['dominant']]}"))
+
+
+def time_table(recs):
+    """Each cell's build + step seconds on the host (``t_build_s`` +
+    ``t_step_s``) on pod16x16 / pod2x16x16."""
+    return _by_arch_table(recs, lambda m: (
+        f"{m['t_build_s'] + m['t_step_s']:.1f}"))
 
 
 def skips_table(d):
@@ -116,7 +128,7 @@ def main(argv=None):
     ap.add_argument("--dir", default="results/dryrun_torch")
     ap.add_argument("--section", default="all",
                     choices=["all", "dryrun", "roofline", "skips",
-                             "states"])
+                             "states", "times"])
     args = ap.parse_args(argv)
     recs = load(args.dir)
     if args.section in ("all", "dryrun"):
@@ -135,6 +147,10 @@ def main(argv=None):
         print("\n### State GB per device (pod16x16 / pod2x16x16) and the "
               "dominant term (c, m, l)\n")
         print(state_table(recs))
+    if args.section in ("all", "times"):
+        print("\n### Build + step seconds on the host (pod16x16 / "
+              "pod2x16x16)\n")
+        print(time_table(recs))
 
 
 if __name__ == "__main__":

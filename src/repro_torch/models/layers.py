@@ -30,6 +30,7 @@ order alone).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -39,7 +40,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.sharding import constrain, logical_axis_size
+from repro_torch.core.sharding import (constrain, is_split,
+                                      logical_axis_size, per_shard)
 
 
 def has(p: nn.Module, name: str) -> bool:
@@ -154,10 +156,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(hd, theta, device=x.device)
     ang = positions[..., None].float() * freqs          # (..., S, hd/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
-    xf = x.float().reshape(*x.shape[:-1], 2, half)
-    x1, x2 = xf[..., 0, :], xf[..., 1, :]
-    out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-2)
-    return out.reshape(x.shape).to(x.dtype)
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    # the halves joined along hd itself: over a mesh no new dim appears
+    # that DTensor could split (torch 2.11 splits a stacked dim of 2)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -241,8 +245,7 @@ def gqa_scores_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     checkpoint (the reference's ``nothing_saveable`` per block): its
     backward recomputes the scores instead of keeping the fp32
     probabilities."""
-    B, Sq, Hq, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Hq, Hkv = q.shape[2], k.shape[2]
     tp = logical_axis_size("tp")
     if tp > 1 and Hq % tp == 0 and Hkv % tp:
         # the q heads split over tp, too few KV heads to split: the group
@@ -250,12 +253,37 @@ def gqa_scores_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # its KV head's copy (the same products, a group of one)
         k = k.repeat_interleave(Hq // Hkv, dim=2)
         v = v.repeat_interleave(Hq // Hkv, dim=2)
-        Hkv = Hq
-    g = Hq // Hkv
     # the scores' layout: batch over its axes, KV heads over tp when they
     # split (DTensor may otherwise leave them partial sums, which the
-    # in-place mask below cannot take)
-    s_dims = ("batch", "tp" if tp > 1 and Hkv % tp == 0 else None)
+    # in-place mask cannot take)
+    s_heads = "tp" if tp > 1 and k.shape[2] % tp == 0 else None
+    if is_split(k, 1):
+        # the keys' sequence over the mesh (a cache the plan splits by
+        # position): the softmax spans devices, DTensor lays it out. The
+        # head-major reshapes must not flatten two split dims: with the
+        # samples split, q's heads and the scores' stay whole
+        if is_split(q, 0):
+            q = constrain(q, "batch", None, None, None)
+            s_heads = None
+        return _gqa_blocked(q, k, v, lengths, q_offset=q_offset,
+                            block=block, s_heads=s_heads)
+    core = functools.partial(_gqa_blocked, q_offset=q_offset, block=block,
+                             s_heads=None)
+    # samples and heads are independent: each device runs its shard
+    heads = ("batch", None, "tp" if tp > 1 and Hq % tp == 0 else None, None)
+    return per_shard(core, (q, k, v, lengths), (heads, heads, heads,
+                                                ("batch",)), heads)
+
+
+def _gqa_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lengths: Optional[torch.Tensor] = None, *, q_offset: int,
+                 block: int, s_heads: Optional[str]) -> torch.Tensor:
+    """:func:`gqa_scores_blocked`'s work, its KV heads dividing the q
+    heads' split; the scores' KV heads laid out over ``s_heads``."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    s_dims = ("batch", s_heads)
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
     kpos = torch.arange(Sk, dtype=torch.int32, device=dev)

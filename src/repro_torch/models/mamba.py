@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
-from repro_torch.core.sharding import constrain
+from repro_torch.core.sharding import (constrain, logical_axis_size,
+                                      per_shard)
 from repro_torch.models.layers import (_const, _normal, matmul_f32,
                                        whole_sequence)
 
@@ -228,8 +229,18 @@ def mamba_block(p: Mamba, cfg: ArchConfig, x: torch.Tensor, *,
     Bm = Bm.reshape(B, S, s.n_groups, s.d_state).float()
     Cm = Cm.reshape(B, S, s.n_groups, s.d_state).float()
 
+    # the scan is independent across samples and heads: over a mesh each
+    # device runs its shard (B/C have one group, whole on every device)
+    assert s.n_groups == 1 or logical_axis_size("tp") == 1, \
+        "B/C groups split with the heads are not laid out"
+    heads = ("batch", None, "tp", None)                         # x, y
+    ssm = ("batch", "tp", None, None)                            # state
+    bc = ("batch", None, None, None)
+    dims = (heads, ("batch", None, "tp"), ("tp",), bc, bc)       # x dt A B C
     if decode:
-        y, new_ssm = ssd_decode_step(xh, dt, A, Bm, Cm, state["ssm"])
+        y, new_ssm = per_shard(
+            ssd_decode_step, (xh, dt, A, Bm, Cm, state["ssm"]),
+            dims + (ssm,), (heads, ssm))
     else:
         chunk = min(s.chunk, S)
         pad = (-S) % chunk
@@ -242,8 +253,12 @@ def mamba_block(p: Mamba, cfg: ArchConfig, x: torch.Tensor, *,
             if seg is not None:
                 seg = F.pad(seg, (0, pad), value=-1)
         init = state["ssm"] if state is not None else None
-        y, new_ssm = ssd_chunked(xq, dt, A, Bm, Cm, chunk, seg=seg,
-                                 init_state=init)
+        def scan(x_, dt_, A_, B_, C_, seg_, h0):
+            return ssd_chunked(x_, dt_, A_, B_, C_, chunk, seg=seg_,
+                               init_state=h0)
+
+        y, new_ssm = per_shard(scan, (xq, dt, A, Bm, Cm, seg, init),
+                               dims + (("batch", None), ssm), (heads, ssm))
         if pad:
             y = y[:, :S]
         if state is not None and new_conv is None:

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.core.sharding import to_local_summed
 from repro_torch.models.layers import _normal, has, matmul_f32
 
 
@@ -142,17 +143,23 @@ def _moe_apply_sharded(p: MoE, cfg: ArchConfig, x
             for pl in x.placements]
     xl = x.redistribute(mesh, keep).to_local()
     rep = [Replicate()] * mesh.ndim
+    # each device's expert grads are its samples' share of the sum
+    split = {m for m, pl in enumerate(keep) if isinstance(pl, Shard)}
     local = SimpleNamespace(**{
         n: (None if t is None else
-            t.redistribute(mesh, rep).to_local() if isinstance(t, DTensor)
-            else t)
+            to_local_summed(t.redistribute(mesh, rep), split)
+            if isinstance(t, DTensor) else t)
         for n, t in ((n, getattr(p, n, None)) for n in
                      ("router", "w_in", "w_gate", "w_out", "shared_w_in",
                       "shared_w_gate", "shared_w_out"))})
     out, aux = moe_apply(local, cfg, xl)
     out = DTensor.from_local(out, mesh, keep, run_check=False)
-    aux = DTensor.from_local(aux, mesh, [
-        Partial("avg") if isinstance(pl, Shard) else Replicate()
+    # the devices' mean as a sum of shares: the backward gives each share
+    # the sum's grad (DTensor gives a Partial("avg") the mean's whole grad
+    # on every device, n times its share)
+    n = math.prod(mesh.size(m) for m in split)
+    aux = DTensor.from_local(aux / n, mesh, [
+        Partial() if isinstance(pl, Shard) else Replicate()
         for pl in keep], run_check=False)
     return out, aux
 

@@ -368,7 +368,7 @@ def test_max_token_diff_matches_reference(seed):
 def test_report_prints_every_table(tmp_path, capsys):
     from repro_torch.launch import report
     ok = {"arch": "glm4-9b", "shape": "train_4k", "mesh": "pod16x16",
-          "chips": 256, "ok": True, "t_step_s": 1.0,
+          "chips": 256, "ok": True, "t_build_s": 0.5, "t_step_s": 1.0,
           "state_bytes_per_device": 2.5e9,
           "roofline": {"hlo_flops": 1e12, "coll_bytes": 1e9,
                        "compute_s": 0.1, "memory_s": 0.3,
@@ -381,9 +381,10 @@ def test_report_prints_every_table(tmp_path, capsys):
     report.main(["--dir", str(tmp_path)])
     out = capsys.readouterr().out
     for head in ("Single-pod mesh", "Multi-pod mesh", "Skipped cells",
-                 "Roofline", "State GB per device"):
+                 "Roofline", "State GB per device", "Build + step"):
         assert head in out, head
     assert "| glm4-9b | 2.50 m / FAIL |" in out
+    assert "| glm4-9b | 1.5 / FAIL |" in out
     assert "FAIL: dry-run timeout" in out
 
 

@@ -1,6 +1,7 @@
 """The sharded LM equals the single process (the counterpart of
 ``tests/test_sharded_parity.py``): one ``make_lm_train_step`` step of
-``reduced`` glm4-9b (dense) and olmoe-1b-7b (MoE), fp32, 8 × 64 tokens in
+``reduced`` glm4-9b (dense), olmoe-1b-7b (MoE), mamba2-2.7b (Mamba-2) and
+jamba-1.5-large-398b (the hybrid), fp32, 8 × 64 tokens in
 2 microbatches, as DTensors over a 2 × 2 (data, model) mesh of CPU gloo
 ranks with the port's partition plan, against the same step in one
 process; and the single process against the reference's step on the same
@@ -10,7 +11,12 @@ Tolerances (the reference's own): the loss within 1e-4 and every updated
 parameter within 1e-3. Sharded products sum their terms in another order
 (fp32 rounding, ~1e-6 of a loss of ~6); AdamW's first step moves a weight
 by lr · sign(g) (lr 3e-4), so a grad near zero whose sign the order flips
-moves it by up to 2 · lr = 6e-4. The port against the reference: the same
+moves it by up to 2 · lr = 6e-4. That first step is blind to a grad's
+scale (a rank's share of a grad moves a weight as the sum does), so the
+grads themselves are held too, through AdamW's first moment (0.1 · g):
+within 1e-4 of each leaf's largest, three orders above the summation
+order's ~1e-7 and far below a share missing from a sum (a quarter to a
+half of it on a 2 × 2 mesh). The port against the reference: the same
 two limits, for the same two reasons (the LM's parity tests hold the
 losses and grads themselves tighter, ``test_torch_lm.py``)."""
 import os
@@ -37,7 +43,7 @@ from torch_parity import tree_numpy
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 B, S, MB, Q_BLOCK = 8, 64, 2, 32
-LOSS_TOL, PARAM_TOL = 1e-4, 1e-3
+LOSS_TOL, PARAM_TOL, GRAD_TOL = 1e-4, 1e-3, 1e-4
 
 
 def _setup(arch, tmp):
@@ -54,7 +60,8 @@ def _setup(arch, tmp):
     return jcfg, params, z, path
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "olmoe-1b-7b", "mamba2-2.7b",
+                                  "jamba-1.5-large-398b"])
 @time_limit(240)
 def test_sharded_step_equals_single_process(arch, tmp_path):
     jcfg, params, z, path = _setup(arch, str(tmp_path))
@@ -75,6 +82,7 @@ def test_sharded_step_equals_single_process(arch, tmp_path):
     batch = {k: torch.from_numpy(z[k]) for k in ("tokens", "labels")}
     st, met = step(lm_train_state(model), batch)
     single = {n: p.detach().numpy() for n, p in st.params.named_parameters()}
+    single_mu = {n: m.numpy() for n, m in st.opt.mu.items()}
     # the reference's step on the same weights
     jb = j_bundle(jcfg)
     js, jm = jax.jit(j_step(lambda p, bt: jb.loss(p, bt, q_block=Q_BLOCK),
@@ -93,6 +101,15 @@ def test_sharded_step_equals_single_process(arch, tmp_path):
     for n, want in single.items():
         d = float(np.max(np.abs(sharded["params"][n] - want)))
         assert d < PARAM_TOL, (n, d)
+    # the grads: every share of a sum summed (a leaf replicated over a
+    # mesh axis that splits another input of its op gets its grad partial)
+    off = {}
+    for n, want in single_mu.items():
+        d = float(np.max(np.abs(sharded["mu"][n] - want)))
+        top = float(np.max(np.abs(want)))
+        if d > GRAD_TOL * top:
+            off[n] = (d, top)
+    assert not off, off
     assert abs(float(met["loss"]) - float(jm["loss"])) < LOSS_TOL
     ref = lm_tree_of(dict(st.params.named_parameters()), cfg)
     for (pa, a), (pb, c) in zip(

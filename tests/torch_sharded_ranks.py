@@ -45,10 +45,11 @@ def lm_step(mesh, *, arch, inputs, out, microbatches, q_block):
     loss = float(met["loss"].full_tensor())
     params = {n: p.detach().full_tensor().numpy()
               for n, p in state.params.named_parameters()}
+    mu = {n: m.full_tensor().numpy() for n, m in state.opt.mu.items()}
     placements = {n: [str(x) for x in p.placements]
                   for n, p in state.params.named_parameters()}
     if mesh.rank == 0:
         with open(out, "wb") as f:
-            pickle.dump({"loss": loss, "params": params,
+            pickle.dump({"loss": loss, "params": params, "mu": mu,
                          "placements": placements}, f)
     return {"loss": loss}
